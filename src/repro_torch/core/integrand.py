@@ -1,0 +1,265 @@
+"""Integrand specification: function *families* (PyTorch).
+
+Port of ``repro.core.integrand`` for finite boxes.  An
+:class:`IntegrandFamily` is one batched PyTorch function plus a dict of
+stacked parameters (leading axis = function index) and a per-function
+domain box; a :class:`MultiFunctionSpec` is an ordered list of families,
+the unit the multi-function solver consumes.
+
+Where ``repro`` writes ``fn(x, params)`` for ONE function and vmaps it,
+the port writes it batched over the function axis: ``fn(x, p)`` takes
+``x`` of shape ``(n_fn, B, dim)`` and the whole parameter dict, and
+returns ``(n_fn, B)``.
+
+:func:`family_from_numpy` builds a family from parameters and domains
+taken out of a ``repro`` family as numpy arrays, so the same integrands
+can go through both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class IntegrandFamily:
+    """A batch of integrands sharing one functional form.
+
+    Attributes:
+      fn: ``fn(x, params) -> values``; ``x`` is (n_fn, B, dim), ``params``
+        the dict below, the result (n_fn, B).
+      params: dict of tensors, each with leading axis ``n_fn``.
+      domains: (n_fn, dim, 2) float32 tensor of [lo, hi] boxes.
+      name: label used in reports and checkpoint tags.
+      kernel: registered kernel form name (``repro_torch.kernels.registry``)
+        or ``None`` for the chunked PyTorch path only.
+    """
+
+    fn: Callable[[torch.Tensor, dict], torch.Tensor]
+    params: dict
+    domains: torch.Tensor
+    name: str = "family"
+    kernel: str | None = None
+
+    @property
+    def n_fn(self) -> int:
+        return int(self.domains.shape[0])
+
+    @property
+    def dim(self) -> int:
+        return int(self.domains.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.domains.device
+
+    def validate(self) -> "IntegrandFamily":
+        d = self.domains
+        if d.ndim != 3 or d.shape[-1] != 2:
+            raise ValueError(f"domains must be (n_fn, dim, 2); got {tuple(d.shape)}")
+        for name, leaf in self.params.items():
+            if tuple(leaf.shape[:1]) != (d.shape[0],):
+                raise ValueError(
+                    f"every params leaf needs leading axis n_fn={d.shape[0]}; "
+                    f"got {name!r} of shape {tuple(leaf.shape)}")
+        finite = torch.isfinite(d).all(-1)
+        lo_le_hi = torch.where(finite, d[..., 0] <= d[..., 1],
+                               torch.ones_like(finite))
+        if not bool(lo_le_hi.all()):
+            raise ValueError("domain boxes must satisfy lo <= hi")
+        return self
+
+    def to(self, device) -> "IntegrandFamily":
+        """The same family with its tensors on ``device``."""
+        return dataclasses.replace(
+            self, params={k: v.to(device) for k, v in self.params.items()},
+            domains=self.domains.to(device))
+
+    def eval_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Evaluate all functions on their own sample blocks.
+
+        Args:
+          x: (n_fn, B, dim) sample points (already inside each box).
+        Returns:
+          (n_fn, B) values.
+        """
+        return self.fn(x, self.params)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiFunctionSpec:
+    """An ordered collection of integrand families (the v5.1 workload)."""
+
+    families: tuple[IntegrandFamily, ...]
+
+    @classmethod
+    def from_families(cls, families: Sequence[IntegrandFamily]) -> "MultiFunctionSpec":
+        fams = tuple(f.validate() for f in families)
+        if not fams:
+            raise ValueError("need at least one family")
+        return cls(families=fams)
+
+    @property
+    def n_fn_total(self) -> int:
+        return sum(f.n_fn for f in self.families)
+
+    def offsets(self) -> list[int]:
+        """Global function-id offset of each family (for RNG counters)."""
+        out, acc = [], 0
+        for f in self.families:
+            out.append(acc)
+            acc += f.n_fn
+        return out
+
+    def to(self, device) -> "MultiFunctionSpec":
+        return MultiFunctionSpec(families=tuple(f.to(device) for f in self.families))
+
+
+def _t(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+
+def _box(n: int, dim: int, lo: float, hi: float, device) -> torch.Tensor:
+    return _t(np.broadcast_to(np.asarray([lo, hi], np.float32), (n, dim, 2)), device)
+
+
+# ---------------------------------------------------------------------------
+# Stock families used across tests, examples and benchmarks.
+# ---------------------------------------------------------------------------
+
+def _harmonic_fn(x, p):
+    phase = torch.sum(x * p["k"][:, None, :], dim=-1)
+    return p["a"][:, None] * torch.cos(phase) + p["b"][:, None] * torch.sin(phase)
+
+
+def harmonic_family(n: int, dim: int = 4, *, a=None, b=None, k=None,
+                    lo: float = 0.0, hi: float = 1.0,
+                    device="cpu") -> IntegrandFamily:
+    """The paper's Fig.-1 family: f_n(x) = a_n cos(k_n.x) + b_n sin(k_n.x).
+
+    Defaults reproduce the paper: a_n = b_n = 1,
+    k_n = ((n+50)/(2*pi)) * (1,...,1), domain [0,1]^dim, n = 1..n.
+    """
+    idx = np.arange(1, n + 1, dtype=np.float32)
+    if a is None:
+        a = np.ones(n, np.float32)
+    if b is None:
+        b = np.ones(n, np.float32)
+    if k is None:
+        k = np.repeat(((idx + 50.0) / (2.0 * np.pi))[:, None], dim, axis=1)
+    return IntegrandFamily(
+        fn=_harmonic_fn,
+        params={"a": _t(a, device), "b": _t(b, device), "k": _t(k, device)},
+        domains=_box(n, dim, lo, hi, device),
+        name=f"harmonic[{n}x{dim}d]",
+        kernel="mc_eval_harmonic",
+    ).validate()
+
+
+def harmonic_analytic(n: int, dim: int = 4) -> np.ndarray:
+    """Closed form of the paper's Fig.-1 integrals over [0,1]^dim:
+    F_n = [cos(c d/2) + sin(c d/2)] * (sin(c/2)/(c/2))^d, c = (n+50)/(2 pi)."""
+    idx = np.arange(1, n + 1, dtype=np.float64)
+    c = (idx + 50.0) / (2.0 * np.pi)
+    s = (np.sin(c / 2.0) / (c / 2.0)) ** dim
+    return (np.cos(c * dim / 2.0) + np.sin(c * dim / 2.0)) * s
+
+
+def _abs_sum_fn(x, p):
+    return p["c"][:, None] * torch.abs(torch.sum(x * p["s"][:, None, :], dim=-1))
+
+
+def abs_sum_family(n: int, dim: int, coeff, *, sign_last: float = 1.0,
+                   lo: float = 0.0, hi: float = 1.0,
+                   device="cpu") -> IntegrandFamily:
+    """The paper's Eq.-(2) family: g_n(x) = c_n * |x_1 + x_2 (+/-) x_3 ...|."""
+    coeff = np.asarray(coeff, np.float32).reshape(n)
+    signs = np.ones(dim, np.float32)
+    signs[-1] = sign_last
+    return IntegrandFamily(
+        fn=_abs_sum_fn,
+        params={"c": _t(coeff, device),
+                "s": _t(np.broadcast_to(signs, (n, dim)), device)},
+        domains=_box(n, dim, lo, hi, device),
+        name=f"abs_sum[{n}x{dim}d]",
+        kernel="mc_eval_abs_sum",
+    ).validate()
+
+
+def gaussian_analytic(n: int, dim: int, *, sigma=None,
+                      half: bool = False) -> np.ndarray:
+    """Closed form of :func:`gaussian_family` over R^dim,
+    ``(sigma sqrt(2 pi))^dim`` (over the positive orthant with ``half``)."""
+    if sigma is None:
+        sigma = np.linspace(0.5, 2.0, n)
+    full = (np.asarray(sigma, np.float64) * np.sqrt(2.0 * np.pi)) ** dim
+    return full / (2.0 ** dim) if half else full
+
+
+def _gaussian_fn(x, p):
+    return torch.exp(-0.5 * torch.sum(torch.square(x), dim=-1)
+                     / torch.square(p["sigma"])[:, None])
+
+
+def gaussian_family(n: int, dim: int, *, sigma=None, lo=-4.0, hi=4.0,
+                    device="cpu") -> IntegrandFamily:
+    """Product Gaussians exp(-|x|^2 / (2 sigma^2)) on [lo, hi]^dim."""
+    if sigma is None:
+        sigma = np.linspace(0.5, 2.0, n).astype(np.float32)
+    sigma = np.asarray(sigma, np.float32).reshape(n)
+    return IntegrandFamily(
+        fn=_gaussian_fn,
+        params={"sigma": _t(sigma, device)},
+        domains=_box(n, dim, lo, hi, device),
+        name=f"gaussian[{n}x{dim}d]",
+        kernel="mc_eval_gaussian",
+    ).validate()
+
+
+def _kernel_fns() -> dict:
+    from repro_torch.core import genz
+    return {
+        "mc_eval_harmonic": _harmonic_fn,
+        "mc_eval_abs_sum": _abs_sum_fn,
+        "mc_eval_gaussian": _gaussian_fn,
+        "mc_eval_genz_osc": genz.oscillatory_fn,
+        "mc_eval_genz_corner": genz.corner_peak_fn,
+    }
+
+
+def family_from_numpy(kernel: str | None, params: dict, domains, name: str,
+                      *, fn=None, device="cpu") -> IntegrandFamily:
+    """A port family from a ``repro`` family's arrays.
+
+    Args:
+      kernel: the registered form name (``"mc_eval_harmonic"``, ...); it
+        selects the batched PyTorch ``fn`` unless ``fn`` is given.
+      params: ``{name: np.ndarray}`` with leading axis n_fn.
+      domains: (n_fn, dim, 2) array.
+      name: family label (keep ``repro``'s to share checkpoint tags).
+      fn: batched ``fn(x, p)``; required when ``kernel`` is None.
+    """
+    if fn is None:
+        fns = _kernel_fns()
+        if kernel not in fns:
+            raise ValueError(f"no PyTorch function known for kernel {kernel!r}; "
+                             f"pass fn= (known: {sorted(fns)})")
+        fn = fns[kernel]
+    return IntegrandFamily(
+        fn=fn,
+        params={k: _t(v, device) for k, v in params.items()},
+        domains=_t(domains, device),
+        name=name,
+        kernel=kernel,
+    ).validate()
+
+
+def spec_from_numpy(families: Sequence[dict], *, device="cpu") -> MultiFunctionSpec:
+    """A spec from a list of :func:`family_from_numpy` keyword dicts
+    (``kernel``, ``params``, ``domains``, ``name`` and optionally ``fn``)."""
+    return MultiFunctionSpec.from_families(
+        [family_from_numpy(device=device, **f) for f in families])

@@ -1,0 +1,116 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``.cu`` file under ``csrc/`` is compiled by ``nvcc`` into a shared
+library with a plain C interface and loaded with :mod:`ctypes` (no
+PyTorch headers, so a build takes seconds).  Libraries go to
+``kernels/_build/`` (listed in ``.gitignore``), named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  Nothing is built at import: the first call that needs a
+library builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+# library name -> its one source file; headers in csrc/ go into every hash
+SOURCES = {"zmc_fused_mc": "fused_mc.cu"}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then
+    ``/usr/local/cuda/bin``.  Raises if there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built on this host")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None, *, verbose: bool = False) -> dict[str, dict]:
+    """Compile the named libraries (default: all), one ``nvcc`` per source,
+    all started together.  Returns ``{name: {"path", "seconds", "log"}}``;
+    ``log`` holds ``-Xptxas -v`` output (registers, spills) when
+    ``verbose``.  Raises ``RuntimeError`` with the compiler's output if a
+    build fails."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        path = _lib_path(name)
+        if path.exists() and not verbose:
+            out[name] = {"path": path, "seconds": 0.0, "log": ""}
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, path)
+        out[name] = {"path": path, "seconds": time.perf_counter() - t0,
+                     "log": log}
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed, with every
+    exported function's ``argtypes``/``restype`` declared."""
+    if name not in _LOADED:
+        path = _lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        _declare(lib)
+        _LOADED[name] = lib
+    return _LOADED[name]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
+    lib.zmc_chunk_samples.argtypes = []
+    lib.zmc_chunk_samples.restype = i32
+    lib.zmc_fused_mc.argtypes = [u32, u32, u32, u32,     # k0 k1 offset n_valid
+                                 ptr, ptr, ptr, i32,     # fn_ids forms packed n_cols
+                                 ptr, ptr, i32,          # lo hi dim
+                                 i32, i32,               # n_fn_pad n_chunks
+                                 ptr, ptr, ptr]          # scratch out stream
+    lib.zmc_fused_mc.restype = i32
+    lib.zmc_random_bits.argtypes = [u32, u32, ptr, ptr, ptr, ctypes.c_longlong,
+                                    ptr]
+    lib.zmc_random_bits.restype = i32

@@ -1,0 +1,173 @@
+// Per-sample arithmetic of the fused Monte-Carlo kernel, shared by the
+// device code (fused_mc.cu) and a host build (tests compile this header
+// with g++ and hold it against the PyTorch plain versions).
+//
+// Everything here is a pure function of its arguments, marked host and
+// device through ZMC_HD:
+//   * Threefry-2x32, 20 rounds, first output word (random_bits);
+//   * the top-24-bit uniform (bits_to_uniform);
+//   * the five eval bodies of repro/kernels/mc_eval/{kernel,ops}.py.
+//
+// A body is written as a fold over the dimensions: acc = init(p), then
+// acc = step(acc, x_d, p, d) for d = 0..dim-1, then value = fin(acc, p, dim).
+// Each form's step adds one per-dimension term, in the same order as the
+// reference body, so no per-sample array of coordinates is needed.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define ZMC_HD __host__ __device__ __forceinline__
+#else
+#define ZMC_HD inline
+#endif
+
+namespace zmc {
+
+// c1 = fn_id * DIM_STRIDE + d (repro.core.rng.DIM_STRIDE).
+constexpr uint32_t DIM_STRIDE = 256u;
+
+// Form ids, in registration order (repro_torch/kernels/mc_eval/ops.py).
+enum Form : int {
+  FORM_HARMONIC = 0,
+  FORM_ABS_SUM = 1,
+  FORM_GAUSSIAN = 2,
+  FORM_GENZ_OSC = 3,
+  FORM_GENZ_CORNER = 4,
+  N_FORMS = 5,
+};
+
+ZMC_HD uint32_t rotl32(uint32_t x, int r) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_l(x, x, r);
+#else
+  return (x << r) | (x >> (32 - r));
+#endif
+}
+
+#define ZMC_TF_ROUND(r) \
+  x0 += x1;             \
+  x1 = rotl32(x1, r);   \
+  x1 ^= x0;
+
+#define ZMC_TF_GROUP_A ZMC_TF_ROUND(13) ZMC_TF_ROUND(15) ZMC_TF_ROUND(26) ZMC_TF_ROUND(6)
+#define ZMC_TF_GROUP_B ZMC_TF_ROUND(17) ZMC_TF_ROUND(29) ZMC_TF_ROUND(16) ZMC_TF_ROUND(24)
+
+// First output word of Threefry-2x32 (Random123), 20 rounds.
+ZMC_HD uint32_t random_bits(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = c0 + k0;
+  uint32_t x1 = c1 + k1;
+  ZMC_TF_GROUP_A x0 += k1; x1 += k2 + 1u;
+  ZMC_TF_GROUP_B x0 += k2; x1 += k0 + 2u;
+  ZMC_TF_GROUP_A x0 += k0; x1 += k1 + 3u;
+  ZMC_TF_GROUP_B x0 += k1; x1 += k2 + 4u;
+  ZMC_TF_GROUP_A x0 += k2; x1 += k0 + 5u;
+  (void)x1;
+  return x0;
+}
+
+#undef ZMC_TF_GROUP_A
+#undef ZMC_TF_GROUP_B
+#undef ZMC_TF_ROUND
+
+// Top 24 bits times 2^-24: exact in f32, in [0, 1).
+ZMC_HD float bits_to_uniform(uint32_t bits) {
+  return (float)(bits >> 8) * 5.9604644775390625e-08f;
+}
+
+// Quiet NaN: marks a sum the kernel could not compute (unknown form id).
+ZMC_HD float quiet_nan() {
+#if defined(__CUDA_ARCH__)
+  return __int_as_float(0x7fffffff);
+#else
+  return NAN;
+#endif
+}
+
+// x = lo + u * (hi - lo); the caller passes w = hi - lo.
+ZMC_HD float affine(float lo, float w, float u) { return lo + u * w; }
+
+// -- eval bodies ---------------------------------------------------------
+// p points at one function's packed parameter row.
+
+template <int FORM>
+struct Body;
+
+// a cos(k.x) + b sin(k.x); cols [a, b, k_0..k_{dim-1}]
+template <>
+struct Body<FORM_HARMONIC> {
+  static ZMC_HD float init(const float*) { return 0.0f; }
+  static ZMC_HD float step(float acc, float x, const float* p, int d) {
+    return acc + p[2 + d] * x;
+  }
+  static ZMC_HD float fin(float acc, const float* p, int) {
+    return p[0] * cosf(acc) + p[1] * sinf(acc);
+  }
+};
+
+// c |sum_d s_d x_d|; cols [c, s_0..s_{dim-1}]
+template <>
+struct Body<FORM_ABS_SUM> {
+  static ZMC_HD float init(const float*) { return 0.0f; }
+  static ZMC_HD float step(float acc, float x, const float* p, int d) {
+    return acc + p[1 + d] * x;
+  }
+  static ZMC_HD float fin(float acc, const float* p, int) { return p[0] * fabsf(acc); }
+};
+
+// exp(-1/2 |x|^2 / sigma^2); cols [sigma]
+template <>
+struct Body<FORM_GAUSSIAN> {
+  static ZMC_HD float init(const float*) { return 0.0f; }
+  static ZMC_HD float step(float acc, float x, const float*, int) { return acc + x * x; }
+  static ZMC_HD float fin(float acc, const float* p, int) {
+    return expf(-0.5f * acc / (p[0] * p[0]));
+  }
+};
+
+// Genz oscillatory cos(2 pi u_1 + sum_d a_d x_d); cols [u_1, a_0..a_{dim-1}]
+template <>
+struct Body<FORM_GENZ_OSC> {
+  static ZMC_HD float init(const float* p) { return 6.2831855f * p[0]; }
+  static ZMC_HD float step(float acc, float x, const float* p, int d) {
+    return acc + p[1 + d] * x;
+  }
+  static ZMC_HD float fin(float acc, const float*, int) { return cosf(acc); }
+};
+
+// Genz corner peak (1 + sum_d a_d x_d)^-(dim+1) as exp(-(dim+1) log(.));
+// cols [a_0..a_{dim-1}]
+template <>
+struct Body<FORM_GENZ_CORNER> {
+  static ZMC_HD float init(const float*) { return 1.0f; }
+  static ZMC_HD float step(float acc, float x, const float* p, int d) {
+    return acc + p[d] * x;
+  }
+  static ZMC_HD float fin(float acc, const float*, int dim) {
+    return expf(-(float)(dim + 1) * logf(acc));
+  }
+};
+
+// One body on one point x[0..dim-1]: the host check's entry, and a
+// reference for how the kernel composes init/step/fin.
+template <int FORM>
+ZMC_HD float eval_point(const float* p, const float* x, int dim) {
+  float acc = Body<FORM>::init(p);
+  for (int d = 0; d < dim; ++d) acc = Body<FORM>::step(acc, x[d], p, d);
+  return Body<FORM>::fin(acc, p, dim);
+}
+
+ZMC_HD float eval_point_form(int form, const float* p, const float* x, int dim) {
+  switch (form) {
+    case FORM_HARMONIC: return eval_point<FORM_HARMONIC>(p, x, dim);
+    case FORM_ABS_SUM: return eval_point<FORM_ABS_SUM>(p, x, dim);
+    case FORM_GAUSSIAN: return eval_point<FORM_GAUSSIAN>(p, x, dim);
+    case FORM_GENZ_OSC: return eval_point<FORM_GENZ_OSC>(p, x, dim);
+    case FORM_GENZ_CORNER: return eval_point<FORM_GENZ_CORNER>(p, x, dim);
+    default: return quiet_nan();
+  }
+}
+
+}  // namespace zmc

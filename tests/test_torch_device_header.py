@@ -1,0 +1,123 @@
+"""Host build of the CUDA kernel's device header.
+
+``src/repro_torch/kernels/csrc/zmc_device.cuh`` holds the per-sample
+arithmetic of the fused kernel (Threefry, the uniform, the affine map and
+the five eval bodies) as host/device inline functions.  This test
+compiles it with g++ through a small C shim into a shared library, loads
+it with ctypes, and holds it against the port's plain PyTorch versions:
+Threefry bit for bit, the bodies within 1e-5 relative (plus an absolute
+floor of 1e-6 for values near zero; libm's and PyTorch's cosf/expf/logf
+may differ by an ulp).  It catches arithmetic errors in the CUDA code
+without a card.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import rng
+from repro_torch.kernels import registry
+from repro_torch.kernels.build import CSRC
+
+# One intra-op thread: the suite runs in several worker processes at once.
+torch.set_num_threads(1)
+
+SHIM = r"""
+#include <stdint.h>
+#include "zmc_device.cuh"
+extern "C" {
+void host_random_bits(uint32_t k0, uint32_t k1, const uint32_t* c0,
+                      const uint32_t* c1, uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = zmc::random_bits(k0, k1, c0[i], c1[i]);
+}
+void host_uniform(const uint32_t* bits, float* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = zmc::bits_to_uniform(bits[i]);
+}
+// row i: params p[i, :n_cols], point x[i, :dim]
+void host_body(int form, int dim, const float* p, int n_cols, const float* x,
+               long n, float* out) {
+  for (long i = 0; i < n; ++i)
+    out[i] = zmc::eval_point_form(form, p + i * n_cols, x + i * dim, dim);
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    d = tmp_path_factory.mktemp("zmc_host")
+    (d / "shim.cpp").write_text(SHIM)
+    so = d / "libzmc_host.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-fPIC", "-shared", "-I", str(CSRC),
+                    "-o", str(so), str(d / "shim.cpp")], check=True,
+                   capture_output=True, text=True)
+    out = ctypes.CDLL(str(so))
+    ptr, u32 = ctypes.c_void_p, ctypes.c_uint32
+    out.host_random_bits.argtypes = [u32, u32, ptr, ptr, ptr, ctypes.c_long]
+    out.host_uniform.argtypes = [ptr, ptr, ctypes.c_long]
+    out.host_body.argtypes = [ctypes.c_int, ctypes.c_int, ptr, ctypes.c_int,
+                              ptr, ctypes.c_long, ptr]
+    for f in (out.host_random_bits, out.host_uniform, out.host_body):
+        f.restype = None
+    return out
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def test_threefry_and_uniform_bit_exact(lib):
+    r = np.random.default_rng(0)
+    n = 10_000
+    c0 = r.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    c0[:64] = (2**32 - 32 + np.arange(64)) % 2**32           # c0 wrap
+    fn = r.integers(0, 2**24, n, dtype=np.uint64)
+    fn[:8] = 2**24 - 1
+    c1 = ((fn * rng.DIM_STRIDE + r.integers(0, 256, n)) % 2**32).astype(np.uint32)
+    k0, k1 = rng.fold_key(1234, 5)
+    got = np.empty(n, np.uint32)
+    lib.host_random_bits(k0, k1, _ptr(c0), _ptr(c1), _ptr(got), n)
+    want = rng.random_bits(k0, k1, c0, c1).numpy().astype(np.uint32)
+    np.testing.assert_array_equal(got, want)
+
+    u = np.empty(n, np.float32)
+    lib.host_uniform(_ptr(got), _ptr(u), n)
+    np.testing.assert_array_equal(u, rng.bits_to_uniform(torch.from_numpy(
+        want.astype(np.int64))).numpy())
+
+
+@pytest.mark.parametrize("form_name", [
+    "mc_eval_harmonic", "mc_eval_abs_sum", "mc_eval_gaussian",
+    "mc_eval_genz_osc", "mc_eval_genz_corner"])
+@pytest.mark.parametrize("dim", [1, 4])
+def test_body_matches_plain(lib, form_name, dim):
+    form = registry.form(form_name)
+    r = np.random.default_rng(form.form_id * 10 + dim)
+    n = 2_500
+    n_cols = form.n_cols(dim)
+    p = r.uniform(0.2, 2.0, (n, n_cols)).astype(np.float32)
+    if form_name == "mc_eval_harmonic":
+        p[:, 2:] *= 60.0                   # Fig.-1 phases reach ~350 rad
+    if form_name == "mc_eval_abs_sum":
+        p[:, 1:] *= np.where(r.random((n, dim)) < 0.5, -1.0, 1.0)
+    x = r.uniform(0.0, 1.0, (n, dim)).astype(np.float32)
+    got = np.empty(n, np.float32)
+    lib.host_body(form.form_id, dim, _ptr(p), n_cols, _ptr(x), n, _ptr(got))
+    xt = torch.from_numpy(x)[:, None, :]
+    want = form.body(lambda d: xt[:, :, d], torch.from_numpy(p), dim)[:, 0]
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_unknown_form_is_nan(lib):
+    p = np.ones((1, 4), np.float32)
+    x = np.full((1, 2), 0.5, np.float32)
+    got = np.zeros(1, np.float32)
+    lib.host_body(registry.N_DEVICE_FORMS, 2, _ptr(p), 4, _ptr(x), 1, _ptr(got))
+    assert np.isnan(got[0])

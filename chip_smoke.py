@@ -7,9 +7,12 @@ Run from the root of a checkout, with no arguments:
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc, checks them against their plain PyTorch versions on the card,
-and drives the port's main path — ``ZMCMultiFunctions(spec,
-use_kernel=True).evaluate()`` — on the paper's Fig.-1 workload (1200
-integrands, five forms, dims 2-4) at 10^6 samples x 10 trials:
+and drives the port's two paths: ``ZMCMultiFunctions(spec,
+use_kernel=True).evaluate()`` on the paper's Fig.-1 workload (1200
+integrands, five forms, dims 2-4) at 10^6 samples x 10 trials, and the
+integration service (``repro_torch.service.IntegrationEngine`` through
+``python -m repro_torch.launch.serve_integrals``) on the launcher's
+default workload and on the Fig.-1 spec served as requests:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -30,10 +33,36 @@ integrands, five forms, dims 2-4) at 10^6 samples x 10 trials:
    bound from the operations one trial needs, and reads the instruction
    mix nvcc emitted for pass 1's inner loops (``cuobjdump -sass``);
 8. times steady-state trials and profiles one (device busy and idle
-   share, host operations by time), and prints the ``{"kernels": [...]}``
-   line.
+   share, host operations by time);
+9. rounds: on the Fig.-1 buckets, one R = 4 launch at N = 65536 per round
+   with per-block window starts at other depths, one just below 2^32 (the
+   rounds cross the u32 wrap): each round's sums sha256-equal to a
+   single-round launch at that offset, and within rtol=1e-4, atol=1e-2 of
+   the plain version with the same rounds;
+10. compactified: d2/d3/d4 buckets of Gaussians over R^d and [0, inf)^d
+   mixed with finite families at N = 10^6: kernel vs plain estimates
+   within the tolerance of step 7 (the kernel timed over warm launches,
+   as in step 7), and 2-sigma coverage >= 0.85 of the Gaussians against
+   their analytic values;
+11. the service on the launcher's defaults (64 requests, seven families
+   at dims 2-4, 16384 samples in rounds of 8192, R <= 8), served
+   synchronously, with the pipelined worker thread, and again after a
+   restart on the first run's state dir: launches per wave <= buckets,
+   no chunked fallback round, zero launches on the warm replay, and the
+   three runs' served means sha256-equal; each launch of the synchronous
+   run (R = 2 rounds, compactified blocks) held against the plain
+   version with the same rounds, window starts and transform columns,
+   round by round, within the tolerance of step 7;
+12. the service at full width: the Fig.-1 spec as seven requests of 2^20
+   samples in rounds of 65536 (16 rounds, R = 8: 2 waves x 3 buckets = 6
+   launches), held against ``evaluate(n_samples=2^20)`` (the same
+   counters) within 1e-2 of a standard error, with the wall split into
+   kernel and host time; then prints the ``{"kernels": [...]}`` line, one
+   entry per kernel variant.
 
-Any failed check exits non-zero.  The last line of standard output is
+Every path is driven with the kernel's launch counters set to 0 just
+before it and read just after; a variant the path should run and did
+not fails the script.  Any failed check exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script fails and prints no result.
 """
@@ -81,6 +110,18 @@ FP32_PER_VALUE = 30           # the body's finish (cos/sin/exp/log) and the sums
 # one warp instruction (32 lanes) each per clock.
 ALU_PER_CLK, FMA_PER_CLK, IMAD_PER_CLK, CONV_PER_CLK, ISSUE_PER_CLK = 64, 128, 64, 16, 128
 HBM_BYTES_PER_S = 3.35e12
+# The compactification of one axis, at least: the clamp, the map and the
+# Jacobian's products and its fold into the value in f32, and on the
+# special-function unit (16 per clock per SM: sine, cosine, reciprocal)
+# sin, cos and 1/cos for the tan map (tan = sin / cos, pi / cos^2) or one
+# reciprocal 1/(1-u) for a half-line (u / (1-u) and 1 / (1-u)^2 reuse it).
+FP32_PER_AXIS = 8
+SFU_PER_TAN_AXIS, SFU_PER_HALF_AXIS, SFU_PER_CLK = 3, 1, 16
+
+N_ROUND = 65536          # samples per round in the rounds check (step 9)
+ROUNDS = 4
+N_FULL = 1 << 20         # step 12: samples per integrand through the service
+FULL_ROUND, FULL_R = 65536, 8
 
 
 def fail(msg: str) -> None:
@@ -190,12 +231,17 @@ def compare_estimates(bucket, k_out, p_out, n_samples) -> float:
     return float(diff.max())
 
 
-def op_bound_ms(draws: float, values: float, n_sm: int, clock_hz: float) -> dict:
-    """The least time the card needs for one trial's operations, per
-    resource (ms).  Integer adds go to whichever of the ALU and FMA pipes
-    leaves the busier one least loaded."""
+def op_bound_ms(draws: float, values: float, n_sm: int, clock_hz: float,
+                tan_axes: float = 0.0, half_axes: float = 0.0) -> dict:
+    """The least time the card needs for these operations, per resource
+    (ms).  Integer adds go to whichever of the ALU and FMA pipes leaves
+    the busier one least loaded.  ``tan_axes`` and ``half_axes`` count
+    draws through the compactification's tan map and half-line map."""
     alu_only, adds = draws * TF_ALU_ONLY, draws * TF_ADDS
-    fp, conv = draws * FP32_PER_DRAW + values * FP32_PER_VALUE, draws * CONV_PER_DRAW
+    fp = (draws * FP32_PER_DRAW + values * FP32_PER_VALUE
+          + (tan_axes + half_axes) * FP32_PER_AXIS)
+    conv = draws * CONV_PER_DRAW
+    sfu = tan_axes * SFU_PER_TAN_AXIS + half_axes * SFU_PER_HALF_AXIS
 
     def pipes(a):                       # a: adds issued on the ALU pipe
         return max((alu_only + a) / ALU_PER_CLK, (adds - a) / IMAD_PER_CLK,
@@ -203,8 +249,9 @@ def op_bound_ms(draws: float, values: float, n_sm: int, clock_hz: float) -> dict
 
     clocks = {
         "ALU and FMA pipes": min(pipes(adds * i / 100) for i in range(101)),
-        "issue": (alu_only + adds + fp + conv) / ISSUE_PER_CLK,
+        "issue": (alu_only + adds + fp + conv + sfu) / ISSUE_PER_CLK,
         "conversion": conv / CONV_PER_CLK,
+        "special functions": sfu / SFU_PER_CLK,
     }
     return {k: v / (n_sm * clock_hz) * 1e3 for k, v in clocks.items()}
 
@@ -215,8 +262,10 @@ FMA_OPS = ("IMAD", "FFMA", "FADD", "FMUL")
 
 
 def sass_loops(lib_path) -> list[dict] | None:
-    """Instruction mix of pass 1's innermost Threefry loops, read from
-    ``cuobjdump -sass`` of the built library: per loop its instructions,
+    """Instruction mix of the innermost Threefry loops of pass 1 as the
+    main path runs it (the instantiation without the compactified path,
+    ``fused_mc_pass1<false>``), read from ``cuobjdump -sass`` of the built
+    library: per loop its instructions,
     its draws (one u32 -> f32 conversion each) and opcode counts.  None
     when the tool is missing or its listing cannot be read: this is a
     report of what nvcc emitted, not a check."""
@@ -236,7 +285,7 @@ def sass_loops(lib_path) -> list[dict] | None:
     body, inside = [], False
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            inside = "fused_mc_pass1" in line
+            inside = "fused_mc_pass1ILb0E" in line
         elif inside:
             m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
                           line)
@@ -262,6 +311,75 @@ def sass_loops(lib_path) -> list[dict] | None:
                 "fma": sum(n for op, n in ops.items() if op.split(".")[0] in FMA_OPS),
                 "ops": ops})
     return found or None
+
+
+def compact_spec(device):
+    """Step 10's spec: Gaussians over R^d and [0, inf)^d (sigma 0.5-2)
+    mixed with finite harmonic and Genz families, at d = 2, 3, 4."""
+    import numpy as np
+    from repro_torch.core import genz
+    from repro_torch.core.integrand import (MultiFunctionSpec, gaussian_family,
+                                            harmonic_family)
+    fams, exact = [], {}
+    for d in (2, 3, 4):
+        exact[len(fams)] = ("R^d", d)
+        fams.append(gaussian_family(64, d, lo=-np.inf, hi=np.inf))
+        exact[len(fams)] = ("[0,inf)^d", d)
+        fams.append(gaussian_family(64, d, lo=0.0, hi=np.inf))
+        fams.append(harmonic_family(48, d))
+        fams.append(genz.oscillatory(32, d)[0])
+    return MultiFunctionSpec.from_families(fams).to(device), exact
+
+
+def variant_counts(expect: dict, what: str) -> dict:
+    """Read the per-variant kernel launch counts after a path, print them,
+    and fail if a variant the path runs was launched no time."""
+    from repro_torch.kernels import template
+    counts = template.kernel_launch_counts()
+    print(f"{what}: kernel launches by variant {counts}")
+    for name, must in expect.items():
+        if must:
+            check(counts[name] > 0, f"{what}: variant {name} never launched")
+    return counts
+
+
+def traced_split(reqs, **engine_kw) -> str:
+    """Serve ``reqs`` synchronously on a fresh engine with tracing on and
+    return the wall and the trace's time per pipeline stage (wal_commit
+    runs inside deposit), as one printable line."""
+    import torch
+    from repro_torch.obs import Observability
+    from repro_torch.obs.trace import STAGES, span_totals
+    from repro_torch.service import IntegrationEngine
+    events = []
+    engine = IntegrationEngine(device="cuda", obs=Observability.enabled(
+        sinks=[events.append]), **engine_kw)
+    t0 = time.perf_counter()
+    tickets = [engine.submit(r) for r in reqs]
+    while engine.step():
+        pass
+    check(all(engine.poll(t) is not None for t in tickets), "traced run unfinished")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine.close()
+    tot = span_totals(events)
+    per_wave = {k: [round(ev["dur"] / 1e3, 3) for ev in events
+                    if ev.get("ph") == "X" and ev["name"] == k]
+                for k in ("launch", "device_execute", "deposit")}
+    return (f"{1e3 * wall:.3f} ms wall over {engine.stats.waves} waves; "
+            + ", ".join(f"{k} {1e3 * tot.get(k, 0.0):.3f} ms "
+                        f"({100 * tot.get(k, 0.0) / wall:.1f}%)" for k in STAGES)
+            + f"; submits and the rest {1e3 * (wall - sum(tot.get(k, 0.0) for k in STAGES if k != 'wal_commit')):.3f} ms"
+            + "; ms per wave: " + ", ".join(f"{k} {v}" for k, v in per_wave.items()))
+
+
+def served_digest(results) -> str:
+    import numpy as np
+    h = hashlib.sha256()
+    for r in results:
+        h.update(np.ascontiguousarray(r.means, np.float32).tobytes())
+        h.update(np.ascontiguousarray(r.stderrs, np.float32).tobytes())
+    return h.hexdigest()
 
 
 def main() -> None:
@@ -351,6 +469,7 @@ def main() -> None:
           f"launch_count() = {dispatches}")
     check(launches == plan.n_launches * TRIALS,
           f"expected {plan.n_launches * TRIALS} kernel launches, got {launches}")
+    main_counts = variant_counts({"fused_mc": True}, "evaluate path")
     check(res.means.shape == (TRIALS, spec.n_fn_total), "bad result shape")
     check(bool(np.isfinite(res.means).all() and np.isfinite(res.stderrs).all()),
           "non-finite estimates")
@@ -454,19 +573,288 @@ def main() -> None:
           f"({100 * busy_ms / prof_ms:.1f}%, idle {100 - 100 * busy_ms / prof_ms:.1f}%)")
     print(events.table(sort_by="self_cpu_time_total", row_limit=10))
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_mc",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_mc.cu",
-        "replaces": "src/repro/kernels/template.py:425",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations",
-        "library_ms": None,
-    }]}))
+    # -- 9. rounds: R-round launches against single rounds and plain ------
+    key = rng.fold_key(4, 9)
+    rounds_err = 0.0
+    for b in plan.buckets:
+        n_blocks = b.fn_ids.shape[0] // template.F_BLK
+        base = torch.tensor([(i * 37 * N_ROUND) & rng.MASK32
+                             for i in range(n_blocks)], dtype=torch.int64)
+        base[n_blocks // 2] = 2**32 - 3 * N_ROUND // 2   # crosses the wrap
+        kw = dict(dim=b.dim, n_sample_blocks=N_ROUND // template.S_BLK,
+                  block_tcols=b.block_tcols, round_base=base)
+        ops = (b.fn_ids, b.packed, b.lo, b.hi, b.block_forms)
+        scal = template.pack_scalars(key, 0, N_ROUND, round_stride=N_ROUND)
+        k_out = template.fused_mc_cuda(scal, *ops, n_rounds=ROUNDS, **kw)
+        p_out = template.fused_mc_plain(scal, *ops, n_rounds=ROUNDS, **kw)
+        torch.cuda.synchronize()
+        same = 0
+        for r in range(ROUNDS):
+            one = template.fused_mc_cuda(
+                template.pack_scalars(key, r * N_ROUND, N_ROUND), *ops, **kw)
+            d_r = hashlib.sha256(k_out[r].cpu().numpy().tobytes()).hexdigest()
+            d_1 = hashlib.sha256(one[0].cpu().numpy().tobytes()).hexdigest()
+            same += d_r == d_1
+        print(f"bucket d{b.dim}: R={ROUNDS} launch at N={N_ROUND} per round: "
+              f"{same}/{ROUNDS} rounds sha256-equal to single-round launches "
+              f"(window starts up to {int(base.max())}, one crossing 2^32)")
+        check(same == ROUNDS, f"d{b.dim}: a round differs from its single-round launch")
+        for r in range(ROUNDS):
+            rounds_err = max(rounds_err, compare_sums(
+                b, k_out[r:r + 1], p_out[r:r + 1], N_ROUND))
+
+    # -- 10. compactified families -------------------------------------------
+    cspec, c_exact = compact_spec(device)
+    czmc = ZMCMultiFunctions(cspec, n_samples=N_MAIN, seed=3, use_kernel=True,
+                             device="cuda")
+    cplan = czmc._get_fusion_plan()
+    check(cplan.unfused == () and cplan.n_launches == 3,
+          f"compactified spec: {cplan.n_launches} buckets, unfused {cplan.unfused}")
+    key = rng.fold_key(3, 0)
+
+    def compact_launches():
+        return [template.fused_mc_cuda(
+            template.pack_scalars(key, 0, N_MAIN), b.fn_ids, b.packed, b.lo,
+            b.hi, b.block_forms, dim=b.dim,
+            n_sample_blocks=-(-N_MAIN // template.S_BLK),
+            block_tcols=b.block_tcols) for b in cplan.buckets]
+
+    compact_launches()                      # warm: first compactified launches
+    torch.cuda.synchronize()
+    ev0.record()
+    for _ in range(TIMING_REPS):
+        ck_outs = compact_launches()
+    ev1.record()
+    torch.cuda.synchronize()
+    compact_ms = ev0.elapsed_time(ev1) / TIMING_REPS
+    ev0.record()
+    cp_outs = [template.fused_mc_plain(
+        template.pack_scalars(key, 0, N_MAIN), b.fn_ids, b.packed, b.lo, b.hi,
+        b.block_forms, dim=b.dim, n_sample_blocks=-(-N_MAIN // template.S_BLK),
+        block_tcols=b.block_tcols) for b in cplan.buckets]
+    ev1.record()
+    torch.cuda.synchronize()
+    compact_plain_ms = ev0.elapsed_time(ev1)
+    compact_err = 0.0
+    for b, k_out, p_out in zip(cplan.buckets, ck_outs, cp_outs):
+        compact_err = max(compact_err, compare_estimates(b, k_out, p_out, N_MAIN))
+    template.reset_kernel_launch_count()
+    cres = czmc.evaluate(num_trials=1)
+    variant_counts({"fused_mc": True, "fused_mc_compactified": True},
+                   "compactified evaluate")
+    from repro_torch.core.integrand import gaussian_analytic
+    offs = cspec.offsets()
+    covered, total = 0, 0
+    for idx, (region, d) in c_exact.items():
+        sl = slice(offs[idx], offs[idx] + cspec.families[idx].n_fn)
+        want = gaussian_analytic(64, d, half=region != "R^d")
+        pull = np.abs(cres.means[0][sl] - want) / cres.stderrs[0][sl]
+        covered += int((pull <= 2).sum())
+        total += len(want)
+        print(f"gaussian over {region}, d={d}: 2-sigma coverage "
+              f"{float(np.mean(pull <= 2)):.4f}, worst pull {float(pull.max()):.2f}, "
+              f"mean/exact {float(np.mean(cres.means[0][sl] / want)):.5f}")
+    cover_c = covered / total
+    print(f"compactified Gaussians: 2-sigma coverage {cover_c:.4f} over {total} "
+          f"integrals at N={N_MAIN}")
+    check(cover_c >= 0.85, f"compactified coverage {cover_c} < 0.85")
+    c_draws = sum(f.n_fn * f.dim for f in czmc.spec.families) * N_MAIN
+    c_values = czmc.spec.n_fn_total * N_MAIN
+    tan_axes = sum(f.n_fn * f.dim for f, (r, _) in
+                   ((czmc.spec.families[i], v) for i, v in c_exact.items())
+                   if r == "R^d") * N_MAIN
+    half_axes = sum(f.n_fn * f.dim for f, (r, _) in
+                    ((czmc.spec.families[i], v) for i, v in c_exact.items())
+                    if r != "R^d") * N_MAIN
+    c_op = op_bound_ms(c_draws, c_values, n_sm, clock_hz, tan_axes, half_axes)
+    compact_bound = max(c_op.values())
+    print(f"compactified buckets (3 launches, {c_draws:.4g} draws, "
+          f"{tan_axes:.4g} tan-map and {half_axes:.4g} half-line axes): kernel "
+          f"{compact_ms:.3f} ms, plain {compact_plain_ms:.1f} ms, bound "
+          f"{compact_bound:.3f} ms (kernel at {100 * compact_bound / compact_ms:.1f}%): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in c_op.items()) + f"; on {card}")
+
+    # -- 11. the service on the launcher's defaults --------------------------
+    import tempfile
+    from repro_torch.launch import serve_integrals
+    state = tempfile.mkdtemp(prefix="zmc_state_")
+    base_args = ["--device", "cuda", "--requests", "64", "--n-fn", "8",
+                 "--samples", "16384", "--round-samples", "8192",
+                 "--max-rounds-per-wave", "8"]
+    n_dims = 3                         # the workload's families span dims 2-4
+    runs = {}
+    service_counts = dict.fromkeys(template.VARIANTS, 0)
+    # the synchronous run's waves, as the batcher launched them, to hold
+    # against the plain version below
+    sync_waves = []
+    launch_plan_rounds = multi.launch_plan_rounds
+
+    def recorded(plan, round_samples, n_rounds, key, *, start_rounds):
+        where, outputs = launch_plan_rounds(plan, round_samples, n_rounds, key,
+                                            start_rounds=start_rounds)
+        sync_waves.append((plan, round_samples, n_rounds, key,
+                           dict(start_rounds), outputs))
+        return where, outputs
+
+    for label, extra in (("synchronous", ["--state-dir", state]),
+                         ("pipelined", ["--thread"]),
+                         ("restarted", ["--state-dir", state])):
+        template.reset_kernel_launch_count()
+        multi.launch_plan_rounds = recorded if label == "synchronous" else launch_plan_rounds
+        try:
+            out = serve_integrals.main(base_args + extra)
+        finally:
+            multi.launch_plan_rounds = launch_plan_rounds
+        torch.cuda.synchronize()
+        counts = variant_counts({"fused_mc_rounds": label != "restarted",
+                                 "fused_mc_compactified": label != "restarted"},
+                                f"service ({label})")
+        for k, v in counts.items():
+            service_counts[k] += v
+        waves = out["stats"].waves
+        digest = served_digest(out["results"])
+        runs[label] = out
+        print(f"service config 1 ({label}): {len(out['results'])} requests in "
+              f"{out['seconds']:.4f} s -> {len(out['results']) / out['seconds']:.1f} "
+              f"requests/s; {out['launches']} launches in {waves} waves "
+              f"({out['launches'] / max(waves, 1):.2f} per wave against at most "
+              f"{n_dims} buckets per wave); {out['fallback_rounds']} chunked "
+              f"fallback rounds; {out['hits']} pure cache hits; digest {digest[:16]}")
+        check(out["fallback_rounds"] == 0, f"{label}: chunked fallback rounds")
+        check(out["launches"] <= n_dims * max(waves, 1),
+              f"{label}: more launches than buckets per wave")
+        out["digest"] = digest
+    check(runs["restarted"]["launches"] == 0, "the warm replay launched kernels")
+    check(runs["restarted"]["hits"] == len(runs["restarted"]["results"]),
+          "the warm replay was not served from the cache")
+    check(len({r["digest"] for r in runs.values()}) == 1,
+          "synchronous, pipelined and restarted digests differ")
+    print("service config 1: synchronous = pipelined = restarted digests "
+          f"({runs['synchronous']['digest'][:16]}), warm replay 0 launches")
+    # each launch of the synchronous run (R-round, compactified blocks at
+    # the service's shapes) against the plain version with the same
+    # rounds, window starts and transform columns, round by round
+    n_compact = 0
+    for plan_w, n_round, n_r, key_w, starts, outputs in sync_waves:
+        scal = template.pack_scalars(key_w, 0, n_round, round_stride=n_round)
+        for b, k_out in zip(plan_w.buckets, outputs):
+            p_out = template.fused_mc_plain(
+                scal, b.fn_ids, b.packed, b.lo, b.hi, b.block_forms, dim=b.dim,
+                n_sample_blocks=-(-n_round // template.S_BLK), n_rounds=n_r,
+                round_base=multi._round_base_for(b, starts, n_round),
+                block_tcols=b.block_tcols)
+            compact = bool((b.block_tcols >= 0).any())
+            n_compact += compact and n_r > 1
+            for r in range(n_r):
+                err = compare_estimates(b, k_out[r:r + 1], p_out[r:r + 1], n_round)
+                if compact:
+                    compact_err = max(compact_err, err)
+                else:
+                    rounds_err = max(rounds_err, err)
+    print(f"service config 1: {sum(len(w[5]) for w in sync_waves)} launches of "
+          f"the synchronous run ({n_compact} with R > 1 and compactified "
+          f"blocks; R in {sorted({w[2] for w in sync_waves})}) held against "
+          f"the plain version")
+    check(n_compact > 0,
+          "the synchronous run launched no R > 1 compactified bucket")
+    print("service config 1, traced synchronous run: " + traced_split(
+        serve_integrals.demo_workload(64, n_fn=8, n_samples=16384),
+        round_samples=8192, max_rounds_per_wave=8))
+
+    # -- 12. the service at full width: Fig.-1 as requests ------------------
+    from repro_torch.service import IntegrationEngine, IntegrationRequest
+    reqs = [IntegrationRequest.make([f], n_samples=N_FULL) for f in spec.families]
+    engine = IntegrationEngine(round_samples=FULL_ROUND, device="cuda",
+                               max_rounds_per_wave=FULL_R)
+    template.reset_kernel_launch_count()
+    t0 = time.perf_counter()
+    tickets = [engine.submit(r) for r in reqs]
+    while engine.step():
+        pass
+    full = [engine.poll(t) for t in tickets]
+    torch.cuda.synchronize()
+    full_wall = time.perf_counter() - t0
+    full_counts = variant_counts({"fused_mc_rounds": True}, "service config 2")
+    full_launches = template.kernel_launch_count()
+    for k, v in full_counts.items():
+        service_counts[k] += v
+    offsets = [e.fn_offset for e in (engine.cache.get(c) for c in
+               (r.stream_ids[0] for r in full))]
+    engine.close()
+    print(f"service config 2: {spec.n_fn_total} integrands x {N_FULL} samples in "
+          f"{engine.stats.waves} waves, {full_launches} kernel launches, "
+          f"{engine.batcher.fallback_rounds} fallback rounds, {full_wall:.4f} s wall; "
+          f"fn offsets {'=' if offsets == spec.offsets() else '!='} spec.offsets()")
+    check(full_launches == 6, f"expected 6 launches, got {full_launches}")
+    check(offsets == spec.offsets(), "the cache placed the families elsewhere")
+    # the same counters through evaluate: one 2^20-sample round per family
+    ref = ZMCMultiFunctions(spec, n_samples=N_FULL, seed=0, use_kernel=True,
+                            device="cuda").evaluate(num_trials=1)
+    got_m = np.concatenate([r.means for r in full])
+    got_s = np.concatenate([r.stderrs for r in full])
+    d_mean = float(np.max(np.abs(got_m - ref.means[0]) / ref.stderrs[0]))
+    d_se = float(np.max(np.abs(got_s - ref.stderrs[0]) / ref.stderrs[0]))
+    print(f"service config 2 vs evaluate(n_samples={N_FULL}): max |d mean| "
+          f"{d_mean:.3g}, max |d stderr| {d_se:.3g} standard errors "
+          f"(limit {EST_TOL})")
+    check(d_mean <= EST_TOL and d_se <= EST_TOL,
+          "service config 2 disagrees with evaluate")
+    # one wave's launches (R = 8 rounds of 65536 per family), timed alone
+    fplan = multi.plan_spec(spec)
+    start = {i: 0 for i in range(len(spec.families))}
+    ev0.record()
+    for _ in range(TIMING_REPS):
+        multi.launch_plan_rounds(fplan, FULL_ROUND, FULL_R, engine.key,
+                                 start_rounds=start)
+    ev1.record()
+    torch.cuda.synchronize()
+    wave_ms = ev0.elapsed_time(ev1) / TIMING_REPS
+    _, k_wave = multi.launch_plan_rounds(fplan, FULL_ROUND, FULL_R, engine.key,
+                                         start_rounds=start)
+    ev0.record()
+    p_wave = [template.fused_mc_plain(
+        template.pack_scalars(engine.key, 0, FULL_ROUND, round_stride=FULL_ROUND),
+        b.fn_ids, b.packed, b.lo, b.hi, b.block_forms, dim=b.dim,
+        n_sample_blocks=FULL_ROUND // template.S_BLK, n_rounds=FULL_R,
+        round_base=multi._round_base_for(b, start, FULL_ROUND),
+        block_tcols=b.block_tcols) for b in fplan.buckets]
+    ev1.record()
+    torch.cuda.synchronize()
+    wave_plain_ms = ev0.elapsed_time(ev1)
+    for b, k_out, p_out in zip(fplan.buckets, k_wave, p_wave):
+        # the wave's R rounds folded, as the cache folds them
+        rounds_err = max(rounds_err, compare_estimates(
+            b, k_out.sum(0, keepdim=True), p_out.sum(0, keepdim=True),
+            FULL_ROUND * FULL_R))
+    w_draws = sum(f.n_fn * f.dim for f in spec.families) * FULL_ROUND * FULL_R
+    w_values = spec.n_fn_total * FULL_ROUND * FULL_R
+    w_op = op_bound_ms(w_draws, w_values, n_sm, clock_hz)
+    wave_bound = max(w_op.values())
+    host_share = 1 - engine.stats.waves * wave_ms / (full_wall * 1e3)
+    print("service config 2, traced synchronous run: " + traced_split(
+        reqs, round_samples=FULL_ROUND, max_rounds_per_wave=FULL_R))
+    print(f"service config 2: kernel {wave_ms:.3f} ms per wave (3 launches, R={FULL_R}, "
+          f"{w_draws:.4g} draws), plain {wave_plain_ms:.1f} ms, bound "
+          f"{wave_bound:.3f} ms (kernel at {100 * wave_bound / wave_ms:.1f}%); wall "
+          f"{1e3 * full_wall / max(engine.stats.waves, 1):.3f} ms per wave, host share "
+          f"{100 * host_share:.1f}% of the wall; on {card}")
+
+    entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
+                 bound_by="operations", library_ms=None)
+    print(json.dumps({"kernels": [
+        dict(entry, name="fused_mc", replaces="src/repro/kernels/template.py:425",
+             launches=main_counts["fused_mc"], max_abs_err=max_err,
+             ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms),
+        dict(entry, name="fused_mc_rounds",
+             replaces="src/repro/kernels/template.py:457",
+             launches=service_counts["fused_mc_rounds"], max_abs_err=rounds_err,
+             ms=wave_ms, plain_ms=wave_plain_ms, bound_ms=wave_bound),
+        dict(entry, name="fused_mc_compactified",
+             replaces="src/repro/kernels/template.py:189",
+             launches=service_counts["fused_mc_compactified"],
+             max_abs_err=compact_err, ms=compact_ms, plain_ms=compact_plain_ms,
+             bound_ms=compact_bound),
+    ]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

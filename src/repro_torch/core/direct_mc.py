@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core import rng
 from repro_torch.core.domains import affine_from_unit, box_volume
 from repro_torch.core.integrand import IntegrandFamily
+from repro_torch.core.tree import tree_map
 
 
 class SumsState(NamedTuple):
@@ -108,7 +109,7 @@ def _fn_blocked_sums(family, n_samples, key, *, fn_offset, sample_offset,
     def pad_leaf(leaf):
         return F.pad(leaf, [0, 0] * (leaf.ndim - 1) + [0, pad])
 
-    params = {k: pad_leaf(v) for k, v in family.params.items()}
+    params = tree_map(pad_leaf, family.params)
     domains = pad_leaf(family.domains)
     # padded rows get [0,1] boxes so volumes stay finite; results are sliced off
     if pad:
@@ -117,7 +118,7 @@ def _fn_blocked_sums(family, n_samples, key, *, fn_offset, sample_offset,
     for idx in range(n_blocks):
         sl = slice(idx * fn_chunk, (idx + 1) * fn_chunk)
         fam = dataclasses.replace(
-            family, params={k: v[sl] for k, v in params.items()},
+            family, params=tree_map(lambda v: v[sl], params),
             domains=domains[sl])
         out = family_sums(fam, n_samples, key,
                           fn_offset=fn_offset + idx * fn_chunk,
@@ -148,12 +149,14 @@ def _sums_with_ids(family, n_samples, key, fn_ids, sample_offset, chunk,
     u32 values) and sample offset.
 
     ``use_kernel`` dispatch is capability-checked: the registered kernel
-    runs only if the family's form supports its dim; otherwise the chunked
-    path below takes over.
+    runs only if the family's form supports its dim (and, for a
+    compactified family, the transform stage); otherwise the chunked path
+    below takes over.
     """
     if use_kernel and family.kernel is not None:
         from repro_torch.kernels import registry
-        impl = registry.lookup(family.kernel, dim=family.dim)
+        impl = registry.lookup(family.kernel, dim=family.dim,
+                               compactified=family.compact)
         if impl is not None:
             return impl(family, n_samples, key, fn_ids=fn_ids,
                         sample_offset=sample_offset)

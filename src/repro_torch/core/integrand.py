@@ -1,6 +1,6 @@
 """Integrand specification: function *families* (PyTorch).
 
-Port of ``repro.core.integrand`` for finite boxes.  An
+Port of ``repro.core.integrand``.  An
 :class:`IntegrandFamily` is one batched PyTorch function plus a dict of
 stacked parameters (leading axis = function index) and a per-function
 domain box; a :class:`MultiFunctionSpec` is an ordered list of families,
@@ -14,6 +14,11 @@ returns ``(n_fn, B)``.
 :func:`family_from_numpy` builds a family from parameters and domains
 taken out of a ``repro`` family as numpy arrays, so the same integrands
 can go through both packages.
+
+Infinite boxes are rewritten to finite ones by :meth:`IntegrandFamily
+.compactified` (``repro_torch.core.domains.compactify``); the result
+keeps its kernel form, and the fused kernel applies the transform in its
+compactified blocks.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import domains as domains_lib
+from repro_torch.core.tree import tree_leaves, tree_map
+
 
 @dataclasses.dataclass
 class IntegrandFamily:
@@ -32,11 +40,17 @@ class IntegrandFamily:
     Attributes:
       fn: ``fn(x, params) -> values``; ``x`` is (n_fn, B, dim), ``params``
         the dict below, the result (n_fn, B).
-      params: dict of tensors, each with leading axis ``n_fn``.
-      domains: (n_fn, dim, 2) float32 tensor of [lo, hi] boxes.
+      params: dict of tensors (or nested dicts of them), each with
+        leading axis ``n_fn``.
+      domains: (n_fn, dim, 2) float32 tensor of [lo, hi] boxes.  May
+        contain +-inf; the solvers compactify before sampling.
       name: label used in reports and checkpoint tags.
       kernel: registered kernel form name (``repro_torch.kernels.registry``)
         or ``None`` for the chunked PyTorch path only.
+      compact: set by :meth:`compactified`: ``params`` is the
+        ``{"inner": user params, "aux": {"kind", "shift"}}`` wrapper
+        around an infinite-domain integrand, and kernel dispatch applies
+        the transform stage.
     """
 
     fn: Callable[[torch.Tensor, dict], torch.Tensor]
@@ -44,6 +58,7 @@ class IntegrandFamily:
     domains: torch.Tensor
     name: str = "family"
     kernel: str | None = None
+    compact: bool = False
 
     @property
     def n_fn(self) -> int:
@@ -61,11 +76,11 @@ class IntegrandFamily:
         d = self.domains
         if d.ndim != 3 or d.shape[-1] != 2:
             raise ValueError(f"domains must be (n_fn, dim, 2); got {tuple(d.shape)}")
-        for name, leaf in self.params.items():
+        for leaf in tree_leaves(self.params):
             if tuple(leaf.shape[:1]) != (d.shape[0],):
                 raise ValueError(
                     f"every params leaf needs leading axis n_fn={d.shape[0]}; "
-                    f"got {name!r} of shape {tuple(leaf.shape)}")
+                    f"got a leaf of shape {tuple(leaf.shape)}")
         finite = torch.isfinite(d).all(-1)
         lo_le_hi = torch.where(finite, d[..., 0] <= d[..., 1],
                                torch.ones_like(finite))
@@ -76,8 +91,34 @@ class IntegrandFamily:
     def to(self, device) -> "IntegrandFamily":
         """The same family with its tensors on ``device``."""
         return dataclasses.replace(
-            self, params={k: v.to(device) for k, v in self.params.items()},
+            self, params=tree_map(lambda v: v.to(device), self.params),
             domains=self.domains.to(device))
+
+    def compactified(self) -> "IntegrandFamily":
+        """An equivalent family whose domain box is finite.
+
+        Keeps :attr:`kernel`: registered forms evaluate compactified
+        families in the fused kernel (the transform's kind and shift pack
+        into parameter columns after the form's own).  Finite families
+        are returned as they are.
+        """
+        if domains_lib.is_finite_box(self.domains):
+            return self
+        fn2, new_domains, aux = domains_lib.compactify(self.fn, self.domains)
+        return IntegrandFamily(
+            fn=fn2, params={"inner": self.params, "aux": aux},
+            domains=new_domains, name=self.name + ":compactified",
+            kernel=self.kernel, compact=True)
+
+    def inner(self) -> "IntegrandFamily":
+        """The pre-transform parameter view of a compactified family:
+        same shapes and finite box, the user's ``params``.  Kernel
+        packers consume this.  Identity for other families."""
+        if not self.compact:
+            return self
+        return IntegrandFamily(fn=self.fn, params=self.params["inner"],
+                               domains=self.domains, name=self.name,
+                               kernel=self.kernel)
 
     def eval_batch(self, x: torch.Tensor) -> torch.Tensor:
         """Evaluate all functions on their own sample blocks.
@@ -121,6 +162,15 @@ class MultiFunctionSpec:
 
 def _t(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+
+def _leaf(x, device) -> torch.Tensor:
+    """Tensor of one parameter leaf: integer arrays (transform kinds) stay
+    int32, everything else becomes float32."""
+    arr = np.asarray(x)
+    if arr.dtype.kind in "iub":
+        return torch.from_numpy(arr.astype(np.int32)).to(device)
+    return _t(arr, device)
 
 
 def _box(n: int, dim: int, lo: float, hi: float, device) -> torch.Tensor:
@@ -232,16 +282,22 @@ def _kernel_fns() -> dict:
 
 
 def family_from_numpy(kernel: str | None, params: dict, domains, name: str,
-                      *, fn=None, device="cpu") -> IntegrandFamily:
+                      *, fn=None, compact: bool = False,
+                      device="cpu") -> IntegrandFamily:
     """A port family from a ``repro`` family's arrays.
 
     Args:
       kernel: the registered form name (``"mc_eval_harmonic"``, ...); it
         selects the batched PyTorch ``fn`` unless ``fn`` is given.
-      params: ``{name: np.ndarray}`` with leading axis n_fn.
-      domains: (n_fn, dim, 2) array.
+      params: ``{name: np.ndarray}`` with leading axis n_fn (nested dicts
+        allowed).
+      domains: (n_fn, dim, 2) array; may hold infinite edges.
       name: family label (keep ``repro``'s to share checkpoint tags).
       fn: batched ``fn(x, p)``; required when ``kernel`` is None.
+      compact: the arrays are those of a ``repro`` family already
+        compactified: ``params`` is ``{"inner": ..., "aux": {"kind",
+        "shift"}}`` and ``domains`` the finite sampling box; ``fn`` (or
+        the kernel's) is the pre-transform integrand.
     """
     if fn is None:
         fns = _kernel_fns()
@@ -250,11 +306,12 @@ def family_from_numpy(kernel: str | None, params: dict, domains, name: str,
                              f"pass fn= (known: {sorted(fns)})")
         fn = fns[kernel]
     return IntegrandFamily(
-        fn=fn,
-        params={k: _t(v, device) for k, v in params.items()},
+        fn=domains_lib.compactified_fn(fn) if compact else fn,
+        params=tree_map(lambda v: _leaf(v, device), params),
         domains=_t(domains, device),
         name=name,
         kernel=kernel,
+        compact=bool(compact),
     ).validate()
 
 

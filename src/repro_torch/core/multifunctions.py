@@ -35,7 +35,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import direct_mc, rng
-from repro_torch.core.domains import is_finite_box
 from repro_torch.core.integrand import IntegrandFamily, MultiFunctionSpec
 from repro_torch.device import resolve_device
 
@@ -65,8 +64,9 @@ class ZMCMultiFunctions:
     """Multi-function direct-MC integrator on one device.
 
     ``device`` defaults to ``"cuda"`` and raises when there is no GPU;
-    pass ``device="cpu"`` for the plain PyTorch path.  ``mesh=`` and
-    ``sampler="sobol"`` are not ported yet and raise.
+    pass ``device="cpu"`` for the plain PyTorch path.  Families with
+    infinite boxes are compactified.  ``mesh=`` and ``sampler="sobol"``
+    are not ported yet and raise.
     """
 
     def __init__(
@@ -92,13 +92,10 @@ class ZMCMultiFunctions:
                 "item 7, queue 2 item c)")
         if not isinstance(spec, MultiFunctionSpec):
             spec = MultiFunctionSpec.from_families(spec)
-        for f in spec.families:
-            if not is_finite_box(f.domains):
-                raise NotImplementedError(
-                    f"family {f.name!r} has an infinite box; compactification "
-                    "is not ported yet (ROADMAP queue 1 item 9)")
         self.device = resolve_device(device)
-        self.spec = spec.to(self.device)
+        # infinite domains are rewritten into finite boxes up-front
+        self.spec = MultiFunctionSpec(families=tuple(
+            f.compactified() for f in spec.to(self.device).families))
         self.n_samples = int(n_samples)
         self.seed = int(seed)
         self.chunk = int(chunk)

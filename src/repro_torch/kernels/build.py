@@ -106,7 +106,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.zmc_chunk_samples.argtypes = []
     lib.zmc_chunk_samples.restype = i32
     lib.zmc_fused_mc.argtypes = [u32, u32, u32, u32,     # k0 k1 offset n_valid
-                                 ptr, ptr, ptr, i32,     # fn_ids forms packed n_cols
+                                 u32, i32, ptr,          # round_stride n_rounds round_base
+                                 ptr, ptr, ptr, i32,     # fn_ids forms tcols has_compact
+                                 ptr, i32,               # packed n_cols
                                  ptr, ptr, i32,          # lo hi dim
                                  i32, i32,               # n_fn_pad n_chunks
                                  ptr, ptr, ptr]          # scratch out stream

@@ -6,7 +6,10 @@
 // device through ZMC_HD:
 //   * Threefry-2x32, 20 rounds, first output word (random_bits);
 //   * the top-24-bit uniform (bits_to_uniform);
-//   * the five eval bodies of repro/kernels/mc_eval/{kernel,ops}.py.
+//   * the five eval bodies of repro/kernels/mc_eval/{kernel,ops}.py;
+//   * the compactification of one axis (apply_transform), the per-axis
+//     map of repro/core/domains.py:apply_transform that the wrapper stage
+//     repro/kernels/template.py:compactified_body puts around a body.
 //
 // A body is written as a fold over the dimensions: acc = init(p), then
 // acc = step(acc, x_d, p, d) for d = 0..dim-1, then value = fin(acc, p, dim).
@@ -89,6 +92,44 @@ ZMC_HD float quiet_nan() {
 // x = lo + u * (hi - lo); the caller passes w = hi - lo.
 ZMC_HD float affine(float lo, float w, float u) { return lo + u * w; }
 
+// -- compactification of one axis -----------------------------------------
+// Kind codes (repro.core.domains.TRANSFORM_*); they ride in f32 packed
+// columns as exact small integers.
+enum Transform : int {
+  TRANSFORM_NONE = 0,   // finite edge: identity
+  TRANSFORM_TAN = 1,    // (-inf, inf): x = tan(pi (u - 1/2))
+  TRANSFORM_UPPER = 2,  // [a, inf):    x = a + u / (1 - u)
+  TRANSFORM_LOWER = 3,  // (-inf, b]:   x = b - u / (1 - u)
+};
+
+// u is clamped into [CLIP_EPS, 1 - CLIP_EPS] before a map so it stays finite.
+constexpr float CLIP_EPS = 1e-7f;
+constexpr float PI_F = 3.14159265358979323846f;
+
+// Maps u (the draw in the finite sampling box) through the axis' transform;
+// returns x and writes the Jacobian dx/du to *jac (1 on a finite axis, where
+// x = u untouched by the clamp).  Precise tanf/cosf: near the clamp the tan
+// map's Jacobian pi / cos^2 reaches ~1e14 and the half-line's 1 / (1 - u)^2
+// ~1e14, where the fast intrinsics are wrong.
+ZMC_HD float apply_transform(float u, float kind, float shift, float* jac) {
+  const int k = (int)kind;
+  if (k == TRANSFORM_NONE) {
+    *jac = 1.0f;
+    return u;
+  }
+  const float uc = fminf(fmaxf(u, CLIP_EPS), 1.0f - CLIP_EPS);
+  if (k == TRANSFORM_TAN) {
+    const float a = PI_F * (uc - 0.5f);
+    const float c = cosf(a);
+    *jac = PI_F / (c * c);
+    return tanf(a);
+  }
+  const float om = 1.0f - uc;
+  *jac = 1.0f / (om * om);
+  const float rat = uc / om;
+  return k == TRANSFORM_UPPER ? shift + rat : shift - rat;
+}
+
 // -- eval bodies ---------------------------------------------------------
 // p points at one function's packed parameter row.
 
@@ -168,6 +209,22 @@ ZMC_HD float eval_point_form(int form, const float* p, const float* x, int dim) 
     case FORM_GENZ_CORNER: return eval_point<FORM_GENZ_CORNER>(p, x, dim);
     default: return quiet_nan();
   }
+}
+
+// A compactified row: p holds the form's columns, then [kind_0..kind_{dim-1},
+// shift_0..shift_{dim-1}] from column tcol.  Maps x through each axis'
+// transform and multiplies the body's value by the Jacobian product, as the
+// kernel's compactified blocks do.  x holds at most 256 dims (DIM_STRIDE).
+ZMC_HD float eval_point_compact(int form, const float* p, int tcol, const float* x,
+                                int dim) {
+  float xs[256];
+  float jac = 1.0f;
+  for (int d = 0; d < dim; ++d) {
+    float j;
+    xs[d] = apply_transform(x[d], p[tcol + d], p[tcol + dim + d], &j);
+    jac *= j;
+  }
+  return eval_point_form(form, p, xs, dim) * jac;
 }
 
 }  // namespace zmc

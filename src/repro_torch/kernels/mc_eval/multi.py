@@ -1,19 +1,32 @@
 """Fused multi-family dispatch: one launch per (dim, sampler) bucket
-(port of ``repro.kernels.mc_eval.multi``, single device, one round).
+(port of ``repro.kernels.mc_eval.multi``, single device).
 
 1. every family whose ``kernel`` names a registered form supporting
-   (dim, sampler) is **fusable**; the rest are left to the chunked path
-   (``FusionPlan.unfused``, the caller handles them);
+   (dim, sampler) is **fusable**, compactified infinite-domain families
+   included (their transform columns ride after the form's); the rest
+   are left to the chunked path (``FusionPlan.unfused``, the caller
+   handles them);
 2. fusable families are bucketed by dimension;
 3. within a bucket each family is padded to an ``F_BLK`` multiple (so
    every function block is homogeneous in form), packed parameters are
    padded to the bucket's widest form and everything is concatenated;
 4. the whole bucket runs in one :func:`template.fused_mc` launch, each
-   block's body picked by its form id (``_Bucket.block_forms``);
+   block's body picked by its form id (``_Bucket.block_forms``) and
+   wrapped in the compactification stage where ``_Bucket.block_tcols``
+   names its transform columns;
 5. results are sliced back out per family.
 
 The plan depends only on the spec, so callers build it once and re-run
 it per trial with other keys and offsets.
+
+Multi-round plans: :func:`launch_plan_rounds` (the port of ``repro``'s
+``eval_plan_rounds``) evaluates R consecutive fixed-size counter rounds
+of every bucket in ONE launch each, so a service wave of R rounds over B
+buckets costs B launches.  Per-family start rounds become per-block
+``round_base`` window starts, so streams at different depths share a
+launch; each round's sums are bit-identical to the single-round launch
+at that offset.  It returns each launch's ``[R, F, 2]`` output whole, so
+the caller copies it to the host once and slices it there.
 """
 
 from __future__ import annotations
@@ -47,6 +60,8 @@ class _Bucket:
     hi: torch.Tensor              # f32[n_fn_pad, dim]
     fn_ids: torch.Tensor          # int64 u32[n_fn_pad] global function ids
     block_forms: torch.Tensor     # i32[n_fn_pad // F_BLK] kernel form ids (CPU)
+    block_tcols: torch.Tensor     # i32[n_fn_pad // F_BLK] first transform col or -1 (CPU)
+    block_meta: torch.Tensor      # i32[2, n_fn_pad // F_BLK]: both, on the device
     slices: tuple[_Slice, ...]
     name: str
 
@@ -65,7 +80,9 @@ class FusionPlan:
 def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
     """Bucket a MultiFunctionSpec's fusable families by dimension.
 
-    Bucket tensors live on the families' device.
+    Bucket tensors live on the families' device; the per-block form ids
+    and transform columns are also kept on the CPU (``block_forms``,
+    ``block_tcols``) for the checks and the plain version.
 
     Args:
       spec: ``repro_torch.core.integrand.MultiFunctionSpec``.
@@ -81,7 +98,8 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
     unfused: list[int] = []
     for idx, fam in enumerate(families):
         form = registry.form(fam.kernel) if fam.kernel else None
-        if form is None or not form.supports(dim=fam.dim, sampler=sampler):
+        if form is None or not form.supports(dim=fam.dim, sampler=sampler,
+                                             compactified=fam.compact):
             unfused.append(idx)
             continue
         by_dim.setdefault(fam.dim, []).append(idx)
@@ -91,6 +109,7 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
         idxs = by_dim[dim]
         packed_parts, lo_parts, hi_parts, id_parts = [], [], [], []
         block_forms: list[int] = []
+        block_tcols: list[int] = []
         slices: list[_Slice] = []
         n_cols = max(template.packed_cols(registry.form(families[i].kernel),
                                           families[i]) for i in idxs)
@@ -113,16 +132,23 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
                                                 device=fam.device))
                 & rng.MASK32, pad))
             block_forms += [form.form_id] * (n_fn_pad // F_BLK)
+            block_tcols += ([template.transform_col(form, fam)]
+                            * (n_fn_pad // F_BLK))
             slices.append(_Slice(idx, row, n_fn))
             row += n_fn_pad
 
+        meta = torch.from_numpy(np.asarray([block_forms, block_tcols],
+                                           np.int32))
+        packed = torch.cat(packed_parts).contiguous()
         buckets.append(_Bucket(
             dim=dim,
-            packed=torch.cat(packed_parts).contiguous(),
+            packed=packed,
             lo=torch.cat(lo_parts).contiguous(),
             hi=torch.cat(hi_parts).contiguous(),
             fn_ids=torch.cat(id_parts),
-            block_forms=torch.from_numpy(np.asarray(block_forms, np.int32)),
+            block_forms=meta[0],
+            block_tcols=meta[1],
+            block_meta=template.to_card(meta, packed.device),
             slices=tuple(slices),
             name=f"mc_eval_fused_{sampler}_d{dim}f{row}c{n_cols}",
         ))
@@ -150,9 +176,69 @@ def eval_plan(plan: FusionPlan, n_samples: int, key, *, sample_offset=0):
         sums = template.fused_mc(
             scalars, bucket.fn_ids, bucket.packed, bucket.lo, bucket.hi,
             bucket.block_forms, dim=bucket.dim,
-            n_sample_blocks=n_sample_blocks)[0]
+            n_sample_blocks=n_sample_blocks,
+            block_tcols=bucket.block_tcols, block_meta=bucket.block_meta)[0]
         n = n_tensor(n_samples, sums.device)
         for sl in bucket.slices:
             rows = sums[sl.row_start:sl.row_start + sl.n_fn]
             out[sl.family_index] = SumsState(s1=rows[:, 0], s2=rows[:, 1], n=n)
     return out
+
+
+def _round_base_for(bucket: _Bucket, start_rounds, round_samples: int):
+    """u32 per-function-block window starts for a multi-round launch, as
+    an int64 CPU tensor.
+
+    ``start_rounds`` maps family_index -> absolute index of the first
+    round this launch evaluates for that family.  Blocks are per-family
+    by construction (families are padded to F_BLK multiples), so the
+    per-block value is exact.  Counters are u32: streams wrap at 2^32
+    samples, exactly like the scalar sample_offset path.
+    """
+    base = torch.zeros(bucket.fn_ids.shape[0] // F_BLK, dtype=torch.int64)
+    for sl in bucket.slices:
+        b0 = sl.row_start // F_BLK
+        nb = math.ceil(sl.n_fn / F_BLK)
+        start = int(start_rounds[sl.family_index]) * int(round_samples)
+        base[b0:b0 + nb] = start & rng.MASK32
+    return base
+
+
+def launch_plan_rounds(plan: FusionPlan, round_samples: int, n_rounds: int,
+                       key, *, start_rounds):
+    """R consecutive fixed-size rounds of every bucket, ONE launch each.
+
+    Args:
+      round_samples: samples per round (every round is full-size; the
+        service cache's round quantum).
+      n_rounds: consecutive rounds to evaluate per family.
+      start_rounds: family_index -> absolute first round index; families
+        may start at different depths (fused top-ups).
+    Returns:
+      ``({family_index: (bucket index, row_start, n_fn)}, outputs)``:
+      ``outputs[b]`` is bucket ``b``'s f32[n_rounds, n_fn_pad, 2] launch
+      output, left on the launch's device, and a family's round ``r``
+      sums are ``outputs[b][r, row_start:row_start + n_fn]``, each
+      bit-identical to the single-round :func:`eval_plan` call at
+      ``sample_offset = round * round_samples``.  The caller copies each
+      output to the host once and slices there (the service does), rather
+      than paying a device copy per (family, round).
+    """
+    if plan.sampler != "mc":
+        raise NotImplementedError(
+            "sampler='sobol' is not ported yet (ROADMAP queue 1 item 7)")
+    n_sample_blocks = max(1, math.ceil(int(round_samples) / S_BLK))
+    scalars = template.pack_scalars(key, 0, round_samples,
+                                    round_stride=round_samples)
+    where: dict[int, tuple[int, int, int]] = {}
+    outputs = []
+    for b, bucket in enumerate(plan.buckets):
+        outputs.append(template.fused_mc(
+            scalars, bucket.fn_ids, bucket.packed, bucket.lo, bucket.hi,
+            bucket.block_forms, dim=bucket.dim,
+            n_sample_blocks=n_sample_blocks, n_rounds=int(n_rounds),
+            round_base=_round_base_for(bucket, start_rounds, round_samples),
+            block_tcols=bucket.block_tcols, block_meta=bucket.block_meta))
+        for sl in bucket.slices:
+            where[sl.family_index] = (b, sl.row_start, sl.n_fn)
+    return where, outputs

@@ -18,8 +18,9 @@ Dispatch entry points:
   supports (dim, sampler), else ``None`` so the engine takes the chunked
   path.  This is what ``direct_mc._sums_with_ids`` calls.
 
-Forms of this slice advertise ``samplers=("mc",)`` and no wrapper stages
-(compactified, swept, adapted); those come with later slices.
+Forms of this slice advertise ``samplers=("mc",)`` and, of the wrapper
+stages, the compactification (``supports_compactified``, as ``repro``'s
+forms do); swept and adapted come with later slices.
 """
 
 from __future__ import annotations
@@ -52,8 +53,11 @@ class KernelForm:
       max_dim: largest supported integrand dimension.
       samplers: supported samplers.
       backends: where the form runs ("cuda" kernel, "cpu" plain version).
-      supports_compactified, supports_adapted, sweep_cols: wrapper stages;
-        none is ported yet.
+      supports_compactified: whether the body composes with the
+        compactification stage (the CUDA kernel's compactified blocks,
+        ``template.compactified_body`` in the plain version).
+      supports_adapted, sweep_cols: the other wrapper stages; not ported
+        yet, so no form may claim them.
     """
 
     name: str
@@ -64,11 +68,14 @@ class KernelForm:
     max_dim: int = _COUNTER_MAX_DIM
     samplers: tuple[str, ...] = ("mc",)
     backends: tuple[str, ...] = ("cuda", "cpu")
-    supports_compactified: bool = False
+    supports_compactified: bool = True
     sweep_cols: Callable[[int], dict[str, tuple[int, ...]]] | None = None
     supports_adapted: bool = False
 
-    def supports(self, *, dim: int, sampler: str = "mc") -> bool:
+    def supports(self, *, dim: int, sampler: str = "mc",
+                 compactified: bool = False) -> bool:
+        if compactified and not self.supports_compactified:
+            return False
         return sampler in self.samplers and 1 <= dim <= self.max_dim
 
 
@@ -76,6 +83,9 @@ def register_form(form: KernelForm) -> KernelForm:
     """Register a form and generate its single-family impl."""
     if form.name in _FORMS:
         raise ValueError(f"kernel form {form.name!r} already registered")
+    if form.sweep_cols is not None or form.supports_adapted:
+        raise ValueError(f"form {form.name!r}: the swept and adapted stages "
+                         "are not ported yet (ROADMAP queue 1 item 9)")
     if not 0 <= form.form_id < N_DEVICE_FORMS or form.form_id in _BY_ID:
         raise ValueError(
             f"form {form.name!r}: form_id {form.form_id} must be a free index "
@@ -116,21 +126,26 @@ def by_id(form_id: int) -> KernelForm:
 
 
 def lookup(name: str, *, dim: int, sampler: str = "mc",
+           compactified: bool = False,
            required: bool = False) -> Callable | None:
-    """Capability-checked dispatch: impl for (dim, sampler) or None.
+    """Capability-checked dispatch: impl for (dim, sampler, compactified)
+    or None.
 
     ``required=True`` turns the None into a ``ValueError`` naming the
     form, the request and what the form supports.
     """
     _load_builtin()
     f = _FORMS.get(name)
-    if f is not None and f.supports(dim=dim, sampler=sampler):
+    if f is not None and f.supports(dim=dim, sampler=sampler,
+                                    compactified=compactified):
         return _REGISTRY[name]
     if required:
         have = (f"form supports dim<={f.max_dim}, samplers={f.samplers}"
+                + (", compactified ok" if f.supports_compactified else "")
                 if f is not None else f"registered forms: {sorted(_FORMS)}")
         raise ValueError(f"kernel lookup missed for {name!r} "
-                         f"(dim={dim}, sampler={sampler!r}): {have}")
+                         f"(dim={dim}, sampler={sampler!r}, "
+                         f"compactified={compactified}): {have}")
     return None
 
 

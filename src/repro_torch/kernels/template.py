@@ -2,38 +2,50 @@
 plain PyTorch version (port of ``repro.kernels.template``).
 
 One launch covers a padded stack of functions, ``F_BLK`` rows per block,
-each block homogeneous in form.  Per function ``f``, sample ``s`` and dim
-``d`` it draws ``c0 = sample_offset + s`` (u32 wrap) and
-``c1 = fn_id * 256 + d``, turns Threefry-2x32 bits into a uniform, maps it
-into the box, evaluates the block's body and returns per-function
-``(sum f, sum f^2)`` over the samples below ``n_valid``.
+each block homogeneous in form, and ``n_rounds`` consecutive counter
+windows.  Per function ``f``, round ``r``, sample ``s`` and dim ``d`` it
+draws ``c0 = sample_offset + round_base[block] + r * round_stride + s``
+(u32 wrap) and ``c1 = fn_id * 256 + d``, turns Threefry-2x32 bits into a
+uniform, maps it into the box, evaluates the block's body (wrapped in
+the compactification stage in a compactified block) and returns
+per-round, per-function ``(sum f, sum f^2)`` over the samples below
+``n_valid``.  Round ``r`` of an R-round launch equals a single-round
+launch at that round's offset, bit for bit.
 
 * :func:`fused_mc` dispatches on the device of its tensors: CPU tensors
   go to :func:`fused_mc_plain`, CUDA tensors to :func:`fused_mc_cuda`
   (the hand-written kernel in ``csrc/fused_mc.cu``), anything else raises.
   There is no fallback from the kernel to the plain version.
-* :func:`fused_mc_plain` computes the same thing in plain PyTorch, blocked
-  over 2048-sample blocks whose sums are folded in order.
+* :func:`fused_mc_plain` computes the same thing in plain PyTorch, round
+  by round, blocked over 2048-sample blocks whose sums are folded in
+  order.
 * A registered form (:class:`repro_torch.kernels.registry.KernelForm`)
   supplies a body and a packer; :func:`make_family_impl` turns it into a
   single-family impl, ``mc_eval.multi`` into one launch per dim bucket.
+* :func:`body_and_packed` is the one place a compactified family grows
+  its transform columns: ``[base][kind_0..kind_{dim-1}][shift_0..]``.
 
 Operands (as ``repro``'s ``fused_mc_pallas``): ``scalars`` u32[4]
-``(k0, k1, sample_offset, n_valid)`` and ``block_forms`` i32[n_pad / 16]
-(the form id of each block) are host metadata and stay on the CPU;
+``(k0, k1, sample_offset, n_valid)`` or u32[5] with ``round_stride``
+appended, ``block_forms`` i32[n_pad / 16] (the form id of each block),
+``block_tcols`` i32[n_pad / 16] (-1 for a plain block, else the first
+transform column of a compactified one) and ``round_base`` u32[n_pad /
+16] are host metadata and stay on the CPU (u32 values as int64);
 ``fn_ids`` u32[n_pad] (int64 holding u32 values, or int32 bit patterns),
-``packed`` f32[n_pad, n_cols] and ``lo``/``hi`` f32[n_pad, dim] live on the
-device that runs the launch.  The result is f32[1, n_pad, 2].
+``packed`` f32[n_pad, n_cols] and ``lo``/``hi`` f32[n_pad, dim] live on
+the device that runs the launch.  The result is f32[n_rounds, n_pad, 2].
 """
 
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import domains as domains_lib
 from repro_torch.core import rng
 
 # Functions per block and samples per sample block (repro's tile).
@@ -44,15 +56,23 @@ CHUNK_SAMPLES = 8 * S_BLK
 # Elements (rows x samples x dims) the plain version draws per step.
 _PLAIN_STEP_ELEMS = 1 << 24
 
+# Launch counters.  The service launches from its worker thread while
+# other threads read and reset them, so every update holds the lock.
+_COUNT_LOCK = threading.Lock()
 # Fused dispatches on either device, as repro's launch counter.
 _LAUNCHES = 0
-# Launches of the CUDA kernel only (fused_mc_cuda).
-_KERNEL_LAUNCHES = 0
+# Launches of the CUDA kernel (fused_mc_cuda) by the variant they ran:
+# "fused_mc" (one round) and "fused_mc_rounds" (n_rounds > 1) split them;
+# "fused_mc_compactified" counts those that held at least one
+# compactified block.
+VARIANTS = ("fused_mc", "fused_mc_rounds", "fused_mc_compactified")
+_VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 
 def record_launch() -> None:
     global _LAUNCHES
-    _LAUNCHES += 1
+    with _COUNT_LOCK:
+        _LAUNCHES += 1
 
 
 def launch_count() -> int:
@@ -61,17 +81,28 @@ def launch_count() -> int:
 
 def reset_launch_count() -> None:
     global _LAUNCHES
-    _LAUNCHES = 0
+    with _COUNT_LOCK:
+        _LAUNCHES = 0
 
 
 def kernel_launch_count() -> int:
     """Launches of the CUDA kernel since the last reset."""
-    return _KERNEL_LAUNCHES
+    with _COUNT_LOCK:
+        return (_VARIANT_LAUNCHES["fused_mc"]
+                + _VARIANT_LAUNCHES["fused_mc_rounds"])
+
+
+def kernel_launch_counts() -> dict[str, int]:
+    """CUDA kernel launches by variant (see ``VARIANTS``) since the last
+    reset."""
+    with _COUNT_LOCK:
+        return dict(_VARIANT_LAUNCHES)
 
 
 def reset_kernel_launch_count() -> None:
-    global _KERNEL_LAUNCHES
-    _KERNEL_LAUNCHES = 0
+    """Zero the CUDA kernel's per-variant launch counts."""
+    with _COUNT_LOCK:
+        _VARIANT_LAUNCHES.update(dict.fromkeys(VARIANTS, 0))
 
 
 def pad_rows(x: torch.Tensor, n_pad: int) -> torch.Tensor:
@@ -81,23 +112,95 @@ def pad_rows(x: torch.Tensor, n_pad: int) -> torch.Tensor:
     return F.pad(x, [0, 0] * (x.ndim - 1) + [0, n_pad])
 
 
-def pack_scalars(key, sample_offset, n_samples) -> torch.Tensor:
-    """int64 CPU tensor of the u32 words (k0, k1, sample_offset, n_valid)."""
-    return torch.tensor([int(key[0]), int(key[1]), int(sample_offset),
-                         int(n_samples)], dtype=torch.int64) & rng.MASK32
+def pack_scalars(key, sample_offset, n_samples, round_stride=None) -> torch.Tensor:
+    """int64 CPU tensor of the u32 words (k0, k1, sample_offset, n_valid),
+    with ``round_stride`` appended for a multi-round launch."""
+    words = [int(key[0]), int(key[1]), int(sample_offset), int(n_samples)]
+    if round_stride is not None:
+        words.append(int(round_stride))
+    return torch.tensor(words, dtype=torch.int64) & rng.MASK32
+
+
+def compactified_body(body, base_cols: int):
+    """Wrap an eval body with the compactification stage (plain version
+    of the CUDA kernel's compactified blocks).
+
+    A compactified family's packed row carries, after its form's
+    ``base_cols`` columns, ``[kind_0..kind_{dim-1}, shift_0..shift_{dim-1}]``.
+    The wrapper maps each dimension's draw through
+    :func:`repro_torch.core.domains.apply_transform`, hands the body the
+    mapped draws, and multiplies its value by the Jacobian product.
+    """
+
+    def wrapped(draw, p, dim: int):
+        xs = []
+        jac = None
+        for d in range(dim):
+            x, j = domains_lib.apply_transform(
+                draw(d), p[:, base_cols + d:base_cols + d + 1],
+                p[:, base_cols + dim + d:base_cols + dim + d + 1])
+            xs.append(x)
+            jac = j if jac is None else jac * j
+        return body(lambda d: xs[d], p, dim) * jac
+
+    wrapped.__name__ = f"compactified_{getattr(body, '__name__', 'body')}"
+    return wrapped
+
+
+def transform_cols(family) -> torch.Tensor:
+    """f32[n_fn, 2 * dim] packed (kind, shift) columns of a compactified
+    family, appended after its form's own parameter columns."""
+    aux = family.params["aux"]
+    return torch.cat([aux["kind"].to(torch.float32),
+                      aux["shift"].to(torch.float32)], dim=1)
 
 
 def packed_cols(form, family) -> int:
-    """Packed width of ``family`` under ``form`` (plain families only)."""
-    return form.n_cols(family.dim)
+    """Packed width of ``family`` under ``form``, transform columns
+    included."""
+    return form.n_cols(family.dim) + (2 * family.dim if family.compact else 0)
+
+
+def transform_col(form, family) -> int:
+    """First transform column of ``family``'s packed rows, or -1 when it
+    is not compactified (the per-block ``block_tcols`` value)."""
+    return form.n_cols(family.dim) if family.compact else -1
 
 
 def body_and_packed(form, family):
-    """The (eval body, f32[n_fn, n_cols]) pair of one plain family."""
-    return form.body, form.pack_params(family).to(torch.float32)
+    """The (plain eval body, f32[n_fn, cols]) pair of one family.
+
+    A compactified family gets the :func:`compactified_body` wrapper and
+    its ``[base][transform]`` columns; others pass through.  Callers must
+    have checked ``form.supports(..., compactified=family.compact)``.
+    """
+    packed = form.pack_params(family.inner()).to(torch.float32)
+    if not family.compact:
+        return form.body, packed
+    body = compactified_body(form.body, form.n_cols(family.dim))
+    return body, torch.cat([packed, transform_cols(family)], dim=1)
 
 
-def _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim):
+def to_card(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` (CPU) on ``device`` without waiting for the card: a CUDA
+    copy goes through pinned memory, since a copy from pageable memory
+    first waits for all the work already queued on the stream."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _host_meta(name, t, n_blocks):
+    if t.device.type != "cpu":
+        raise ValueError(f"{name} is host metadata and must be a CPU "
+                         f"tensor; got {t.device}")
+    if tuple(t.shape) != (n_blocks,):
+        raise ValueError(f"{name} must be ({n_blocks},); got {tuple(t.shape)}")
+
+
+def _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
+                    n_rounds, round_base, block_tcols):
     n_pad = fn_ids.shape[0]
     if fn_ids.ndim != 1 or n_pad == 0 or n_pad % F_BLK:
         raise ValueError(f"fn_ids must be 1-d with a positive multiple of "
@@ -118,89 +221,140 @@ def _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim):
                              f"{packed.device}")
     if fn_ids.dtype not in (torch.int64, torch.int32, torch.uint32):
         raise TypeError(f"fn_ids must hold u32 values; got {fn_ids.dtype}")
-    for name, t in (("scalars", scalars), ("block_forms", block_forms)):
-        if t.device.type != "cpu":
-            raise ValueError(f"{name} is host metadata and must be a CPU "
-                             f"tensor; got {t.device}")
-    if tuple(scalars.shape) != (4,):
-        raise ValueError(f"scalars must be u32[4]; got {tuple(scalars.shape)}")
-    if tuple(block_forms.shape) != (n_pad // F_BLK,):
-        raise ValueError(f"block_forms must be ({n_pad // F_BLK},); got "
-                         f"{tuple(block_forms.shape)}")
     if dim < 1:
         raise ValueError(f"dim must be >= 1; got {dim}")
+    if n_rounds < 1:
+        raise ValueError(f"n_rounds must be >= 1; got {n_rounds}")
+    if scalars.device.type != "cpu" or tuple(scalars.shape) not in ((4,), (5,)):
+        raise ValueError(f"scalars must be u32[4], or u32[5] with "
+                         f"round_stride, on the CPU; got "
+                         f"{tuple(scalars.shape)} on {scalars.device}")
+    if n_rounds > 1 and scalars.shape[0] < 5:
+        raise ValueError("multi-round launches need scalars[4] = round_stride "
+                         "(pack_scalars(..., round_stride=...))")
+    n_blocks = n_pad // F_BLK
+    _host_meta("block_forms", block_forms, n_blocks)
+    if round_base is not None:
+        _host_meta("round_base", round_base, n_blocks)
+    if block_tcols is not None:
+        _host_meta("block_tcols", block_tcols, n_blocks)
+        tc = block_tcols.tolist()
+        if any(t != -1 and not 0 <= t <= packed.shape[1] - 2 * dim for t in tc):
+            raise ValueError(f"block_tcols must be -1 or leave 2 * dim = "
+                             f"{2 * dim} transform columns inside the "
+                             f"{packed.shape[1]} packed columns; got {tc}")
+
+
+def _round_words(scalars, n_rounds: int, round_base, n_blocks: int):
+    """(k0, k1, sample_offset, n_valid, round_stride, u32 round_base per
+    block) as python ints and an int64 tensor."""
+    words = [int(v) for v in scalars.tolist()]
+    k0, k1, offset, n_valid = words[:4]
+    stride = words[4] if len(words) > 4 else 0
+    base = (torch.zeros(n_blocks, dtype=torch.int64) if round_base is None
+            else rng.as_u32(round_base))
+    return k0, k1, offset, n_valid, stride, base
 
 
 def fused_mc(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
-             n_sample_blocks: int) -> torch.Tensor:
+             n_sample_blocks: int, n_rounds: int = 1, round_base=None,
+             block_tcols=None, block_meta=None) -> torch.Tensor:
     """One fused launch: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors; raises on any other device."""
+    version for CPU tensors; raises on any other device.  ``block_meta``
+    only spares the CUDA kernel a copy (see :func:`fused_mc_cuda`)."""
     record_launch()
     kind = packed.device.type
+    kw = dict(dim=dim, n_sample_blocks=n_sample_blocks, n_rounds=n_rounds,
+              round_base=round_base, block_tcols=block_tcols)
     if kind == "cuda":
         return fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms,
-                             dim=dim, n_sample_blocks=n_sample_blocks)
+                             block_meta=block_meta, **kw)
     if kind == "cpu":
-        return fused_mc_plain(scalars, fn_ids, packed, lo, hi, block_forms,
-                              dim=dim, n_sample_blocks=n_sample_blocks)
+        return fused_mc_plain(scalars, fn_ids, packed, lo, hi, block_forms, **kw)
     raise ValueError(f"fused_mc runs on 'cuda' or 'cpu' tensors; got {kind!r}")
 
 
 def fused_mc_plain(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
-                   n_sample_blocks: int) -> torch.Tensor:
+                   n_sample_blocks: int, n_rounds: int = 1, round_base=None,
+                   block_tcols=None) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel, on the tensors' device.
 
-    Draws whole 2048-sample blocks (several per step, bounded by
-    ``_PLAIN_STEP_ELEMS``), evaluates each form's body on its rows, and
-    folds the per-block sums in block order.
+    Loops over rounds; each round draws whole 2048-sample blocks (several
+    per step, bounded by ``_PLAIN_STEP_ELEMS``) at its rows' window
+    starts, evaluates each (form, compactified) group's body on its rows,
+    and folds the per-block sums in block order.  Every round runs the
+    same code on the same shapes, so round ``r`` equals a single-round
+    call at that round's offset bit for bit.
     """
     from repro_torch.kernels import registry
-    _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim)
-    k0, k1, offset, n_valid = (int(v) for v in scalars.tolist())
-    device = packed.device
+    _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
+                    n_rounds, round_base, block_tcols)
     n_pad = fn_ids.shape[0]
+    k0, k1, offset, n_valid, stride, base = _round_words(
+        scalars, n_rounds, round_base, n_pad // F_BLK)
+    device = packed.device
     c1 = rng.counter_c1(rng.as_u32(fn_ids)[:, None],
                         torch.arange(dim, dtype=torch.int64, device=device))
     width = hi - lo
     row_forms = np.repeat(block_forms.numpy().astype(np.int64), F_BLK)
-    groups = [(registry.by_id(f).body,
-               torch.from_numpy(np.flatnonzero(row_forms == f)).to(device))
-              for f in np.unique(row_forms)]
+    row_tcols = np.repeat(
+        np.full(n_pad // F_BLK, -1, np.int64) if block_tcols is None
+        else block_tcols.numpy().astype(np.int64), F_BLK)
+    groups = []
+    for f, t in sorted(set(zip(row_forms.tolist(), row_tcols.tolist()))):
+        body = registry.by_id(f).body
+        if t >= 0:
+            body = compactified_body(body, t)
+        rows = np.flatnonzero((row_forms == f) & (row_tcols == t))
+        groups.append((body, torch.from_numpy(rows).to(device)))
+    row_base = torch.repeat_interleave(base, F_BLK).to(device)
     step = max(1, min(n_sample_blocks,
                       _PLAIN_STEP_ELEMS // (n_pad * S_BLK * dim)))
-    acc = torch.zeros(n_pad, 2, dtype=torch.float32, device=device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    for j0 in range(0, n_sample_blocks, step):
-        k = min(step, n_sample_blocks - j0)
-        local = j0 * S_BLK + torch.arange(k * S_BLK, dtype=torch.int64,
-                                          device=device)
-        c0 = (offset + local) & rng.MASK32
-        u = rng.bits_to_uniform(
-            rng.random_bits(k0, k1, c0[None, :, None], c1[:, None, :]))
-        x = lo[:, None, :] + u * width[:, None, :]
-        vals = torch.empty(n_pad, k * S_BLK, dtype=torch.float32,
-                           device=device)
-        for body, rows in groups:
-            xr = x[rows]
-            vals[rows] = body(lambda d, xr=xr: xr[:, :, d], packed[rows], dim)
-        vals = torch.where(local[None, :] < n_valid, vals, zero)
-        vals = vals.view(n_pad, k, S_BLK)
-        part = torch.stack([vals.sum(-1), (vals * vals).sum(-1)], dim=-1)
-        for i in range(k):
-            acc = acc + part[:, i]
-    return acc[None]
+    out = []
+    for r in range(n_rounds):
+        window = (offset + row_base + r * stride) & rng.MASK32
+        acc = torch.zeros(n_pad, 2, dtype=torch.float32, device=device)
+        for j0 in range(0, n_sample_blocks, step):
+            k = min(step, n_sample_blocks - j0)
+            local = j0 * S_BLK + torch.arange(k * S_BLK, dtype=torch.int64,
+                                              device=device)
+            c0 = (window[:, None] + local[None, :]) & rng.MASK32
+            u = rng.bits_to_uniform(
+                rng.random_bits(k0, k1, c0[:, :, None], c1[:, None, :]))
+            x = lo[:, None, :] + u * width[:, None, :]
+            vals = torch.empty(n_pad, k * S_BLK, dtype=torch.float32,
+                               device=device)
+            for body, rows in groups:
+                xr = x[rows]
+                vals[rows] = body(lambda d, xr=xr: xr[:, :, d], packed[rows],
+                                  dim)
+            vals = torch.where(local[None, :] < n_valid, vals, zero)
+            vals = vals.view(n_pad, k, S_BLK)
+            part = torch.stack([vals.sum(-1), (vals * vals).sum(-1)], dim=-1)
+            for i in range(k):
+                acc = acc + part[:, i]
+        out.append(acc)
+    return torch.stack(out)
 
 
 def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
-                  n_sample_blocks: int) -> torch.Tensor:
+                  n_sample_blocks: int, n_rounds: int = 1, round_base=None,
+                  block_tcols=None, block_meta=None) -> torch.Tensor:
     """Launch the CUDA kernel (``csrc/fused_mc.cu``) on the current stream.
 
     Checks device, dtype, shape and contiguity, allocates the output and
     the pass-1 scratch, and raises if the launch reports a CUDA error.
+    ``block_meta`` is ``block_forms`` and ``block_tcols`` already on the
+    card as int32[2, n_blocks] (``multi.plan_spec`` puts them there once
+    per plan); without it they are copied with :func:`to_card` on every
+    launch.  ``round_base``, when given, is copied the same way; without
+    it the kernel starts every block's window at ``sample_offset``.
+    Nothing here waits for the card.
     """
-    global _KERNEL_LAUNCHES
     from repro_torch.kernels import build
-    _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim)
+    _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
+                    n_rounds, round_base, block_tcols)
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"fused_mc_cuda needs CUDA tensors; got {device}")
@@ -211,25 +365,45 @@ def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
     if lib.zmc_chunk_samples() != CHUNK_SAMPLES:
         raise RuntimeError("csrc/fused_mc.cu CHUNK_SAMPLES disagrees with "
                            "template.CHUNK_SAMPLES")
-    k0, k1, offset, n_valid = (int(v) for v in scalars.tolist())
     n_pad, n_cols = packed.shape
+    n_blocks = n_pad // F_BLK
+    k0, k1, offset, n_valid, stride, base = _round_words(
+        scalars, n_rounds, round_base, n_blocks)
     n_eff = min(n_valid, n_sample_blocks * S_BLK)
     n_chunks = max(1, math.ceil(n_eff / CHUNK_SAMPLES))
     fid = rng.u32_bits(rng.as_u32(fn_ids)).contiguous()
-    forms = block_forms.to(torch.int32).to(device).contiguous()
-    scratch = torch.empty(n_pad, n_chunks, 2, dtype=torch.float32,
+    tcols = (torch.full((n_blocks,), -1, dtype=torch.int32)
+             if block_tcols is None else block_tcols.to(torch.int32))
+    has_compact = bool((tcols >= 0).any())
+    if block_meta is None:
+        block_meta = to_card(torch.stack([block_forms.to(torch.int32), tcols]),
+                             device)
+    elif (block_meta.device != device or block_meta.dtype != torch.int32
+          or tuple(block_meta.shape) != (2, n_blocks)
+          or not block_meta.is_contiguous()):
+        raise ValueError(f"block_meta must be contiguous int32 (2, {n_blocks}) "
+                         f"on {device}; got {block_meta.dtype} "
+                         f"{tuple(block_meta.shape)} on {block_meta.device}")
+    base_dev = (None if round_base is None
+                else to_card(rng.u32_bits(base), device))
+    scratch = torch.empty(n_rounds, n_pad, n_chunks, 2, dtype=torch.float32,
                           device=device)
-    out = torch.empty(1, n_pad, 2, dtype=torch.float32, device=device)
+    out = torch.empty(n_rounds, n_pad, 2, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.zmc_fused_mc(k0, k1, offset, n_eff, fid.data_ptr(),
-                               forms.data_ptr(), packed.data_ptr(), n_cols,
-                               lo.data_ptr(), hi.data_ptr(), dim, n_pad,
-                               n_chunks, scratch.data_ptr(), out.data_ptr(),
-                               stream)
+        err = lib.zmc_fused_mc(k0, k1, offset, n_eff, stride, n_rounds,
+                               None if base_dev is None else base_dev.data_ptr(),
+                               fid.data_ptr(), block_meta[0].data_ptr(),
+                               block_meta[1].data_ptr(),
+                               int(has_compact), packed.data_ptr(), n_cols,
+                               lo.data_ptr(), hi.data_ptr(), dim, n_pad, n_chunks,
+                               scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"zmc_fused_mc launch failed with CUDA error {err}")
-    _KERNEL_LAUNCHES += 1
+    with _COUNT_LOCK:
+        _VARIANT_LAUNCHES["fused_mc_rounds" if n_rounds > 1 else "fused_mc"] += 1
+        if has_compact:
+            _VARIANT_LAUNCHES["fused_mc_compactified"] += 1
     return out
 
 
@@ -265,13 +439,16 @@ def make_family_impl(form):
     def impl(family, n_samples: int, key, *, fn_offset: int = 0,
              sample_offset=0, fn_ids=None) -> SumsState:
         n_fn, dim = family.n_fn, family.dim
-        if not form.supports(dim=dim):
-            raise ValueError(f"kernel {form.name!r} does not support dim={dim}")
+        if not form.supports(dim=dim, compactified=family.compact):
+            raise ValueError(f"kernel {form.name!r} does not support dim={dim}"
+                             + (" on a compactified family"
+                                if family.compact else ""))
         device = family.device
         if fn_ids is None:
             fn_ids = fn_offset + torch.arange(n_fn, dtype=torch.int64,
                                               device=device)
         pad = math.ceil(n_fn / F_BLK) * F_BLK - n_fn
+        n_blocks = (n_fn + pad) // F_BLK
         _, packed = body_and_packed(form, family)
         out = fused_mc(
             pack_scalars(key, sample_offset, n_samples),
@@ -279,9 +456,10 @@ def make_family_impl(form):
             pad_rows(packed, pad).contiguous(),
             pad_rows(family.domains[..., 0], pad).contiguous(),
             pad_rows(family.domains[..., 1], pad).contiguous(),
-            torch.full(((n_fn + pad) // F_BLK,), form.form_id,
-                       dtype=torch.int32),
-            dim=dim, n_sample_blocks=max(1, math.ceil(int(n_samples) / S_BLK)))[0]
+            torch.full((n_blocks,), form.form_id, dtype=torch.int32),
+            dim=dim, n_sample_blocks=max(1, math.ceil(int(n_samples) / S_BLK)),
+            block_tcols=torch.full((n_blocks,), transform_col(form, family),
+                                   dtype=torch.int32))[0]
         return SumsState(s1=out[:n_fn, 0], s2=out[:n_fn, 1],
                          n=n_tensor(n_samples, device))
 

@@ -91,3 +91,156 @@ def test_solver_on_card_vs_cpu(cuda):
     cpu = ZMCMultiFunctions(_spec("cpu"), device="cpu", **kw).evaluate(2)
     np.testing.assert_allclose(gpu.means, cpu.means, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(gpu.stderrs, cpu.stderrs, rtol=1e-3, atol=1e-3)
+
+
+# -- multi-round launches and the compactified stage -------------------------
+
+def _round_case(device, n_rounds=3):
+    (b,) = multi.plan_spec(_spec(device)).buckets
+    n_blocks = b.fn_ids.shape[0] // 16
+    # window starts at other depths per block, one just below 2^32 so the
+    # rounds cross the u32 wrap
+    base = torch.tensor([(i * 7 * 4096) for i in range(n_blocks)],
+                        dtype=torch.int64)
+    base[-1] = 2**32 - 5000
+    return b, base
+
+
+def test_rounds_bit_identical_to_single_rounds(cuda):
+    b, base = _round_case(cuda)
+    key, n, stride, n_rounds = rng.fold_key(5, 2), 20_000, 20_000, 3
+    nsb = math.ceil(n / template.S_BLK)
+    template.reset_kernel_launch_count()
+    multi_round = template.fused_mc_cuda(
+        template.pack_scalars(key, 11, n, round_stride=stride), b.fn_ids,
+        b.packed, b.lo, b.hi, b.block_forms, dim=b.dim, n_sample_blocks=nsb,
+        n_rounds=n_rounds, round_base=base, block_tcols=b.block_tcols)
+    assert template.kernel_launch_count() == 1
+    assert multi_round.shape == (n_rounds, b.fn_ids.shape[0], 2)
+    for r in range(n_rounds):
+        single = template.fused_mc_cuda(
+            template.pack_scalars(key, 11 + r * stride, n), b.fn_ids,
+            b.packed, b.lo, b.hi, b.block_forms, dim=b.dim,
+            n_sample_blocks=nsb, round_base=base, block_tcols=b.block_tcols)[0]
+        assert torch.equal(multi_round[r].view(torch.int32),
+                           single.view(torch.int32))
+    plain = template.fused_mc_plain(
+        template.pack_scalars(key, 11, n, round_stride=stride), b.fn_ids,
+        b.packed, b.lo, b.hi, b.block_forms, dim=b.dim, n_sample_blocks=nsb,
+        n_rounds=n_rounds, round_base=base, block_tcols=b.block_tcols)
+    real = torch.cat([torch.arange(s.row_start, s.row_start + s.n_fn)
+                      for s in b.slices]).to(cuda)
+    torch.testing.assert_close(multi_round[:, real], plain[:, real],
+                               rtol=1e-4, atol=1e-2)
+
+
+def _compact_spec(device):
+    inf = float("inf")
+    return integrand.MultiFunctionSpec.from_families([
+        integrand.gaussian_family(9, 3, lo=-inf, hi=inf),
+        integrand.gaussian_family(7, 3, lo=0.0, hi=inf),
+        integrand.gaussian_family(5, 3, lo=-inf, hi=0.5),
+        integrand.harmonic_family(20, 3),
+        genz.oscillatory(6, 3)[0],
+    ]).to(device)
+
+
+def test_compactified_kernel_vs_plain(cuda):
+    spec = ZMCMultiFunctions(_compact_spec(cuda), device="cuda").spec
+    (b,) = multi.plan_spec(spec).buckets
+    assert sorted(set(b.block_tcols.tolist())) == [-1, 1]
+    key, n = rng.fold_key(6, 3), 65536
+    nsb = n // template.S_BLK
+    args = (template.pack_scalars(key, 0, n), b.fn_ids, b.packed, b.lo, b.hi,
+            b.block_forms)
+    got = template.fused_mc_cuda(*args, dim=b.dim, n_sample_blocks=nsb,
+                                 block_tcols=b.block_tcols)[0]
+    want = template.fused_mc_plain(*args, dim=b.dim, n_sample_blocks=nsb,
+                                   block_tcols=b.block_tcols)[0]
+    real = torch.cat([torch.arange(s.row_start, s.row_start + s.n_fn)
+                      for s in b.slices]).to(cuda)
+    assert torch.isfinite(got[real]).all()
+    torch.testing.assert_close(got[real], want[real], rtol=1e-4, atol=1e-2)
+
+
+def test_pipelined_service_on_card(cuda):
+    from repro_torch.launch.serve_integrals import demo_workload
+    from repro_torch.service import IntegrationEngine
+
+    def serve(device, thread):
+        engine = IntegrationEngine(round_samples=4096, device=device,
+                                   max_rounds_per_wave=4)
+        try:
+            reqs = demo_workload(14, n_fn=4, n_samples=8192)
+            if thread:
+                engine.start()
+                tickets = [engine.submit(r) for r in reqs]
+                out = [engine.result(t, timeout=300.0) for t in tickets]
+            else:
+                tickets = [engine.submit(r) for r in reqs]
+                while engine.step():
+                    pass
+                out = [engine.poll(t) for t in tickets]
+        finally:
+            engine.close(timeout=60.0)
+        return engine, out
+
+    engine, gpu = serve("cuda", thread=True)
+    assert engine.batcher.fallback_rounds == 0
+    _, cpu = serve("cpu", thread=False)
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_allclose(g.means, c.means, rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(g.stderrs, c.stderrs, rtol=1e-3, atol=1e-3)
+
+
+def test_chunked_service_on_card(cuda):
+    """The chunked path on the card (``use_kernel=False``): every wave's
+    sums are copied to the host behind the wave's event, so the served
+    means equal the CPU run's."""
+    from repro_torch.launch.serve_integrals import demo_workload
+    from repro_torch.service import IntegrationEngine
+
+    def serve(device, thread):
+        engine = IntegrationEngine(round_samples=4096, device=device,
+                                   use_kernel=False, max_rounds_per_wave=2)
+        try:
+            reqs = demo_workload(10, n_fn=4, n_samples=8192)
+            if thread:
+                engine.start()
+                tickets = [engine.submit(r) for r in reqs]
+                out = [engine.result(t, timeout=300.0) for t in tickets]
+            else:
+                tickets = [engine.submit(r) for r in reqs]
+                while engine.step():
+                    pass
+                out = [engine.poll(t) for t in tickets]
+        finally:
+            engine.close(timeout=60.0)
+        return engine, out
+
+    engine, gpu = serve("cuda", thread=True)
+    assert engine.batcher.fallback_rounds > 0
+    _, cpu = serve("cpu", thread=False)
+    for g, c in zip(gpu, cpu):
+        assert np.isfinite(g.means).all() and (g.stderrs > 0).all()
+        np.testing.assert_allclose(g.means, c.means, rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(g.stderrs, c.stderrs, rtol=1e-3, atol=1e-3)
+
+
+def test_plan_metadata_on_card_bit_identical(cuda):
+    """A launch with the plan's on-card block metadata and no round bases
+    (the kernel starts every window at sample_offset) equals one that
+    copies both from the host."""
+    (b,) = multi.plan_spec(ZMCMultiFunctions(_compact_spec(cuda),
+                                             device="cuda").spec).buckets
+    assert b.block_meta.device == b.packed.device
+    key, n = rng.fold_key(8, 1), 40_000
+    args = (template.pack_scalars(key, 77, n), b.fn_ids, b.packed, b.lo, b.hi,
+            b.block_forms)
+    kw = dict(dim=b.dim, n_sample_blocks=math.ceil(n / template.S_BLK),
+              block_tcols=b.block_tcols)
+    on_card = template.fused_mc_cuda(*args, block_meta=b.block_meta, **kw)
+    copied = template.fused_mc_cuda(
+        *args, round_base=torch.zeros(b.block_forms.shape[0], dtype=torch.int64),
+        **kw)
+    assert torch.equal(on_card.view(torch.int32), copied.view(torch.int32))

@@ -1,8 +1,9 @@
 """Host build of the CUDA kernel's device header.
 
 ``src/repro_torch/kernels/csrc/zmc_device.cuh`` holds the per-sample
-arithmetic of the fused kernel (Threefry, the uniform, the affine map and
-the five eval bodies) as host/device inline functions.  This test
+arithmetic of the fused kernel (Threefry, the uniform, the affine map,
+the five eval bodies and the compactification's per-axis map) as
+host/device inline functions.  This test
 compiles it with g++ through a small C shim into a shared library, loads
 it with ctypes, and holds it against the port's plain PyTorch versions:
 Threefry bit for bit, the bodies within 1e-5 relative (plus an absolute
@@ -43,6 +44,16 @@ void host_body(int form, int dim, const float* p, int n_cols, const float* x,
   for (long i = 0; i < n; ++i)
     out[i] = zmc::eval_point_form(form, p + i * n_cols, x + i * dim, dim);
 }
+void host_transform(const float* u, const float* kind, const float* shift,
+                    long n, float* x, float* jac) {
+  for (long i = 0; i < n; ++i) x[i] = zmc::apply_transform(u[i], kind[i], shift[i], jac + i);
+}
+// a compactified row: transform columns from tcol
+void host_body_compact(int form, int dim, const float* p, int n_cols, int tcol,
+                       const float* x, long n, float* out) {
+  for (long i = 0; i < n; ++i)
+    out[i] = zmc::eval_point_compact(form, p + i * n_cols, tcol, x + i * dim, dim);
+}
 }
 """
 
@@ -64,7 +75,12 @@ def lib(tmp_path_factory):
     out.host_uniform.argtypes = [ptr, ptr, ctypes.c_long]
     out.host_body.argtypes = [ctypes.c_int, ctypes.c_int, ptr, ctypes.c_int,
                               ptr, ctypes.c_long, ptr]
-    for f in (out.host_random_bits, out.host_uniform, out.host_body):
+    out.host_transform.argtypes = [ptr, ptr, ptr, ctypes.c_long, ptr, ptr]
+    out.host_body_compact.argtypes = [ctypes.c_int, ctypes.c_int, ptr,
+                                      ctypes.c_int, ctypes.c_int, ptr,
+                                      ctypes.c_long, ptr]
+    for f in (out.host_random_bits, out.host_uniform, out.host_body,
+              out.host_transform, out.host_body_compact):
         f.restype = None
     return out
 
@@ -121,3 +137,45 @@ def test_unknown_form_is_nan(lib):
     got = np.zeros(1, np.float32)
     lib.host_body(registry.N_DEVICE_FORMS, 2, _ptr(p), 4, _ptr(x), 1, _ptr(got))
     assert np.isnan(got[0])
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3])
+def test_apply_transform_matches_plain(lib, kind):
+    from repro_torch.core import domains
+    r = np.random.default_rng(kind + 40)
+    n = 4_000
+    u = r.uniform(0.0, 1.0, n).astype(np.float32)
+    u[:5] = [0.0, 1e-9, 0.5, 1 - 1e-7, 0.99999994]        # the clamp edges
+    k = np.full(n, kind, np.float32)                        # f32, as packed
+    shift = r.uniform(-3.0, 3.0, n).astype(np.float32)
+    x, jac = np.empty(n, np.float32), np.empty(n, np.float32)
+    lib.host_transform(_ptr(u), _ptr(k), _ptr(shift), n, _ptr(x), _ptr(jac))
+    wx, wj = domains.apply_transform(torch.from_numpy(u), torch.from_numpy(k),
+                                     torch.from_numpy(shift))
+    # near the poles the Jacobian reaches ~1e14, so compare relatively
+    np.testing.assert_allclose(x, wx.numpy(), rtol=2e-6, atol=1e-6)
+    np.testing.assert_allclose(jac, wj.numpy(), rtol=2e-6, atol=1e-6)
+
+
+# (a harmonic of a compactified axis takes cos of x up to ~1e7, where one
+# ulp of x is a different phase: ill-conditioned, as repro's own tests note)
+@pytest.mark.parametrize("form_name", ["mc_eval_gaussian", "mc_eval_abs_sum"])
+def test_compactified_body_matches_plain(lib, form_name):
+    from repro_torch.kernels import template
+    form = registry.form(form_name)
+    dim = 3
+    r = np.random.default_rng(7)
+    n = 2_000
+    base = form.n_cols(dim)
+    p = np.concatenate([
+        r.uniform(0.5, 2.0, (n, base)),
+        r.integers(0, 4, (n, dim)),                         # kinds
+        r.uniform(-1.0, 1.0, (n, dim))], axis=1).astype(np.float32)
+    x = r.uniform(0.0, 1.0, (n, dim)).astype(np.float32)
+    got = np.empty(n, np.float32)
+    lib.host_body_compact(form.form_id, dim, _ptr(p), p.shape[1], base,
+                          _ptr(x), n, _ptr(got))
+    xt = torch.from_numpy(x)[:, None, :]
+    body = template.compactified_body(form.body, base)
+    want = body(lambda d: xt[:, :, d], torch.from_numpy(p), dim)[:, 0]
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-6)

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import direct_mc, genz, integrand, rng
+from repro_torch.core import direct_mc, domains, genz, integrand, rng
 from repro_torch.core.multifunctions import ZMCMultiFunctions
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import StepWatchdog, run_with_restarts
@@ -65,8 +65,10 @@ def test_not_ported_options_raise():
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         ZMCMultiFunctions(_spec(), sampler="sobol", device="cpu")
     fam = integrand.gaussian_family(2, 2, lo=-np.inf, hi=np.inf)
-    with pytest.raises(NotImplementedError, match="infinite box"):
-        ZMCMultiFunctions([fam], device="cpu")
+    # infinite boxes are ported now: the solver compactifies them
+    zmc = ZMCMultiFunctions([fam], device="cpu")
+    assert zmc.spec.families[0].compact
+    assert domains.is_finite_box(zmc.spec.families[0].domains)
     with pytest.raises(NotImplementedError, match="sobol"):
         direct_mc.family_sums(fam, 10, (0, 0), sampler="sobol")
 

@@ -32,6 +32,14 @@ def test_files_found():
     assert len(FILES) > 15
 
 
+@pytest.mark.parametrize("part", ["obs", "service", "analysis",
+                                  "launch/serve_integrals.py"])
+def test_scan_covers_service_slice(part):
+    """The service slice's subpackages are among the scanned files."""
+    root = ROOT / "src" / "repro_torch" / part
+    assert any(p == root or root in p.parents for p in FILES), part
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
     bad = sorted(n for n in _imported(path) if _forbidden(n))

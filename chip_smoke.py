@@ -7,12 +7,14 @@ Run from the root of a checkout, with no arguments:
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc, checks them against their plain PyTorch versions on the card,
-and drives the port's two paths: ``ZMCMultiFunctions(spec,
+and drives the port's paths: ``ZMCMultiFunctions(spec,
 use_kernel=True).evaluate()`` on the paper's Fig.-1 workload (1200
-integrands, five forms, dims 2-4) at 10^6 samples x 10 trials, and the
-integration service (``repro_torch.service.IntegrationEngine`` through
-``python -m repro_torch.launch.serve_integrals``) on the launcher's
-default workload and on the Fig.-1 spec served as requests:
+integrands, five forms, dims 2-4) at 10^6 samples x 10 trials, with the
+MC and the Sobol sampler, and the integration service
+(``repro_torch.service.IntegrationEngine``, also through ``python -m
+repro_torch.launch.serve_integrals``) on the launcher's default workload,
+on the Fig.-1 spec served as requests (MC and Sobol) and on a full-width
+parameter sweep (MC and Sobol):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -57,8 +59,31 @@ default workload and on the Fig.-1 spec served as requests:
    samples in rounds of 65536 (16 rounds, R = 8: 2 waves x 3 buckets = 6
    launches), held against ``evaluate(n_samples=2^20)`` (the same
    counters) within 1e-2 of a standard error, with the wall split into
-   kernel and host time; then prints the ``{"kernels": [...]}`` line, one
-   entry per kernel variant.
+   kernel and host time;
+13. the device Sobol points and shifts (``zmc_sobol``) bit-exact against
+   ``core.sobol`` on 2^17 indices crossing 2^32, at every dim 1-8;
+14. Sobol on the Fig.-1 spec: kernel vs plain raw sums at N = 65536
+   (rtol=1e-4, atol=1e-2), repeat launches and each round of an R = 4
+   launch sha256-equal to single launches; ``evaluate(num_trials=10)``
+   with ``sampler="sobol"`` at N = 10^6 (30 launches, all Sobol), 2-sigma
+   coverage of the harmonics, the median MC-to-Sobol ratio of
+   ``trial_std``, and the kernel timed and held against the plain version
+   at N = 10^6 within the tolerance of step 7, beside its bound (each
+   distinct point counted once) and the instruction mix of its pass-1
+   instantiation;
+15. service configuration 3, a parameter sweep: the Fig.-1 4-d harmonic
+   template over a 32 x 32 (a, b) grid (16 canonical slices of 64), 2^20
+   samples per point in rounds of 65536, R = 8, once per sampler: one
+   launch per wave, no fallback, each launch held round by round against
+   the plain version with the same rounds, window starts and sweep
+   pairs, slice 0's 64 points sha256-equal to per-point families launched
+   with the same fn ids and windows, one wave timed against its bound,
+   the overlapping prefix sweep a[:16] x b served with 0 launches, and a
+   traced run's split of the wall by pipeline stage;
+16. service configuration 2 with ``sampler="sobol"`` held against
+   ``evaluate(sampler="sobol", n_samples=2^20)``; then prints the
+   ``{"kernels": [...]}`` line, one entry per kernel variant (the Sobol
+   sweep's launches as ``fused_mc_sobol_swept``).
 
 Every path is driven with the kernel's launch counters set to 0 just
 before it and read just after; a variant the path should run and did
@@ -118,10 +143,20 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_PER_AXIS = 8
 SFU_PER_TAN_AXIS, SFU_PER_HALF_AXIS, SFU_PER_CLK = 3, 1, 16
 
+# The least a Sobol point costs per (sample index, dim), walked in Gray-code
+# order: the index's trailing ones (a NOT, a bit reverse and a
+# find-leading-one) pick one direction vector, and one XOR applies it.
+SOBOL_ALU_PER_POINT = 4
+
 N_ROUND = 65536          # samples per round in the rounds check (step 9)
 ROUNDS = 4
 N_FULL = 1 << 20         # step 12: samples per integrand through the service
 FULL_ROUND, FULL_R = 65536, 8
+# step 15: the Fig.-1 4-d harmonic template swept over a 32 x 32 (a, b) grid
+SWEEP_A = (0.5, 2.0, 32)
+SWEEP_B = (-1.0, 1.0, 32)
+SWEEP_SLICE = 64
+SWEEP_PREFIX = 16        # the overlapping sweep's a axis: a[:16] x b, 8 aligned slices
 
 
 def fail(msg: str) -> None:
@@ -162,13 +197,13 @@ def fig1_spec(device):
             {5: osc_exact, 6: corner_exact})
 
 
-def launch_bucket(fn, bucket, n_samples, key):
+def launch_bucket(fn, bucket, n_samples, key, **kw):
     import math
     from repro_torch.kernels import template
     return fn(template.pack_scalars(key, 0, n_samples), bucket.fn_ids,
               bucket.packed, bucket.lo, bucket.hi, bucket.block_forms,
               dim=bucket.dim,
-              n_sample_blocks=max(1, math.ceil(n_samples / template.S_BLK)))
+              n_sample_blocks=max(1, math.ceil(n_samples / template.S_BLK)), **kw)
 
 
 def real_rows(bucket, out):
@@ -256,19 +291,70 @@ def op_bound_ms(draws: float, values: float, n_sm: int, clock_hz: float,
     return {k: v / (n_sm * clock_hz) * 1e3 for k, v in clocks.items()}
 
 
+def sobol_op_bound_ms(draws: float, values: float, point_dims: float, n_sm: int,
+                      clock_hz: float) -> dict:
+    """The least time the card needs for a Sobol launch's operations, per
+    resource (ms).  A draw is one XOR with its shift on the ALU pipe, one
+    u32 -> f32 conversion and FP32_PER_DRAW float operations; a point
+    costs SOBOL_ALU_PER_POINT ALU operations per distinct (sample index,
+    dim) the launch draws (``point_dims``, from :func:`distinct_point_dims`),
+    once however many functions and blocks share it; the values cost what
+    they cost under MC."""
+    alu = draws + point_dims * SOBOL_ALU_PER_POINT
+    conv = draws * CONV_PER_DRAW
+    fp = draws * FP32_PER_DRAW + values * FP32_PER_VALUE
+    clocks = {"ALU pipe": alu / ALU_PER_CLK, "FMA pipes": fp / FMA_PER_CLK,
+              "issue": (alu + conv + fp) / ISSUE_PER_CLK,
+              "conversion": conv / CONV_PER_CLK}
+    return {k: v / (n_sm * clock_hz) * 1e3 for k, v in clocks.items()}
+
+
+def distinct_point_dims(plan, n_samples: int, round_bases=None, n_rounds: int = 1,
+                        round_stride: int = 0) -> float:
+    """(sample index, dim) pairs whose Sobol points a launch of each of
+    ``plan``'s buckets needs: the union of its blocks' windows (each
+    ``n_samples`` long at ``round_base + r * round_stride``, u32 windows
+    taken as integers) times its dim.  Every block of a bucket at the same
+    window draws the same points (the functions differ only in their
+    shifts), so a Fig.-1 bucket needs ``n_samples * dim`` and a sweep
+    wave's slices share theirs.  ``round_bases``: one per-block window
+    tensor per bucket, or None for all 0."""
+    total = 0
+    for i, b in enumerate(plan.buckets):
+        bases = {0} if round_bases is None else set(round_bases[i].tolist())
+        starts = sorted({x + r * round_stride for x in bases for r in range(n_rounds)})
+        covered, end = 0, -1
+        for x in starts:
+            covered += max(0, x + n_samples - max(x, end))
+            end = max(end, x + n_samples)
+        total += covered * b.dim
+    return float(total)
+
+
+def built_point_dims(plan, n_samples: int) -> float:
+    """(sample, function block, dim) triples the kernel builds points for:
+    each CUDA block builds its own, so a point is rebuilt once per
+    16-function block that draws it (the kernel's overhead over
+    :func:`distinct_point_dims`)."""
+    from repro_torch.kernels import template
+    return float(n_samples) * sum(b.fn_ids.shape[0] // template.F_BLK * b.dim
+                                  for b in plan.buckets)
+
+
 ALU_OPS = ("IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "FSETP", "SEL",
            "FSEL", "IMNMX", "FMNMX", "IABS", "MOV", "PLOP3")
 FMA_OPS = ("IMAD", "FFMA", "FADD", "FMUL")
 
 
-def sass_loops(lib_path) -> list[dict] | None:
-    """Instruction mix of the innermost Threefry loops of pass 1 as the
-    main path runs it (the instantiation without the compactified path,
-    ``fused_mc_pass1<false>``), read from ``cuobjdump -sass`` of the built
-    library: per loop its instructions,
-    its draws (one u32 -> f32 conversion each) and opcode counts.  None
-    when the tool is missing or its listing cannot be read: this is a
-    report of what nvcc emitted, not a check."""
+def sass_loops(lib_path, function: str = "fused_mc_pass1ILb0ELb0ELb0E") -> list[dict] | None:
+    """Instruction mix of the innermost loops of one pass-1 instantiation
+    (by default the main path's MC one without compactified or swept
+    blocks, ``fused_mc_pass1<false, false, false>``; its mangled name is
+    ``function``), read from ``cuobjdump -sass`` of the built library: per
+    loop its instructions, draws (one u32 -> f32 conversion each),
+    rotates, shared-memory loads and opcode counts.  None when the tool is
+    missing or its listing cannot be read: this is a report of what nvcc
+    emitted, not a check."""
     import collections
     import re
     import shutil
@@ -285,7 +371,7 @@ def sass_loops(lib_path) -> list[dict] | None:
     body, inside = [], False
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            inside = "fused_mc_pass1ILb0E" in line
+            inside = function in line
         elif inside:
             m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
                           line)
@@ -301,15 +387,16 @@ def sass_loops(lib_path) -> list[dict] | None:
     found = []
     for a, b in inner:
         ops = collections.Counter(op for addr, op, _ in body if a <= addr <= b)
-        rotates = sum(n for op, n in ops.items() if op.startswith("SHF") and ".W" in op)
-        draws = sum(n for op, n in ops.items() if op.startswith("I2F"))
-        if rotates >= 10 and draws:
-            found.append({
-                "range": f"0x{a:x}-0x{b:x}", "draws": draws, "rotates": rotates,
-                "instr": sum(ops.values()),
-                "alu": sum(n for op, n in ops.items() if op.split(".")[0] in ALU_OPS),
-                "fma": sum(n for op, n in ops.items() if op.split(".")[0] in FMA_OPS),
-                "ops": ops})
+        found.append({
+            "range": f"0x{a:x}-0x{b:x}",
+            "draws": sum(n for op, n in ops.items() if op.startswith("I2F")),
+            "rotates": sum(n for op, n in ops.items()
+                           if op.startswith("SHF") and ".W" in op),
+            "lds": sum(n for op, n in ops.items() if op.startswith("LDS")),
+            "instr": sum(ops.values()),
+            "alu": sum(n for op, n in ops.items() if op.split(".")[0] in ALU_OPS),
+            "fma": sum(n for op, n in ops.items() if op.split(".")[0] in FMA_OPS),
+            "ops": ops})
     return found or None
 
 
@@ -370,6 +457,8 @@ def traced_split(reqs, **engine_kw) -> str:
             + ", ".join(f"{k} {1e3 * tot.get(k, 0.0):.3f} ms "
                         f"({100 * tot.get(k, 0.0) / wall:.1f}%)" for k in STAGES)
             + f"; submits and the rest {1e3 * (wall - sum(tot.get(k, 0.0) for k in STAGES if k != 'wal_commit')):.3f} ms"
+            + "".join(f" (of which {k} {1e3 * v:.3f} ms)" for k, v in tot.items()
+                      if k not in STAGES)
             + "; ms per wave: " + ", ".join(f"{k} {v}" for k, v in per_wave.items()))
 
 
@@ -531,7 +620,8 @@ def main() -> None:
           + f", bytes {byte_ms:.6f} ms; on {card}")
 
     loops = sass_loops(built["zmc_fused_mc"]["path"])
-    if loops is None:
+    loops = loops and [lp for lp in loops if lp["rotates"] >= 10 and lp["draws"]]
+    if not loops:
         print("pass-1 SASS: not measured (cuobjdump missing or unreadable)")
     else:
         n_draws = sum(lp["draws"] for lp in loops)
@@ -839,6 +929,321 @@ def main() -> None:
           f"{1e3 * full_wall / max(engine.stats.waves, 1):.3f} ms per wave, host share "
           f"{100 * host_share:.1f}% of the wall; on {card}")
 
+    # -- 13. device Sobol points and shifts, bit for bit --------------------
+    from repro_torch.core import sobol
+    n = 1 << 17
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    idx = (2**32 - n // 4 + i * 3) & rng.MASK32             # crosses 2^32
+    fid = (i * 2654435761) % (1 << 24)
+    k0, k1 = rng.fold_key(2025, 3)
+    bad = 0
+    for dim in range(1, sobol.MAX_DIM + 1):
+        pts, shs = template.sobol_cuda(k0, k1, idx, fid, dim)
+        d = torch.arange(dim, device=device)
+        want_sh = rng.random_bits(
+            k0, k1, torch.full((1,), sobol.SHIFT_C0, device=device),
+            rng.counter_c1(fid[:, None], d[None, :]))
+        bad += int((pts != sobol.sobol_bits(idx, dim)).sum())
+        bad += int((shs != want_sh).sum())
+    torch.cuda.synchronize()
+    print(f"device sobol_point / sobol_shift vs core.sobol: {bad} differences over "
+          f"{n} indices x dims 1-{sobol.MAX_DIM} (indices from {2**32 - n // 4}, "
+          f"crossing 2^32)")
+    check(bad == 0, f"device Sobol points or shifts differ in {bad} words")
+
+    # -- 14. Fig.-1 evaluate with the Sobol sampler --------------------------
+    splan = multi.plan_spec(spec, sampler="sobol")
+    check(splan.unfused == () and splan.n_launches == 3,
+          f"Sobol plan: {splan.n_launches} buckets, unfused {splan.unfused}")
+    key = rng.fold_key(0, 0)
+    sobol_err = 0.0
+    for b in splan.buckets:
+        kw = dict(sampler="sobol", dirvecs=b.dirvecs)
+        k_out = launch_bucket(template.fused_mc_cuda, b, N_CHECK, key, **kw)
+        k_again = launch_bucket(template.fused_mc_cuda, b, N_CHECK, key, **kw)
+        p_out = launch_bucket(template.fused_mc_plain, b, N_CHECK, key, sampler="sobol")
+        torch.cuda.synchronize()
+        sobol_err = max(sobol_err, compare_sums(b, k_out, p_out, N_CHECK))
+        d1 = hashlib.sha256(k_out.cpu().numpy().tobytes()).hexdigest()
+        d2 = hashlib.sha256(k_again.cpu().numpy().tobytes()).hexdigest()
+        print(f"Sobol bucket d{b.dim} at N={N_CHECK}: repeat sha256 {d1[:16]} "
+              f"{d2[:16]} {'equal' if d1 == d2 else 'DIFFER'}")
+        check(d1 == d2, f"Sobol d{b.dim}: repeated launches differ")
+        # R = 4 rounds at other window depths, one crossing 2^32
+        n_blocks = b.fn_ids.shape[0] // template.F_BLK
+        base = torch.tensor([(j * 37 * N_ROUND) & rng.MASK32 for j in range(n_blocks)],
+                            dtype=torch.int64)
+        base[n_blocks // 2] = 2**32 - 3 * N_ROUND // 2
+        ops = (b.fn_ids, b.packed, b.lo, b.hi, b.block_forms)
+        rkw = dict(dim=b.dim, n_sample_blocks=N_ROUND // template.S_BLK,
+                   round_base=base, sampler="sobol")
+        r_out = template.fused_mc_cuda(
+            template.pack_scalars(key, 0, N_ROUND, round_stride=N_ROUND), *ops,
+            n_rounds=ROUNDS, **rkw)
+        same = 0
+        for r in range(ROUNDS):
+            one = template.fused_mc_cuda(
+                template.pack_scalars(key, r * N_ROUND, N_ROUND), *ops, **rkw)
+            same += (hashlib.sha256(r_out[r].cpu().numpy().tobytes()).digest()
+                     == hashlib.sha256(one[0].cpu().numpy().tobytes()).digest())
+        print(f"Sobol bucket d{b.dim}: R={ROUNDS} launch: {same}/{ROUNDS} rounds "
+              f"sha256-equal to single-round launches (one window crossing 2^32)")
+        check(same == ROUNDS, f"Sobol d{b.dim}: a round differs from its single-round launch")
+
+    szmc = ZMCMultiFunctions(spec, n_samples=N_MAIN, seed=0, use_kernel=True,
+                             sampler="sobol", device="cuda")
+    template.reset_launch_count()
+    template.reset_kernel_launch_count()
+    t0 = time.perf_counter()
+    sres = szmc.evaluate(num_trials=TRIALS)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    s_launches = template.kernel_launch_count()
+    sobol_counts = variant_counts({"fused_mc": True, "fused_mc_sobol": True},
+                                  "Sobol evaluate path")
+    print(f"Sobol evaluate(num_trials={TRIALS}) at N={N_MAIN}: {swall / TRIALS:.4f} s "
+          f"per trial (wall); {s_launches} kernel launches")
+    check(s_launches == splan.n_launches * TRIALS,
+          f"expected {splan.n_launches * TRIALS} Sobol launches, got {s_launches}")
+    check(sobol_counts["fused_mc_sobol"] == s_launches, "a Sobol launch ran as MC")
+    check(bool(np.isfinite(sres.means).all() and np.isfinite(sres.stderrs).all()),
+          "non-finite Sobol estimates")
+    s_fbar, s_dfn = sres.trial_mean, sres.trial_std
+    s_cover = float(np.mean(np.abs(s_fbar[:700] - exact_h) <= 2 * s_dfn[:700]))
+    ratio = dfn / np.maximum(s_dfn, 1e-30)
+    print(f"Sobol harmonic 2-sigma coverage vs harmonic_analytic: {s_cover:.4f} (700 "
+          f"integrands); median MC-to-Sobol ratio of trial_std over the "
+          f"{spec.n_fn_total} integrals {float(np.median(ratio)):.2f} (harmonics "
+          f"{float(np.median(ratio[:700])):.2f})")
+    check(s_cover >= 0.85, f"Sobol harmonic coverage {s_cover} < 0.85")
+
+    ev0.record()
+    for _ in range(TIMING_REPS):
+        sk_outs = [launch_bucket(template.fused_mc_cuda, b, N_MAIN, key,
+                                 sampler="sobol", dirvecs=b.dirvecs)
+                   for b in splan.buckets]
+    ev1.record()
+    torch.cuda.synchronize()
+    sobol_ms = ev0.elapsed_time(ev1) / TIMING_REPS
+    ev0.record()
+    sp_outs = [launch_bucket(template.fused_mc_plain, b, N_MAIN, key, sampler="sobol")
+               for b in splan.buckets]
+    ev1.record()
+    torch.cuda.synchronize()
+    sobol_plain_ms = ev0.elapsed_time(ev1)
+    for b, k_out, p_out in zip(splan.buckets, sk_outs, sp_outs):
+        sobol_err = max(sobol_err, compare_estimates(b, k_out, p_out, N_MAIN))
+    s_pts = distinct_point_dims(splan, N_MAIN)
+    s_built = built_point_dims(splan, N_MAIN)
+    s_op = sobol_op_bound_ms(draws, values, s_pts, n_sm, clock_hz)
+    sobol_bound = max(s_op.values())
+    print(f"Sobol trial (3 launches, {draws:.4g} draws, {s_pts:.4g} distinct point "
+          f"dims, {s_built:.4g} built, once per 16-function block): kernel "
+          f"{sobol_ms:.3f} ms, plain {sobol_plain_ms:.1f} ms, bound {sobol_bound:.3f} ms "
+          f"(kernel at {100 * sobol_bound / sobol_ms:.1f}% of it): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in s_op.items())
+          + f"; MC kernel {kernel_ms:.3f} ms; on {card}")
+    s_loops = sass_loops(built["zmc_fused_mc"]["path"], "fused_mc_pass1ILb0ELb1ELb1E")
+    draw_loops = [lp for lp in s_loops or () if lp["draws"]]
+    # a point loop: one dim's 32 direction bits, no draw
+    point_loops = [lp for lp in s_loops or () if not lp["draws"] and lp["instr"] >= 64]
+    if not draw_loops or not point_loops:
+        print("Sobol pass-1 SASS: not measured (no listing, or its loops not found)")
+    else:
+        n_d = sum(lp["draws"] for lp in draw_loops)
+        per = {k: sum(lp[k] for lp in draw_loops) / n_d
+               for k in ("instr", "alu", "fma", "lds")}
+        pt_instr = max(lp["instr"] for lp in point_loops)
+        pt_lds = max(lp["lds"] for lp in point_loops)
+        sobol_clk = (draws * per["instr"]
+                     + s_built * pt_instr) / ISSUE_PER_CLK
+        print(f"Sobol pass-1 SASS (<false, true, true>): {len(draw_loops)} inner draw "
+              f"loops, per draw {per['instr']:.2f} instructions (ALU {per['alu']:.2f}, "
+              f"FMA pipes {per['fma']:.2f}, LDS {per['lds']:.2f}); {len(point_loops)} "
+              f"point loops, at most {pt_instr} instructions ({pt_lds} LDS) per "
+              f"(sample, dim); issue bound of this code "
+              f"{sobol_clk / (n_sm * clock_hz) * 1e3:.3f} ms per trial")
+
+    # -- 15. service configuration 3: a parameter sweep at full width --------
+    from repro_torch.core.integrand import MultiFunctionSpec, harmonic_family
+    from repro_torch.service import SweepRequest
+    a_vals = np.linspace(*SWEEP_A).astype(np.float32)
+    b_vals = np.linspace(*SWEEP_B).astype(np.float32)
+    grid = {"a": a_vals, "b": b_vals}
+    tmpl = harmonic_family(1, 4)
+    n_pts = len(a_vals) * len(b_vals)
+    swept = {}                          # per sampler: its kernels-line numbers
+    for sampler in ("mc", "sobol"):
+        swept_err = 0.0
+        engine = IntegrationEngine(round_samples=FULL_ROUND, device="cuda",
+                                   max_rounds_per_wave=FULL_R)
+        waves_rec = []
+
+        def recorded_sweep(plan, round_samples, n_rounds, key, *, start_rounds):
+            where, outputs = launch_plan_rounds(plan, round_samples, n_rounds, key,
+                                                start_rounds=start_rounds)
+            waves_rec.append((plan, round_samples, n_rounds, key, dict(start_rounds),
+                              outputs))
+            return where, outputs
+
+        multi.launch_plan_rounds = recorded_sweep
+        template.reset_kernel_launch_count()
+        try:
+            t0 = time.perf_counter()
+            ticket = engine.submit(SweepRequest.make(tmpl, grid, n_samples=N_FULL,
+                                                     sampler=sampler))
+            while engine.step():
+                pass
+            sres3 = engine.poll(ticket)
+            torch.cuda.synchronize()
+            sweep_wall = time.perf_counter() - t0
+        finally:
+            multi.launch_plan_rounds = launch_plan_rounds
+        counts = variant_counts({"fused_mc_rounds": True, "fused_mc_swept": True,
+                                 "fused_mc_sobol": sampler == "sobol"},
+                                f"service config 3 ({sampler})")
+        n_launch = template.kernel_launch_count()
+        waves = engine.stats.waves
+        print(f"service config 3 ({sampler}): {n_pts} points in "
+              f"{len(sres3.stream_ids)} slices x {N_FULL} samples: {n_launch} kernel "
+              f"launches in {waves} waves (at most 1 bucket per wave), "
+              f"{engine.batcher.fallback_rounds} fallback rounds, {sweep_wall:.4f} s "
+              f"wall, {1e3 * sweep_wall / max(waves, 1):.3f} ms per wave")
+        check(sres3.complete and sres3.grid_shape == (len(a_vals), len(b_vals)),
+              "config 3: sweep result incomplete or misshapen")
+        check(bool(np.isfinite(sres3.means).all() and (sres3.stderrs > 0).all()),
+              "config 3: non-finite estimates")
+        check(n_launch <= waves, "config 3: more launches than buckets per wave")
+        check(engine.batcher.fallback_rounds == 0, "config 3: chunked fallback rounds")
+        check(len(sres3.stream_ids) == n_pts // SWEEP_SLICE, "config 3: slice count")
+        # each launch against the plain version with the same rounds, window
+        # starts and sweep pairs, round by round
+        for plan_w, n_round, n_r, key_w, starts, outputs in waves_rec:
+            scal = template.pack_scalars(key_w, 0, n_round, round_stride=n_round)
+            for b, k_out in zip(plan_w.buckets, outputs):
+                check(b.block_sweep is not None, "config 3: a bucket without sweep pairs")
+                p_out = template.fused_mc_plain(
+                    scal, b.fn_ids, b.packed, b.lo, b.hi, b.block_forms, dim=b.dim,
+                    n_sample_blocks=-(-n_round // template.S_BLK), n_rounds=n_r,
+                    round_base=multi._round_base_for(b, starts, n_round),
+                    block_sweep=b.block_sweep, sampler=sampler)
+                for r in range(n_r):
+                    swept_err = max(swept_err, compare_estimates(
+                        b, k_out[r:r + 1], p_out[r:r + 1], n_round))
+        # slice 0 of the first wave against its 64 points as per-point
+        # families, with the same fn ids, window starts and rounds
+        plan_w, n_round, n_r, key_w, starts, outputs = waves_rec[0]
+        (b,) = plan_w.buckets
+        off = engine.cache.get(sres3.stream_ids[0]).fn_offset
+        sl = next(x for x in b.slices if int(b.fn_ids[x.row_start]) == off)
+        pts_spec = MultiFunctionSpec.from_families([
+            harmonic_family(1, 4, a=a_vals[j // len(b_vals)][None],
+                            b=b_vals[j % len(b_vals)][None])
+            for j in range(SWEEP_SLICE)]).to(device)
+        pts_plan = multi.plan_spec(pts_spec, sampler=sampler,
+                                   fn_offsets=[off + j for j in range(SWEEP_SLICE)])
+        _, pts_out = launch_plan_rounds(
+            pts_plan, n_round, n_r, key_w,
+            start_rounds={j: starts[sl.family_index] for j in range(SWEEP_SLICE)})
+        equal = 0
+        for j, ps in enumerate(pts_plan.buckets[0].slices):
+            got = outputs[0][:, sl.row_start + j].cpu().numpy().tobytes()
+            want = pts_out[0][:, ps.row_start].cpu().numpy().tobytes()
+            equal += hashlib.sha256(got).digest() == hashlib.sha256(want).digest()
+        print(f"service config 3 ({sampler}): slice 0's {SWEEP_SLICE} points, all "
+              f"{n_r} rounds: {equal}/{SWEEP_SLICE} sha256-equal to per-point "
+              f"families launched with the same fn ids and windows")
+        check(equal == SWEEP_SLICE, f"config 3 ({sampler}): a swept point differs "
+                                    f"from its per-point launch")
+        # one wave's launch, timed alone
+        start0 = {x.family_index: 0 for x in b.slices}
+        ev0.record()
+        for _ in range(TIMING_REPS):
+            launch_plan_rounds(plan_w, n_round, n_r, key_w, start_rounds=start0)
+        ev1.record()
+        torch.cuda.synchronize()
+        sweep_ms = ev0.elapsed_time(ev1) / TIMING_REPS
+        ev0.record()
+        template.fused_mc_plain(
+            template.pack_scalars(key_w, 0, n_round, round_stride=n_round),
+            b.fn_ids, b.packed, b.lo, b.hi, b.block_forms, dim=b.dim,
+            n_sample_blocks=-(-n_round // template.S_BLK), n_rounds=n_r,
+            round_base=multi._round_base_for(b, start0, n_round),
+            block_sweep=b.block_sweep, sampler=sampler)
+        ev1.record()
+        torch.cuda.synchronize()
+        sweep_plain_ms = ev0.elapsed_time(ev1)
+        w3_values = float(n_pts) * n_round * n_r
+        w3_draws = w3_values * b.dim
+        bound3 = max((op_bound_ms(w3_draws, w3_values, n_sm, clock_hz)
+                      if sampler == "mc" else
+                      sobol_op_bound_ms(w3_draws, w3_values, distinct_point_dims(
+                          plan_w, n_round, [multi._round_base_for(b, start0, n_round)],
+                          n_r, n_round), n_sm, clock_hz)).values())
+        swept[sampler] = dict(launches=counts["fused_mc_swept"], max_abs_err=swept_err,
+                              ms=sweep_ms, plain_ms=sweep_plain_ms, bound_ms=bound3)
+        host3 = 1 - waves * sweep_ms / (1e3 * sweep_wall)
+        print(f"service config 3 ({sampler}): kernel {sweep_ms:.3f} ms per "
+              f"wave (1 launch, R={n_r}, {w3_draws:.4g} draws), plain "
+              f"{sweep_plain_ms:.1f} ms, bound {bound3:.3f} ms (kernel at "
+              f"{100 * bound3 / sweep_ms:.1f}%); host share "
+              f"{100 * host3:.1f}% of the wall; on {card}")
+        # an overlapping sweep: the prefix grid a[:16] x b, 8 aligned slices
+        template.reset_kernel_launch_count()
+        t_over = engine.submit(SweepRequest.make(
+            tmpl, {"a": a_vals[:SWEEP_PREFIX], "b": b_vals}, n_samples=N_FULL,
+            sampler=sampler))
+        while engine.step():
+            pass
+        over = engine.poll(t_over)
+        torch.cuda.synchronize()
+        over_launches = template.kernel_launch_count()
+        same_prefix = np.array_equal(over.means,
+                                     sres3.means[:SWEEP_PREFIX * len(b_vals)])
+        print(f"service config 3 ({sampler}): overlapping sweep a[:{SWEEP_PREFIX}] x b "
+              f"({len(over.stream_ids)} slices): {over_launches} launches, served "
+              f"from cache {over.served_from_cache}, means equal to the full sweep's "
+              f"prefix: {same_prefix}")
+        check(over_launches == 0 and over.served_from_cache and same_prefix,
+              f"config 3 ({sampler}): the overlapping sweep was not a free cache hit")
+        engine.close()
+        print(f"service config 3 ({sampler}), traced synchronous run: " + traced_split(
+            [SweepRequest.make(tmpl, grid, n_samples=N_FULL, sampler=sampler)],
+            round_samples=FULL_ROUND, max_rounds_per_wave=FULL_R))
+
+    # -- 16. service configuration 2 with the Sobol sampler ------------------
+    sreqs = [IntegrationRequest.make([f], n_samples=N_FULL, sampler="sobol")
+             for f in spec.families]
+    engine = IntegrationEngine(round_samples=FULL_ROUND, device="cuda",
+                               max_rounds_per_wave=FULL_R)
+    template.reset_kernel_launch_count()
+    t0 = time.perf_counter()
+    tickets = [engine.submit(r) for r in sreqs]
+    while engine.step():
+        pass
+    sfull = [engine.poll(t) for t in tickets]
+    torch.cuda.synchronize()
+    sfull_wall = time.perf_counter() - t0
+    variant_counts({"fused_mc_rounds": True, "fused_mc_sobol": True},
+                   "service config 2 (sobol)")
+    s2_launches = template.kernel_launch_count()
+    engine.close()
+    sref = ZMCMultiFunctions(spec, n_samples=N_FULL, seed=0, use_kernel=True,
+                             sampler="sobol", device="cuda").evaluate(num_trials=1)
+    got_m = np.concatenate([r.means for r in sfull])
+    got_s = np.concatenate([r.stderrs for r in sfull])
+    d_mean = float(np.max(np.abs(got_m - sref.means[0]) / sref.stderrs[0]))
+    d_se = float(np.max(np.abs(got_s - sref.stderrs[0]) / sref.stderrs[0]))
+    print(f"service config 2 (sobol): {s2_launches} kernel launches in "
+          f"{engine.stats.waves} waves, {engine.batcher.fallback_rounds} fallback "
+          f"rounds, {sfull_wall:.4f} s wall; vs evaluate(sampler='sobol', "
+          f"n_samples={N_FULL}): max |d mean| {d_mean:.3g}, max |d stderr| "
+          f"{d_se:.3g} standard errors (limit {EST_TOL})")
+    check(s2_launches == 6 and engine.batcher.fallback_rounds == 0,
+          "service config 2 (sobol): expected 6 launches and no fallback")
+    check(d_mean <= EST_TOL and d_se <= EST_TOL,
+          "service config 2 (sobol) disagrees with evaluate")
+
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)
     print(json.dumps({"kernels": [
@@ -854,6 +1259,14 @@ def main() -> None:
              launches=service_counts["fused_mc_compactified"],
              max_abs_err=compact_err, ms=compact_ms, plain_ms=compact_plain_ms,
              bound_ms=compact_bound),
+        dict(entry, name="fused_mc_sobol",
+             replaces="src/repro/kernels/template.py:172",
+             launches=sobol_counts["fused_mc_sobol"], max_abs_err=sobol_err,
+             ms=sobol_ms, plain_ms=sobol_plain_ms, bound_ms=sobol_bound),
+        dict(entry, name="fused_mc_swept",
+             replaces="src/repro/kernels/template.py:231", **swept["mc"]),
+        dict(entry, name="fused_mc_sobol_swept",
+             replaces="src/repro/kernels/template.py:231", **swept["sobol"]),
     ]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

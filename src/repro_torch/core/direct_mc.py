@@ -49,9 +49,14 @@ def n_tensor(n_samples: int, device) -> torch.Tensor:
     return torch.tensor(float(n_samples), dtype=torch.float32, device=device)
 
 
-def _eval_chunk(family: IntegrandFamily, k0, k1, fn_ids, sample_ids, valid):
+def _eval_chunk(family: IntegrandFamily, k0, k1, fn_ids, sample_ids, valid,
+                sampler: str = "mc"):
     """Evaluate one (n_fn, chunk) block of samples. Returns (s1, s2) sums."""
-    u = rng.uniforms_for(k0, k1, fn_ids, sample_ids, family.dim)
+    if sampler == "sobol":
+        from repro_torch.core import sobol
+        u = sobol.sobol_uniforms_for(k0, k1, fn_ids, sample_ids, family.dim)
+    else:
+        u = rng.uniforms_for(k0, k1, fn_ids, sample_ids, family.dim)
     x = affine_from_unit(u, family.domains[:, None, :, :])
     vals = family.eval_batch(x)
     vals = torch.where(valid[None, :], vals, torch.zeros((), dtype=vals.dtype,
@@ -83,11 +88,12 @@ def family_sums(
       fn_chunk: optional function-axis blocking for very large families.
       use_kernel: run the family's registered fused kernel if its form
         supports (dim, sampler); anything else takes the chunked path.
-      sampler: only "mc" in this port so far.
+      sampler: "mc" (Threefry) or "sobol" (shifted Sobol points; a family
+        above ``sobol.MAX_DIM`` dims degrades to "mc").  With ``fn_chunk``
+        the blocks draw MC samples whatever the sampler, as ``repro``'s do.
     """
-    if sampler != "mc":
-        raise NotImplementedError(
-            "sampler='sobol' is not ported yet (ROADMAP queue 1 item 7)")
+    if sampler not in ("mc", "sobol"):
+        raise ValueError(f"unknown sampler {sampler!r}")
     n_fn = family.n_fn
     if fn_chunk is not None and fn_chunk < n_fn:
         return _fn_blocked_sums(family, n_samples, key, fn_offset=fn_offset,
@@ -96,12 +102,13 @@ def family_sums(
     fn_ids = (fn_offset + torch.arange(n_fn, dtype=torch.int64,
                                        device=family.device)) & rng.MASK32
     return _sums_with_ids(family, n_samples, key, fn_ids, sample_offset,
-                          chunk, use_kernel)
+                          chunk, use_kernel, sampler=sampler)
 
 
 def _fn_blocked_sums(family, n_samples, key, *, fn_offset, sample_offset,
                      chunk, fn_chunk) -> SumsState:
-    """Loop over function blocks to bound memory for huge n_fn."""
+    """Loop over function blocks to bound memory for huge n_fn.  Each
+    block takes the chunked MC path, as in ``repro``."""
     n_fn = family.n_fn
     n_blocks = math.ceil(n_fn / fn_chunk)
     pad = n_blocks * fn_chunk - n_fn
@@ -144,19 +151,24 @@ def merge_sums(a: SumsState, b: SumsState) -> SumsState:
 
 
 def _sums_with_ids(family, n_samples, key, fn_ids, sample_offset, chunk,
-                   use_kernel) -> SumsState:
+                   use_kernel, sampler: str = "mc") -> SumsState:
     """Like :func:`family_sums` but with explicit fn ids (int64 tensor of
     u32 values) and sample offset.
 
     ``use_kernel`` dispatch is capability-checked: the registered kernel
-    runs only if the family's form supports its dim (and, for a
-    compactified family, the transform stage); otherwise the chunked path
-    below takes over.
+    runs only if the family's form supports (dim, sampler) and its
+    wrapper stages (compactified, swept); otherwise the chunked path
+    below takes over.  Sobol beyond ``sobol.MAX_DIM`` degrades to MC.
     """
+    if sampler == "sobol":
+        from repro_torch.core.sobol import MAX_DIM
+        if family.dim > MAX_DIM:
+            sampler = "mc"
     if use_kernel and family.kernel is not None:
         from repro_torch.kernels import registry
-        impl = registry.lookup(family.kernel, dim=family.dim,
-                               compactified=family.compact)
+        impl = registry.lookup(family.kernel, dim=family.dim, sampler=sampler,
+                               compactified=family.compact,
+                               sweep=family.swept)
         if impl is not None:
             return impl(family, n_samples, key, fn_ids=fn_ids,
                         sample_offset=sample_offset)
@@ -169,7 +181,8 @@ def _sums_with_ids(family, n_samples, key, fn_ids, sample_offset, chunk,
     for i in range(n_chunks):
         sample_ids = (sample_offset + i * chunk + lane) & rng.MASK32
         valid = (i * chunk + lane) < n_samples
-        c1, c2 = _eval_chunk(family, k0, k1, fn_ids, sample_ids, valid)
+        c1, c2 = _eval_chunk(family, k0, k1, fn_ids, sample_ids, valid,
+                             sampler=sampler)
         s1 = s1 + c1
         s2 = s2 + c2
     return SumsState(s1=s1, s2=s2, n=n_tensor(n_samples, device))

@@ -19,6 +19,13 @@ Infinite boxes are rewritten to finite ones by :meth:`IntegrandFamily
 .compactified` (``repro_torch.core.domains.compactify``); the result
 keeps its kernel form, and the fused kernel applies the transform in its
 compactified blocks.
+
+A single-function template scanned over a table of parameter points is
+one swept family (:meth:`IntegrandFamily.swept_over`): one function row
+per point, its params the ``{"base": template, "table": per-point
+values}`` wrapper; the fused kernel substitutes the table columns into
+the template's packed row.  Sweep before compactifying, as ``repro``
+composes the stages.
 """
 
 from __future__ import annotations
@@ -51,6 +58,10 @@ class IntegrandFamily:
         ``{"inner": user params, "aux": {"kind", "shift"}}`` wrapper
         around an infinite-domain integrand, and kernel dispatch applies
         the transform stage.
+      swept: set by :meth:`swept_over`: the sorted parameter names a
+        sweep table overrides.  ``params`` (``params["inner"]`` once
+        compactified) is the ``{"base": template params, "table": {name:
+        per-point values}}`` wrapper, one function row per grid point.
     """
 
     fn: Callable[[torch.Tensor, dict], torch.Tensor]
@@ -59,6 +70,7 @@ class IntegrandFamily:
     name: str = "family"
     kernel: str | None = None
     compact: bool = False
+    swept: tuple[str, ...] = ()
 
     @property
     def n_fn(self) -> int:
@@ -108,7 +120,7 @@ class IntegrandFamily:
         return IntegrandFamily(
             fn=fn2, params={"inner": self.params, "aux": aux},
             domains=new_domains, name=self.name + ":compactified",
-            kernel=self.kernel, compact=True)
+            kernel=self.kernel, compact=True, swept=self.swept)
 
     def inner(self) -> "IntegrandFamily":
         """The pre-transform parameter view of a compactified family:
@@ -117,6 +129,80 @@ class IntegrandFamily:
         if not self.compact:
             return self
         return IntegrandFamily(fn=self.fn, params=self.params["inner"],
+                               domains=self.domains, name=self.name,
+                               kernel=self.kernel, swept=self.swept)
+
+    def swept_over(self, table: dict) -> "IntegrandFamily":
+        """Sweep this single-function template over a parameter table.
+
+        Args:
+          table: parameter name (a top-level key of :attr:`params`) ->
+            per-point values of shape ``(n_points,) + leaf.shape[1:]``.
+        Returns:
+          A family with ``n_fn == n_points``: row ``j`` is the template
+          with the named parameters overridden by ``table[name][j]``.
+          The chunked path merges the table into the base params; the
+          fused kernel substitutes the table columns into the packed
+          template row, so each point's sums equal those of the point
+          as its own family at the same function id.
+
+        Sweep before :meth:`compactified`, as ``repro``'s canonicalizer
+        composes ``compactify(sweep(template))``.
+        """
+        if self.compact:
+            raise ValueError("sweep the template before compactifying or "
+                             "adapting (canonicalization composes the "
+                             "stages)")
+        if self.n_fn != 1:
+            raise ValueError(
+                f"sweep template must be a single function (n_fn == 1); "
+                f"got n_fn={self.n_fn}")
+        if not isinstance(self.params, dict):
+            raise ValueError("sweep templates need dict params (the table "
+                             "overrides parameters by name)")
+        if not table:
+            raise ValueError("sweep table must name at least one parameter")
+        names = tuple(sorted(table))
+        missing = [n for n in names if n not in self.params]
+        if missing:
+            raise ValueError(
+                f"sweep table names {missing} not in template params "
+                f"{sorted(self.params)}")
+        device = self.device
+        cols = {n: _t(table[n].detach().cpu().numpy()
+                      if isinstance(table[n], torch.Tensor) else table[n],
+                      device) for n in names}
+        n_points = {int(v.shape[0]) for v in cols.values()}
+        if len(n_points) != 1:
+            raise ValueError(
+                f"sweep table axes disagree on n_points: "
+                f"{ {n: int(v.shape[0]) for n, v in cols.items()} }")
+        (n_pts,) = n_points
+        for n in names:
+            if tuple(cols[n].shape[1:]) != tuple(self.params[n].shape[1:]):
+                raise ValueError(
+                    f"sweep axis {n!r} has per-point shape "
+                    f"{tuple(cols[n].shape[1:])}, template expects "
+                    f"{tuple(self.params[n].shape[1:])}")
+        base = tree_map(lambda leaf: leaf.expand((n_pts,) + tuple(leaf.shape[1:]))
+                        .contiguous(), self.params)
+        domains = self.domains.expand((n_pts,) + tuple(self.domains.shape[1:]))
+        return IntegrandFamily(
+            fn=swept_fn(self.fn), params={"base": base, "table": cols},
+            domains=domains.contiguous(), name=f"{self.name}:sweep[{n_pts}]",
+            kernel=self.kernel, swept=names).validate()
+
+    def sweep_base(self) -> "IntegrandFamily":
+        """The template-parameter view of a swept family: ``params`` is
+        the broadcast base dict (every row the template point).  Kernel
+        packers consume this; call it on the :meth:`inner` view of a
+        compactified swept family.  Identity for other families."""
+        if not self.swept:
+            return self
+        if self.compact:
+            raise ValueError("call sweep_base() on the inner() view of a "
+                             "compactified swept family")
+        return IntegrandFamily(fn=self.fn, params=self.params["base"],
                                domains=self.domains, name=self.name,
                                kernel=self.kernel)
 
@@ -158,6 +244,16 @@ class MultiFunctionSpec:
 
     def to(self, device) -> "MultiFunctionSpec":
         return MultiFunctionSpec(families=tuple(f.to(device) for f in self.families))
+
+
+def swept_fn(fn):
+    """The batched integrand of a swept family: ``fn`` on the base
+    params with the table's entries merged over them."""
+
+    def merged(x, p):
+        return fn(x, {**p["base"], **p["table"]})
+
+    return merged
 
 
 def _t(x, device) -> torch.Tensor:
@@ -283,6 +379,7 @@ def _kernel_fns() -> dict:
 
 def family_from_numpy(kernel: str | None, params: dict, domains, name: str,
                       *, fn=None, compact: bool = False,
+                      swept: tuple[str, ...] = (),
                       device="cpu") -> IntegrandFamily:
     """A port family from a ``repro`` family's arrays.
 
@@ -298,6 +395,10 @@ def family_from_numpy(kernel: str | None, params: dict, domains, name: str,
         compactified: ``params`` is ``{"inner": ..., "aux": {"kind",
         "shift"}}`` and ``domains`` the finite sampling box; ``fn`` (or
         the kernel's) is the pre-transform integrand.
+      swept: the arrays are those of a ``repro`` swept family (its
+        ``swept`` names): ``params`` (or ``params["inner"]``) is
+        ``{"base": ..., "table": ...}``; ``fn`` (or the kernel's) is the
+        template's integrand.
     """
     if fn is None:
         fns = _kernel_fns()
@@ -305,6 +406,8 @@ def family_from_numpy(kernel: str | None, params: dict, domains, name: str,
             raise ValueError(f"no PyTorch function known for kernel {kernel!r}; "
                              f"pass fn= (known: {sorted(fns)})")
         fn = fns[kernel]
+    if swept:
+        fn = swept_fn(fn)
     return IntegrandFamily(
         fn=domains_lib.compactified_fn(fn) if compact else fn,
         params=tree_map(lambda v: _leaf(v, device), params),
@@ -312,6 +415,7 @@ def family_from_numpy(kernel: str | None, params: dict, domains, name: str,
         name=name,
         kernel=kernel,
         compact=bool(compact),
+        swept=tuple(swept),
     ).validate()
 
 

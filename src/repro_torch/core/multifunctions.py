@@ -65,8 +65,9 @@ class ZMCMultiFunctions:
 
     ``device`` defaults to ``"cuda"`` and raises when there is no GPU;
     pass ``device="cpu"`` for the plain PyTorch path.  Families with
-    infinite boxes are compactified.  ``mesh=`` and ``sampler="sobol"``
-    are not ported yet and raise.
+    infinite boxes are compactified.  ``sampler`` is ``"mc"`` or
+    ``"sobol"`` (randomised QMC, dim <= 8; families above that degrade
+    to MC, as in ``repro``).  ``mesh=`` is not ported yet and raises.
     """
 
     def __init__(
@@ -79,17 +80,15 @@ class ZMCMultiFunctions:
         chunk: int = 8192,
         fn_chunk: int | None = None,
         use_kernel: bool = False,
-        sampler: str = "mc",
+        sampler: str = "mc",          # "mc" | "sobol" (dim <= 8, RQMC)
         device=None,
     ):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= is not ported yet (ROADMAP queue 1 item 11: "
                 "multi-device on torch.distributed)")
-        if sampler != "mc":
-            raise NotImplementedError(
-                f"sampler={sampler!r} is not ported yet (ROADMAP queue 1 "
-                "item 7, queue 2 item c)")
+        if sampler not in ("mc", "sobol"):
+            raise ValueError(f"unknown sampler {sampler!r}")
         if not isinstance(spec, MultiFunctionSpec):
             spec = MultiFunctionSpec.from_families(spec)
         self.device = resolve_device(device)

@@ -107,7 +107,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.zmc_chunk_samples.restype = i32
     lib.zmc_fused_mc.argtypes = [u32, u32, u32, u32,     # k0 k1 offset n_valid
                                  u32, i32, ptr,          # round_stride n_rounds round_base
-                                 ptr, ptr, ptr, i32,     # fn_ids forms tcols has_compact
+                                 ptr, ptr, i32,          # fn_ids block_meta n_sweep
+                                 i32, ptr,               # has_compact sobol_dirs
                                  ptr, i32,               # packed n_cols
                                  ptr, ptr, i32,          # lo hi dim
                                  i32, i32,               # n_fn_pad n_chunks
@@ -116,3 +117,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.zmc_random_bits.argtypes = [u32, u32, ptr, ptr, ptr, ctypes.c_longlong,
                                     ptr]
     lib.zmc_random_bits.restype = i32
+    lib.zmc_sobol.argtypes = [ptr, i32, u32, u32, ptr, ptr, ptr, ptr,
+                              ctypes.c_longlong, ptr]
+    lib.zmc_sobol.restype = i32

@@ -9,7 +9,11 @@
 //   * the five eval bodies of repro/kernels/mc_eval/{kernel,ops}.py;
 //   * the compactification of one axis (apply_transform), the per-axis
 //     map of repro/core/domains.py:apply_transform that the wrapper stage
-//     repro/kernels/template.py:compactified_body puts around a body.
+//     repro/kernels/template.py:compactified_body puts around a body;
+//   * the Sobol point of one index on one dim (sobol_point, the Gray-code
+//     construction of repro/core/sobol.py:sobol_bits and
+//     repro/kernels/template.py:sobol_tiles) and its digital shift
+//     (sobol_shift, repro/core/sobol.py:shifts_for).
 //
 // A body is written as a fold over the dimensions: acc = init(p), then
 // acc = step(acc, x_d, p, d) for d = 0..dim-1, then value = fin(acc, p, dim).
@@ -22,8 +26,10 @@
 
 #if defined(__CUDACC__)
 #define ZMC_HD __host__ __device__ __forceinline__
+#define ZMC_UNROLL _Pragma("unroll")
 #else
 #define ZMC_HD inline
+#define ZMC_UNROLL
 #endif
 
 namespace zmc {
@@ -78,6 +84,36 @@ ZMC_HD uint32_t random_bits(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1) 
 // Top 24 bits times 2^-24: exact in f32, in [0, 1).
 ZMC_HD float bits_to_uniform(uint32_t bits) {
   return (float)(bits >> 8) * 5.9604644775390625e-08f;
+}
+
+// -- Sobol points ----------------------------------------------------------
+// Most dims a Sobol family may have (repro.core.sobol.MAX_DIM: the Joe-Kuo
+// table's rows); direction vectors are u32[dim][32].
+constexpr int SOBOL_MAX_DIM = 8;
+// Counter plane of the digital shifts (repro.core.sobol.shifts_for).
+constexpr uint32_t SOBOL_SHIFT_C0 = 0x50B01u;
+
+// Unshifted Sobol point of index idx on one dim: the XOR of the direction
+// vectors v[j] picked by the set bits of gray(idx) = idx ^ (idx >> 1).
+ZMC_HD uint32_t sobol_point(const uint32_t* v, uint32_t idx) {
+  const uint32_t gray = idx ^ (idx >> 1);
+  uint32_t acc = 0u;
+  ZMC_UNROLL
+  for (int j = 0; j < 32; ++j)
+    if ((gray >> j) & 1u) acc ^= v[j];
+  return acc;
+}
+
+// Digital shift of (function, dim) with c1 = fn_id * DIM_STRIDE + d.
+ZMC_HD uint32_t sobol_shift(uint32_t k0, uint32_t k1, uint32_t c1) {
+  return random_bits(k0, k1, SOBOL_SHIFT_C0, c1);
+}
+
+// The uniform of a shifted point from the top 24 bits of point and shift
+// ((point ^ shift) >> 8 == (point >> 8) ^ (shift >> 8)): bits_to_uniform
+// of point ^ shift, exactly.
+ZMC_HD float sobol_uniform(uint32_t point_top24, uint32_t shift_top24) {
+  return (float)(point_top24 ^ shift_top24) * 5.9604644775390625e-08f;
 }
 
 // Quiet NaN: marks a sum the kernel could not compute (unknown form id).

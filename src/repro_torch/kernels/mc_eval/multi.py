@@ -2,18 +2,22 @@
 (port of ``repro.kernels.mc_eval.multi``, single device).
 
 1. every family whose ``kernel`` names a registered form supporting
-   (dim, sampler) is **fusable**, compactified infinite-domain families
-   included (their transform columns ride after the form's); the rest
-   are left to the chunked path (``FusionPlan.unfused``, the caller
-   handles them);
+   (dim, sampler) and its wrapper stages is **fusable**, compactified
+   infinite-domain families (their transform columns ride after the
+   form's) and swept families (one row per grid point, their table
+   columns after the base columns) included; the rest are left to the
+   chunked path (``FusionPlan.unfused``, the caller handles them), among
+   them Sobol families above ``core.sobol.MAX_DIM`` dims;
 2. fusable families are bucketed by dimension;
 3. within a bucket each family is padded to an ``F_BLK`` multiple (so
    every function block is homogeneous in form), packed parameters are
    padded to the bucket's widest form and everything is concatenated;
-4. the whole bucket runs in one :func:`template.fused_mc` launch, each
-   block's body picked by its form id (``_Bucket.block_forms``) and
-   wrapped in the compactification stage where ``_Bucket.block_tcols``
-   names its transform columns;
+4. the whole bucket runs in one :func:`template.fused_mc` launch with
+   the plan's sampler, each block's body picked by its form id
+   (``_Bucket.block_forms``), wrapped in the compactification stage
+   where ``_Bucket.block_tcols`` names its transform columns, and run on
+   its packed rows with the table columns of ``_Bucket.block_sweep``
+   substituted in a swept block;
 5. results are sliced back out per family.
 
 The plan depends only on the spec, so callers build it once and re-run
@@ -61,7 +65,9 @@ class _Bucket:
     fn_ids: torch.Tensor          # int64 u32[n_fn_pad] global function ids
     block_forms: torch.Tensor     # i32[n_fn_pad // F_BLK] kernel form ids (CPU)
     block_tcols: torch.Tensor     # i32[n_fn_pad // F_BLK] first transform col or -1 (CPU)
-    block_meta: torch.Tensor      # i32[2, n_fn_pad // F_BLK]: both, on the device
+    block_sweep: torch.Tensor | None  # i32[2 * S, n_fn_pad // F_BLK] sweep pairs (CPU)
+    block_meta: torch.Tensor      # i32[2 + 2 * S, n_fn_pad // F_BLK]: all three, on the device
+    dirvecs: torch.Tensor | None  # i32[dim, 32] Sobol direction vectors on the device (sobol plans)
     slices: tuple[_Slice, ...]
     name: str
 
@@ -80,13 +86,16 @@ class FusionPlan:
 def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
     """Bucket a MultiFunctionSpec's fusable families by dimension.
 
-    Bucket tensors live on the families' device; the per-block form ids
-    and transform columns are also kept on the CPU (``block_forms``,
-    ``block_tcols``) for the checks and the plain version.
+    Bucket tensors live on the families' device; the per-block form ids,
+    transform columns and sweep pairs are also kept on the CPU
+    (``block_forms``, ``block_tcols``, ``block_sweep``; the last is None
+    in a bucket without a swept family) for the checks and the plain
+    version.
 
     Args:
       spec: ``repro_torch.core.integrand.MultiFunctionSpec``.
-      sampler: a family fuses only if its form supports this sampler.
+      sampler: "mc" or "sobol"; a family fuses only if its form supports
+        this sampler at its dim.
       fn_offsets: optional per-family global fn-id offsets (defaults to
         ``spec.offsets()``, the engine's counter layout).
     """
@@ -99,7 +108,8 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
     for idx, fam in enumerate(families):
         form = registry.form(fam.kernel) if fam.kernel else None
         if form is None or not form.supports(dim=fam.dim, sampler=sampler,
-                                             compactified=fam.compact):
+                                             compactified=fam.compact,
+                                             sweep=fam.swept):
             unfused.append(idx)
             continue
         by_dim.setdefault(fam.dim, []).append(idx)
@@ -110,6 +120,7 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
         packed_parts, lo_parts, hi_parts, id_parts = [], [], [], []
         block_forms: list[int] = []
         block_tcols: list[int] = []
+        block_pairs: list[tuple] = []
         slices: list[_Slice] = []
         n_cols = max(template.packed_cols(registry.form(families[i].kernel),
                                           families[i]) for i in idxs)
@@ -134,11 +145,14 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
             block_forms += [form.form_id] * (n_fn_pad // F_BLK)
             block_tcols += ([template.transform_col(form, fam)]
                             * (n_fn_pad // F_BLK))
+            block_pairs += [template.sweep_pairs(form, fam)] * (n_fn_pad // F_BLK)
             slices.append(_Slice(idx, row, n_fn))
             row += n_fn_pad
 
-        meta = torch.from_numpy(np.asarray([block_forms, block_tcols],
-                                           np.int32))
+        forms = torch.from_numpy(np.asarray(block_forms, np.int32))
+        tcols = torch.from_numpy(np.asarray(block_tcols, np.int32))
+        sweep = (template.block_sweep_tensor(block_pairs)
+                 if any(block_pairs) else None)
         packed = torch.cat(packed_parts).contiguous()
         buckets.append(_Bucket(
             dim=dim,
@@ -146,9 +160,13 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
             lo=torch.cat(lo_parts).contiguous(),
             hi=torch.cat(hi_parts).contiguous(),
             fn_ids=torch.cat(id_parts),
-            block_forms=meta[0],
-            block_tcols=meta[1],
-            block_meta=template.to_card(meta, packed.device),
+            block_forms=forms,
+            block_tcols=tcols,
+            block_sweep=sweep,
+            block_meta=template.to_card(
+                template.block_meta_host(forms, tcols, sweep), packed.device),
+            dirvecs=(template.to_card(template.sobol_dirvecs(dim), packed.device)
+                     if sampler == "sobol" else None),
             slices=tuple(slices),
             name=f"mc_eval_fused_{sampler}_d{dim}f{row}c{n_cols}",
         ))
@@ -165,9 +183,6 @@ def eval_plan(plan: FusionPlan, n_samples: int, key, *, sample_offset=0):
     """
     from repro_torch.core.direct_mc import SumsState, n_tensor
 
-    if plan.sampler != "mc":
-        raise NotImplementedError(
-            "sampler='sobol' is not ported yet (ROADMAP queue 1 item 7)")
     n_sample_blocks = max(1, math.ceil(int(n_samples) / S_BLK))
     scalars = template.pack_scalars(key, sample_offset, n_samples)
 
@@ -176,8 +191,9 @@ def eval_plan(plan: FusionPlan, n_samples: int, key, *, sample_offset=0):
         sums = template.fused_mc(
             scalars, bucket.fn_ids, bucket.packed, bucket.lo, bucket.hi,
             bucket.block_forms, dim=bucket.dim,
-            n_sample_blocks=n_sample_blocks,
-            block_tcols=bucket.block_tcols, block_meta=bucket.block_meta)[0]
+            n_sample_blocks=n_sample_blocks, block_tcols=bucket.block_tcols,
+            block_sweep=bucket.block_sweep, sampler=plan.sampler,
+            block_meta=bucket.block_meta, dirvecs=bucket.dirvecs)[0]
         n = n_tensor(n_samples, sums.device)
         for sl in bucket.slices:
             rows = sums[sl.row_start:sl.row_start + sl.n_fn]
@@ -224,9 +240,6 @@ def launch_plan_rounds(plan: FusionPlan, round_samples: int, n_rounds: int,
       output to the host once and slices there (the service does), rather
       than paying a device copy per (family, round).
     """
-    if plan.sampler != "mc":
-        raise NotImplementedError(
-            "sampler='sobol' is not ported yet (ROADMAP queue 1 item 7)")
     n_sample_blocks = max(1, math.ceil(int(round_samples) / S_BLK))
     scalars = template.pack_scalars(key, 0, round_samples,
                                     round_stride=round_samples)
@@ -238,7 +251,9 @@ def launch_plan_rounds(plan: FusionPlan, round_samples: int, n_rounds: int,
             bucket.block_forms, dim=bucket.dim,
             n_sample_blocks=n_sample_blocks, n_rounds=int(n_rounds),
             round_base=_round_base_for(bucket, start_rounds, round_samples),
-            block_tcols=bucket.block_tcols, block_meta=bucket.block_meta))
+            block_tcols=bucket.block_tcols, block_sweep=bucket.block_sweep,
+            sampler=plan.sampler, block_meta=bucket.block_meta,
+            dirvecs=bucket.dirvecs))
         for sl in bucket.slices:
             where[sl.family_index] = (b, sl.row_start, sl.n_fn)
     return where, outputs

@@ -11,6 +11,12 @@ A body takes ``draw(d)`` -> (F, S) samples of dimension ``d`` and the
 (F, n_cols) packed block ``p``, and returns (F, S) values; it adds its
 per-dimension terms in the same order as ``repro``'s body and the CUDA
 body.
+
+``sweep_cols`` maps each sweepable template parameter to the base packed
+columns it occupies (``template.sweep_col_map``), as ``repro``'s forms
+declare them.  genz_osc's ``u`` is absent on purpose: its packer keeps
+only ``u[:, :1]`` of a dim-wide leaf, so a per-point table could not
+round-trip through the columns.
 """
 
 from __future__ import annotations
@@ -99,20 +105,32 @@ def pack_gaussian(family):
 
 HARMONIC = registry.register_form(KernelForm(
     name="mc_eval_harmonic", form_id=0, body=harmonic_body,
-    pack_params=pack_harmonic, n_cols=lambda dim: 2 + dim))
+    pack_params=pack_harmonic, n_cols=lambda dim: 2 + dim,
+    sweep_cols=lambda dim: {"a": (0,), "b": (1,),
+                            "k": tuple(range(2, 2 + dim))}))
 
 ABS_SUM = registry.register_form(KernelForm(
     name="mc_eval_abs_sum", form_id=1, body=abs_sum_body,
-    pack_params=pack_abs_sum, n_cols=lambda dim: 1 + dim))
+    pack_params=pack_abs_sum, n_cols=lambda dim: 1 + dim,
+    sweep_cols=lambda dim: {"c": (0,), "s": tuple(range(1, 1 + dim))}))
 
 GAUSSIAN = registry.register_form(KernelForm(
     name="mc_eval_gaussian", form_id=2, body=gaussian_body,
-    pack_params=pack_gaussian, n_cols=lambda dim: 1))
+    pack_params=pack_gaussian, n_cols=lambda dim: 1,
+    sweep_cols=lambda dim: {"sigma": (0,)}))
 
 GENZ_OSC = registry.register_form(KernelForm(
     name="mc_eval_genz_osc", form_id=3, body=genz_osc_body,
-    pack_params=pack_genz_osc, n_cols=lambda dim: 1 + dim))
+    pack_params=pack_genz_osc, n_cols=lambda dim: 1 + dim,
+    sweep_cols=lambda dim: {"a": tuple(range(1, 1 + dim))}))
 
 GENZ_CORNER = registry.register_form(KernelForm(
     name="mc_eval_genz_corner", form_id=4, body=genz_corner_body,
-    pack_params=pack_genz_corner, n_cols=lambda dim: dim))
+    pack_params=pack_genz_corner, n_cols=lambda dim: dim,
+    sweep_cols=lambda dim: {"a": tuple(range(dim))}))
+
+# Directly importable single-family impls (repro's historical names).
+mc_eval_harmonic = registry.impl("mc_eval_harmonic")
+mc_eval_sobol_harmonic = registry.impl("mc_eval_harmonic@sobol")
+mc_eval_abs_sum = registry.impl("mc_eval_abs_sum")
+mc_eval_gaussian = registry.impl("mc_eval_gaussian")

@@ -15,12 +15,16 @@ Dispatch entry points:
 
 * :func:`get` — name -> impl, raising on unknown names.
 * :func:`lookup` — capability-checked: the impl if the named form
-  supports (dim, sampler), else ``None`` so the engine takes the chunked
-  path.  This is what ``direct_mc._sums_with_ids`` calls.
+  supports (dim, sampler, compactified, sweep), else ``None`` so the
+  engine takes the chunked path.  This is what
+  ``direct_mc._sums_with_ids`` calls.
 
-Forms of this slice advertise ``samplers=("mc",)`` and, of the wrapper
-stages, the compactification (``supports_compactified``, as ``repro``'s
-forms do); swept and adapted come with later slices.
+Forms advertise both samplers (Sobol up to ``core.sobol.MAX_DIM``
+dims) and, of the wrapper stages, the compactification
+(``supports_compactified``) and the parameter sweep (``sweep_cols``), as
+``repro``'s forms do; the importance-grid stage comes with a later
+slice.  The pseudo-random impl owns the bare form name, the Sobol one
+``"<name>@sobol"``.
 """
 
 from __future__ import annotations
@@ -51,13 +55,17 @@ class KernelForm:
       pack_params: ``family -> f32[n_fn, n_cols(dim)]`` packed parameters.
       n_cols: ``dim -> int`` packed width (fused buckets pad to the max).
       max_dim: largest supported integrand dimension.
-      samplers: supported samplers.
+      samplers: supported samplers, a subset of ("mc", "sobol").
       backends: where the form runs ("cuda" kernel, "cpu" plain version).
       supports_compactified: whether the body composes with the
         compactification stage (the CUDA kernel's compactified blocks,
         ``template.compactified_body`` in the plain version).
-      supports_adapted, sweep_cols: the other wrapper stages; not ported
-        yet, so no form may claim them.
+      sweep_cols: ``dim -> {param name: base packed column indices}``:
+        the template parameters a swept family's table may override per
+        point, and the packed columns each occupies
+        (``template.sweep_col_map``); ``None``: not sweepable.
+      supports_adapted: the importance-grid stage; not ported yet, so no
+        form may claim it.
     """
 
     name: str
@@ -66,26 +74,46 @@ class KernelForm:
     pack_params: Callable
     n_cols: Callable[[int], int]
     max_dim: int = _COUNTER_MAX_DIM
-    samplers: tuple[str, ...] = ("mc",)
+    samplers: tuple[str, ...] = ("mc", "sobol")
     backends: tuple[str, ...] = ("cuda", "cpu")
     supports_compactified: bool = True
     sweep_cols: Callable[[int], dict[str, tuple[int, ...]]] | None = None
     supports_adapted: bool = False
 
+    @property
+    def supports_swept(self) -> bool:
+        """Whether this form serves swept families at all."""
+        return self.sweep_cols is not None
+
     def supports(self, *, dim: int, sampler: str = "mc",
-                 compactified: bool = False) -> bool:
+                 compactified: bool = False,
+                 sweep: tuple[str, ...] = ()) -> bool:
+        if sampler not in self.samplers or not 1 <= dim <= self.max_dim:
+            return False
         if compactified and not self.supports_compactified:
             return False
-        return sampler in self.samplers and 1 <= dim <= self.max_dim
+        if sweep:
+            if self.sweep_cols is None:
+                return False
+            if any(name not in self.sweep_cols(dim) for name in sweep):
+                return False
+        if sampler == "sobol":
+            from repro_torch.core.sobol import MAX_DIM
+            return dim <= MAX_DIM
+        return True
 
 
 def register_form(form: KernelForm) -> KernelForm:
-    """Register a form and generate its single-family impl."""
+    """Register a form and generate its impl for every sampler it
+    supports."""
     if form.name in _FORMS:
         raise ValueError(f"kernel form {form.name!r} already registered")
-    if form.sweep_cols is not None or form.supports_adapted:
-        raise ValueError(f"form {form.name!r}: the swept and adapted stages "
-                         "are not ported yet (ROADMAP queue 1 item 9)")
+    if form.supports_adapted:
+        raise ValueError(f"form {form.name!r}: the adapted stage is not "
+                         "ported yet (ROADMAP queue 1 item 9)")
+    if not set(form.samplers) <= {"mc", "sobol"}:
+        raise ValueError(f"form {form.name!r}: unknown samplers "
+                         f"{form.samplers}")
     if not 0 <= form.form_id < N_DEVICE_FORMS or form.form_id in _BY_ID:
         raise ValueError(
             f"form {form.name!r}: form_id {form.form_id} must be a free index "
@@ -93,8 +121,24 @@ def register_form(form: KernelForm) -> KernelForm:
     from repro_torch.kernels.template import make_family_impl
     _FORMS[form.name] = form
     _BY_ID[form.form_id] = form
-    _REGISTRY[form.name] = make_family_impl(form)
+    for sampler in form.samplers:
+        _REGISTRY[impl_name(form.name, sampler)] = make_family_impl(form, sampler)
     return form
+
+
+def impl_name(name: str, sampler: str) -> str:
+    """Registry key of a form's impl for ``sampler``."""
+    return name if sampler == "mc" else f"{name}@{sampler}"
+
+
+def impl(name: str) -> Callable:
+    """Plain dict lookup (no import side effect; registration-time use)."""
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"no kernel impl registered under {name!r}; have "
+                       f"{sorted(_REGISTRY)} (sampler variants are named "
+                       f"'<form>@<sampler>')") from None
 
 
 def _load_builtin():
@@ -126,26 +170,35 @@ def by_id(form_id: int) -> KernelForm:
 
 
 def lookup(name: str, *, dim: int, sampler: str = "mc",
-           compactified: bool = False,
+           compactified: bool = False, sweep: tuple[str, ...] = (),
            required: bool = False) -> Callable | None:
-    """Capability-checked dispatch: impl for (dim, sampler, compactified)
-    or None.
+    """Capability-checked dispatch: impl for (dim, sampler, compactified,
+    sweep) or None.  ``sweep`` names the parameters a swept family's
+    table overrides.
 
     ``required=True`` turns the None into a ``ValueError`` naming the
-    form, the request and what the form supports.
+    form, the request and what the form supports (the sweep engine has
+    no fallback and asks for this).
     """
     _load_builtin()
     f = _FORMS.get(name)
     if f is not None and f.supports(dim=dim, sampler=sampler,
-                                    compactified=compactified):
-        return _REGISTRY[name]
+                                    compactified=compactified, sweep=sweep):
+        return _REGISTRY[impl_name(name, sampler)]
     if required:
-        have = (f"form supports dim<={f.max_dim}, samplers={f.samplers}"
-                + (", compactified ok" if f.supports_compactified else "")
-                if f is not None else f"registered forms: {sorted(_FORMS)}")
+        if f is None:
+            have = f"registered forms: {sorted(_FORMS)}"
+        else:
+            from repro_torch.core.sobol import MAX_DIM
+            have = (f"form supports dim<={f.max_dim}, samplers={f.samplers}"
+                    f" (sobol dim<={MAX_DIM})"
+                    + (", compactified ok" if f.supports_compactified else "")
+                    + (f", sweepable={sorted(f.sweep_cols(min(dim, f.max_dim)))}"
+                       if f.sweep_cols is not None else ""))
         raise ValueError(f"kernel lookup missed for {name!r} "
                          f"(dim={dim}, sampler={sampler!r}, "
-                         f"compactified={compactified}): {have}")
+                         f"compactified={compactified}, sweep={tuple(sweep)}): "
+                         f"{have}")
     return None
 
 

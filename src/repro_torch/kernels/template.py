@@ -4,13 +4,17 @@ plain PyTorch version (port of ``repro.kernels.template``).
 One launch covers a padded stack of functions, ``F_BLK`` rows per block,
 each block homogeneous in form, and ``n_rounds`` consecutive counter
 windows.  Per function ``f``, round ``r``, sample ``s`` and dim ``d`` it
-draws ``c0 = sample_offset + round_base[block] + r * round_stride + s``
-(u32 wrap) and ``c1 = fn_id * 256 + d``, turns Threefry-2x32 bits into a
-uniform, maps it into the box, evaluates the block's body (wrapped in
-the compactification stage in a compactified block) and returns
-per-round, per-function ``(sum f, sum f^2)`` over the samples below
-``n_valid``.  Round ``r`` of an R-round launch equals a single-round
-launch at that round's offset, bit for bit.
+takes ``c0 = sample_offset + round_base[block] + r * round_stride + s``
+(u32 wrap) and ``c1 = fn_id * 256 + d`` and draws a uniform: with
+``sampler="mc"`` from the Threefry-2x32 bits of ``(c0, c1)``, with
+``sampler="sobol"`` from the Sobol point of index ``c0`` (shared by the
+block's functions) XOR the digital shift ``random_bits(k0, k1, 0x50B01,
+c1)``.  It maps the uniform into the box, evaluates the block's body
+(wrapped in the compactification stage in a compactified block, on the
+block's packed rows with its sweep table columns substituted in a swept
+block) and returns per-round, per-function ``(sum f, sum f^2)`` over the
+samples below ``n_valid``.  Round ``r`` of an R-round launch equals a
+single-round launch at that round's offset, bit for bit.
 
 * :func:`fused_mc` dispatches on the device of its tensors: CPU tensors
   go to :func:`fused_mc_plain`, CUDA tensors to :func:`fused_mc_cuda`
@@ -22,15 +26,19 @@ launch at that round's offset, bit for bit.
 * A registered form (:class:`repro_torch.kernels.registry.KernelForm`)
   supplies a body and a packer; :func:`make_family_impl` turns it into a
   single-family impl, ``mc_eval.multi`` into one launch per dim bucket.
-* :func:`body_and_packed` is the one place a compactified family grows
-  its transform columns: ``[base][kind_0..kind_{dim-1}][shift_0..]``.
+* :func:`body_and_packed` is the one place a swept family grows its
+  table columns and a compactified one its transform columns, in
+  ``repro``'s row order ``[base][sweep][kind_0..kind_{dim-1}][shift_0..]``.
 
 Operands (as ``repro``'s ``fused_mc_pallas``): ``scalars`` u32[4]
 ``(k0, k1, sample_offset, n_valid)`` or u32[5] with ``round_stride``
 appended, ``block_forms`` i32[n_pad / 16] (the form id of each block),
 ``block_tcols`` i32[n_pad / 16] (-1 for a plain block, else the first
-transform column of a compactified one) and ``round_base`` u32[n_pad /
-16] are host metadata and stay on the CPU (u32 values as int64);
+transform column of a compactified one), ``block_sweep`` i32[2 * S,
+n_pad / 16] (row ``2j`` the base column that the column of row ``2j + 1``
+overrides in a swept block, -1 where a block has fewer than ``S``
+pairs) and ``round_base`` u32[n_pad / 16] are host metadata and stay on
+the CPU (u32 values as int64);
 ``fn_ids`` u32[n_pad] (int64 holding u32 values, or int32 bit patterns),
 ``packed`` f32[n_pad, n_cols] and ``lo``/``hi`` f32[n_pad, dim] live on
 the device that runs the launch.  The result is f32[n_rounds, n_pad, 2].
@@ -46,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import domains as domains_lib
-from repro_torch.core import rng
+from repro_torch.core import rng, sobol
 
 # Functions per block and samples per sample block (repro's tile).
 F_BLK = 16
@@ -63,9 +71,11 @@ _COUNT_LOCK = threading.Lock()
 _LAUNCHES = 0
 # Launches of the CUDA kernel (fused_mc_cuda) by the variant they ran:
 # "fused_mc" (one round) and "fused_mc_rounds" (n_rounds > 1) split them;
-# "fused_mc_compactified" counts those that held at least one
-# compactified block.
-VARIANTS = ("fused_mc", "fused_mc_rounds", "fused_mc_compactified")
+# "fused_mc_compactified" and "fused_mc_swept" count those that held at
+# least one compactified or swept block, "fused_mc_sobol" those that drew
+# Sobol points.
+VARIANTS = ("fused_mc", "fused_mc_rounds", "fused_mc_compactified",
+            "fused_mc_sobol", "fused_mc_swept")
 _VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 
@@ -155,30 +165,124 @@ def transform_cols(family) -> torch.Tensor:
                       aux["shift"].to(torch.float32)], dim=1)
 
 
+def swept_body(body, base_cols: int, col_map: tuple):
+    """Wrap an eval body with the parameter-sweep substitution stage
+    (plain version of the CUDA kernel's swept blocks).
+
+    A swept family's packed row carries, after its form's ``base_cols``
+    columns, one table column per swept parameter column; ``col_map[j]``
+    names the base column that table column ``j`` overrides
+    (:func:`sweep_col_map`).  The wrapper hands the body the row with
+    those base columns replaced, so the body reads exactly what it reads
+    for the same point packed as its own family.
+    """
+    dst = list(col_map)
+
+    def wrapped(draw, p, dim: int):
+        q = p.clone()
+        q[:, dst] = p[:, base_cols:base_cols + len(dst)]
+        return body(draw, q, dim)
+
+    wrapped.__name__ = f"swept_{getattr(body, '__name__', 'body')}"
+    return wrapped
+
+
+def sweep_col_map(form, family) -> tuple:
+    """Base-column substitution map of a swept ``family`` (its
+    :meth:`~IntegrandFamily.inner` view) under ``form``: entry ``j`` is
+    the base packed column that sweep table column ``j`` overrides.
+    Table columns go name-major in ``family.swept`` order, each name
+    contributing its ``form.sweep_cols(dim)`` columns in order.  Raises
+    if the form cannot sweep a name or a table leaf's width disagrees
+    with the form's columns."""
+    if form.sweep_cols is None:
+        raise ValueError(
+            f"kernel form {form.name!r} does not support swept families")
+    cols = form.sweep_cols(family.dim)
+    table = family.params["table"]
+    out = []
+    for name in family.swept:
+        if name not in cols:
+            raise ValueError(
+                f"kernel form {form.name!r} cannot sweep parameter "
+                f"{name!r} at dim={family.dim}; sweepable: {sorted(cols)}")
+        width = math.prod(int(s) for s in table[name].shape[1:])
+        if width != len(cols[name]):
+            raise ValueError(
+                f"sweep axis {name!r} packs {width} column(s) per point "
+                f"but form {form.name!r} maps it to {len(cols[name])} "
+                f"base column(s) at dim={family.dim}")
+        out.extend(int(c) for c in cols[name])
+    return tuple(out)
+
+
+def sweep_table_cols(family) -> torch.Tensor:
+    """f32[n_fn, n_sweep_cols] packed per-point table columns of a swept
+    family (its inner view), in :func:`sweep_col_map` order."""
+    table = family.params["table"]
+    return torch.cat([table[name].to(torch.float32).reshape(family.n_fn, -1)
+                      for name in family.swept], dim=1)
+
+
 def packed_cols(form, family) -> int:
-    """Packed width of ``family`` under ``form``, transform columns
-    included."""
-    return form.n_cols(family.dim) + (2 * family.dim if family.compact else 0)
+    """Packed width of ``family`` under ``form``: base, sweep table and
+    transform columns."""
+    sweep = len(sweep_col_map(form, family.inner())) if family.swept else 0
+    return (form.n_cols(family.dim) + sweep
+            + (2 * family.dim if family.compact else 0))
 
 
 def transform_col(form, family) -> int:
     """First transform column of ``family``'s packed rows, or -1 when it
     is not compactified (the per-block ``block_tcols`` value)."""
-    return form.n_cols(family.dim) if family.compact else -1
+    if not family.compact:
+        return -1
+    return packed_cols(form, family) - 2 * family.dim
+
+
+def sweep_pairs(form, family) -> tuple:
+    """The ``(base column, table column)`` pairs of a swept family's
+    packed rows (the per-block ``block_sweep`` entries); () otherwise."""
+    if not family.swept:
+        return ()
+    base = form.n_cols(family.dim)
+    return tuple((c, base + j)
+                 for j, c in enumerate(sweep_col_map(form, family.inner())))
+
+
+def block_sweep_tensor(pairs_per_block) -> torch.Tensor:
+    """i32[2 * S, n_blocks] ``block_sweep`` from each block's pairs, S the
+    most pairs of any block; -1 fills the rest."""
+    width = max((len(p) for p in pairs_per_block), default=0)
+    out = np.full((2 * width, len(pairs_per_block)), -1, np.int32)
+    for b, pairs in enumerate(pairs_per_block):
+        for j, (dst, src) in enumerate(pairs):
+            out[2 * j, b], out[2 * j + 1, b] = dst, src
+    return torch.from_numpy(out)
 
 
 def body_and_packed(form, family):
     """The (plain eval body, f32[n_fn, cols]) pair of one family.
 
-    A compactified family gets the :func:`compactified_body` wrapper and
-    its ``[base][transform]`` columns; others pass through.  Callers must
-    have checked ``form.supports(..., compactified=family.compact)``.
+    A swept family gets the :func:`swept_body` wrapper and its table
+    columns, a compactified one the :func:`compactified_body` wrapper and
+    its transform columns, composed as
+    ``compactified_body(swept_body(body))`` over ``[base][sweep][transform]``
+    (``repro``'s order); others pass through.  Callers must have checked
+    ``form.supports(..., compactified=family.compact, sweep=family.swept)``.
     """
-    packed = form.pack_params(family.inner()).to(torch.float32)
-    if not family.compact:
-        return form.body, packed
-    body = compactified_body(form.body, form.n_cols(family.dim))
-    return body, torch.cat([packed, transform_cols(family)], dim=1)
+    inner = family.inner()
+    base_cols = form.n_cols(family.dim)
+    body = form.body
+    packed = form.pack_params(inner.sweep_base()).to(torch.float32)
+    if family.swept:
+        col_map = sweep_col_map(form, inner)
+        body = swept_body(body, base_cols, col_map)
+        packed = torch.cat([packed, sweep_table_cols(inner)], dim=1)
+    if family.compact:
+        body = compactified_body(body, packed.shape[1])
+        packed = torch.cat([packed, transform_cols(family)], dim=1)
+    return body, packed
 
 
 def to_card(t: torch.Tensor, device) -> torch.Tensor:
@@ -200,7 +304,8 @@ def _host_meta(name, t, n_blocks):
 
 
 def _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
-                    n_rounds, round_base, block_tcols):
+                    n_rounds, round_base, block_tcols, sampler="mc",
+                    block_sweep=None):
     n_pad = fn_ids.shape[0]
     if fn_ids.ndim != 1 or n_pad == 0 or n_pad % F_BLK:
         raise ValueError(f"fn_ids must be 1-d with a positive multiple of "
@@ -223,6 +328,11 @@ def _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
         raise TypeError(f"fn_ids must hold u32 values; got {fn_ids.dtype}")
     if dim < 1:
         raise ValueError(f"dim must be >= 1; got {dim}")
+    if sampler not in ("mc", "sobol"):
+        raise ValueError(f"sampler must be 'mc' or 'sobol'; got {sampler!r}")
+    if sampler == "sobol" and dim > sobol.MAX_DIM:
+        raise ValueError(f"sampler='sobol' draws at most {sobol.MAX_DIM} "
+                         f"dims; got dim={dim}")
     if n_rounds < 1:
         raise ValueError(f"n_rounds must be >= 1; got {n_rounds}")
     if scalars.device.type != "cpu" or tuple(scalars.shape) not in ((4,), (5,)):
@@ -243,6 +353,23 @@ def _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
             raise ValueError(f"block_tcols must be -1 or leave 2 * dim = "
                              f"{2 * dim} transform columns inside the "
                              f"{packed.shape[1]} packed columns; got {tc}")
+    if block_sweep is not None:
+        if (block_sweep.device.type != "cpu" or block_sweep.ndim != 2
+                or block_sweep.shape[0] % 2
+                or block_sweep.shape[1] != n_blocks):
+            raise ValueError(f"block_sweep must be i32[2 * S, {n_blocks}] on "
+                             f"the CPU; got {tuple(block_sweep.shape)} on "
+                             f"{block_sweep.device}")
+        pairs = block_sweep.to(torch.int64).view(-1, 2, n_blocks)
+        dst, src = pairs[:, 0], pairs[:, 1]
+        used = dst >= 0
+        # a block's pairs read its table columns in order: src_j = src_0 + j
+        j = torch.arange(pairs.shape[0])[:, None]
+        if bool((used & ((src != src[:1] + j) | (src >= packed.shape[1])
+                         | (dst >= src[:1]))).any()):
+            raise ValueError("block_sweep must pair base columns with the "
+                             "block's table columns in order, after the "
+                             "base columns and inside the packed columns")
 
 
 def _round_words(scalars, n_rounds: int, round_base, n_blocks: int):
@@ -258,17 +385,20 @@ def _round_words(scalars, n_rounds: int, round_base, n_blocks: int):
 
 def fused_mc(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
              n_sample_blocks: int, n_rounds: int = 1, round_base=None,
-             block_tcols=None, block_meta=None) -> torch.Tensor:
+             block_tcols=None, block_sweep=None, sampler: str = "mc",
+             block_meta=None, dirvecs=None) -> torch.Tensor:
     """One fused launch: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors; raises on any other device.  ``block_meta``
-    only spares the CUDA kernel a copy (see :func:`fused_mc_cuda`)."""
+    and ``dirvecs`` only spare the CUDA kernel a copy (see
+    :func:`fused_mc_cuda`)."""
     record_launch()
     kind = packed.device.type
     kw = dict(dim=dim, n_sample_blocks=n_sample_blocks, n_rounds=n_rounds,
-              round_base=round_base, block_tcols=block_tcols)
+              round_base=round_base, block_tcols=block_tcols,
+              block_sweep=block_sweep, sampler=sampler)
     if kind == "cuda":
         return fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms,
-                             block_meta=block_meta, **kw)
+                             block_meta=block_meta, dirvecs=dirvecs, **kw)
     if kind == "cpu":
         return fused_mc_plain(scalars, fn_ids, packed, lo, hi, block_forms, **kw)
     raise ValueError(f"fused_mc runs on 'cuda' or 'cpu' tensors; got {kind!r}")
@@ -276,52 +406,78 @@ def fused_mc(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
 
 def fused_mc_plain(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
                    n_sample_blocks: int, n_rounds: int = 1, round_base=None,
-                   block_tcols=None) -> torch.Tensor:
+                   block_tcols=None, block_sweep=None,
+                   sampler: str = "mc") -> torch.Tensor:
     """Plain PyTorch version of the fused kernel, on the tensors' device.
 
-    Loops over rounds; each round draws whole 2048-sample blocks (several
-    per step, bounded by ``_PLAIN_STEP_ELEMS``) at its rows' window
-    starts, evaluates each (form, compactified) group's body on its rows,
-    and folds the per-block sums in block order.  Every round runs the
-    same code on the same shapes, so round ``r`` equals a single-round
-    call at that round's offset bit for bit.
+    Loops over rounds; each round draws whole ``CHUNK_SAMPLES``-sample
+    chunks (several per step, bounded by ``_PLAIN_STEP_ELEMS``) at its
+    rows' window starts (Threefry uniforms, or the Sobol points of each
+    block's window from :mod:`repro_torch.core.sobol` XOR each row's
+    shift), evaluates each (form, compactified, sweep map) group's body
+    on its rows, sums each chunk and folds the chunk sums in order, as
+    the kernel's pass 2 does.  (Folding 2048-sample block sums one by
+    one instead loses up to 15 times more to f32 rounding at 10^6
+    samples when the block sums are nearly equal, as Sobol's are.)
+    Every round runs the same code on the same shapes, so round ``r``
+    equals a single-round call at that round's offset bit for bit.
     """
     from repro_torch.kernels import registry
     _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
-                    n_rounds, round_base, block_tcols)
+                    n_rounds, round_base, block_tcols, sampler, block_sweep)
     n_pad = fn_ids.shape[0]
+    n_blocks = n_pad // F_BLK
     k0, k1, offset, n_valid, stride, base = _round_words(
-        scalars, n_rounds, round_base, n_pad // F_BLK)
+        scalars, n_rounds, round_base, n_blocks)
     device = packed.device
-    c1 = rng.counter_c1(rng.as_u32(fn_ids)[:, None],
-                        torch.arange(dim, dtype=torch.int64, device=device))
+    fid = rng.as_u32(fn_ids)
+    if sampler == "sobol":
+        shift = sobol.shifts_for(k0, k1, fid, dim)
+    else:
+        c1 = rng.counter_c1(fid[:, None],
+                            torch.arange(dim, dtype=torch.int64, device=device))
     width = hi - lo
-    row_forms = np.repeat(block_forms.numpy().astype(np.int64), F_BLK)
-    row_tcols = np.repeat(
-        np.full(n_pad // F_BLK, -1, np.int64) if block_tcols is None
-        else block_tcols.numpy().astype(np.int64), F_BLK)
+    blk_tcols = (np.full(n_blocks, -1, np.int64) if block_tcols is None
+                 else block_tcols.numpy().astype(np.int64))
+    blk_sweep = (np.zeros((0, n_blocks), np.int64) if block_sweep is None
+                 else block_sweep.numpy().astype(np.int64))
+    keys = [(int(f), int(t), tuple((int(blk_sweep[2 * j, b]),
+                                    int(blk_sweep[2 * j + 1, b]))
+                                   for j in range(blk_sweep.shape[0] // 2)
+                                   if blk_sweep[2 * j, b] >= 0))
+            for b, (f, t) in enumerate(zip(block_forms.tolist(), blk_tcols))]
     groups = []
-    for f, t in sorted(set(zip(row_forms.tolist(), row_tcols.tolist()))):
+    for key in sorted(set(keys)):
+        f, t, pairs = key
         body = registry.by_id(f).body
+        if pairs:
+            body = swept_body(body, pairs[0][1], tuple(d for d, _ in pairs))
         if t >= 0:
             body = compactified_body(body, t)
-        rows = np.flatnonzero((row_forms == f) & (row_tcols == t))
+        rows = np.concatenate([np.arange(b * F_BLK, (b + 1) * F_BLK)
+                               for b, k in enumerate(keys) if k == key])
         groups.append((body, torch.from_numpy(rows).to(device)))
-    row_base = torch.repeat_interleave(base, F_BLK).to(device)
-    step = max(1, min(n_sample_blocks,
-                      _PLAIN_STEP_ELEMS // (n_pad * S_BLK * dim)))
+    chunk_blocks = CHUNK_SAMPLES // S_BLK
+    step = chunk_blocks * max(1, _PLAIN_STEP_ELEMS // (n_pad * CHUNK_SAMPLES * dim))
     zero = torch.zeros((), dtype=torch.float32, device=device)
     out = []
     for r in range(n_rounds):
-        window = (offset + row_base + r * stride) & rng.MASK32
+        window = (offset + base.to(device) + r * stride) & rng.MASK32
         acc = torch.zeros(n_pad, 2, dtype=torch.float32, device=device)
         for j0 in range(0, n_sample_blocks, step):
             k = min(step, n_sample_blocks - j0)
             local = j0 * S_BLK + torch.arange(k * S_BLK, dtype=torch.int64,
                                               device=device)
             c0 = (window[:, None] + local[None, :]) & rng.MASK32
-            u = rng.bits_to_uniform(
-                rng.random_bits(k0, k1, c0[:, :, None], c1[:, None, :]))
+            if sampler == "sobol":
+                # one point per (block, sample), shared by its 16 rows
+                pts = torch.repeat_interleave(sobol.sobol_bits(c0, dim),
+                                              F_BLK, dim=0)
+                bits = pts ^ shift[:, None, :]
+            else:
+                c0 = torch.repeat_interleave(c0, F_BLK, dim=0)
+                bits = rng.random_bits(k0, k1, c0[:, :, None], c1[:, None, :])
+            u = rng.bits_to_uniform(bits)
             x = lo[:, None, :] + u * width[:, None, :]
             vals = torch.empty(n_pad, k * S_BLK, dtype=torch.float32,
                                device=device)
@@ -330,31 +486,53 @@ def fused_mc_plain(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
                 vals[rows] = body(lambda d, xr=xr: xr[:, :, d], packed[rows],
                                   dim)
             vals = torch.where(local[None, :] < n_valid, vals, zero)
-            vals = vals.view(n_pad, k, S_BLK)
-            part = torch.stack([vals.sum(-1), (vals * vals).sum(-1)], dim=-1)
-            for i in range(k):
-                acc = acc + part[:, i]
+            for v in vals.split(CHUNK_SAMPLES, dim=1):
+                acc = acc + torch.stack([v.sum(-1), (v * v).sum(-1)], dim=-1)
         out.append(acc)
     return torch.stack(out)
 
 
+def sobol_dirvecs(dim: int) -> torch.Tensor:
+    """The Sobol direction vectors ``core.sobol.direction_vectors(dim)`` as
+    an int32 (dim, 32) CPU tensor of their bit patterns (the kernel's
+    ``sobol_dirs`` operand)."""
+    return torch.from_numpy(sobol.direction_vectors(dim).view(np.int32).copy())
+
+
+def block_meta_host(block_forms, block_tcols=None,
+                    block_sweep=None) -> torch.Tensor:
+    """The kernel's per-block metadata as one CPU int32[2 + 2 * S,
+    n_blocks] tensor: form ids, first transform columns (-1: none), then
+    the ``block_sweep`` rows."""
+    n_blocks = block_forms.shape[0]
+    tcols = (torch.full((n_blocks,), -1, dtype=torch.int32)
+             if block_tcols is None else block_tcols.to(torch.int32))
+    rows = [block_forms.to(torch.int32)[None], tcols[None]]
+    if block_sweep is not None:
+        rows.append(block_sweep.to(torch.int32))
+    return torch.cat(rows).contiguous()
+
+
 def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
                   n_sample_blocks: int, n_rounds: int = 1, round_base=None,
-                  block_tcols=None, block_meta=None) -> torch.Tensor:
+                  block_tcols=None, block_sweep=None, sampler: str = "mc",
+                  block_meta=None, dirvecs=None) -> torch.Tensor:
     """Launch the CUDA kernel (``csrc/fused_mc.cu``) on the current stream.
 
     Checks device, dtype, shape and contiguity, allocates the output and
     the pass-1 scratch, and raises if the launch reports a CUDA error.
-    ``block_meta`` is ``block_forms`` and ``block_tcols`` already on the
-    card as int32[2, n_blocks] (``multi.plan_spec`` puts them there once
-    per plan); without it they are copied with :func:`to_card` on every
-    launch.  ``round_base``, when given, is copied the same way; without
-    it the kernel starts every block's window at ``sample_offset``.
-    Nothing here waits for the card.
+    ``block_meta`` is :func:`block_meta_host` already on the card
+    (``multi.plan_spec`` puts it there once per plan); without it it is
+    copied with :func:`to_card` on every launch.  ``round_base``, when
+    given, is copied the same way; without it the kernel starts every
+    block's window at ``sample_offset``.  With ``sampler="sobol"``,
+    ``dirvecs`` is :func:`sobol_dirvecs` on the card (``plan_spec`` keeps
+    it in the plan); without it the table is copied per launch.  Nothing
+    here waits for the card.
     """
     from repro_torch.kernels import build
     _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
-                    n_rounds, round_base, block_tcols)
+                    n_rounds, round_base, block_tcols, sampler, block_sweep)
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"fused_mc_cuda needs CUDA tensors; got {device}")
@@ -372,18 +550,28 @@ def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
     n_eff = min(n_valid, n_sample_blocks * S_BLK)
     n_chunks = max(1, math.ceil(n_eff / CHUNK_SAMPLES))
     fid = rng.u32_bits(rng.as_u32(fn_ids)).contiguous()
-    tcols = (torch.full((n_blocks,), -1, dtype=torch.int32)
-             if block_tcols is None else block_tcols.to(torch.int32))
-    has_compact = bool((tcols >= 0).any())
+    has_compact = block_tcols is not None and bool((block_tcols >= 0).any())
+    n_sweep = 0 if block_sweep is None else block_sweep.shape[0] // 2
+    has_sweep = n_sweep > 0 and bool((block_sweep >= 0).any())
     if block_meta is None:
-        block_meta = to_card(torch.stack([block_forms.to(torch.int32), tcols]),
-                             device)
+        block_meta = to_card(block_meta_host(block_forms, block_tcols,
+                                             block_sweep), device)
     elif (block_meta.device != device or block_meta.dtype != torch.int32
-          or tuple(block_meta.shape) != (2, n_blocks)
+          or tuple(block_meta.shape) != (2 + 2 * n_sweep, n_blocks)
           or not block_meta.is_contiguous()):
-        raise ValueError(f"block_meta must be contiguous int32 (2, {n_blocks}) "
-                         f"on {device}; got {block_meta.dtype} "
-                         f"{tuple(block_meta.shape)} on {block_meta.device}")
+        raise ValueError(f"block_meta must be contiguous int32 "
+                         f"({2 + 2 * n_sweep}, {n_blocks}) on {device}; got "
+                         f"{block_meta.dtype} {tuple(block_meta.shape)} on "
+                         f"{block_meta.device}")
+    if sampler != "sobol":
+        dirvecs = None
+    elif dirvecs is None:
+        dirvecs = to_card(sobol_dirvecs(dim), device)
+    elif (dirvecs.device != device or dirvecs.dtype != torch.int32
+          or tuple(dirvecs.shape) != (dim, 32) or not dirvecs.is_contiguous()):
+        raise ValueError(f"dirvecs must be contiguous int32 ({dim}, 32) on "
+                         f"{device}; got {dirvecs.dtype} "
+                         f"{tuple(dirvecs.shape)} on {dirvecs.device}")
     base_dev = (None if round_base is None
                 else to_card(rng.u32_bits(base), device))
     scratch = torch.empty(n_rounds, n_pad, n_chunks, 2, dtype=torch.float32,
@@ -393,17 +581,21 @@ def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.zmc_fused_mc(k0, k1, offset, n_eff, stride, n_rounds,
                                None if base_dev is None else base_dev.data_ptr(),
-                               fid.data_ptr(), block_meta[0].data_ptr(),
-                               block_meta[1].data_ptr(),
-                               int(has_compact), packed.data_ptr(), n_cols,
+                               fid.data_ptr(), block_meta.data_ptr(),
+                               n_sweep if has_sweep else 0,
+                               int(has_compact),
+                               None if dirvecs is None else dirvecs.data_ptr(),
+                               packed.data_ptr(), n_cols,
                                lo.data_ptr(), hi.data_ptr(), dim, n_pad, n_chunks,
                                scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"zmc_fused_mc launch failed with CUDA error {err}")
     with _COUNT_LOCK:
         _VARIANT_LAUNCHES["fused_mc_rounds" if n_rounds > 1 else "fused_mc"] += 1
-        if has_compact:
-            _VARIANT_LAUNCHES["fused_mc_compactified"] += 1
+        for name, flag in (("fused_mc_compactified", has_compact),
+                           ("fused_mc_sobol", sampler == "sobol"),
+                           ("fused_mc_swept", has_sweep)):
+            _VARIANT_LAUNCHES[name] += flag
     return out
 
 
@@ -431,18 +623,51 @@ def random_bits_cuda(k0: int, k1: int, c0: torch.Tensor,
     return rng.as_u32(out)
 
 
-def make_family_impl(form):
-    """Single-family impl of one form: pads the family to ``F_BLK`` rows
-    and makes one :func:`fused_mc` launch."""
+def sobol_cuda(k0: int, k1: int, idx: torch.Tensor, fn_ids: torch.Tensor,
+               dim: int):
+    """Sobol points and shifts as the device header computes them
+    (test-only kernel; nothing on the main path calls it): for u32
+    indices ``idx`` and function ids ``fn_ids`` (one per index) on one
+    CUDA device, returns int64 u32 ``(points, shifts)`` of shape
+    ``(n, dim)``, to hold against ``core.sobol.sobol_bits`` and
+    ``shifts_for``."""
+    from repro_torch.kernels import build
+    if idx.device.type != "cuda" or fn_ids.device != idx.device:
+        raise ValueError("sobol_cuda needs idx and fn_ids on one CUDA device")
+    if idx.shape != fn_ids.shape or idx.ndim != 1:
+        raise ValueError(f"idx {tuple(idx.shape)} and fn_ids "
+                         f"{tuple(fn_ids.shape)} must be one 1-d shape")
+    lib = build.load("zmc_fused_mc")
+    a = rng.u32_bits(rng.as_u32(idx)).contiguous()
+    b = rng.u32_bits(rng.as_u32(fn_ids)).contiguous()
+    v = to_card(sobol_dirvecs(dim), idx.device)
+    pts = torch.empty(a.numel(), dim, dtype=torch.int32, device=idx.device)
+    shs = torch.empty_like(pts)
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        err = lib.zmc_sobol(v.data_ptr(), dim, int(k0) & rng.MASK32,
+                            int(k1) & rng.MASK32, a.data_ptr(), b.data_ptr(),
+                            pts.data_ptr(), shs.data_ptr(), a.numel(), stream)
+    if err != 0:
+        raise RuntimeError(f"zmc_sobol launch failed with CUDA error {err}")
+    return rng.as_u32(pts), rng.as_u32(shs)
+
+
+def make_family_impl(form, sampler: str = "mc"):
+    """Single-family impl of one form and sampler: pads the family to
+    ``F_BLK`` rows and makes one :func:`fused_mc` launch."""
     from repro_torch.core.direct_mc import SumsState, n_tensor
 
     def impl(family, n_samples: int, key, *, fn_offset: int = 0,
              sample_offset=0, fn_ids=None) -> SumsState:
         n_fn, dim = family.n_fn, family.dim
-        if not form.supports(dim=dim, compactified=family.compact):
-            raise ValueError(f"kernel {form.name!r} does not support dim={dim}"
-                             + (" on a compactified family"
-                                if family.compact else ""))
+        if not form.supports(dim=dim, sampler=sampler,
+                             compactified=family.compact, sweep=family.swept):
+            raise ValueError(
+                f"kernel {form.name!r} does not support dim={dim} with "
+                f"sampler={sampler!r}"
+                + (" on a compactified family" if family.compact else "")
+                + (f" swept over {family.swept}" if family.swept else ""))
         device = family.device
         if fn_ids is None:
             fn_ids = fn_offset + torch.arange(n_fn, dtype=torch.int64,
@@ -459,10 +684,14 @@ def make_family_impl(form):
             torch.full((n_blocks,), form.form_id, dtype=torch.int32),
             dim=dim, n_sample_blocks=max(1, math.ceil(int(n_samples) / S_BLK)),
             block_tcols=torch.full((n_blocks,), transform_col(form, family),
-                                   dtype=torch.int32))[0]
+                                   dtype=torch.int32),
+            block_sweep=(block_sweep_tensor([sweep_pairs(form, family)] * n_blocks)
+                         if family.swept else None),
+            sampler=sampler)[0]
         return SumsState(s1=out[:n_fn, 0], s2=out[:n_fn, 1],
                          n=n_tensor(n_samples, device))
 
-    impl.__name__ = form.name
+    impl.__name__ = form.name if sampler == "mc" else f"{form.name}@{sampler}"
     impl.form = form
+    impl.sampler = sampler
     return impl

@@ -34,8 +34,9 @@ wraps each span in ``torch.profiler.record_function``;
 ``http://127.0.0.1:P/metrics``; ``--metrics-json PATH`` writes a final
 metrics + convergence snapshot.
 
-Not ported yet: sweeps (``demo_workload(sweeps=...)``, ROADMAP queue 1
-item 9), ``--mesh`` (queue 1 item 11) and ``--audit-state`` (queue 1
+Sweep requests ride the library entry point, ``demo_workload(sweeps=k)``,
+as in the reference launcher, which has no flag for them either.  Not
+ported yet: ``--mesh`` (queue 1 item 11) and ``--audit-state`` (queue 1
 item 12); the reference's auditor reads the port's state dirs as they
 are (``python -m repro.analysis --state-dir DIR``).
 """
@@ -50,7 +51,7 @@ from repro_torch.core import genz
 from repro_torch.core.integrand import (abs_sum_family, gaussian_family,
                                         harmonic_family)
 from repro_torch.obs import clock as _clock
-from repro_torch.service.api import IntegrationRequest
+from repro_torch.service.api import IntegrationRequest, SweepRequest
 
 
 def demo_workload(n_requests: int, *, n_fn: int = 8,
@@ -64,14 +65,13 @@ def demo_workload(n_requests: int, *, n_fn: int = 8,
     buckets to fuse) plus Gaussians over R^d and the positive orthant
     (compactified families, fused like the finite ones), and re-issues
     every ``duplicate_every``-th request verbatim (distinct clients with
-    overlapping asks, which the canonicalizer dedupes).  The families
-    are those of ``repro.launch.serve_integrals.demo_workload``, with
-    the same parameters.  ``sweeps`` must be 0: sweep requests are not
-    ported yet.
+    overlapping asks, which the canonicalizer dedupes).  With
+    ``sweeps=k`` it appends ``k`` sweep requests (:class:`SweepRequest`),
+    each a harmonic template scanned over a 2-D (a, b) grid, consecutive grids
+    extending the slowest axis so their canonical slices overlap.  The
+    requests are those of ``repro.launch.serve_integrals.demo_workload``,
+    with the same parameters.
     """
-    if sweeps:
-        raise NotImplementedError(
-            "sweep requests are not ported yet (ROADMAP queue 1 item 9)")
     reqs: list = []
     makers = [
         lambda i: harmonic_family(n_fn, 2 + i % 3),
@@ -91,6 +91,14 @@ def demo_workload(n_requests: int, *, n_fn: int = 8,
             fams = (makers[i % len(makers)](i),)
         reqs.append(IntegrationRequest.make(
             fams, n_samples=n_samples, target_stderr=target_stderr))
+    for j in range(sweeps):
+        # consecutive sweeps extend the slowest-varying axis, so their
+        # canonical slice prefixes align and dedupe at the cache
+        grid = {"a": np.linspace(0.5, 2.0, 4 + 2 * j),
+                "b": np.linspace(-1.0, 1.0, 8)}
+        reqs.append(SweepRequest.make(
+            harmonic_family(1, 2 + j % 3), grid,
+            n_samples=n_samples, target_stderr=target_stderr))
     return reqs
 
 

@@ -15,9 +15,11 @@
 from repro_torch.service.api import (Backpressure, IntegrationClient,
                                      IntegrationRequest, IntegrationResult,
                                      RequestError, RequestFailed,
-                                     SweepRequest, request_from_numpy)
+                                     SweepRequest, SweepResult,
+                                     request_from_numpy)
 from repro_torch.service.cache import CacheEntry, ResultCache
-from repro_torch.service.canonical import canonical_family, family_hash
+from repro_torch.service.canonical import (canonical_family, family_hash,
+                                           spec_hash, sweep_slices)
 from repro_torch.service.engine import EngineStats, IntegrationEngine
 from repro_torch.service.faults import (FAULT_POINTS, FaultPlan,
                                         InjectedFault, NullFaultPlan)
@@ -52,8 +54,11 @@ __all__ = [
     "RetryExhausted",
     "RetryPolicy",
     "SweepRequest",
+    "SweepResult",
     "canonical_family",
     "family_hash",
     "request_from_numpy",
     "run_with_policy",
+    "spec_hash",
+    "sweep_slices",
 ]

@@ -3,12 +3,22 @@
 
 A request names *what* to integrate and *how well*: a sample budget, a
 standard-error target, or both.  The engine decides everything else —
-batching, caching, counter-space placement, kernel dispatch.  The
-request shape ported is :class:`IntegrationRequest`, a list of
-:class:`~repro_torch.core.integrand.IntegrandFamily`.  Parameter sweeps
-(:class:`SweepRequest`), importance-grid adaptation (``adaptive=True``)
-and the Sobol sampler are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+batching, caching, counter-space placement, kernel dispatch.  Two
+request shapes exist:
+
+* :class:`IntegrationRequest` — a list of
+  :class:`~repro_torch.core.integrand.IntegrandFamily`;
+* :class:`SweepRequest` — ONE single-function template family x a
+  parameter grid.  The service canonicalizes the grid into fixed-size
+  slices of swept families (``canonical.sweep_slices``), so a large scan
+  costs slice-count cache entries and one fused launch per (dim,
+  sampler) bucket per wave, and overlapping sweeps share streams at the
+  sub-grid level.  Results stream back per point as rounds complete
+  (``engine.sweep_partial``).
+
+Both take ``sampler="mc"`` or ``"sobol"``.  Importance-grid adaptation
+(``adaptive=True``) is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item.
 
 ``IntegrationClient`` is the blocking convenience wrapper: it submits,
 drives the engine if no background worker is running, and returns the
@@ -52,8 +62,8 @@ class IntegrationRequest:
         engine's round size).
       target_stderr: serve once every function's standard error is at or
         below this.  With both set, both must hold.
-      sampler: "mc" — selects the sample stream (and therefore the cache
-        entry); "sobol" is not ported yet and ``make`` raises.
+      sampler: "mc" | "sobol" — selects the sample stream (and therefore
+        the cache entry: the two streams never mix).
       deadline: optional wall-time budget in seconds, measured from
         submit.  When it expires before the precision is reached the
         ticket *completes* with a :class:`RequestFailed` (reason
@@ -90,9 +100,6 @@ class IntegrationRequest:
             raise ValueError("target_stderr must be positive")
         if sampler not in ("mc", "sobol"):
             raise ValueError(f"unknown sampler {sampler!r}")
-        if sampler != "mc":
-            raise NotImplementedError(
-                "sampler='sobol' is not ported yet (ROADMAP queue 1 item 7)")
         if deadline is not None and deadline <= 0:
             raise ValueError("deadline must be positive (seconds)")
         if adaptive:
@@ -122,8 +129,18 @@ def request_from_numpy(families: Sequence[dict], *, device="cpu",
 
 @dataclasses.dataclass(frozen=True)
 class SweepRequest:
-    """One template integrand scanned over a parameter grid: not ported
-    yet (ROADMAP queue 1 item 9); :meth:`make` raises."""
+    """One client ask: scan a template integrand over a parameter grid.
+
+    Attributes:
+      template: a single-function (``n_fn == 1``) family whose dict
+        params the grid overrides by name.
+      grid: ``{param name: axis values}``; the swept points are the
+        row-major cartesian product over axes in sorted-name order (last
+        axis fastest).  Axis values may be vectors per point (e.g. a
+        dim-wide ``k``): the leading axis is the point axis.
+      n_samples / target_stderr / sampler / deadline: as on
+        :class:`IntegrationRequest`, applied to every grid point.
+    """
 
     template: IntegrandFamily
     grid: dict
@@ -133,10 +150,37 @@ class SweepRequest:
     deadline: float | None = None
 
     @classmethod
-    def make(cls, template: IntegrandFamily, grid: dict,
-             **kwargs) -> "SweepRequest":
-        raise NotImplementedError(
-            "parameter sweeps are not ported yet (ROADMAP queue 1 item 9)")
+    def make(cls, template: IntegrandFamily, grid: dict, *,
+             n_samples: int | None = None,
+             target_stderr: float | None = None,
+             sampler: str = "mc",
+             deadline: float | None = None) -> "SweepRequest":
+        template = template.validate()
+        if template.n_fn != 1:
+            raise ValueError(
+                f"sweep template must be a single function (n_fn == 1); "
+                f"got n_fn={template.n_fn}")
+        if not isinstance(template.params, dict):
+            raise ValueError("sweep template needs dict params")
+        if not grid:
+            raise ValueError("sweep grid must name at least one axis")
+        missing = [k for k in grid if k not in template.params]
+        if missing:
+            raise ValueError(f"sweep grid names {sorted(missing)} not in "
+                             f"template params {sorted(template.params)}")
+        if n_samples is None and target_stderr is None:
+            raise ValueError("request needs n_samples or target_stderr")
+        if n_samples is not None and n_samples <= 0:
+            raise ValueError("n_samples must be positive")
+        if target_stderr is not None and target_stderr <= 0:
+            raise ValueError("target_stderr must be positive")
+        if sampler not in ("mc", "sobol"):
+            raise ValueError(f"unknown sampler {sampler!r}")
+        if deadline is not None and deadline <= 0:
+            raise ValueError("deadline must be positive (seconds)")
+        return cls(template=template, grid=dict(grid), n_samples=n_samples,
+                   target_stderr=target_stderr, sampler=sampler,
+                   deadline=deadline)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +230,27 @@ class RequestFailed:
         return True
 
 
+@dataclasses.dataclass(frozen=True)
+class SweepResult(IntegrationResult):
+    """Per-point estimates of a sweep, in row-major grid order.
+
+    ``means``/``stderrs`` are flat over grid points; reshape to
+    ``grid_shape`` to index by axis value (``axis_names`` gives the axis
+    order: sorted parameter names).  ``n_per_family`` / ``names`` /
+    ``stream_ids`` are per canonical *slice*, the unit the cache keys on.
+    A partial snapshot (``engine.sweep_partial``) carries
+    ``complete=False`` and a ``points_done`` mask over points whose slice
+    has at least one finished round (undone points hold NaN means and inf
+    stderrs).
+    """
+
+    grid_shape: tuple[int, ...] = ()
+    axis_names: tuple[str, ...] = ()
+    n_points: int = 0
+    points_done: np.ndarray | None = None
+    complete: bool = True
+
+
 class IntegrationClient:
     """Blocking client over an :class:`~repro_torch.service.engine.IntegrationEngine`.
 
@@ -218,6 +283,21 @@ class IntegrationClient:
     def integrate(self, families, **kwargs) -> IntegrationResult:
         ticket = self.submit(families, **kwargs)
         return self.wait(ticket)
+
+    def submit_sweep(self, template, grid, **kwargs) -> int:
+        return self.engine.submit(SweepRequest.make(template, grid, **kwargs))
+
+    def sweep(self, template, grid, **kwargs) -> SweepResult:
+        """Scan ``template`` over ``grid`` and block for every point."""
+        ticket = self.submit_sweep(template, grid, **kwargs)
+        return self.wait(ticket)
+
+    def sweep_partial(self, ticket: int,
+                      since: np.ndarray | None = None) -> SweepResult:
+        """Current per-point snapshot of an in-flight sweep (non-blocking);
+        ``since``, the previous snapshot's ``points_done``, limits the
+        work to newly finished points (see ``engine.sweep_partial``)."""
+        return self.engine.sweep_partial(ticket, since=since)
 
     def wait(self, ticket: int, timeout: float | None = None) -> IntegrationResult:
         if self.engine.running:

@@ -19,12 +19,20 @@ of float32 parameters).  What "the same integral" means to the service:
 Infinite domains are compactified *before* hashing, mirroring what the
 engine does before sampling.
 
+A **sweep request** (one template family x a parameter grid)
+canonicalizes here too: axes sorted by name, values to f32, points in
+row-major (last-axis-fastest) order, chunked into fixed
+:data:`DEFAULT_SWEEP_SLICE`-point *slices*, each an ordinary swept
+family that hashes by content like any other.  Two clients sweeping
+overlapping grids share cache streams wherever their canonical slices
+align.
+
 For a family with a registered form, :func:`family_hash` hashes the same
 bytes as ``repro.service.family_hash`` (the tree structure string of
 ``jax.tree_util`` and its leaf order, the same dtype normalization), so
 the two packages agree on stream ids and a state dir written by one
-serves the other.  Parameter sweeps (``sweep_slices``) are not ported
-yet.
+serves the other; a sweep's slices get the same names and hashes in
+both packages.
 
 The hash addresses the service's result cache; it is not a security
 boundary.
@@ -33,13 +41,14 @@ boundary.
 from __future__ import annotations
 
 import hashlib
+import math
 import types
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.core.integrand import IntegrandFamily
+from repro_torch.core.integrand import IntegrandFamily, MultiFunctionSpec
 from repro_torch.core.tree import tree_leaves, treedef_str
 
 
@@ -172,7 +181,79 @@ def family_hash(family: IntegrandFamily, *, canonicalize: bool = True) -> str:
     return h.hexdigest()
 
 
-def sweep_slices(template, grid, **kwargs):
-    """Canonical slices of a sweep request: not ported yet."""
-    raise NotImplementedError(
-        "parameter sweeps are not ported yet (ROADMAP queue 1 item 9)")
+# Points per canonical sweep slice.  Part of the dedupe contract: two
+# sweeps share cache streams only where their canonical slices align, so
+# every engine chunks at the same quantum (``sweep_slice_points`` on the
+# engine, for tests; another value orphans, but never corrupts, cached
+# sweep streams).  The same value as ``repro``'s.
+DEFAULT_SWEEP_SLICE = 64
+
+
+def canonical_grid(grid: dict) -> tuple:
+    """Normalize a sweep grid to ``((name, f32 values), ...)``: axes sorted
+    by parameter name, values f32 with a leading point axis (scalars
+    become length-1 axes; vector-valued parameters keep their trailing
+    shape)."""
+    if not grid:
+        raise ValueError("sweep grid must name at least one axis")
+    axes = []
+    for name in sorted(grid):
+        vals = grid[name]
+        if isinstance(vals, torch.Tensor):
+            vals = vals.detach().cpu().numpy()
+        vals = np.asarray(vals, np.float32)
+        if vals.ndim == 0:
+            vals = vals.reshape(1)
+        if vals.shape[0] == 0:
+            raise ValueError(f"sweep axis {name!r} is empty")
+        axes.append((str(name), vals))
+    return tuple(axes)
+
+
+def grid_table(axes: tuple) -> tuple[dict, tuple[int, ...]]:
+    """Row-major point table of a canonical grid: ``(table, shape)``,
+    ``table[name]`` the axis value at every point (last axis fastest),
+    ``shape`` the per-axis counts in sorted-name order."""
+    sizes = [int(v.shape[0]) for _, v in axes]
+    idx = np.indices(sizes).reshape(len(sizes), -1)
+    table = {name: v[idx[i]] for i, (name, v) in enumerate(axes)}
+    return table, tuple(sizes)
+
+
+def sweep_slices(template: IntegrandFamily, grid: dict, *,
+                 slice_points: int = DEFAULT_SWEEP_SLICE) -> tuple:
+    """Canonical slice families of one sweep request.
+
+    Chunks the row-major point enumeration into ``slice_points``-sized
+    pieces, each a canonical (compactified) swept family named
+    ``"<template>:sweep[start:stop]"``: the unit the cache keys on.  The
+    same template and grid give the same slices, and a prefix grid
+    (extending only the slowest axis) reproduces its aligned slices, so
+    overlapping sweeps dedupe below the request level.
+
+    Returns ``(slice_families, grid_shape, axis_names)``.
+    """
+    if int(slice_points) < 1:
+        raise ValueError(f"slice_points must be >= 1, got {slice_points}")
+    axes = canonical_grid(grid)
+    table, shape = grid_table(axes)
+    n_points = math.prod(shape)
+    fams = []
+    for start in range(0, n_points, int(slice_points)):
+        stop = min(start + int(slice_points), n_points)
+        chunk = {name: vals[start:stop] for name, vals in table.items()}
+        fam = canonical_family(template.swept_over(chunk))
+        fam.name = f"{template.name}:sweep[{start}:{stop}]"
+        fams.append(fam)
+    return tuple(fams), shape, tuple(name for name, _ in axes)
+
+
+def spec_hash(spec, *, sampler: str = "mc") -> str:
+    """Order-sensitive hash of a whole request spec (family list and
+    sampler), as ``repro``'s."""
+    families = spec.families if isinstance(spec, MultiFunctionSpec) else tuple(spec)
+    h = hashlib.sha256()
+    h.update(sampler.encode())
+    for fam in families:
+        h.update(family_hash(fam).encode())
+    return h.hexdigest()

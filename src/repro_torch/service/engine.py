@@ -47,15 +47,21 @@ shutdown — so a SIGKILLed engine restarts warm: already-satisfied
 requests cost zero launches and partially-met ones top up from their
 persisted ``sample_offset`` bit-identically to an uninterrupted run.
 
-Not ported yet: parameter sweeps (``submit_sweep``, ``sweep_partial``)
-and importance-grid adaptation, both ROADMAP queue 1 item 9, and the
-mesh (queue 1 item 11); each raises ``NotImplementedError``.
+A :class:`~repro_torch.service.api.SweepRequest` canonicalizes into
+fixed-size slices of swept families (``canonical.sweep_slices``), each
+an ordinary cache stream keyed ``f"{family_hash}:{sampler}"``; its
+per-point results stream back through :meth:`IntegrationEngine
+.sweep_partial` as slices finish.
+
+Not ported yet: importance-grid adaptation (ROADMAP queue 1 item 9) and
+the mesh (queue 1 item 11); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 from typing import Sequence
 
@@ -68,18 +74,17 @@ from repro_torch.obs import Observability
 from repro_torch.obs import clock as _clock
 from repro_torch.service.api import (Backpressure, IntegrationRequest,
                                      IntegrationResult, RequestFailed,
-                                     SweepRequest)
+                                     SweepRequest, SweepResult)
 from repro_torch.service.batcher import InFlightWave, RoundBatcher, WorkItem
 from repro_torch.service.cache import CacheEntry, ResultCache
-from repro_torch.service.canonical import canonical_family, family_hash
+from repro_torch.service.canonical import (DEFAULT_SWEEP_SLICE,
+                                           canonical_family, family_hash,
+                                           sweep_slices)
 from repro_torch.service.faults import NULL_FAULTS, InjectedCrash
 from repro_torch.service.resilience import (Deadline, DeadlineExceeded,
                                             RetryExhausted, RetryPolicy,
                                             StepWatchdog, run_with_policy)
 from repro_torch.service.store import DurableStore
-
-_NOT_PORTED_SWEEP = ("parameter sweeps are not ported yet "
-                     "(ROADMAP queue 1 item 9)")
 
 
 def _wave_streams(items: Sequence[WorkItem]) -> list[str]:
@@ -109,15 +114,26 @@ class EngineStats:
         return self.items_requested - self.items_executed
 
 
+@dataclasses.dataclass(frozen=True)
+class _SweepInfo:
+    """Grid geometry a sweep ticket needs to assemble its result."""
+    grid_shape: tuple[int, ...]
+    axis_names: tuple[str, ...]
+    n_points: int
+    slice_sizes: tuple[int, ...]   # points per canonical slice, in order
+    slice_names: tuple[str, ...]
+
+
 @dataclasses.dataclass
 class _Pending:
     ticket: int
-    request: IntegrationRequest
+    request: IntegrationRequest | SweepRequest
     entries: list[CacheEntry]
     event: threading.Event
     result: IntegrationResult | RequestFailed | None = None
     new_rounds_scheduled: bool = False
     deadline: Deadline | None = None
+    sweep: _SweepInfo | None = None
 
 
 class IntegrationEngine:
@@ -141,7 +157,8 @@ class IntegrationEngine:
                  store_fsync: bool = True,
                  obs: Observability | None = None,
                  retry_policy: RetryPolicy | None = None,
-                 faults=None, lease_ttl: float | None = 30.0):
+                 faults=None, lease_ttl: float | None = 30.0,
+                 sweep_slice_points: int = DEFAULT_SWEEP_SLICE):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= is not ported yet (ROADMAP queue 1 item 11: "
@@ -178,6 +195,11 @@ class IntegrationEngine:
                                     "round_samples": int(round_samples)})
             if compact_on_start:
                 self.cache.snapshot_to_store()
+        if int(sweep_slice_points) < 1:
+            raise ValueError("sweep_slice_points must be >= 1")
+        # part of the dedupe contract: engines chunking at different
+        # quanta never share sweep streams (see canonical.sweep_slices)
+        self.sweep_slice_points = int(sweep_slice_points)
         self.max_pending = int(max_pending)
         self.max_rounds_per_wave = int(max_rounds_per_wave)
         if max_items_per_wave is not None and int(max_items_per_wave) <= 0:
@@ -220,19 +242,20 @@ class IntegrationEngine:
     def running(self) -> bool:
         return self._worker is not None and self._worker.is_alive()
 
-    def submit(self, request: IntegrationRequest, *, block: bool = True,
-               timeout: float | None = None) -> int:
+    def submit(self, request: IntegrationRequest | SweepRequest, *,
+               block: bool = True, timeout: float | None = None) -> int:
         """Register a request; returns a ticket for :meth:`poll`/:meth:`result`.
 
-        Pure cache hits complete inline (no waiting, no launches, and no
-        pending-table space needed).  Otherwise, when the pending table
-        is full, blocks until space frees up — or raises
-        :class:`Backpressure` with ``block=False``.  A rejected submit
-        allocates nothing: counter-space ranges are only consumed once
-        the request is accepted.
+        Accepts both request shapes: a :class:`SweepRequest` goes to
+        :meth:`submit_sweep`.  Pure cache hits complete inline (no
+        waiting, no launches, and no pending-table space needed).
+        Otherwise, when the pending table is full, blocks until space
+        frees up — or raises :class:`Backpressure` with ``block=False``.
+        A rejected submit allocates nothing: counter-space ranges are
+        only consumed once the request is accepted.
         """
         if isinstance(request, SweepRequest):
-            raise NotImplementedError(_NOT_PORTED_SWEEP)
+            return self.submit_sweep(request, block=block, timeout=timeout)
         canon_fams = []
         for fam in request.families:
             canon = canonical_family(fam)
@@ -241,14 +264,58 @@ class IntegrationEngine:
         return self._submit_canonical(request, canon_fams, block=block,
                                       timeout=timeout)
 
-    def submit_sweep(self, request, *, block: bool = True,
+    def submit_sweep(self, request: SweepRequest, *, block: bool = True,
                      timeout: float | None = None) -> int:
-        """Parameter sweeps: not ported yet."""
-        raise NotImplementedError(_NOT_PORTED_SWEEP)
+        """Register a parameter sweep; returns a ticket like :meth:`submit`.
+
+        The grid canonicalizes into ``sweep_slice_points``-sized slices of
+        swept families (``canonical.sweep_slices``), each one cache
+        stream, so placement, top-up, persistence and the STR rules apply
+        per slice unchanged and an overlapping sweep from another client
+        dedupes onto the shared slices.  When the template names a
+        registered form, the (dim, sampler, compactified, sweep)
+        capability is checked here with ``registry.lookup(...,
+        required=True)``: a sweep the fused kernel cannot serve fails at
+        submit, naming the nearest supported combination.
+        """
+        with self.obs.span("sweep_plan", template=request.template.name,
+                           axes=len(request.grid)):
+            fams, shape, axis_names = sweep_slices(
+                request.template, request.grid,
+                slice_points=self.sweep_slice_points)
+            probe = fams[0]
+            if probe.kernel is not None:
+                from repro_torch.kernels import registry
+                if registry.form(probe.kernel) is not None:
+                    registry.lookup(probe.kernel, dim=probe.dim,
+                                    sampler=request.sampler,
+                                    compactified=probe.compact,
+                                    sweep=probe.swept, required=True)
+            canon_fams = [
+                (f"{family_hash(f, canonicalize=False)}:{request.sampler}",
+                 f.to(self.device)) for f in fams]
+        n_points = math.prod(shape)
+        shared = sum(1 for chash, f in canon_fams
+                     if self.cache.get(chash, f) is not None)
+        self.obs.m["sweep_submitted"].inc()
+        self.obs.m["sweep_points"].inc(n_points)
+        if shared:
+            self.obs.m["sweep_slices"].inc(shared, outcome="shared")
+        if len(canon_fams) - shared:
+            self.obs.m["sweep_slices"].inc(len(canon_fams) - shared,
+                                           outcome="new")
+        sweep = _SweepInfo(grid_shape=shape, axis_names=axis_names,
+                           n_points=n_points,
+                           slice_sizes=tuple(f.n_fn for f in fams),
+                           slice_names=tuple(f.name for f in fams))
+        return self._submit_canonical(request, canon_fams, block=block,
+                                      timeout=timeout, sweep=sweep)
 
     def _submit_canonical(self, request, canon_fams, *, block: bool,
-                          timeout: float | None) -> int:
-        """Cache-hit peek, pending-table admission, allocation."""
+                          timeout: float | None,
+                          sweep: _SweepInfo | None = None) -> int:
+        """Shared tail of :meth:`submit`/:meth:`submit_sweep`: cache-hit
+        peek, pending-table admission, allocation."""
         # hit path needs no allocation: all entries must already exist
         # (a persisted stream from a previous process counts — passing
         # the family lets the cache rehydrate it, so a warm *restart*
@@ -262,7 +329,7 @@ class IntegrationEngine:
                     ticket = self._new_ticket()
                     pend = _Pending(ticket=ticket, request=request,
                                     entries=list(peek),
-                                    event=threading.Event())
+                                    event=threading.Event(), sweep=sweep)
                     self.stats.cache_hits += 1
                     self.obs.m["cache_requests"].inc(outcome="hit")
                     self._finish(pend, served_from_cache=True)
@@ -281,7 +348,7 @@ class IntegrationEngine:
             ticket = self._new_ticket()
             budget = getattr(request, "deadline", None)
             pend = _Pending(ticket=ticket, request=request, entries=entries,
-                            event=threading.Event(),
+                            event=threading.Event(), sweep=sweep,
                             deadline=(None if budget is None
                                       else Deadline(budget)))
             if self._meets(pend):     # became satisfiable while we waited
@@ -312,9 +379,71 @@ class IntegrationEngine:
         with self._lock:
             return self._results.get(ticket)
 
-    def sweep_partial(self, ticket: int, since=None):
-        """Per-point sweep snapshots: not ported yet."""
-        raise NotImplementedError(_NOT_PORTED_SWEEP)
+    def sweep_partial(self, ticket: int,
+                      since: np.ndarray | None = None) -> SweepResult:
+        """Per-point snapshot of a sweep, streamed as rounds complete.
+
+        Non-blocking: for a finished sweep this is the final
+        :class:`SweepResult`; while in flight it carries the current
+        estimate of every point whose slice has deposited at least one
+        round (``points_done`` marks them; undone points hold NaN means
+        and inf stderrs) with ``complete=False``.
+
+        ``since`` makes the poll incremental: pass the previous snapshot's
+        ``points_done`` and only slices with points not yet covered by it
+        are finalized; an already-reported slice is marked done with
+        NaN/inf placeholders (the caller keeps its previous values).
+        """
+        with self._lock:
+            res = self._results.get(ticket)
+            if res is None:
+                pend = self._pending.get(ticket)
+                if pend is None:
+                    raise KeyError(f"unknown ticket {ticket}")
+                if pend.sweep is None:
+                    raise TypeError(f"ticket {ticket} is not a sweep")
+                sw = pend.sweep
+                if since is not None:
+                    since = np.asarray(since, bool)
+                    if since.shape != (sw.n_points,):
+                        raise ValueError(
+                            f"since mask has shape {since.shape}; expected "
+                            f"({sw.n_points},) — pass the previous "
+                            f"snapshot's points_done unchanged")
+                means, errs, done = [], [], []
+                offset = 0
+                for entry, size in zip(pend.entries, sw.slice_sizes):
+                    # explicit per-slice extent: the last slice of a grid
+                    # that is not a multiple of the slice quantum is short
+                    seen = (since is not None
+                            and bool(np.all(since[offset:offset + size])))
+                    offset += size
+                    if entry.rounds_done > 0:
+                        done.append(np.ones(size, bool))
+                        if seen:
+                            means.append(np.full(size, np.nan, np.float32))
+                            errs.append(np.full(size, np.inf, np.float32))
+                        else:
+                            snap = entry.finalize()
+                            means.append(np.asarray(snap.mean))
+                            errs.append(np.asarray(snap.stderr))
+                    else:
+                        means.append(np.full(size, np.nan, np.float32))
+                        errs.append(np.full(size, np.inf, np.float32))
+                        done.append(np.zeros(size, bool))
+                return SweepResult(
+                    means=np.concatenate(means),
+                    stderrs=np.concatenate(errs),
+                    n_per_family=tuple(e.n for e in pend.entries),
+                    names=sw.slice_names, served_from_cache=False,
+                    ticket=ticket,
+                    stream_ids=tuple(e.chash for e in pend.entries),
+                    grid_shape=sw.grid_shape, axis_names=sw.axis_names,
+                    n_points=sw.n_points,
+                    points_done=np.concatenate(done), complete=False)
+        if not isinstance(res, SweepResult):
+            raise TypeError(f"ticket {ticket} is not a sweep")
+        return res
 
     def release(self, ticket: int) -> None:
         """Drop a finished result the client no longer needs."""
@@ -635,12 +764,24 @@ class IntegrationEngine:
             res = entry.finalize()
             means.append(np.asarray(res.mean))
             errs.append(np.asarray(res.stderr))
-        pend.result = IntegrationResult(
-            means=np.concatenate(means), stderrs=np.concatenate(errs),
-            n_per_family=tuple(e.n for e in pend.entries),
-            names=tuple(f.name for f in pend.request.families),
-            served_from_cache=served_from_cache, ticket=pend.ticket,
-            stream_ids=tuple(e.chash for e in pend.entries))
+        if pend.sweep is not None:
+            sw = pend.sweep
+            pend.result = SweepResult(
+                means=np.concatenate(means), stderrs=np.concatenate(errs),
+                n_per_family=tuple(e.n for e in pend.entries),
+                names=sw.slice_names,
+                served_from_cache=served_from_cache, ticket=pend.ticket,
+                stream_ids=tuple(e.chash for e in pend.entries),
+                grid_shape=sw.grid_shape, axis_names=sw.axis_names,
+                n_points=sw.n_points,
+                points_done=np.ones(sw.n_points, bool), complete=True)
+        else:
+            pend.result = IntegrationResult(
+                means=np.concatenate(means), stderrs=np.concatenate(errs),
+                n_per_family=tuple(e.n for e in pend.entries),
+                names=tuple(f.name for f in pend.request.families),
+                served_from_cache=served_from_cache, ticket=pend.ticket,
+                stream_ids=tuple(e.chash for e in pend.entries))
         self._results[pend.ticket] = pend.result
         while len(self._results) > self.max_retained_results:
             self._results.popitem(last=False)

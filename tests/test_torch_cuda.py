@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import genz, integrand, rng
+from repro_torch.core import direct_mc, genz, integrand, rng
 from repro_torch.core.multifunctions import ZMCMultiFunctions
 from repro_torch.kernels import template
 from repro_torch.kernels.mc_eval import multi
@@ -244,3 +244,117 @@ def test_plan_metadata_on_card_bit_identical(cuda):
         *args, round_base=torch.zeros(b.block_forms.shape[0], dtype=torch.int64),
         **kw)
     assert torch.equal(on_card.view(torch.int32), copied.view(torch.int32))
+
+
+# -- the Sobol and swept stages -----------------------------------------------
+
+def test_device_sobol_points_and_shifts_bit_exact(cuda):
+    """The compiled header's sobol_point and sobol_shift against the
+    port's core/sobol.py (itself bit-exact with repro's), across the c0
+    wrap, at every Sobol dim."""
+    from repro_torch.core import sobol
+    i = torch.arange(1 << 16, dtype=torch.int64, device=cuda)
+    idx = (2**32 - 20_000 + i * 3) & rng.MASK32
+    fid = (i * 40503) % (1 << 24)
+    for dim in (1, 4, 8):
+        pts, shs = template.sobol_cuda(5, 6, idx, fid, dim)
+        assert torch.equal(pts, sobol.sobol_bits(idx, dim))
+        d = torch.arange(dim, device=cuda)
+        want = rng.random_bits(5, 6, torch.full((1,), sobol.SHIFT_C0, device=cuda),
+                               rng.counter_c1(fid[:, None], d[None, :]))
+        assert torch.equal(shs, want)
+
+
+def _sobol_bucket(device):
+    spec = ZMCMultiFunctions(_compact_spec(device), device=device).spec
+    (b,) = multi.plan_spec(spec, sampler="sobol").buckets
+    return b
+
+
+@pytest.mark.parametrize("n,offset", [(2048 * 9 + 5, 2**32 - 20000), (65536, 0)])
+def test_sobol_kernel_vs_plain(cuda, n, offset):
+    """Sobol draws on a mixed bucket with compactified rows: the kernel
+    against its plain version within repro's Sobol bound."""
+    b = _sobol_bucket(cuda)
+    assert b.dirvecs is not None and sorted(set(b.block_tcols.tolist())) == [-1, 1]
+    key = rng.fold_key(3, 8)
+    args = (template.pack_scalars(key, offset, n), b.fn_ids, b.packed, b.lo,
+            b.hi, b.block_forms)
+    kw = dict(dim=b.dim, n_sample_blocks=math.ceil(n / template.S_BLK),
+              block_tcols=b.block_tcols, sampler="sobol")
+    template.reset_kernel_launch_count()
+    got = template.fused_mc_cuda(*args, dirvecs=b.dirvecs, **kw)[0]
+    assert template.kernel_launch_counts()["fused_mc_sobol"] == 1
+    want = template.fused_mc_plain(*args, **kw)[0]
+    real = torch.cat([torch.arange(s.row_start, s.row_start + s.n_fn)
+                      for s in b.slices]).to(cuda)
+    assert torch.isfinite(got[real]).all()
+    torch.testing.assert_close(got[real], want[real], rtol=1e-4, atol=1e-2)
+
+
+def test_sobol_rounds_bit_identical_to_single_rounds(cuda):
+    b = _sobol_bucket(cuda)
+    n_blocks = b.fn_ids.shape[0] // 16
+    base = torch.tensor([(i * 5 * 4096) for i in range(n_blocks)],
+                        dtype=torch.int64)
+    base[-1] = 2**32 - 5000
+    key, n, n_rounds = rng.fold_key(5, 2), 20_000, 3
+    kw = dict(dim=b.dim, n_sample_blocks=math.ceil(n / template.S_BLK),
+              round_base=base, block_tcols=b.block_tcols, sampler="sobol")
+    ops = (b.fn_ids, b.packed, b.lo, b.hi, b.block_forms)
+    multi_round = template.fused_mc_cuda(
+        template.pack_scalars(key, 11, n, round_stride=n), *ops,
+        n_rounds=n_rounds, **kw)
+    for r in range(n_rounds):
+        single = template.fused_mc_cuda(
+            template.pack_scalars(key, 11 + r * n, n), *ops, **kw)[0]
+        assert torch.equal(multi_round[r].view(torch.int32),
+                           single.view(torch.int32))
+
+
+@pytest.mark.parametrize("sampler", ["mc", "sobol"])
+@pytest.mark.parametrize("lo", [0.0, -float("inf")])
+def test_swept_bit_identical_to_per_point(cuda, sampler, lo):
+    """A swept family's rows equal, bit for bit, the same points launched
+    as their own families with the same fn ids (repro's
+    test_swept_bit_identical_to_per_point, on the card), finite and
+    compactified, for both samplers; one launch for the whole sweep."""
+    a = np.linspace(0.5, 2.0, 20).astype(np.float32)
+    k = np.stack([np.full(3, 3.0 + j, np.float32) for j in range(20)])
+    tmpl = integrand.harmonic_family(1, 3, lo=lo, hi=1.0)
+    sw = tmpl.swept_over({"a": a, "k": k}).compactified().to(cuda)
+    key, n = rng.fold_key(11, 0), 30_000
+    template.reset_kernel_launch_count()
+    fused = direct_mc.family_sums(sw, n, key, use_kernel=True, sampler=sampler)
+    counts = template.kernel_launch_counts()
+    assert counts["fused_mc"] == 1 and counts["fused_mc_swept"] == 1
+    for j in range(len(a)):
+        pt = integrand.harmonic_family(1, 3, a=a[j:j + 1], k=k[j:j + 1], lo=lo,
+                                       hi=1.0).compactified().to(cuda)
+        one = direct_mc.family_sums(pt, n, key, fn_offset=j, use_kernel=True,
+                                    sampler=sampler)
+        assert torch.equal(fused.s1[j:j + 1].view(torch.int32),
+                           one.s1.view(torch.int32))
+        assert torch.equal(fused.s2[j:j + 1].view(torch.int32),
+                           one.s2.view(torch.int32))
+
+
+def test_swept_kernel_vs_plain(cuda):
+    a = np.linspace(0.5, 2.0, 40).astype(np.float32)
+    sw = integrand.gaussian_family(1, 2).swept_over(
+        {"sigma": np.linspace(0.6, 1.8, 40)})
+    spec = integrand.MultiFunctionSpec.from_families([
+        integrand.harmonic_family(1, 2).swept_over({"a": a}), sw,
+        integrand.harmonic_family(9, 2)]).to(cuda)
+    (b,) = multi.plan_spec(spec).buckets
+    assert b.block_sweep is not None
+    key, n = rng.fold_key(2, 2), 65536
+    args = (template.pack_scalars(key, 0, n), b.fn_ids, b.packed, b.lo, b.hi,
+            b.block_forms)
+    kw = dict(dim=b.dim, n_sample_blocks=n // template.S_BLK,
+              block_sweep=b.block_sweep)
+    got = template.fused_mc_cuda(*args, block_meta=b.block_meta, **kw)[0]
+    want = template.fused_mc_plain(*args, **kw)[0]
+    real = torch.cat([torch.arange(s.row_start, s.row_start + s.n_fn)
+                      for s in b.slices]).to(cuda)
+    torch.testing.assert_close(got[real], want[real], rtol=1e-4, atol=1e-2)

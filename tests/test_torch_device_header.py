@@ -2,14 +2,16 @@
 
 ``src/repro_torch/kernels/csrc/zmc_device.cuh`` holds the per-sample
 arithmetic of the fused kernel (Threefry, the uniform, the affine map,
-the five eval bodies and the compactification's per-axis map) as
-host/device inline functions.  This test
+the five eval bodies, the compactification's per-axis map and the
+Sobol point, shift and uniform) as host/device inline functions.  This
+test
 compiles it with g++ through a small C shim into a shared library, loads
 it with ctypes, and holds it against the port's plain PyTorch versions:
 Threefry bit for bit, the bodies within 1e-5 relative (plus an absolute
 floor of 1e-6 for values near zero; libm's and PyTorch's cosf/expf/logf
 may differ by an ulp).  It catches arithmetic errors in the CUDA code
-without a card.
+without a card.  The Sobol functions are held bit for bit against
+``repro.core.sobol`` itself.
 """
 
 import ctypes
@@ -48,6 +50,20 @@ void host_transform(const float* u, const float* kind, const float* shift,
                     long n, float* x, float* jac) {
   for (long i = 0; i < n; ++i) x[i] = zmc::apply_transform(u[i], kind[i], shift[i], jac + i);
 }
+// the Sobol point of idx[i] on each of dim dims (v: u32[dim][32]), and
+// the shift of (fn_ids[i], d)
+void host_sobol(const uint32_t* v, int dim, uint32_t k0, uint32_t k1,
+                const uint32_t* idx, const uint32_t* fn_ids, long n, uint32_t* pt,
+                uint32_t* sh) {
+  for (long i = 0; i < n; ++i)
+    for (int d = 0; d < dim; ++d) {
+      pt[i * dim + d] = zmc::sobol_point(v + 32 * d, idx[i]);
+      sh[i * dim + d] = zmc::sobol_shift(k0, k1, fn_ids[i] * zmc::DIM_STRIDE + d);
+    }
+}
+void host_sobol_uniform(const uint32_t* pt, const uint32_t* sh, long n, float* out) {
+  for (long i = 0; i < n; ++i) out[i] = zmc::sobol_uniform(pt[i] >> 8, sh[i] >> 8);
+}
 // a compactified row: transform columns from tcol
 void host_body_compact(int form, int dim, const float* p, int n_cols, int tcol,
                        const float* x, long n, float* out) {
@@ -79,8 +95,12 @@ def lib(tmp_path_factory):
     out.host_body_compact.argtypes = [ctypes.c_int, ctypes.c_int, ptr,
                                       ctypes.c_int, ctypes.c_int, ptr,
                                       ctypes.c_long, ptr]
+    out.host_sobol.argtypes = [ptr, ctypes.c_int, u32, u32, ptr, ptr,
+                               ctypes.c_long, ptr, ptr]
+    out.host_sobol_uniform.argtypes = [ptr, ptr, ctypes.c_long, ptr]
     for f in (out.host_random_bits, out.host_uniform, out.host_body,
-              out.host_transform, out.host_body_compact):
+              out.host_transform, out.host_body_compact, out.host_sobol,
+              out.host_sobol_uniform):
         f.restype = None
     return out
 
@@ -179,3 +199,29 @@ def test_compactified_body_matches_plain(lib, form_name):
     body = template.compactified_body(form.body, base)
     want = body(lambda d: xt[:, :, d], torch.from_numpy(p), dim)[:, 0]
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dim", [1, 5, 8])
+def test_sobol_point_shift_and_uniform_bit_exact(lib, dim):
+    """The header's Gray-code point and digital shift against repro's
+    sobol_bits and shifts_for, indices on both sides of 2^32; the uniform
+    of point ^ shift from their top 24 bits against sobol_uniforms_for."""
+    from repro.core import sobol as jsobol
+    r = np.random.default_rng(dim)
+    n = 4_000
+    idx = np.concatenate([np.arange(n // 2), 2**32 - n // 4 + np.arange(n // 2)])
+    idx = (idx % 2**32).astype(np.uint32)
+    fn = r.integers(0, 2**24, n, dtype=np.uint64).astype(np.uint32)
+    k0, k1 = rng.fold_key(99, dim)
+    v = np.ascontiguousarray(jsobol.direction_vectors(dim))
+    pt = np.empty((n, dim), np.uint32)
+    sh = np.empty((n, dim), np.uint32)
+    lib.host_sobol(_ptr(v), dim, k0, k1, _ptr(idx), _ptr(fn), n, _ptr(pt), _ptr(sh))
+    np.testing.assert_array_equal(pt, np.asarray(jsobol.sobol_bits(idx, dim)))
+    np.testing.assert_array_equal(sh, np.asarray(jsobol.shifts_for(k0, k1, fn, dim)))
+    u = np.empty(n * dim, np.float32)
+    lib.host_sobol_uniform(_ptr(pt), _ptr(sh), n * dim, _ptr(u))
+    sub = slice(None, None, 97)        # (function, sample) pairs on the diagonal
+    want_u = np.asarray(jsobol.sobol_uniforms_for(k0, k1, fn[sub], idx[sub], dim))
+    np.testing.assert_array_equal(u.reshape(n, dim)[sub],
+                                  np.einsum("iid->id", want_u))

@@ -62,15 +62,17 @@ def test_resolve_device_cpu_and_bad_device():
 def test_not_ported_options_raise():
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         ZMCMultiFunctions(_spec(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ZMCMultiFunctions(_spec(), sampler="sobol", device="cpu")
+    # the Sobol sampler is ported now; only unknown samplers raise
+    assert ZMCMultiFunctions(_spec(), sampler="sobol", device="cpu").sampler == "sobol"
+    with pytest.raises(ValueError, match="unknown sampler"):
+        ZMCMultiFunctions(_spec(), sampler="halton", device="cpu")
     fam = integrand.gaussian_family(2, 2, lo=-np.inf, hi=np.inf)
     # infinite boxes are ported now: the solver compactifies them
     zmc = ZMCMultiFunctions([fam], device="cpu")
     assert zmc.spec.families[0].compact
     assert domains.is_finite_box(zmc.spec.families[0].domains)
-    with pytest.raises(NotImplementedError, match="sobol"):
-        direct_mc.family_sums(fam, 10, (0, 0), sampler="sobol")
+    with pytest.raises(ValueError, match="unknown sampler"):
+        direct_mc.family_sums(fam, 10, (0, 0), sampler="halton")
 
 
 # -- dispatch: plain on CPU tensors, kernel or an error elsewhere -----------------
@@ -122,11 +124,13 @@ def test_nvcc_missing_raises_clearly(monkeypatch):
 
 def test_registry_lookup_and_errors():
     assert registry.lookup("mc_eval_gaussian", dim=3) is registry.get("mc_eval_gaussian")
-    assert registry.lookup("mc_eval_gaussian", dim=3, sampler="sobol") is None
+    assert registry.lookup("mc_eval_gaussian", dim=3, sampler="sobol") is \
+        registry.get("mc_eval_gaussian@sobol")
+    assert registry.lookup("mc_eval_gaussian", dim=9, sampler="sobol") is None
     assert registry.lookup("mc_eval_gaussian", dim=257) is None
     assert registry.lookup("nope", dim=2) is None
-    with pytest.raises(ValueError, match="samplers=\\('mc',\\)"):
-        registry.lookup("mc_eval_gaussian", dim=3, sampler="sobol", required=True)
+    with pytest.raises(ValueError, match="sobol dim<=8"):
+        registry.lookup("mc_eval_gaussian", dim=9, sampler="sobol", required=True)
     with pytest.raises(KeyError):
         registry.get("nope")
     with pytest.raises(KeyError, match="form_id 9"):

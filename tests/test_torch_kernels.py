@@ -73,15 +73,16 @@ def _rows(sums, n_fn=None):
 def test_form_ids_and_capabilities():
     assert [registry.form(n).form_id for n in FORMS] == [0, 1, 2, 3, 4]
     for f in registry.forms():
-        assert f.samplers == ("mc",)
-        # the compactification stage is ported; the sweep and grid stages
-        # are not, so no form claims them
-        assert f.supports_compactified == jregistry.form(
-            f.name).supports_compactified
+        jf = jregistry.form(f.name)
+        assert f.samplers == jf.samplers == ("mc", "sobol")
+        # the compactification and sweep stages are ported; the grid stage
+        # is not, so no form claims it
+        assert f.supports_compactified == jf.supports_compactified
         assert not f.supports_adapted
-        assert f.sweep_cols is None
-        assert f.n_cols(3) == jregistry.form(f.name).n_cols(3)
-    assert registry.names() == sorted(FORMS)
+        for dim in (1, 3, 8):
+            assert f.sweep_cols(dim) == jf.sweep_cols(dim)
+        assert f.n_cols(3) == jf.n_cols(3)
+    assert registry.names() == sorted(FORMS + [f + "@sobol" for f in FORMS])
 
 
 @pytest.mark.parametrize("form", FORMS)

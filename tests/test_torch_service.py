@@ -167,17 +167,14 @@ def test_pipelined_worker_matches_synchronous(served):
 
 
 def test_not_ported_paths_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        SweepRequest.make(None, {"a": [1.0]}, n_samples=R)
     fams = _workload(n=1)[0].families
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         IntegrationRequest.make(fams, target_stderr=0.1, adaptive=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        IntegrationRequest.make(fams, n_samples=R, sampler="sobol")
+    # Sobol requests and sweeps are ported now
+    assert IntegrationRequest.make(fams, n_samples=R, sampler="sobol").sampler == "sobol"
+    assert isinstance(serve_integrals.demo_workload(2, sweeps=1)[-1], SweepRequest)
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         IntegrationEngine(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        serve_integrals.demo_workload(2, sweeps=1)
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         serve_integrals.main(["--device", "cpu", "--mesh"])
     with pytest.raises(RuntimeError, match="no CUDA device"):

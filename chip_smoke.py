@@ -10,11 +10,13 @@ with nvcc, checks them against their plain PyTorch versions on the card,
 and drives the port's paths: ``ZMCMultiFunctions(spec,
 use_kernel=True).evaluate()`` on the paper's Fig.-1 workload (1200
 integrands, five forms, dims 2-4) at 10^6 samples x 10 trials, with the
-MC and the Sobol sampler, and the integration service
+MC and the Sobol sampler, the integration service
 (``repro_torch.service.IntegrationEngine``, also through ``python -m
 repro_torch.launch.serve_integrals``) on the launcher's default workload,
 on the Fig.-1 spec served as requests (MC and Sobol) and on a full-width
-parameter sweep (MC and Sobol):
+parameter sweep (MC and Sobol), VEGAS-adapted families through
+``evaluate`` and adaptive requests through the service, and stratified
+sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -81,9 +83,38 @@ parameter sweep (MC and Sobol):
    the overlapping prefix sweep a[:16] x b served with 0 launches, and a
    traced run's split of the wall by pipeline stage;
 16. service configuration 2 with ``sampler="sobol"`` held against
-   ``evaluate(sampler="sobol", n_samples=2^20)``; then prints the
-   ``{"kernels": [...]}`` line, one entry per kernel variant (the Sobol
-   sweep's launches as ``fused_mc_sobol_swept``).
+   ``evaluate(sampler="sobol", n_samples=2^20)``;
+17. VEGAS importance grids at the paper's width: 1024 peaked integrands
+   (Genz corner peaks 512 x 3-d and 384 x 4-d, 128 narrow Gaussians over
+   R^2, compactified), each family's grid fitted on the card in three
+   pilot-and-refine epochs; per sampler (MC and Sobol): kernel vs plain
+   raw sums at N = 65536 (rtol=1e-4, atol=1e-2), repeat and R = 4 round
+   digests, ``evaluate(num_trials=10)`` at N = 10^6 with 30 launches (all
+   adapted), 2-sigma coverage >= 0.85 against the exact values, kernel vs
+   plain at N = 10^6 within the tolerance of step 7, the kernel timed
+   beside its bound; then the median unadapted-to-adapted ratio of
+   ``trial_std`` (MC), which must exceed 1;
+18. adaptive requests through the service, the protocol of repro's
+   BENCH_10 (``benchmarks/service_bench.py``): a Genz corner peak at
+   stderr 5e-5 and narrow Gaussians over R^2 at 5e-4, fixed against
+   ``adaptive=True``: >= 5x fewer samples with the pilots charged, >= 1
+   refit, estimates within 6 sigma of the exact values and of the fixed
+   path; an adapted run abandoned after 3 waves and resumed from its state
+   dir sha256-equal to an uninterrupted one with the same stream ids; then
+   step 17's 1024 integrands as three adaptive requests: 0 fallback
+   rounds and at most 3 launches per wave;
+19. stratified sampling: the stratum-moments kernel
+   (``kernels/csrc/moments.cu``) on the value matrix of ZMCNormal's dim-8
+   initial table (6561 strata x 2048 samples, 53.7 MB) and on a 512 MiB
+   matrix, against its plain version and the two-pass formula (count
+   exact, mean atol=1e-5, M2 rtol=1e-4) with repeat digests, timed beside
+   its HBM bound and ``torch.var_mean``; ``eval_strata(use_kernel=True)``
+   (one launch) against the plain path; ``ZMCNormal`` with its defaults
+   on an 8-d Genz Gaussian peak, 5 trials, within 4 trial standard
+   deviations of the exact value; then prints the ``{"kernels": [...]}``
+   line, one entry per kernel variant (the Sobol sweep's launches as
+   ``fused_mc_sobol_swept``, the adapted Sobol ones as
+   ``fused_mc_sobol_adapted``) and the stratum-moments kernel.
 
 Every path is driven with the kernel's launch counters set to 0 just
 before it and read just after; a variant the path should run and did
@@ -148,6 +179,15 @@ SFU_PER_TAN_AXIS, SFU_PER_HALF_AXIS, SFU_PER_CLK = 3, 1, 16
 # find-leading-one) pick one direction vector, and one XOR applies it.
 SOBOL_ALU_PER_POINT = 4
 
+# The importance map of one adapted axis, at least: the bin select (the
+# scale by n_bins, a float -> int conversion, the min with n_bins - 1, the
+# int -> float conversion and the fraction), the bin's width, the
+# interpolation, the Jacobian factor and its product: 6 float operations,
+# 2 conversions and 1 ALU operation (the two shared-memory loads of the
+# bin's edges are not counted); one more multiply per value folds the
+# grid's Jacobian product in.
+FP32_PER_ADAPT_AXIS, CONV_PER_ADAPT_AXIS, ALU_PER_ADAPT_AXIS = 6, 2, 1
+
 N_ROUND = 65536          # samples per round in the rounds check (step 9)
 ROUNDS = 4
 N_FULL = 1 << 20         # step 12: samples per integrand through the service
@@ -157,6 +197,22 @@ SWEEP_A = (0.5, 2.0, 32)
 SWEEP_B = (-1.0, 1.0, 32)
 SWEEP_SLICE = 64
 SWEEP_PREFIX = 16        # the overlapping sweep's a axis: a[:16] x b, 8 aligned slices
+# step 17: importance grids fitted in 3 pilot-and-refine epochs of 4096
+# samples per function, 16 bins per axis (repro.core.adaptive.N_BINS)
+ADAPT_EPOCHS, ADAPT_PILOT, ADAPT_BINS = 3, 4096, 16
+# step 18: the engine knobs of repro's adaptive benchmark phase
+# (benchmarks/service_bench.py, BENCH_10), and its resume check's target
+# (tighter than the benchmark's 2e-4, so the run spans 4 waves and the
+# abandoned engine stops mid-flight)
+BENCH10_KW = dict(seed=0, round_samples=8192, pipeline_waves=False,
+                  adapt_rounds_per_epoch=1, adapt_max_epochs=3,
+                  adapt_pilot_samples=2048)
+RESUME_TARGET = 5e-5
+# step 19: ZMCNormal's defaults (repro/core/normal.py) at dim 8: 3^8 = 6561
+# strata of 2048 samples, depth 8, k_split 32; and a matrix of 512 MiB to
+# read the stratum-moments kernel's bandwidth
+NORMAL_DIM, NORMAL_SPLITS, NORMAL_N_PER, NORMAL_TRIALS = 8, 3, 2048, 5
+BIG_MOMENTS = (32768, 4096)
 
 
 def fail(msg: str) -> None:
@@ -267,15 +323,20 @@ def compare_estimates(bucket, k_out, p_out, n_samples) -> float:
 
 
 def op_bound_ms(draws: float, values: float, n_sm: int, clock_hz: float,
-                tan_axes: float = 0.0, half_axes: float = 0.0) -> dict:
+                tan_axes: float = 0.0, half_axes: float = 0.0,
+                adapt_axes: float = 0.0, adapt_values: float = 0.0) -> dict:
     """The least time the card needs for these operations, per resource
     (ms).  Integer adds go to whichever of the ALU and FMA pipes leaves
     the busier one least loaded.  ``tan_axes`` and ``half_axes`` count
-    draws through the compactification's tan map and half-line map."""
-    alu_only, adds = draws * TF_ALU_ONLY, draws * TF_ADDS
+    draws through the compactification's tan map and half-line map,
+    ``adapt_axes`` draws through an importance grid and ``adapt_values``
+    the values its Jacobian multiplies."""
+    alu_only = draws * TF_ALU_ONLY + adapt_axes * ALU_PER_ADAPT_AXIS
+    adds = draws * TF_ADDS
     fp = (draws * FP32_PER_DRAW + values * FP32_PER_VALUE
-          + (tan_axes + half_axes) * FP32_PER_AXIS)
-    conv = draws * CONV_PER_DRAW
+          + (tan_axes + half_axes) * FP32_PER_AXIS
+          + adapt_axes * FP32_PER_ADAPT_AXIS + adapt_values)
+    conv = draws * CONV_PER_DRAW + adapt_axes * CONV_PER_ADAPT_AXIS
     sfu = tan_axes * SFU_PER_TAN_AXIS + half_axes * SFU_PER_HALF_AXIS
 
     def pipes(a):                       # a: adds issued on the ALU pipe
@@ -292,20 +353,25 @@ def op_bound_ms(draws: float, values: float, n_sm: int, clock_hz: float,
 
 
 def sobol_op_bound_ms(draws: float, values: float, point_dims: float, n_sm: int,
-                      clock_hz: float) -> dict:
+                      clock_hz: float, tan_axes: float = 0.0,
+                      adapt_axes: float = 0.0, adapt_values: float = 0.0) -> dict:
     """The least time the card needs for a Sobol launch's operations, per
     resource (ms).  A draw is one XOR with its shift on the ALU pipe, one
     u32 -> f32 conversion and FP32_PER_DRAW float operations; a point
     costs SOBOL_ALU_PER_POINT ALU operations per distinct (sample index,
     dim) the launch draws (``point_dims``, from :func:`distinct_point_dims`),
     once however many functions and blocks share it; the values cost what
-    they cost under MC."""
-    alu = draws + point_dims * SOBOL_ALU_PER_POINT
-    conv = draws * CONV_PER_DRAW
-    fp = draws * FP32_PER_DRAW + values * FP32_PER_VALUE
+    they cost under MC, and the stages (``tan_axes``, ``adapt_axes``,
+    ``adapt_values``) what they cost in :func:`op_bound_ms`."""
+    alu = draws + point_dims * SOBOL_ALU_PER_POINT + adapt_axes * ALU_PER_ADAPT_AXIS
+    conv = draws * CONV_PER_DRAW + adapt_axes * CONV_PER_ADAPT_AXIS
+    fp = (draws * FP32_PER_DRAW + values * FP32_PER_VALUE + tan_axes * FP32_PER_AXIS
+          + adapt_axes * FP32_PER_ADAPT_AXIS + adapt_values)
+    sfu = tan_axes * SFU_PER_TAN_AXIS
     clocks = {"ALU pipe": alu / ALU_PER_CLK, "FMA pipes": fp / FMA_PER_CLK,
-              "issue": (alu + conv + fp) / ISSUE_PER_CLK,
-              "conversion": conv / CONV_PER_CLK}
+              "issue": (alu + conv + fp + sfu) / ISSUE_PER_CLK,
+              "conversion": conv / CONV_PER_CLK,
+              "special functions": sfu / SFU_PER_CLK}
     return {k: v / (n_sm * clock_hz) * 1e3 for k, v in clocks.items()}
 
 
@@ -346,10 +412,10 @@ ALU_OPS = ("IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "FSETP", "SEL",
 FMA_OPS = ("IMAD", "FFMA", "FADD", "FMUL")
 
 
-def sass_loops(lib_path, function: str = "fused_mc_pass1ILb0ELb0ELb0E") -> list[dict] | None:
+def sass_loops(lib_path, function: str = "fused_mc_pass1ILi0ELb0ELb0EE") -> list[dict] | None:
     """Instruction mix of the innermost loops of one pass-1 instantiation
     (by default the main path's MC one without compactified or swept
-    blocks, ``fused_mc_pass1<false, false, false>``; its mangled name is
+    blocks, ``fused_mc_pass1<0, false, false>``; its mangled name is
     ``function``), read from ``cuobjdump -sass`` of the built library: per
     loop its instructions, draws (one u32 -> f32 conversion each),
     rotates, shared-memory loads and opcode counts.  None when the tool is
@@ -416,6 +482,39 @@ def compact_spec(device):
         fams.append(harmonic_family(48, d))
         fams.append(genz.oscillatory(32, d)[0])
     return MultiFunctionSpec.from_families(fams).to(device), exact
+
+
+def adapted_spec(device):
+    """Step 17's spec, 1024 peaked integrands: Genz corner peaks 512 x 3-d
+    and 384 x 4-d (difficulty 4) and 128 narrow Gaussians over R^2 (sigma
+    0.2-0.35, compactified), each family's importance grid fitted on the
+    card in ADAPT_EPOCHS epochs of ``initial_edges`` -> ``pilot_weights``
+    -> ``refine_edges``.  Returns the adapted spec, the same families
+    without grids, and the exact values."""
+    import numpy as np
+    from repro_torch.core import adaptive, genz, rng
+    from repro_torch.core.integrand import (MultiFunctionSpec, gaussian_analytic,
+                                            gaussian_family)
+    c3, e3 = genz.corner_peak(512, 3, difficulty=4.0)
+    c4, e4 = genz.corner_peak(384, 4, difficulty=4.0)
+    sigma = np.linspace(0.2, 0.35, 128).astype(np.float32)
+    gauss = gaussian_family(128, 2, sigma=sigma, lo=-np.inf, hi=np.inf)
+    base = [f.to(device) for f in (c3, c4, gauss.compactified())]
+    adapted = []
+    for i, fam in enumerate(base):
+        edges = adaptive.initial_edges(fam.domains, ADAPT_BINS)
+        for epoch in range(1, ADAPT_EPOCHS + 1):
+            weights = adaptive.pilot_weights(fam, edges, rng.fold_key(14, 16 * i + epoch),
+                                             ADAPT_PILOT)
+            edges = adaptive.refine_edges(edges, weights)
+        adapted.append(fam.adapted(edges, epoch=ADAPT_EPOCHS))
+    exact = np.concatenate([e3, e4, gaussian_analytic(128, 2, sigma=sigma)])
+    return (MultiFunctionSpec.from_families(adapted),
+            MultiFunctionSpec.from_families(base), exact)
+
+
+def sha256_of(t) -> str:
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
 
 
 def variant_counts(expect: dict, what: str) -> dict:
@@ -1043,7 +1142,7 @@ def main() -> None:
           f"(kernel at {100 * sobol_bound / sobol_ms:.1f}% of it): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in s_op.items())
           + f"; MC kernel {kernel_ms:.3f} ms; on {card}")
-    s_loops = sass_loops(built["zmc_fused_mc"]["path"], "fused_mc_pass1ILb0ELb1ELb1E")
+    s_loops = sass_loops(built["zmc_fused_mc"]["path"], "fused_mc_pass1ILi0ELb1ELb1EE")
     draw_loops = [lp for lp in s_loops or () if lp["draws"]]
     # a point loop: one dim's 32 direction bits, no draw
     point_loops = [lp for lp in s_loops or () if not lp["draws"] and lp["instr"] >= 64]
@@ -1057,7 +1156,7 @@ def main() -> None:
         pt_lds = max(lp["lds"] for lp in point_loops)
         sobol_clk = (draws * per["instr"]
                      + s_built * pt_instr) / ISSUE_PER_CLK
-        print(f"Sobol pass-1 SASS (<false, true, true>): {len(draw_loops)} inner draw "
+        print(f"Sobol pass-1 SASS (<0, true, true>): {len(draw_loops)} inner draw "
               f"loops, per draw {per['instr']:.2f} instructions (ALU {per['alu']:.2f}, "
               f"FMA pipes {per['fma']:.2f}, LDS {per['lds']:.2f}); {len(point_loops)} "
               f"point loops, at most {pt_instr} instructions ({pt_lds} LDS) per "
@@ -1244,6 +1343,367 @@ def main() -> None:
     check(d_mean <= EST_TOL and d_se <= EST_TOL,
           "service config 2 (sobol) disagrees with evaluate")
 
+    # -- 17. adapted families: VEGAS grids through the fused kernel ---------
+    t0 = time.perf_counter()
+    aspec, uspec, a_exact = adapted_spec(device)
+    torch.cuda.synchronize()
+    print(f"adapted spec: {aspec.n_fn_total} integrands in {len(aspec.families)} "
+          f"families ({', '.join(f.name for f in aspec.families)}), grids fitted on "
+          f"the card in {time.perf_counter() - t0:.2f} s ({ADAPT_EPOCHS} epochs of "
+          f"{ADAPT_PILOT}-sample pilots, {ADAPT_BINS} bins per axis)")
+    adapted = {}                 # per sampler: its kernels-line numbers and result
+    a_offs = aspec.offsets()
+    for sampler in ("mc", "sobol"):
+        aplan = multi.plan_spec(aspec, sampler=sampler)
+        check(aplan.unfused == () and aplan.n_launches == 3,
+              f"adapted plan ({sampler}): {aplan.n_launches} buckets, unfused "
+              f"{aplan.unfused}")
+        key = rng.fold_key(0, 0)
+        a_err = 0.0
+        for b in aplan.buckets:
+            check(bool((b.block_adapt[0] >= 0).all()), "a bucket block without its grid")
+            kw = dict(block_tcols=b.block_tcols, block_adapt=b.block_adapt,
+                      sampler=sampler)
+            k_out = launch_bucket(template.fused_mc_cuda, b, N_CHECK, key,
+                                  block_meta=b.block_meta, dirvecs=b.dirvecs, **kw)
+            k_again = launch_bucket(template.fused_mc_cuda, b, N_CHECK, key,
+                                    block_meta=b.block_meta, dirvecs=b.dirvecs, **kw)
+            p_out = launch_bucket(template.fused_mc_plain, b, N_CHECK, key, **kw)
+            torch.cuda.synchronize()
+            a_err = max(a_err, compare_sums(b, k_out, p_out, N_CHECK))
+            same = sha256_of(k_out) == sha256_of(k_again)
+            # R = 4 rounds at other window depths, one crossing 2^32
+            n_blocks = b.fn_ids.shape[0] // template.F_BLK
+            base = torch.tensor([(j * 37 * N_ROUND) & rng.MASK32
+                                 for j in range(n_blocks)], dtype=torch.int64)
+            base[n_blocks // 2] = 2**32 - 3 * N_ROUND // 2
+            ops = (b.fn_ids, b.packed, b.lo, b.hi, b.block_forms)
+            rkw = dict(kw, dim=b.dim, n_sample_blocks=N_ROUND // template.S_BLK,
+                       round_base=base, block_meta=b.block_meta, dirvecs=b.dirvecs)
+            r_out = template.fused_mc_cuda(
+                template.pack_scalars(key, 0, N_ROUND, round_stride=N_ROUND), *ops,
+                n_rounds=ROUNDS, **rkw)
+            rounds_same = sum(
+                sha256_of(r_out[r]) == sha256_of(template.fused_mc_cuda(
+                    template.pack_scalars(key, r * N_ROUND, N_ROUND), *ops, **rkw)[0])
+                for r in range(ROUNDS))
+            print(f"adapted bucket d{b.dim} ({sampler}): repeat sha256 "
+                  f"{'equal' if same else 'DIFFER'}; R={ROUNDS} launch: {rounds_same}/"
+                  f"{ROUNDS} rounds sha256-equal to single-round launches (one window "
+                  f"crossing 2^32)")
+            check(same, f"adapted d{b.dim} ({sampler}): repeated launches differ")
+            check(rounds_same == ROUNDS,
+                  f"adapted d{b.dim} ({sampler}): a round differs from its single-round launch")
+
+        azmc = ZMCMultiFunctions(aspec, n_samples=N_MAIN, seed=0, use_kernel=True,
+                                 sampler=sampler, device="cuda")
+        template.reset_launch_count()
+        template.reset_kernel_launch_count()
+        t0 = time.perf_counter()
+        ares = azmc.evaluate(num_trials=TRIALS)
+        torch.cuda.synchronize()
+        awall = time.perf_counter() - t0
+        a_launches = template.kernel_launch_count()
+        a_counts = variant_counts({"fused_mc": True, "fused_mc_adapted": True,
+                                   "fused_mc_compactified": True,
+                                   "fused_mc_sobol": sampler == "sobol"},
+                                  f"adapted evaluate path ({sampler})")
+        print(f"adapted evaluate(num_trials={TRIALS}, sampler={sampler!r}) at N={N_MAIN}: "
+              f"{awall / TRIALS:.4f} s per trial (wall); {a_launches} kernel launches")
+        check(a_launches == aplan.n_launches * TRIALS,
+              f"expected {aplan.n_launches * TRIALS} adapted launches, got {a_launches}")
+        check(a_counts["fused_mc_adapted"] == a_launches, "an adapted launch ran no grid")
+        check(bool(np.isfinite(ares.means).all() and np.isfinite(ares.stderrs).all()),
+              "non-finite adapted estimates")
+        pull = np.abs(ares.trial_mean - a_exact) / np.maximum(ares.trial_std, 1e-30)
+        a_cover = float(np.mean(pull <= 2))
+        print(f"adapted ({sampler}) 2-sigma coverage vs exact: {a_cover:.4f} over "
+              f"{aspec.n_fn_total} integrals; "
+              + ", ".join(f"{f.name} {float(np.mean(pull[o:o + f.n_fn] <= 2)):.4f}"
+                          for f, o in zip(aspec.families, a_offs)))
+        check(a_cover >= 0.85, f"adapted ({sampler}) coverage {a_cover} < 0.85")
+
+        kw_of = {b.name: dict(block_tcols=b.block_tcols, block_adapt=b.block_adapt,
+                              sampler=sampler) for b in aplan.buckets}
+        ev0.record()
+        for _ in range(TIMING_REPS):
+            ak_outs = [launch_bucket(template.fused_mc_cuda, b, N_MAIN, key,
+                                     block_meta=b.block_meta, dirvecs=b.dirvecs,
+                                     **kw_of[b.name]) for b in aplan.buckets]
+        ev1.record()
+        torch.cuda.synchronize()
+        a_ms = ev0.elapsed_time(ev1) / TIMING_REPS
+        ev0.record()
+        ap_outs = [launch_bucket(template.fused_mc_plain, b, N_MAIN, key, **kw_of[b.name])
+                   for b in aplan.buckets]
+        ev1.record()
+        torch.cuda.synchronize()
+        a_plain_ms = ev0.elapsed_time(ev1)
+        for b, k_out, p_out in zip(aplan.buckets, ak_outs, ap_outs):
+            a_err = max(a_err, compare_estimates(b, k_out, p_out, N_MAIN))
+        a_draws = float(sum(f.n_fn * f.dim for f in aspec.families)) * N_MAIN
+        a_values = float(aspec.n_fn_total) * N_MAIN
+        a_tan = float(aspec.families[2].n_fn * aspec.families[2].dim) * N_MAIN
+        if sampler == "mc":
+            a_op = op_bound_ms(a_draws, a_values, n_sm, clock_hz, tan_axes=a_tan,
+                               adapt_axes=a_draws, adapt_values=a_values)
+        else:
+            a_op = sobol_op_bound_ms(a_draws, a_values, distinct_point_dims(aplan, N_MAIN),
+                                     n_sm, clock_hz, tan_axes=a_tan, adapt_axes=a_draws,
+                                     adapt_values=a_values)
+        a_bound = max(a_op.values())
+        print(f"adapted trial ({sampler}, 3 launches, {a_draws:.4g} draws through a grid, "
+              f"{a_tan:.4g} of them then through the tan map): kernel {a_ms:.3f} ms, "
+              f"plain {a_plain_ms:.1f} ms, bound {a_bound:.3f} ms (kernel at "
+              f"{100 * a_bound / a_ms:.1f}% of it): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in a_op.items()) + f"; on {card}")
+        adapted[sampler] = dict(launches=a_counts["fused_mc_adapted"], max_abs_err=a_err,
+                                ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound,
+                                res=ares)
+    ures = ZMCMultiFunctions(uspec, n_samples=N_MAIN, seed=0, use_kernel=True,
+                             device="cuda").evaluate(num_trials=TRIALS)
+    ratio = ures.trial_std / np.maximum(adapted["mc"]["res"].trial_std, 1e-30)
+    print(f"unadapted-to-adapted trial_std ratio (MC, {TRIALS} trials at N={N_MAIN}): "
+          f"median {float(np.median(ratio)):.2f} over {aspec.n_fn_total} integrals; "
+          + ", ".join(f"{f.name} {float(np.median(ratio[o:o + f.n_fn])):.2f}"
+                      for f, o in zip(uspec.families, a_offs)))
+    check(float(np.median(ratio)) > 1.0, "the grids did not lower the trial spread")
+
+    # -- 18. adaptive requests through the service (BENCH_10's protocol) ----
+    import shutil
+    from repro_torch.core import genz
+    from repro_torch.core.integrand import gaussian_family
+    from repro_torch.obs import Observability
+    from repro_torch.service.api import IntegrationClient
+
+    def bench10_engine(state_dir=None):
+        return IntegrationEngine(state_dir=state_dir, device="cuda",
+                                 obs=Observability.enabled(), **BENCH10_KW)
+
+    def solve(fams, target, adaptive):
+        eng = bench10_engine()
+        t0 = time.perf_counter()
+        res = IntegrationClient(eng).integrate(fams, target_stderr=target,
+                                               adaptive=adaptive)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        samples = int(sum(res.n_per_family))
+        if adaptive:
+            # every pilot charged: one per opened epoch plus at most one
+            # frozen refit attempt per base stream, per function
+            epochs = int(eng.obs.m["adapted_streams"].value())
+            samples += ((epochs + len(fams)) * eng.adapt_pilot_samples
+                        * sum(f.n_fn for f in fams))
+        refits = int(eng.obs.m["grid_refits"].value())
+        out = (res, samples, refits, dt, eng.stats.waves, eng.batcher.fallback_rounds)
+        eng.close()
+        return out
+
+    corner, corner_exact = genz.corner_peak(2, 3, difficulty=4.0)
+    gauss2 = gaussian_family(2, 2, sigma=[0.2, 0.35], lo=-np.inf, hi=np.inf)
+    service_adapt = 0
+    for name, fams, target, exact in (("genz_corner_3d", [corner], 5e-5, corner_exact),
+                                      ("gaussian_r2", [gauss2], 5e-4, None)):
+        f_res, f_n, _, f_dt, f_waves, _ = solve(fams, target, False)
+        template.reset_kernel_launch_count()
+        a_res, a_n, refits, a_dt, a_waves, a_fb = solve(fams, target, True)
+        service_adapt += variant_counts({"fused_mc_adapted": True},
+                                        f"adaptive service ({name})")["fused_mc_adapted"]
+        ratio10 = f_n / max(a_n, 1)
+        print(f"adaptive[{name}]: {f_n} fixed vs {a_n} adapted samples (pilots "
+              f"charged) to stderr <= {target:g}: {ratio10:.1f}x fewer, {refits} "
+              f"refit(s), {a_waves} waves ({f_waves} fixed), {a_fb} fallback rounds; "
+              f"{f_dt:.3f} s vs {a_dt:.3f} s; means {a_res.means} (fixed "
+              f"{f_res.means}, exact {exact})")
+        check(ratio10 >= 5.0, f"{name}: {ratio10:.1f}x fewer samples, gate >= 5x")
+        check(refits >= 1, f"{name}: no grid refit fired")
+        check(bool(np.all(a_res.stderrs <= target)), f"{name}: target not met")
+        if exact is not None:
+            check(bool(np.all(np.abs(a_res.means - exact) <= 6 * a_res.stderrs + 1e-5)),
+                  f"{name}: adapted estimate off its analytic value")
+        check(bool(np.all(np.abs(a_res.means - f_res.means)
+                          <= 6 * (a_res.stderrs + f_res.stderrs) + 1e-6)),
+              f"{name}: adaptive and fixed paths disagree")
+        check(a_fb == 0, f"{name}: chunked fallback rounds")
+    # an adapted run abandoned after 3 waves and resumed from its state dir
+    work = tempfile.mkdtemp(prefix="zmc_adapt_")
+    eng = bench10_engine(os.path.join(work, "uninterrupted"))
+    r_a = IntegrationClient(eng).integrate([corner], target_stderr=RESUME_TARGET,
+                                           adaptive=True)
+    waves_a = eng.stats.waves
+    eng.close()
+    eng = bench10_engine(os.path.join(work, "interrupted"))
+    eng.submit(IntegrationRequest.make([corner], target_stderr=RESUME_TARGET,
+                                       adaptive=True))
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    del eng                    # abandoned mid-flight: no close(), no snapshot
+    eng = bench10_engine(os.path.join(work, "interrupted"))
+    r_b = IntegrationClient(eng).integrate([corner], target_stderr=RESUME_TARGET,
+                                           adaptive=True)
+    eng.close()
+    shutil.rmtree(work, ignore_errors=True)
+    same_ids = r_a.stream_ids == r_b.stream_ids
+    same_bytes = (served_digest([r_a]) == served_digest([r_b])
+                  and r_a.n_per_family == r_b.n_per_family)
+    print(f"adaptive resume: uninterrupted run {waves_a} waves; abandoned after 3 "
+          f"and resumed: stream ids {'equal' if same_ids else 'DIFFER'}, results "
+          f"sha256 {'equal' if same_bytes else 'DIFFER'} ({served_digest([r_a])[:16]})")
+    check(same_ids and same_bytes, "the resumed adapted run differs from the uninterrupted one")
+    # the 1024-integrand batch as adaptive requests, one per family, each
+    # target the family's largest standard error at one wave's samples
+    # under the step-17 grids (epoch 3), so the engine's chain (epoch 1,
+    # refits at its wave boundaries) needs about 2-4 waves
+    se = adapted["mc"]["res"].stderrs.mean(0) * np.sqrt(N_MAIN / (FULL_R * FULL_ROUND))
+    targets = [1.1 * float(se[o:o + f.n_fn].max()) for f, o in zip(uspec.families, a_offs)]
+    raw = [genz.corner_peak(512, 3, difficulty=4.0)[0],
+           genz.corner_peak(384, 4, difficulty=4.0)[0],
+           gaussian_family(128, 2, sigma=np.linspace(0.2, 0.35, 128).astype(np.float32),
+                           lo=-np.inf, hi=np.inf)]
+    engine = IntegrationEngine(round_samples=FULL_ROUND, device="cuda",
+                               max_rounds_per_wave=FULL_R, pipeline_waves=False,
+                               obs=Observability.enabled())
+    template.reset_kernel_launch_count()
+    t0 = time.perf_counter()
+    tickets = [engine.submit(IntegrationRequest.make([f], target_stderr=t, adaptive=True))
+               for f, t in zip(raw, targets)]
+    per_wave = []
+    while True:
+        before = template.kernel_launch_count()
+        if not engine.step():
+            break
+        per_wave.append(template.kernel_launch_count() - before)
+    batch = [engine.poll(t) for t in tickets]
+    torch.cuda.synchronize()
+    batch_wall = time.perf_counter() - t0
+    b_counts = variant_counts({"fused_mc_adapted": True}, "adaptive batch")
+    service_adapt += b_counts["fused_mc_adapted"]
+    b_means = np.concatenate([r.means for r in batch])
+    b_se = np.concatenate([r.stderrs for r in batch])
+    b_cover = float(np.mean(np.abs(b_means - a_exact) <= 2 * b_se))
+    print(f"adaptive batch: {aspec.n_fn_total} integrands as 3 requests (targets "
+          + ", ".join(f"{t:.3g}" for t in targets) + f"): {engine.stats.waves} waves, "
+          f"launches per wave {per_wave}, {int(engine.obs.m['grid_refits'].value())} "
+          f"refits, {engine.batcher.fallback_rounds} fallback rounds, "
+          f"{batch_wall:.3f} s wall; 2-sigma coverage vs exact {b_cover:.4f}; "
+          f"{service_adapt} adapted launches over step 18")
+    engine.close()
+    check(all(r is not None and np.all(r.stderrs <= t) for r, t in zip(batch, targets)),
+          "adaptive batch: a request unfinished or above its target")
+    check(engine.batcher.fallback_rounds == 0, "adaptive batch: chunked fallback rounds")
+    check(all(n <= 3 for n in per_wave), "adaptive batch: more launches than buckets in a wave")
+
+    # -- 19. stratified sampling: the stratum-moments kernel and ZMCNormal ---
+    import torch.nn.functional as F
+    from repro_torch.core import stratified
+    from repro_torch.core.normal import ZMCNormal
+    from repro_torch.kernels.moments import ops as mops
+    from repro_torch.kernels.moments import ref as mref
+    gpeak, gpeak_exact = genz.gaussian_peak(1, NORMAL_DIM)
+    gpeak = gpeak.to(device)
+
+    def normal_fn(x):
+        return gpeak.fn(x.reshape(1, -1, NORMAL_DIM), gpeak.params).reshape(x.shape[:-1])
+
+    n0 = NORMAL_SPLITS ** NORMAL_DIM
+    table = stratified.initial_grid(np.tile([[0.0, 1.0]], (NORMAL_DIM, 1)),
+                                    NORMAL_SPLITS, n0, device=device)
+    key = rng.fold_key(0, 0)
+    slots = torch.arange(n0, device=device)
+    u = rng.uniforms_for(*key, stratified.stratum_ids(slots, 0),
+                         torch.arange(NORMAL_N_PER, device=device), NORMAL_DIM)
+    lo, hi = table.boxes[:, None, :, 0], table.boxes[:, None, :, 1]
+    vals = normal_fn(lo + u * (hi - lo))           # what eval_strata reduces
+    del u
+    vals = F.pad(vals, [0, 0, 0, -n0 % mops.R_BLK]).contiguous()
+
+    def hold_moments(x, what):
+        k1, k2 = mops.moments_cuda(x), mops.moments_cuda(x)
+        torch.cuda.synchronize()
+        check(sha256_of(k1) == sha256_of(k2), f"{what}: repeated launches differ")
+        err = 0.0
+        for label, w in (("plain", mops.moments_plain(x)), ("two-pass", mref.moments_ref(x))):
+            d_count = float((k1[:, 0] - w[:, 0]).abs().max())
+            d_mean = float((k1[:, 1] - w[:, 1]).abs().max())
+            d_m2 = float(((k1[:, 2] - w[:, 2]).abs() / w[:, 2].abs().clamp(min=1e-30)).max())
+            print(f"{what}: kernel vs {label}: count max|diff| {d_count:g}, mean "
+                  f"{d_mean:.3g} (atol 1e-5), M2 relative {d_m2:.3g} (rtol 1e-4); "
+                  f"repeat sha256 equal")
+            check(d_count == 0 and d_mean <= 1e-5 and d_m2 <= 1e-4,
+                  f"{what}: the kernel disagrees with the {label} version")
+            err = max(err, d_mean, float((k1[:, 2] - w[:, 2]).abs().max()))
+        return err
+
+    def time_ms(fn, reps=20):
+        """Device ms per call of ``fn``: the calls are queued behind a ~10 ms
+        sleep kernel, so the host's launch overhead (tens of microseconds,
+        as long as the kernel itself here) does not leave the card idle
+        between them."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(0.01 * clock_hz))
+        ev0.record()
+        for _ in range(reps):
+            fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / reps
+
+    mom_err = hold_moments(vals, f"stratum moments {tuple(vals.shape)}")
+    mom = {"ms": time_ms(lambda: mops.moments_cuda(vals)),
+           "plain_ms": time_ms(lambda: mops.moments_plain(vals), reps=3),
+           "library_ms": time_ms(lambda: torch.var_mean(vals, dim=1, correction=0)),
+           "bound_ms": (vals.numel() + 3 * vals.shape[0]) * 4 / HBM_BYTES_PER_S * 1e3}
+    big = torch.randn(*BIG_MOMENTS, device=device, generator=torch.Generator(
+        device=device).manual_seed(19)) * 3.0 + 1.0
+    hold_moments(big, f"stratum moments {BIG_MOMENTS}")
+    big_ms = time_ms(lambda: mops.moments_cuda(big))
+    big_lib = time_ms(lambda: torch.var_mean(big, dim=1, correction=0))
+    big_bound = (big.numel() + 3 * big.shape[0]) * 4 / HBM_BYTES_PER_S * 1e3
+    for shape, ms, lib_ms, bound in ((tuple(vals.shape), mom["ms"], mom["library_ms"],
+                                      mom["bound_ms"]),
+                                     (BIG_MOMENTS, big_ms, big_lib, big_bound)):
+        n_bytes = (shape[0] * shape[1] + 3 * shape[0]) * 4
+        print(f"stratum moments {shape}: kernel {ms:.4f} ms ({n_bytes / ms / 1e6:.1f} "
+              f"GB/s), torch.var_mean {lib_ms:.4f} ms, HBM bound {bound:.4f} ms "
+              f"(kernel at {100 * bound / ms:.1f}% of it); on {card}")
+    print(f"stratum moments {tuple(vals.shape)}: plain {mom['plain_ms']:.3f} ms")
+    del big
+    # the path: eval_strata(use_kernel=True) against the plain reduction
+    mops.reset_kernel_launch_count()
+    m_k, v_k = stratified.eval_strata(normal_fn, table.boxes, slots, 0, NORMAL_N_PER,
+                                      key, use_kernel=True)
+    torch.cuda.synchronize()
+    mom["launches"] = mops.kernel_launch_count()
+    m_p, v_p = stratified.eval_strata(normal_fn, table.boxes, slots, 0, NORMAL_N_PER, key)
+    d_mean = float((m_k - m_p).abs().max())
+    # the plain path's variance is E[f^2] - E[f]^2 in f32, which loses about
+    # 2^-23 E[f^2] to cancellation; the kernel's is two-pass
+    d_var = float(((v_k - v_p).abs()
+                   / (1e-3 * v_p + 1e-6 * (v_p + m_p * m_p))).max())
+    print(f"eval_strata(use_kernel=True) on {n0} strata x {NORMAL_N_PER}: "
+          f"{mom['launches']} stratum_moments launch; vs the plain path: mean "
+          f"max|diff| {d_mean:.3g} (atol 1e-5), variance |diff| at most "
+          f"{d_var:.3g} of 1e-3 var + 1e-6 E[f^2]")
+    check(mom["launches"] == 1, "eval_strata(use_kernel=True) launched no kernel")
+    check(d_mean <= 1e-5 and d_var <= 1.0, "eval_strata's kernel path disagrees")
+    mom["max_abs_err"] = mom_err
+    del vals
+    t0 = time.perf_counter()
+    nres = ZMCNormal(normal_fn, np.tile([[0.0, 1.0]], (NORMAL_DIM, 1)), seed=0,
+                     device="cuda").evaluate(num_trials=NORMAL_TRIALS)
+    torch.cuda.synchronize()
+    n_wall = time.perf_counter() - t0
+    n_dev = abs(nres.integral - float(gpeak_exact[0]))
+    print(f"ZMCNormal on {gpeak.name} (dim {NORMAL_DIM}, splits {NORMAL_SPLITS}, "
+          f"n_per_stratum {NORMAL_N_PER}, depth 8, k_split 32): {nres.integral:.7f} "
+          f"vs exact {float(gpeak_exact[0]):.7f}, |diff| {n_dev:.3g} = "
+          f"{n_dev / max(nres.trial_std, 1e-30):.2f} trial stds (trial std "
+          f"{nres.trial_std:.3g}, in-run stderr {nres.stderr:.3g}); "
+          f"{n_wall / NORMAL_TRIALS:.3f} s per trial")
+    check(n_dev <= 4 * nres.trial_std, "ZMCNormal is off its exact value")
+
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)
     print(json.dumps({"kernels": [
@@ -1267,6 +1727,12 @@ def main() -> None:
              replaces="src/repro/kernels/template.py:231", **swept["mc"]),
         dict(entry, name="fused_mc_sobol_swept",
              replaces="src/repro/kernels/template.py:231", **swept["sobol"]),
+        *(dict(entry, name=name, replaces="src/repro/kernels/template.py:318",
+               **{k: v for k, v in adapted[s].items() if k != "res"})
+          for name, s in (("fused_mc_adapted", "mc"), ("fused_mc_sobol_adapted", "sobol"))),
+        dict(name="stratum_moments", route="cuda",
+             source="src/repro_torch/kernels/csrc/moments.cu",
+             replaces="src/repro/kernels/moments/kernel.py:43", bound_by="bytes", **mom),
     ]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

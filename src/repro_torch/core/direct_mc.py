@@ -157,8 +157,10 @@ def _sums_with_ids(family, n_samples, key, fn_ids, sample_offset, chunk,
 
     ``use_kernel`` dispatch is capability-checked: the registered kernel
     runs only if the family's form supports (dim, sampler) and its
-    wrapper stages (compactified, swept); otherwise the chunked path
-    below takes over.  Sobol beyond ``sobol.MAX_DIM`` degrades to MC.
+    wrapper stages (compactified, swept, adapted); otherwise the chunked
+    path below takes over, evaluating the family through its ``fn`` (an
+    adapted family's maps its uniforms through the grid).  Sobol beyond
+    ``sobol.MAX_DIM`` degrades to MC.
     """
     if sampler == "sobol":
         from repro_torch.core.sobol import MAX_DIM
@@ -168,7 +170,8 @@ def _sums_with_ids(family, n_samples, key, fn_ids, sample_offset, chunk,
         from repro_torch.kernels import registry
         impl = registry.lookup(family.kernel, dim=family.dim, sampler=sampler,
                                compactified=family.compact,
-                               sweep=family.swept)
+                               sweep=family.swept,
+                               adapted=bool(family.adapt_bins))
         if impl is not None:
             return impl(family, n_samples, key, fn_ids=fn_ids,
                         sample_offset=sample_offset)

@@ -26,6 +26,12 @@ per point, its params the ``{"base": template, "table": per-point
 values}`` wrapper; the fused kernel substitutes the table columns into
 the template's packed row.  Sweep before compactifying, as ``repro``
 composes the stages.
+
+A finite-box family sampled through a VEGAS importance grid is an
+adapted family (:meth:`IntegrandFamily.adapted`): its params are the
+``{"inner": params, "grid": (n_fn, dim, n_bins + 1) edges}`` wrapper,
+its box the unit cube; the fused kernel maps each draw through the grid
+in its adapted blocks.  Adapt last: ``adapted(compactified(swept))``.
 """
 
 from __future__ import annotations
@@ -62,6 +68,10 @@ class IntegrandFamily:
         sweep table overrides.  ``params`` (``params["inner"]`` once
         compactified) is the ``{"base": template params, "table": {name:
         per-point values}}`` wrapper, one function row per grid point.
+      adapt_bins: set by :meth:`adapted`: bins per axis of the VEGAS
+        importance grid (0: unadapted).  ``params`` is the ``{"inner":
+        wrapped params, "grid": edges}`` wrapper and the box the unit
+        cube.
     """
 
     fn: Callable[[torch.Tensor, dict], torch.Tensor]
@@ -71,6 +81,7 @@ class IntegrandFamily:
     kernel: str | None = None
     compact: bool = False
     swept: tuple[str, ...] = ()
+    adapt_bins: int = 0
 
     @property
     def n_fn(self) -> int:
@@ -125,12 +136,71 @@ class IntegrandFamily:
     def inner(self) -> "IntegrandFamily":
         """The pre-transform parameter view of a compactified family:
         same shapes and finite box, the user's ``params``.  Kernel
-        packers consume this.  Identity for other families."""
+        packers consume this.  Unwraps the grid stage first on an adapted
+        family; identity for other families."""
+        if self.adapt_bins:
+            return self.adapt_inner().inner()
         if not self.compact:
             return self
         return IntegrandFamily(fn=self.fn, params=self.params["inner"],
                                domains=self.domains, name=self.name,
                                kernel=self.kernel, swept=self.swept)
+
+    def adapted(self, edges, *, epoch: int = 1) -> "IntegrandFamily":
+        """This finite-box family sampled through a VEGAS importance grid.
+
+        Args:
+          edges: (n_fn, dim, n_bins + 1) per-axis bin edges, strictly
+            increasing and spanning this family's box (a numpy array or
+            tensor; :func:`repro_torch.core.adaptive.refine_edges` output,
+            or a grid record ``repro`` journaled).
+          epoch: grid-epoch label; it suffixes :attr:`name` only.
+
+        Returns a family whose box is the unit cube: uniforms map through
+        the grid's inverse CDF with the bin-width Jacobian folded into the
+        value (``repro_torch.core.adaptive.apply_map``), an unbiased
+        importance-sampled estimate of the same integral.  Keeps
+        :attr:`kernel`.  Grids never nest: refit from
+        :meth:`adapt_inner`.
+        """
+        if self.adapt_bins:
+            raise ValueError("family is already adapted — refit from "
+                             "adapt_inner(), grids never nest")
+        if not domains_lib.is_finite_box(self.domains):
+            raise ValueError("importance grids need a finite box — "
+                             "compactify before adapting")
+        if isinstance(edges, torch.Tensor):
+            edges = edges.detach().cpu().numpy()
+        edges = _t(edges, self.device)
+        if edges.ndim != 3 or tuple(edges.shape[:2]) != (self.n_fn, self.dim):
+            raise ValueError(
+                f"edges must be (n_fn={self.n_fn}, dim={self.dim}, "
+                f"n_bins + 1); got {tuple(edges.shape)}")
+        n_bins = int(edges.shape[-1]) - 1
+        if n_bins < 1:
+            raise ValueError("importance grids need at least one bin")
+        unit = torch.zeros(self.n_fn, self.dim, 2, dtype=torch.float32,
+                           device=self.device)
+        unit[..., 1] = 1.0
+        return IntegrandFamily(
+            fn=adapted_fn(self.fn), params={"inner": self.params, "grid": edges},
+            domains=unit, name=f"{self.name}:adapted[e{int(epoch)}]",
+            kernel=self.kernel, compact=self.compact, swept=self.swept,
+            adapt_bins=n_bins)
+
+    def adapt_inner(self) -> "IntegrandFamily":
+        """The pre-grid view of an adapted family: ``params`` without the
+        ``{"inner", "grid"}`` wrapper and the original box recovered from
+        the grid's outer edges.  Kernel packers consume this; ``fn`` is
+        kept as it is.  Identity for unadapted families."""
+        if not self.adapt_bins:
+            return self
+        edges = self.params["grid"]
+        box = torch.stack([edges[..., 0], edges[..., -1]], dim=-1)
+        return IntegrandFamily(fn=self.fn, params=self.params["inner"],
+                               domains=box, name=self.name,
+                               kernel=self.kernel, compact=self.compact,
+                               swept=self.swept)
 
     def swept_over(self, table: dict) -> "IntegrandFamily":
         """Sweep this single-function template over a parameter table.
@@ -149,7 +219,7 @@ class IntegrandFamily:
         Sweep before :meth:`compactified`, as ``repro``'s canonicalizer
         composes ``compactify(sweep(template))``.
         """
-        if self.compact:
+        if self.compact or self.adapt_bins:
             raise ValueError("sweep the template before compactifying or "
                              "adapting (canonicalization composes the "
                              "stages)")
@@ -244,6 +314,18 @@ class MultiFunctionSpec:
 
     def to(self, device) -> "MultiFunctionSpec":
         return MultiFunctionSpec(families=tuple(f.to(device) for f in self.families))
+
+
+def adapted_fn(fn):
+    """The batched integrand of an adapted family: ``fn`` at the points
+    the grid maps the uniforms to, times the map's Jacobian."""
+    from repro_torch.core import adaptive
+
+    def mapped(u, p):
+        x, jac = adaptive.apply_map(u, p["grid"][:, None])
+        return fn(x, p["inner"]) * jac
+
+    return mapped
 
 
 def swept_fn(fn):

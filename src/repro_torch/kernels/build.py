@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``.cu`` file under ``csrc/`` is compiled by ``nvcc`` into a shared
-library with a plain C interface and loaded with :mod:`ctypes` (no
-PyTorch headers, so a build takes seconds).  Libraries go to
-``kernels/_build/`` (listed in ``.gitignore``), named by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Nothing is built at import: the first call that needs a
-library builds it.
+Each library is compiled by ``nvcc`` from its sources under ``csrc/`` into
+a shared library with a plain C interface and loaded with :mod:`ctypes`
+(no PyTorch headers, so a build takes seconds to a minute).  Every source
+of every library is compiled at once, one ``nvcc`` each, then each
+library's objects are linked.  Libraries go to ``kernels/_build/`` (listed
+in ``.gitignore``), named by a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  Nothing is
+built at import: the first call that needs a library builds it.
 """
 
 from __future__ import annotations
@@ -22,11 +23,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-# library name -> its one source file; headers in csrc/ go into every hash
-SOURCES = {"zmc_fused_mc": "fused_mc.cu"}
+# library name -> its sources; headers in csrc/ go into every hash.  The
+# fused kernel's pass-1 instantiations are spread over six sources so that
+# they compile in parallel.
+SOURCES = {
+    "zmc_fused_mc": ("fused_mc.cu", "fused_mc_compact.cu", "fused_mc_adapted.cu",
+                     "fused_mc_sobol.cu", "fused_mc_sobol_compact.cu",
+                     "fused_mc_sobol_adapted.cu"),
+    "zmc_moments": ("moments.cu",),
+}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -50,41 +58,57 @@ def find_nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / src for src in SOURCES[name]]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None, *, verbose: bool = False) -> dict[str, dict]:
-    """Compile the named libraries (default: all), one ``nvcc`` per source,
-    all started together.  Returns ``{name: {"path", "seconds", "log"}}``;
-    ``log`` holds ``-Xptxas -v`` output (registers, spills) when
-    ``verbose``.  Raises ``RuntimeError`` with the compiler's output if a
-    build fails."""
+    """Compile the named libraries (default: all): one ``nvcc -c`` per
+    source, all started together, then one link per library.  Returns
+    ``{name: {"path", "seconds", "log"}}``; ``log`` holds ``-Xptxas -v``
+    output (registers, spills) when ``verbose``.  Raises ``RuntimeError``
+    with the compiler's output if a build fails."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, out = {}, {}
+    jobs, out = {}, {}
     t0 = time.perf_counter()
+    nvcc = None
     for name in names:
         path = _lib_path(name)
         if path.exists() and not verbose:
             out[name] = {"path": path, "seconds": 0.0, "log": ""}
             continue
+        nvcc = nvcc or find_nvcc()
+        objs = []
+        for src in SOURCES[name]:
+            obj = path.with_suffix(f".{Path(src).stem}.{os.getpid()}.o")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", str(obj), str(CSRC / src)]
+            objs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        jobs[name] = (path, objs)
+    for name, (path, objs) in jobs.items():
+        logs = []
+        for src, obj, proc in objs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {src} "
+                                   f"(exit {proc.returncode}):\n{log}")
+            logs.append(log)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, path)
-    for name, (proc, tmp, path) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
-                               f"(exit {proc.returncode}):\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(obj) for _, obj, _ in objs)],
+                              capture_output=True, text=True)
+        for _, obj, _ in objs:
+            obj.unlink(missing_ok=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {name} failed (exit {link.returncode}):"
+                               f"\n{link.stdout}{link.stderr}")
         os.replace(tmp, path)
         out[name] = {"path": path, "seconds": time.perf_counter() - t0,
-                     "log": log}
+                     "log": "".join(logs)}
     return out
 
 
@@ -102,21 +126,27 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
+    """Declare ``argtypes``/``restype`` of each exported function the
+    library has (each source exports its own)."""
     u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
-    lib.zmc_chunk_samples.argtypes = []
-    lib.zmc_chunk_samples.restype = i32
-    lib.zmc_fused_mc.argtypes = [u32, u32, u32, u32,     # k0 k1 offset n_valid
-                                 u32, i32, ptr,          # round_stride n_rounds round_base
-                                 ptr, ptr, i32,          # fn_ids block_meta n_sweep
-                                 i32, ptr,               # has_compact sobol_dirs
-                                 ptr, i32,               # packed n_cols
-                                 ptr, ptr, i32,          # lo hi dim
-                                 i32, i32,               # n_fn_pad n_chunks
-                                 ptr, ptr, ptr]          # scratch out stream
-    lib.zmc_fused_mc.restype = i32
-    lib.zmc_random_bits.argtypes = [u32, u32, ptr, ptr, ptr, ctypes.c_longlong,
-                                    ptr]
-    lib.zmc_random_bits.restype = i32
-    lib.zmc_sobol.argtypes = [ptr, i32, u32, u32, ptr, ptr, ptr, ptr,
-                              ctypes.c_longlong, ptr]
-    lib.zmc_sobol.restype = i32
+    i64 = ctypes.c_longlong
+    signatures = {
+        "zmc_chunk_samples": [],
+        "zmc_fused_mc": [u32, u32, u32, u32,     # k0 k1 offset n_valid
+                         u32, i32, ptr,          # round_stride n_rounds round_base
+                         ptr, ptr, i32,          # fn_ids block_meta n_sweep
+                         i32, ptr,               # has_stages sobol_dirs
+                         ptr, i32,               # packed n_cols
+                         ptr, ptr, i32,          # lo hi dim
+                         i32, i32,               # n_fn_pad n_chunks
+                         ptr, ptr, ptr],         # scratch out stream
+        "zmc_random_bits": [u32, u32, ptr, ptr, ptr, i64, ptr],
+        "zmc_sobol": [ptr, i32, u32, u32, ptr, ptr, ptr, ptr, i64, ptr],
+        "zmc_moments_cblk": [],
+        "zmc_stratum_moments": [ptr, i32, i32, ptr, ptr],  # values rows cols out stream
+    }
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i32

@@ -1,0 +1,341 @@
+// Pass 1 of the fused multi-family Monte-Carlo kernel for Hopper (sm_90a):
+// the per-block sample loops and their launch, shared by the sources that
+// each build some of its instantiations (fused_mc.cu and
+// fused_mc_{compact,adapted,sobol,sobol_compact,sobol_adapted}.cu, compiled
+// in parallel and linked into one library).  What the kernel computes, what
+// bounds it and why it is deterministic: fused_mc.cu.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "zmc_device.cuh"
+
+namespace zmc {
+
+// The arguments of one pass-1 launch (see fused_mc_pass1 and zmc_fused_mc).
+struct Pass1Args {
+  uint32_t k0, k1, sample_offset, n_valid, round_stride;
+  int n_rounds;
+  const uint32_t* round_base;
+  const uint32_t* fn_ids;
+  const int32_t* block_meta;
+  int n_sweep;
+  const uint32_t* sobol_dirs;
+  const float* packed;
+  int n_cols;
+  const float* lo;
+  const float* hi;
+  int dim, n_fn_pad, n_chunks;
+  float* scratch;
+};
+
+// One launcher per pass-1 instantiation <STAGES, SOBOL, SWEPT>, each
+// defined in the source that builds it.
+cudaError_t launch_pass1_plain(const Pass1Args&, unsigned, size_t, cudaStream_t);    // <0, false, false>
+cudaError_t launch_pass1_swept(const Pass1Args&, unsigned, size_t, cudaStream_t);    // <0, false, true>
+cudaError_t launch_pass1_compact(const Pass1Args&, unsigned, size_t, cudaStream_t);  // <1, false, true>
+cudaError_t launch_pass1_adapted(const Pass1Args&, unsigned, size_t, cudaStream_t);  // <2, false, true>
+cudaError_t launch_pass1_sobol(const Pass1Args&, unsigned, size_t, cudaStream_t);    // <0, true, true>
+cudaError_t launch_pass1_sobol_compact(const Pass1Args&, unsigned, size_t, cudaStream_t);  // <1, true, true>
+cudaError_t launch_pass1_sobol_adapted(const Pass1Args&, unsigned, size_t, cudaStream_t);  // <2, true, true>
+
+}  // namespace zmc
+
+namespace {
+
+
+constexpr int F_BLK = 16;
+constexpr int S_BLK = 2048;
+constexpr int CHUNK_BLOCKS = 8;
+constexpr int CHUNK_SAMPLES = CHUNK_BLOCKS * S_BLK;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+
+// One axis of a compactified block.  Not inlined: the precise tanf/cosf
+// would otherwise be copied into each of the 16 unrolled functions of
+// every form's loop.  Returns (x, dx/du) in registers.
+__device__ __noinline__ float2 transform_axis(float x, float kind, float shift) {
+  float jac;
+  const float y = zmc::apply_transform(x, kind, shift, &jac);
+  return make_float2(y, jac);
+}
+
+// The wrapper stages of a block, STAGE: 0 none; 1 the compactification
+// (the transform of every axis, at column tcol); 2 the importance grid (the
+// map of every axis through its edges from column acol), then the
+// compactification where tcol >= 0 (a test uniform across the CUDA block,
+// so it never diverges).  Each stage's Jacobian product is folded into the
+// value after the body, the transform's first, as repro composes them.
+template <int STAGE>
+__device__ __forceinline__ float stage_axis(float x, const float* __restrict__ p, int tcol,
+                                            int acol, int n_bins, int d, int dim,
+                                            float& jac_t, float& jac_a) {
+  if (STAGE == 2) {
+    float w;
+    x = zmc::apply_map_axis(x, p + acol + d * (n_bins + 1), n_bins, &w);
+    jac_a *= w;
+  }
+  if (STAGE == 1 || (STAGE == 2 && tcol >= 0)) {
+    const float2 xj = transform_axis(x, p[tcol + d], p[tcol + dim + d]);
+    x = xj.x;
+    jac_t *= xj.y;
+  }
+  return x;
+}
+
+template <int STAGE>
+__device__ __forceinline__ float staged_value(float v, float jac_t, float jac_a) {
+  if (STAGE == 1) return v * jac_t;
+  if (STAGE == 2) return v * jac_t * jac_a;
+  return v;
+}
+
+template <int FORM, int STAGE>
+__device__ __forceinline__ void eval_chunk(const float* __restrict__ p_s,
+                                           const float* __restrict__ lo_s,
+                                           const float* __restrict__ w_s,
+                                           const uint32_t* __restrict__ c1_s,
+                                           int n_cols, int tcol, int acol, int n_bins,
+                                           int dim, uint32_t k0, uint32_t k1,
+                                           uint32_t window, uint32_t begin, uint64_t end,
+                                           float (&s1)[F_BLK], float (&s2)[F_BLK]) {
+  for (uint64_t local = (uint64_t)begin + threadIdx.x; local < end; local += THREADS) {
+    const uint32_t c0 = window + (uint32_t)local;
+#pragma unroll
+    for (int f = 0; f < F_BLK; ++f) {
+      const float* p = p_s + f * n_cols;
+      float acc = zmc::Body<FORM>::init(p);
+      float jac = 1.0f, jac_a = 1.0f;
+      for (int d = 0; d < dim; ++d) {
+        const uint32_t bits = zmc::random_bits(k0, k1, c0, c1_s[f] + (uint32_t)d);
+        float x = zmc::affine(lo_s[f * dim + d], w_s[f * dim + d],
+                              zmc::bits_to_uniform(bits));
+        if (STAGE) x = stage_axis<STAGE>(x, p, tcol, acol, n_bins, d, dim, jac, jac_a);
+        acc = zmc::Body<FORM>::step(acc, x, p, d);
+      }
+      const float v = staged_value<STAGE>(zmc::Body<FORM>::fin(acc, p, dim), jac, jac_a);
+      s1[f] += v;
+      s2[f] += v * v;
+    }
+  }
+}
+
+// The Sobol draw: the point of sample c0 (top 24 bits per dim) is built
+// once per sample, outside the function loop, into the thread's own
+// column of pt_s (u32[dim, THREADS] in shared memory: a register array
+// indexed by the runtime dim would go to local memory); v_s holds the
+// direction vectors u32[dim][32], sh_s the top 24 bits of each
+// (function, dim)'s shift.  The function and dim loops are the MC loop's.
+template <int FORM, int STAGE>
+__device__ __forceinline__ void eval_chunk_sobol(const float* __restrict__ p_s,
+                                                 const float* __restrict__ lo_s,
+                                                 const float* __restrict__ w_s,
+                                                 const uint32_t* __restrict__ v_s,
+                                                 const uint32_t* __restrict__ sh_s,
+                                                 uint32_t* __restrict__ pt_s,
+                                                 int n_cols, int tcol, int acol, int n_bins,
+                                                 int dim, uint32_t window, uint32_t begin,
+                                                 uint64_t end, float (&s1)[F_BLK],
+                                                 float (&s2)[F_BLK]) {
+  uint32_t* pt = pt_s + threadIdx.x;
+  for (uint64_t local = (uint64_t)begin + threadIdx.x; local < end; local += THREADS) {
+    const uint32_t c0 = window + (uint32_t)local;
+    for (int d = 0; d < dim; ++d) pt[d * THREADS] = zmc::sobol_point(v_s + 32 * d, c0) >> 8;
+#pragma unroll
+    for (int f = 0; f < F_BLK; ++f) {
+      const float* p = p_s + f * n_cols;
+      float acc = zmc::Body<FORM>::init(p);
+      float jac = 1.0f, jac_a = 1.0f;
+      for (int d = 0; d < dim; ++d) {
+        float x = zmc::affine(lo_s[f * dim + d], w_s[f * dim + d],
+                              zmc::sobol_uniform(pt[d * THREADS], sh_s[f * dim + d]));
+        if (STAGE) x = stage_axis<STAGE>(x, p, tcol, acol, n_bins, d, dim, jac, jac_a);
+        acc = zmc::Body<FORM>::step(acc, x, p, d);
+      }
+      const float v = staged_value<STAGE>(zmc::Body<FORM>::fin(acc, p, dim), jac, jac_a);
+      s1[f] += v;
+      s2[f] += v * v;
+    }
+  }
+}
+
+// Pass 1.  Block b handles function block fb, round r and sample chunk c,
+// b = (fb * n_rounds + r) * n_chunks + c.  block_meta is
+// i32[4 + 2 * n_sweep, n_fn_pad / 16]: row 0 the block's form id, row 1 -1
+// for a plain block or the first of a compactified block's 2 * dim
+// transform columns, rows 2 + 2j and 3 + 2j the j-th (base column, table
+// column) pair of a swept block (-1: none), row 2 + 2 n_sweep -1 for an
+// unadapted block or the first of an adapted block's dim * (n_bins + 1)
+// grid-edge columns, and row 3 + 2 n_sweep its n_bins.  Dynamic shared memory: c1
+// base u32[16], packed rows f32[16, n_cols], lo and hi - lo f32[16, dim]
+// each, and for SOBOL the direction vectors u32[dim, 32], the shifts' top
+// 24 bits u32[16, dim] and the threads' points u32[dim, 256].  SWEPT
+// compiles the sweep pairs' copy in (taken when n_sweep > 0 and the block
+// is swept); STAGES 1 adds the compactified blocks' loop (taken where
+// tcol >= 0), STAGES 2 the adapted blocks' loop too (taken where acol >= 0,
+// the transform behind a test of tcol).  Seven instantiations, built from
+// six sources in parallel (launch_pass1 below): the MC launch without
+// staged or swept blocks (<0, false, false>, the main path) runs code and a
+// register allocation that neither the stages, the Sobol point nor the copy
+// shape (the copy alone, in the load phase, cost it 0.35%); MC swept
+// launches have <0, false, true>; MC launches with compactified blocks
+// <1, false, true> and with adapted ones <2, false, true> (sharing one
+// instantiation cost the compactified blocks 1.0%); Sobol launches
+// <0|1|2, true, true>, each with the copy in.
+// A swept block differs from its per-point families only in that copy:
+// the sample loop does the same float operations on the same values.
+template <int STAGES, bool SOBOL, bool SWEPT>
+__global__ void __launch_bounds__(THREADS)
+fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_valid,
+               uint32_t round_stride, int n_rounds, const uint32_t* __restrict__ round_base,
+               const uint32_t* __restrict__ fn_ids, const int32_t* __restrict__ block_meta,
+               int n_sweep, const uint32_t* __restrict__ sobol_dirs,
+               const float* __restrict__ packed, int n_cols, const float* __restrict__ lo,
+               const float* __restrict__ hi, int dim, int n_fn_pad, int n_chunks,
+               float* __restrict__ scratch) {
+  extern __shared__ float smem[];
+  __shared__ float red[WARPS][F_BLK][2];
+  uint32_t* c1_s = reinterpret_cast<uint32_t*>(smem);
+  float* p_s = smem + F_BLK;
+  float* lo_s = p_s + F_BLK * n_cols;
+  float* w_s = lo_s + F_BLK * dim;
+  uint32_t* v_s = reinterpret_cast<uint32_t*>(w_s + F_BLK * dim);
+  uint32_t* sh_s = v_s + 32 * dim;
+  uint32_t* pt_s = sh_s + F_BLK * dim;
+
+  const int chunk = blockIdx.x % n_chunks;
+  const int fr = blockIdx.x / n_chunks;
+  const int r = fr % n_rounds;
+  const int fb = fr / n_rounds;
+  const int row0 = fb * F_BLK;
+  const int n_fblocks = n_fn_pad / F_BLK;
+  for (int i = threadIdx.x; i < F_BLK; i += THREADS)
+    c1_s[i] = fn_ids[row0 + i] * zmc::DIM_STRIDE;
+  for (int i = threadIdx.x; i < F_BLK * n_cols; i += THREADS)
+    p_s[i] = packed[(size_t)row0 * n_cols + i];
+  for (int i = threadIdx.x; i < F_BLK * dim; i += THREADS) {
+    const float l = lo[(size_t)row0 * dim + i];
+    lo_s[i] = l;
+    w_s[i] = hi[(size_t)row0 * dim + i] - l;
+  }
+  if (SOBOL) {
+    for (int i = threadIdx.x; i < 32 * dim; i += THREADS) v_s[i] = sobol_dirs[i];
+    for (int i = threadIdx.x; i < F_BLK * dim; i += THREADS) {
+      const int f = i / dim, d = i % dim;
+      sh_s[i] = zmc::sobol_shift(k0, k1, fn_ids[row0 + f] * zmc::DIM_STRIDE + (uint32_t)d) >> 8;
+    }
+  }
+  __syncthreads();
+  // a swept block: each table column over the base column it overrides
+  // (a base column sits before every table column, so no copy reads a
+  // column another one writes)
+  if (SWEPT && n_sweep > 0 && block_meta[2 * n_fblocks + fb] >= 0) {
+    for (int i = threadIdx.x; i < F_BLK * n_sweep; i += THREADS) {
+      const int f = i / n_sweep, j = i % n_sweep;
+      const int dst = block_meta[(2 + 2 * j) * n_fblocks + fb];
+      if (dst >= 0)
+        p_s[f * n_cols + dst] = p_s[f * n_cols + block_meta[(3 + 2 * j) * n_fblocks + fb]];
+    }
+    __syncthreads();
+  }
+
+  float s1[F_BLK], s2[F_BLK];
+#pragma unroll
+  for (int f = 0; f < F_BLK; ++f) s1[f] = s2[f] = 0.0f;
+
+  // round r's window, in u32 arithmetic that wraps as the TPU kernel's does
+  const uint32_t window = sample_offset + (round_base != nullptr ? round_base[fb] : 0u) +
+                          (uint32_t)r * round_stride;
+  const uint32_t begin = (uint32_t)chunk * CHUNK_SAMPLES;
+  const uint64_t chunk_end = (uint64_t)begin + CHUNK_SAMPLES;
+  const uint64_t end = chunk_end < n_valid ? chunk_end : (uint64_t)n_valid;
+  const int tcol = block_meta[n_fblocks + fb];
+  int acol = -1, n_bins = 0;
+  if constexpr (STAGES == 2) {
+    acol = block_meta[(2 + 2 * n_sweep) * n_fblocks + fb];
+    n_bins = block_meta[(3 + 2 * n_sweep) * n_fblocks + fb];
+  }
+  // form, tcol and acol are uniform across the block, so this switch never
+  // diverges
+#define ZMC_RUN(FORM, S)                                                                 \
+  if constexpr (SOBOL) {                                                                 \
+    eval_chunk_sobol<FORM, S>(p_s, lo_s, w_s, v_s, sh_s, pt_s, n_cols, S ? tcol : 0,     \
+                              S == 2 ? acol : -1, S == 2 ? n_bins : 0, dim, window,      \
+                              begin, end, s1, s2);                                       \
+  } else {                                                                               \
+    eval_chunk<FORM, S>(p_s, lo_s, w_s, c1_s, n_cols, S ? tcol : 0, S == 2 ? acol : -1,  \
+                        S == 2 ? n_bins : 0, dim, k0, k1, window, begin, end, s1, s2);   \
+  }
+#define ZMC_EVAL(FORM)          \
+  if constexpr (STAGES == 2) {  \
+    if (acol >= 0) {            \
+      ZMC_RUN(FORM, 2)          \
+      break;                    \
+    }                           \
+  }                             \
+  if constexpr (STAGES >= 1) {  \
+    if (tcol >= 0) {            \
+      ZMC_RUN(FORM, 1)          \
+      break;                    \
+    }                           \
+  }                             \
+  ZMC_RUN(FORM, 0)              \
+  break;
+  switch (block_meta[fb]) {
+    case zmc::FORM_HARMONIC: ZMC_EVAL(zmc::FORM_HARMONIC)
+    case zmc::FORM_ABS_SUM: ZMC_EVAL(zmc::FORM_ABS_SUM)
+    case zmc::FORM_GAUSSIAN: ZMC_EVAL(zmc::FORM_GAUSSIAN)
+    case zmc::FORM_GENZ_OSC: ZMC_EVAL(zmc::FORM_GENZ_OSC)
+    case zmc::FORM_GENZ_CORNER: ZMC_EVAL(zmc::FORM_GENZ_CORNER)
+    default:  // unknown form id: poison the block's sums rather than guess
+#pragma unroll
+      for (int f = 0; f < F_BLK; ++f) s1[f] = s2[f] = zmc::quiet_nan();
+  }
+#undef ZMC_EVAL
+#undef ZMC_RUN
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int f = 0; f < F_BLK; ++f) {
+    float a = s1[f], b = s2[f];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_down_sync(0xffffffffu, a, off);
+      b += __shfl_down_sync(0xffffffffu, b, off);
+    }
+    if (lane == 0) {
+      red[warp][f][0] = a;
+      red[warp][f][1] = b;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < F_BLK * 2) {
+    const int f = threadIdx.x >> 1, comp = threadIdx.x & 1;
+    float acc = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) acc += red[w][f][comp];
+    scratch[(((size_t)r * n_fn_pad + row0 + f) * n_chunks + chunk) * 2 + comp] = acc;
+  }
+}
+
+// One pass-1 launch of an instantiation, and the CUDA error it reports.
+template <int STAGES, bool SOBOL, bool SWEPT>
+cudaError_t launch_pass1(const zmc::Pass1Args& a, unsigned n_blocks, size_t smem,
+                         cudaStream_t s) {
+  const auto kernel = fused_mc_pass1<STAGES, SOBOL, SWEPT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<n_blocks, THREADS, smem, s>>>(a.k0, a.k1, a.sample_offset, a.n_valid,
+                                         a.round_stride, a.n_rounds, a.round_base, a.fn_ids,
+                                         a.block_meta, a.n_sweep, a.sobol_dirs, a.packed,
+                                         a.n_cols, a.lo, a.hi, a.dim, a.n_fn_pad, a.n_chunks,
+                                         a.scratch);
+  return cudaGetLastError();
+}
+
+}  // namespace

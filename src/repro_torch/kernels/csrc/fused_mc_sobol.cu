@@ -1,0 +1,9 @@
+// Pass 1 of the fused kernel for Sobol launches without staged blocks:
+// fused_mc_pass1<0, true, true>, built from its own source so that the
+// instantiations compile in parallel (see fused_mc.cu).
+#include "fused_mc_pass1.cuh"
+
+cudaError_t zmc::launch_pass1_sobol(const Pass1Args& a, unsigned n, size_t smem,
+                                    cudaStream_t s) {
+  return launch_pass1<0, true, true>(a, n, smem, s);
+}

@@ -13,7 +13,10 @@
 //   * the Sobol point of one index on one dim (sobol_point, the Gray-code
 //     construction of repro/core/sobol.py:sobol_bits and
 //     repro/kernels/template.py:sobol_tiles) and its digital shift
-//     (sobol_shift, repro/core/sobol.py:shifts_for).
+//     (sobol_shift, repro/core/sobol.py:shifts_for);
+//   * the VEGAS importance map of one axis (apply_map_axis), the per-axis
+//     arithmetic of repro/core/adaptive.py:apply_map that the wrapper stage
+//     repro/kernels/template.py:adapted_body puts around a body.
 //
 // A body is written as a fold over the dimensions: acc = init(p), then
 // acc = step(acc, x_d, p, d) for d = 0..dim-1, then value = fin(acc, p, dim).
@@ -166,6 +169,23 @@ ZMC_HD float apply_transform(float u, float kind, float shift, float* jac) {
   return k == TRANSFORM_UPPER ? shift + rat : shift - rat;
 }
 
+// -- the importance map of one axis ----------------------------------------
+// e points at the axis' n_bins + 1 edges (strictly increasing).  The bin is
+// idx = min((int)(u * n_bins), n_bins - 1), exact in f32 since u carries 24
+// bits; x interpolates linearly inside it and *w = n_bins * (e1 - e0) is the
+// axis' factor of the Jacobian.  The bin is read directly: repro's unrolled
+// select over every bin exists because its TPU compiler rejects gathers.
+ZMC_HD float apply_map_axis(float u, const float* e, int n_bins, float* w) {
+  const float s = u * (float)n_bins;
+  const int t = (int)s;
+  const int idx = t < n_bins - 1 ? t : n_bins - 1;
+  const float frac = s - (float)idx;
+  const float e0 = e[idx];
+  const float width = e[idx + 1] - e0;
+  *w = width * (float)n_bins;
+  return e0 + frac * width;
+}
+
 // -- eval bodies ---------------------------------------------------------
 // p points at one function's packed parameter row.
 
@@ -261,6 +281,29 @@ ZMC_HD float eval_point_compact(int form, const float* p, int tcol, const float*
     jac *= j;
   }
   return eval_point_form(form, p, xs, dim) * jac;
+}
+
+// An adapted row: p holds the form's columns, the grid edges from column
+// acol (dim * (n_bins + 1), axis-major) and, when tcol >= 0, the transform
+// columns.  Maps each u through the grid, then through the axis' transform,
+// and multiplies the body's value by the transform's Jacobian product, then
+// by the grid's, as the kernel's adapted blocks do.
+ZMC_HD float eval_point_adapted(int form, const float* p, int acol, int n_bins, int tcol,
+                                const float* u, int dim) {
+  float xs[256];
+  float jac_t = 1.0f, jac_a = 1.0f;
+  for (int d = 0; d < dim; ++d) {
+    float w;
+    float x = apply_map_axis(u[d], p + acol + d * (n_bins + 1), n_bins, &w);
+    jac_a *= w;
+    if (tcol >= 0) {
+      float j;
+      x = apply_transform(x, p[tcol + d], p[tcol + dim + d], &j);
+      jac_t *= j;
+    }
+    xs[d] = x;
+  }
+  return eval_point_form(form, p, xs, dim) * jac_t * jac_a;
 }
 
 }  // namespace zmc

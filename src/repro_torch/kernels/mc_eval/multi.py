@@ -4,8 +4,9 @@
 1. every family whose ``kernel`` names a registered form supporting
    (dim, sampler) and its wrapper stages is **fusable**, compactified
    infinite-domain families (their transform columns ride after the
-   form's) and swept families (one row per grid point, their table
-   columns after the base columns) included; the rest are left to the
+   form's), swept families (one row per grid point, their table
+   columns after the base columns) and adapted families (their grid
+   edges before the transform columns) included; the rest are left to the
    chunked path (``FusionPlan.unfused``, the caller handles them), among
    them Sobol families above ``core.sobol.MAX_DIM`` dims;
 2. fusable families are bucketed by dimension;
@@ -15,9 +16,11 @@
 4. the whole bucket runs in one :func:`template.fused_mc` launch with
    the plan's sampler, each block's body picked by its form id
    (``_Bucket.block_forms``), wrapped in the compactification stage
-   where ``_Bucket.block_tcols`` names its transform columns, and run on
-   its packed rows with the table columns of ``_Bucket.block_sweep``
-   substituted in a swept block;
+   where ``_Bucket.block_tcols`` names its transform columns, in the
+   importance-grid stage where ``_Bucket.block_adapt`` names its grid
+   edges, and run on its packed rows with the table columns of
+   ``_Bucket.block_sweep`` substituted in a swept block; adapted and
+   unadapted families of one dim share a bucket;
 5. results are sliced back out per family.
 
 The plan depends only on the spec, so callers build it once and re-run
@@ -66,7 +69,8 @@ class _Bucket:
     block_forms: torch.Tensor     # i32[n_fn_pad // F_BLK] kernel form ids (CPU)
     block_tcols: torch.Tensor     # i32[n_fn_pad // F_BLK] first transform col or -1 (CPU)
     block_sweep: torch.Tensor | None  # i32[2 * S, n_fn_pad // F_BLK] sweep pairs (CPU)
-    block_meta: torch.Tensor      # i32[2 + 2 * S, n_fn_pad // F_BLK]: all three, on the device
+    block_adapt: torch.Tensor     # i32[2, n_fn_pad // F_BLK] first grid col or -1, n_bins (CPU)
+    block_meta: torch.Tensor      # i32[4 + 2 * S, n_fn_pad // F_BLK]: all four, on the device
     dirvecs: torch.Tensor | None  # i32[dim, 32] Sobol direction vectors on the device (sobol plans)
     slices: tuple[_Slice, ...]
     name: str
@@ -87,10 +91,10 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
     """Bucket a MultiFunctionSpec's fusable families by dimension.
 
     Bucket tensors live on the families' device; the per-block form ids,
-    transform columns and sweep pairs are also kept on the CPU
-    (``block_forms``, ``block_tcols``, ``block_sweep``; the last is None
-    in a bucket without a swept family) for the checks and the plain
-    version.
+    transform columns, sweep pairs and grid columns are also kept on the
+    CPU (``block_forms``, ``block_tcols``, ``block_sweep``, None in a
+    bucket without a swept family, and ``block_adapt``) for the checks
+    and the plain version.
 
     Args:
       spec: ``repro_torch.core.integrand.MultiFunctionSpec``.
@@ -109,7 +113,8 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
         form = registry.form(fam.kernel) if fam.kernel else None
         if form is None or not form.supports(dim=fam.dim, sampler=sampler,
                                              compactified=fam.compact,
-                                             sweep=fam.swept):
+                                             sweep=fam.swept,
+                                             adapted=bool(fam.adapt_bins)):
             unfused.append(idx)
             continue
         by_dim.setdefault(fam.dim, []).append(idx)
@@ -121,6 +126,7 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
         block_forms: list[int] = []
         block_tcols: list[int] = []
         block_pairs: list[tuple] = []
+        block_grids: list[tuple[int, int]] = []
         slices: list[_Slice] = []
         n_cols = max(template.packed_cols(registry.form(families[i].kernel),
                                           families[i]) for i in idxs)
@@ -146,6 +152,7 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
             block_tcols += ([template.transform_col(form, fam)]
                             * (n_fn_pad // F_BLK))
             block_pairs += [template.sweep_pairs(form, fam)] * (n_fn_pad // F_BLK)
+            block_grids += [template.adapt_col(form, fam)] * (n_fn_pad // F_BLK)
             slices.append(_Slice(idx, row, n_fn))
             row += n_fn_pad
 
@@ -153,6 +160,7 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
         tcols = torch.from_numpy(np.asarray(block_tcols, np.int32))
         sweep = (template.block_sweep_tensor(block_pairs)
                  if any(block_pairs) else None)
+        adapt = template.block_adapt_tensor(block_grids)
         packed = torch.cat(packed_parts).contiguous()
         buckets.append(_Bucket(
             dim=dim,
@@ -163,8 +171,10 @@ def plan_spec(spec, *, sampler: str = "mc", fn_offsets=None) -> FusionPlan:
             block_forms=forms,
             block_tcols=tcols,
             block_sweep=sweep,
+            block_adapt=adapt,
             block_meta=template.to_card(
-                template.block_meta_host(forms, tcols, sweep), packed.device),
+                template.block_meta_host(forms, tcols, sweep, adapt),
+                packed.device),
             dirvecs=(template.to_card(template.sobol_dirvecs(dim), packed.device)
                      if sampler == "sobol" else None),
             slices=tuple(slices),
@@ -192,8 +202,9 @@ def eval_plan(plan: FusionPlan, n_samples: int, key, *, sample_offset=0):
             scalars, bucket.fn_ids, bucket.packed, bucket.lo, bucket.hi,
             bucket.block_forms, dim=bucket.dim,
             n_sample_blocks=n_sample_blocks, block_tcols=bucket.block_tcols,
-            block_sweep=bucket.block_sweep, sampler=plan.sampler,
-            block_meta=bucket.block_meta, dirvecs=bucket.dirvecs)[0]
+            block_sweep=bucket.block_sweep, block_adapt=bucket.block_adapt,
+            sampler=plan.sampler, block_meta=bucket.block_meta,
+            dirvecs=bucket.dirvecs)[0]
         n = n_tensor(n_samples, sums.device)
         for sl in bucket.slices:
             rows = sums[sl.row_start:sl.row_start + sl.n_fn]
@@ -252,8 +263,8 @@ def launch_plan_rounds(plan: FusionPlan, round_samples: int, n_rounds: int,
             n_sample_blocks=n_sample_blocks, n_rounds=int(n_rounds),
             round_base=_round_base_for(bucket, start_rounds, round_samples),
             block_tcols=bucket.block_tcols, block_sweep=bucket.block_sweep,
-            sampler=plan.sampler, block_meta=bucket.block_meta,
-            dirvecs=bucket.dirvecs))
+            block_adapt=bucket.block_adapt, sampler=plan.sampler,
+            block_meta=bucket.block_meta, dirvecs=bucket.dirvecs))
         for sl in bucket.slices:
             where[sl.family_index] = (b, sl.row_start, sl.n_fn)
     return where, outputs

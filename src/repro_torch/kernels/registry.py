@@ -15,15 +15,15 @@ Dispatch entry points:
 
 * :func:`get` — name -> impl, raising on unknown names.
 * :func:`lookup` — capability-checked: the impl if the named form
-  supports (dim, sampler, compactified, sweep), else ``None`` so the
-  engine takes the chunked path.  This is what
+  supports (dim, sampler, compactified, sweep, adapted), else ``None``
+  so the engine takes the chunked path.  This is what
   ``direct_mc._sums_with_ids`` calls.
 
 Forms advertise both samplers (Sobol up to ``core.sobol.MAX_DIM``
-dims) and, of the wrapper stages, the compactification
-(``supports_compactified``) and the parameter sweep (``sweep_cols``), as
-``repro``'s forms do; the importance-grid stage comes with a later
-slice.  The pseudo-random impl owns the bare form name, the Sobol one
+dims) and the three wrapper stages: the compactification
+(``supports_compactified``), the parameter sweep (``sweep_cols``) and
+the importance grid (``supports_adapted``), as ``repro``'s forms do.
+The pseudo-random impl owns the bare form name, the Sobol one
 ``"<name>@sobol"``.
 """
 
@@ -64,8 +64,10 @@ class KernelForm:
         the template parameters a swept family's table may override per
         point, and the packed columns each occupies
         (``template.sweep_col_map``); ``None``: not sweepable.
-      supports_adapted: the importance-grid stage; not ported yet, so no
-        form may claim it.
+      supports_adapted: whether the body composes with the
+        importance-grid stage (the CUDA kernel's adapted blocks,
+        ``template.adapted_body`` in the plain version) that serves
+        adapted families (``IntegrandFamily.adapted``).
     """
 
     name: str
@@ -78,7 +80,7 @@ class KernelForm:
     backends: tuple[str, ...] = ("cuda", "cpu")
     supports_compactified: bool = True
     sweep_cols: Callable[[int], dict[str, tuple[int, ...]]] | None = None
-    supports_adapted: bool = False
+    supports_adapted: bool = True
 
     @property
     def supports_swept(self) -> bool:
@@ -86,11 +88,13 @@ class KernelForm:
         return self.sweep_cols is not None
 
     def supports(self, *, dim: int, sampler: str = "mc",
-                 compactified: bool = False,
-                 sweep: tuple[str, ...] = ()) -> bool:
+                 compactified: bool = False, sweep: tuple[str, ...] = (),
+                 adapted: bool = False) -> bool:
         if sampler not in self.samplers or not 1 <= dim <= self.max_dim:
             return False
         if compactified and not self.supports_compactified:
+            return False
+        if adapted and not self.supports_adapted:
             return False
         if sweep:
             if self.sweep_cols is None:
@@ -108,9 +112,6 @@ def register_form(form: KernelForm) -> KernelForm:
     supports."""
     if form.name in _FORMS:
         raise ValueError(f"kernel form {form.name!r} already registered")
-    if form.supports_adapted:
-        raise ValueError(f"form {form.name!r}: the adapted stage is not "
-                         "ported yet (ROADMAP queue 1 item 9)")
     if not set(form.samplers) <= {"mc", "sobol"}:
         raise ValueError(f"form {form.name!r}: unknown samplers "
                          f"{form.samplers}")
@@ -171,10 +172,11 @@ def by_id(form_id: int) -> KernelForm:
 
 def lookup(name: str, *, dim: int, sampler: str = "mc",
            compactified: bool = False, sweep: tuple[str, ...] = (),
-           required: bool = False) -> Callable | None:
+           adapted: bool = False, required: bool = False) -> Callable | None:
     """Capability-checked dispatch: impl for (dim, sampler, compactified,
-    sweep) or None.  ``sweep`` names the parameters a swept family's
-    table overrides.
+    sweep, adapted) or None.  ``sweep`` names the parameters a swept
+    family's table overrides; ``adapted`` marks a family carrying an
+    importance grid (``IntegrandFamily.adapt_bins``).
 
     ``required=True`` turns the None into a ``ValueError`` naming the
     form, the request and what the form supports (the sweep engine has
@@ -183,7 +185,8 @@ def lookup(name: str, *, dim: int, sampler: str = "mc",
     _load_builtin()
     f = _FORMS.get(name)
     if f is not None and f.supports(dim=dim, sampler=sampler,
-                                    compactified=compactified, sweep=sweep):
+                                    compactified=compactified, sweep=sweep,
+                                    adapted=adapted):
         return _REGISTRY[impl_name(name, sampler)]
     if required:
         if f is None:
@@ -193,11 +196,13 @@ def lookup(name: str, *, dim: int, sampler: str = "mc",
             have = (f"form supports dim<={f.max_dim}, samplers={f.samplers}"
                     f" (sobol dim<={MAX_DIM})"
                     + (", compactified ok" if f.supports_compactified else "")
+                    + (", adapted ok" if f.supports_adapted else "")
                     + (f", sweepable={sorted(f.sweep_cols(min(dim, f.max_dim)))}"
                        if f.sweep_cols is not None else ""))
         raise ValueError(f"kernel lookup missed for {name!r} "
                          f"(dim={dim}, sampler={sampler!r}, "
-                         f"compactified={compactified}, sweep={tuple(sweep)}): "
+                         f"compactified={compactified}, sweep={tuple(sweep)}, "
+                         f"adapted={adapted}): "
                          f"{have}")
     return None
 

@@ -12,7 +12,8 @@ block's functions) XOR the digital shift ``random_bits(k0, k1, 0x50B01,
 c1)``.  It maps the uniform into the box, evaluates the block's body
 (wrapped in the compactification stage in a compactified block, on the
 block's packed rows with its sweep table columns substituted in a swept
-block) and returns per-round, per-function ``(sum f, sum f^2)`` over the
+block, and, in an adapted block, at the points the block's importance
+grid maps the uniforms to) and returns per-round, per-function ``(sum f, sum f^2)`` over the
 samples below ``n_valid``.  Round ``r`` of an R-round launch equals a
 single-round launch at that round's offset, bit for bit.
 
@@ -27,8 +28,9 @@ single-round launch at that round's offset, bit for bit.
   supplies a body and a packer; :func:`make_family_impl` turns it into a
   single-family impl, ``mc_eval.multi`` into one launch per dim bucket.
 * :func:`body_and_packed` is the one place a swept family grows its
-  table columns and a compactified one its transform columns, in
-  ``repro``'s row order ``[base][sweep][kind_0..kind_{dim-1}][shift_0..]``.
+  table columns, an adapted one its grid edges and a compactified one its
+  transform columns, in ``repro``'s row order
+  ``[base][sweep][adapt][kind_0..kind_{dim-1}][shift_0..]``.
 
 Operands (as ``repro``'s ``fused_mc_pallas``): ``scalars`` u32[4]
 ``(k0, k1, sample_offset, n_valid)`` or u32[5] with ``round_stride``
@@ -37,8 +39,10 @@ appended, ``block_forms`` i32[n_pad / 16] (the form id of each block),
 transform column of a compactified one), ``block_sweep`` i32[2 * S,
 n_pad / 16] (row ``2j`` the base column that the column of row ``2j + 1``
 overrides in a swept block, -1 where a block has fewer than ``S``
-pairs) and ``round_base`` u32[n_pad / 16] are host metadata and stay on
-the CPU (u32 values as int64);
+pairs), ``block_adapt`` i32[2, n_pad / 16] (row 0 -1 for an unadapted
+block, else the first grid-edge column of an adapted one; row 1 its bins
+per axis) and ``round_base`` u32[n_pad / 16] are host metadata and stay
+on the CPU (u32 values as int64);
 ``fn_ids`` u32[n_pad] (int64 holding u32 values, or int32 bit patterns),
 ``packed`` f32[n_pad, n_cols] and ``lo``/``hi`` f32[n_pad, dim] live on
 the device that runs the launch.  The result is f32[n_rounds, n_pad, 2].
@@ -72,10 +76,10 @@ _LAUNCHES = 0
 # Launches of the CUDA kernel (fused_mc_cuda) by the variant they ran:
 # "fused_mc" (one round) and "fused_mc_rounds" (n_rounds > 1) split them;
 # "fused_mc_compactified" and "fused_mc_swept" count those that held at
-# least one compactified or swept block, "fused_mc_sobol" those that drew
-# Sobol points.
+# least one compactified, swept or adapted block, "fused_mc_sobol" those
+# that drew Sobol points.
 VARIANTS = ("fused_mc", "fused_mc_rounds", "fused_mc_compactified",
-            "fused_mc_sobol", "fused_mc_swept")
+            "fused_mc_sobol", "fused_mc_swept", "fused_mc_adapted")
 _VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 
@@ -165,6 +169,45 @@ def transform_cols(family) -> torch.Tensor:
                       aux["shift"].to(torch.float32)], dim=1)
 
 
+def adapted_body(body, acol: int, n_bins: int):
+    """Wrap an eval body with the VEGAS importance-map stage (plain
+    version of the CUDA kernel's adapted blocks).
+
+    An adapted family's packed row carries, from column ``acol``,
+    ``dim * (n_bins + 1)`` bin edges, axis-major.  Per axis the wrapper
+    takes the draw ``u`` (the box is the unit cube), picks the bin
+    ``idx = min(int(u * n_bins), n_bins - 1)``, interpolates linearly
+    between its edges, hands the body the mapped points and multiplies
+    its value by the Jacobian ``prod_d n_bins * (e1 - e0)``, as
+    ``repro``'s ``adapted_body`` does.
+    """
+
+    def wrapped(draw, p, dim: int):
+        xs = []
+        jac = None
+        for d in range(dim):
+            col = acol + d * (n_bins + 1)
+            u = draw(d)
+            s = u * float(n_bins)
+            idx = torch.clamp(s.to(torch.int64), max=n_bins - 1)
+            e = p[:, col:col + n_bins + 1]
+            e0 = torch.gather(e, 1, idx)
+            e1 = torch.gather(e, 1, idx + 1)
+            xs.append(e0 + (s - idx.to(torch.float32)) * (e1 - e0))
+            w = (e1 - e0) * float(n_bins)
+            jac = w if jac is None else jac * w
+        return body(lambda d: xs[d], p, dim) * jac
+
+    wrapped.__name__ = f"adapted_{getattr(body, '__name__', 'body')}"
+    return wrapped
+
+
+def adapt_grid_cols(family) -> torch.Tensor:
+    """f32[n_fn, dim * (n_bins + 1)] packed bin edges of an adapted
+    family, axis-major, after its form's base (and sweep) columns."""
+    return family.params["grid"].to(torch.float32).reshape(family.n_fn, -1)
+
+
 def swept_body(body, base_cols: int, col_map: tuple):
     """Wrap an eval body with the parameter-sweep substitution stage
     (plain version of the CUDA kernel's swept blocks).
@@ -225,11 +268,28 @@ def sweep_table_cols(family) -> torch.Tensor:
 
 
 def packed_cols(form, family) -> int:
-    """Packed width of ``family`` under ``form``: base, sweep table and
-    transform columns."""
+    """Packed width of ``family`` under ``form``: base, sweep table, grid
+    edge and transform columns."""
     sweep = len(sweep_col_map(form, family.inner())) if family.swept else 0
-    return (form.n_cols(family.dim) + sweep
+    adapt = family.dim * (family.adapt_bins + 1) if family.adapt_bins else 0
+    return (form.n_cols(family.dim) + sweep + adapt
             + (2 * family.dim if family.compact else 0))
+
+
+def adapt_col(form, family) -> tuple[int, int]:
+    """(first grid-edge column, bins per axis) of ``family``'s packed
+    rows, or (-1, 0) when it is not adapted (the per-block
+    ``block_adapt`` values)."""
+    if not family.adapt_bins:
+        return -1, 0
+    sweep = len(sweep_col_map(form, family.inner())) if family.swept else 0
+    return form.n_cols(family.dim) + sweep, family.adapt_bins
+
+
+def block_adapt_tensor(per_block) -> torch.Tensor:
+    """i32[2, n_blocks] ``block_adapt`` from each block's
+    :func:`adapt_col` pair."""
+    return torch.tensor(per_block, dtype=torch.int32).reshape(-1, 2).T.contiguous()
 
 
 def transform_col(form, family) -> int:
@@ -266,12 +326,16 @@ def body_and_packed(form, family):
 
     A swept family gets the :func:`swept_body` wrapper and its table
     columns, a compactified one the :func:`compactified_body` wrapper and
-    its transform columns, composed as
-    ``compactified_body(swept_body(body))`` over ``[base][sweep][transform]``
-    (``repro``'s order); others pass through.  Callers must have checked
-    ``form.supports(..., compactified=family.compact, sweep=family.swept)``.
+    its transform columns, an adapted one the :func:`adapted_body`
+    wrapper and its grid edges, composed as
+    ``adapted_body(compactified_body(swept_body(body)))`` over
+    ``[base][sweep][adapt][transform]`` (``repro``'s order); others pass
+    through.  Callers must have checked ``form.supports(...,
+    compactified=family.compact, sweep=family.swept,
+    adapted=bool(family.adapt_bins))``.
     """
-    inner = family.inner()
+    core = family.adapt_inner()
+    inner = core.inner()
     base_cols = form.n_cols(family.dim)
     body = form.body
     packed = form.pack_params(inner.sweep_base()).to(torch.float32)
@@ -279,9 +343,16 @@ def body_and_packed(form, family):
         col_map = sweep_col_map(form, inner)
         body = swept_body(body, base_cols, col_map)
         packed = torch.cat([packed, sweep_table_cols(inner)], dim=1)
+    acol, n_bins = adapt_col(form, family)
     if family.compact:
-        body = compactified_body(body, packed.shape[1])
-        packed = torch.cat([packed, transform_cols(family)], dim=1)
+        # the transform columns sit after the grid edges: [..][adapt][transform]
+        tcol = packed.shape[1] + (family.dim * (n_bins + 1) if n_bins else 0)
+        body = compactified_body(body, tcol)
+    if n_bins:
+        body = adapted_body(body, acol, n_bins)
+        packed = torch.cat([packed, adapt_grid_cols(family)], dim=1)
+    if family.compact:
+        packed = torch.cat([packed, transform_cols(core)], dim=1)
     return body, packed
 
 
@@ -305,7 +376,7 @@ def _host_meta(name, t, n_blocks):
 
 def _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
                     n_rounds, round_base, block_tcols, sampler="mc",
-                    block_sweep=None):
+                    block_sweep=None, block_adapt=None):
     n_pad = fn_ids.shape[0]
     if fn_ids.ndim != 1 or n_pad == 0 or n_pad % F_BLK:
         raise ValueError(f"fn_ids must be 1-d with a positive multiple of "
@@ -370,6 +441,18 @@ def _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
             raise ValueError("block_sweep must pair base columns with the "
                              "block's table columns in order, after the "
                              "base columns and inside the packed columns")
+    if block_adapt is not None:
+        if (block_adapt.device.type != "cpu"
+                or tuple(block_adapt.shape) != (2, n_blocks)):
+            raise ValueError(f"block_adapt must be i32[2, {n_blocks}] on the "
+                             f"CPU; got {tuple(block_adapt.shape)} on "
+                             f"{block_adapt.device}")
+        if any(a != -1 and (a < 0 or nb < 1 or a + dim * (nb + 1) > packed.shape[1])
+               for a, nb in zip(*block_adapt.tolist())):
+            raise ValueError(f"block_adapt must be -1 or leave dim * (n_bins "
+                             f"+ 1) grid-edge columns, n_bins >= 1, inside "
+                             f"the {packed.shape[1]} packed columns; got "
+                             f"{block_adapt.tolist()}")
 
 
 def _round_words(scalars, n_rounds: int, round_base, n_blocks: int):
@@ -385,8 +468,9 @@ def _round_words(scalars, n_rounds: int, round_base, n_blocks: int):
 
 def fused_mc(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
              n_sample_blocks: int, n_rounds: int = 1, round_base=None,
-             block_tcols=None, block_sweep=None, sampler: str = "mc",
-             block_meta=None, dirvecs=None) -> torch.Tensor:
+             block_tcols=None, block_sweep=None, block_adapt=None,
+             sampler: str = "mc", block_meta=None,
+             dirvecs=None) -> torch.Tensor:
     """One fused launch: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors; raises on any other device.  ``block_meta``
     and ``dirvecs`` only spare the CUDA kernel a copy (see
@@ -395,7 +479,8 @@ def fused_mc(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
     kind = packed.device.type
     kw = dict(dim=dim, n_sample_blocks=n_sample_blocks, n_rounds=n_rounds,
               round_base=round_base, block_tcols=block_tcols,
-              block_sweep=block_sweep, sampler=sampler)
+              block_sweep=block_sweep, block_adapt=block_adapt,
+              sampler=sampler)
     if kind == "cuda":
         return fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms,
                              block_meta=block_meta, dirvecs=dirvecs, **kw)
@@ -406,7 +491,7 @@ def fused_mc(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
 
 def fused_mc_plain(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
                    n_sample_blocks: int, n_rounds: int = 1, round_base=None,
-                   block_tcols=None, block_sweep=None,
+                   block_tcols=None, block_sweep=None, block_adapt=None,
                    sampler: str = "mc") -> torch.Tensor:
     """Plain PyTorch version of the fused kernel, on the tensors' device.
 
@@ -424,7 +509,8 @@ def fused_mc_plain(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
     """
     from repro_torch.kernels import registry
     _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
-                    n_rounds, round_base, block_tcols, sampler, block_sweep)
+                    n_rounds, round_base, block_tcols, sampler, block_sweep,
+                    block_adapt)
     n_pad = fn_ids.shape[0]
     n_blocks = n_pad // F_BLK
     k0, k1, offset, n_valid, stride, base = _round_words(
@@ -441,19 +527,24 @@ def fused_mc_plain(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
                  else block_tcols.numpy().astype(np.int64))
     blk_sweep = (np.zeros((0, n_blocks), np.int64) if block_sweep is None
                  else block_sweep.numpy().astype(np.int64))
+    blk_adapt = (np.tile(np.asarray([[-1], [0]], np.int64), (1, n_blocks))
+                 if block_adapt is None else block_adapt.numpy().astype(np.int64))
     keys = [(int(f), int(t), tuple((int(blk_sweep[2 * j, b]),
                                     int(blk_sweep[2 * j + 1, b]))
                                    for j in range(blk_sweep.shape[0] // 2)
-                                   if blk_sweep[2 * j, b] >= 0))
+                                   if blk_sweep[2 * j, b] >= 0),
+             (int(blk_adapt[0, b]), int(blk_adapt[1, b])))
             for b, (f, t) in enumerate(zip(block_forms.tolist(), blk_tcols))]
     groups = []
     for key in sorted(set(keys)):
-        f, t, pairs = key
+        f, t, pairs, (acol, n_bins) = key
         body = registry.by_id(f).body
         if pairs:
             body = swept_body(body, pairs[0][1], tuple(d for d, _ in pairs))
         if t >= 0:
             body = compactified_body(body, t)
+        if acol >= 0:
+            body = adapted_body(body, acol, n_bins)
         rows = np.concatenate([np.arange(b * F_BLK, (b + 1) * F_BLK)
                                for b, k in enumerate(keys) if k == key])
         groups.append((body, torch.from_numpy(rows).to(device)))
@@ -499,24 +590,29 @@ def sobol_dirvecs(dim: int) -> torch.Tensor:
     return torch.from_numpy(sobol.direction_vectors(dim).view(np.int32).copy())
 
 
-def block_meta_host(block_forms, block_tcols=None,
-                    block_sweep=None) -> torch.Tensor:
-    """The kernel's per-block metadata as one CPU int32[2 + 2 * S,
-    n_blocks] tensor: form ids, first transform columns (-1: none), then
-    the ``block_sweep`` rows."""
+def block_meta_host(block_forms, block_tcols=None, block_sweep=None,
+                    block_adapt=None) -> torch.Tensor:
+    """The kernel's per-block metadata as one CPU int32[4 + 2 * S,
+    n_blocks] tensor: form ids, first transform columns (-1: none), the
+    ``block_sweep`` rows, then first grid-edge columns (-1: none) and bins
+    per axis (``block_adapt``)."""
     n_blocks = block_forms.shape[0]
     tcols = (torch.full((n_blocks,), -1, dtype=torch.int32)
              if block_tcols is None else block_tcols.to(torch.int32))
+    adapt = (block_adapt_tensor([(-1, 0)] * n_blocks)
+             if block_adapt is None else block_adapt.to(torch.int32))
     rows = [block_forms.to(torch.int32)[None], tcols[None]]
     if block_sweep is not None:
         rows.append(block_sweep.to(torch.int32))
+    rows.append(adapt)
     return torch.cat(rows).contiguous()
 
 
 def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
                   n_sample_blocks: int, n_rounds: int = 1, round_base=None,
-                  block_tcols=None, block_sweep=None, sampler: str = "mc",
-                  block_meta=None, dirvecs=None) -> torch.Tensor:
+                  block_tcols=None, block_sweep=None, block_adapt=None,
+                  sampler: str = "mc", block_meta=None,
+                  dirvecs=None) -> torch.Tensor:
     """Launch the CUDA kernel (``csrc/fused_mc.cu``) on the current stream.
 
     Checks device, dtype, shape and contiguity, allocates the output and
@@ -532,7 +628,8 @@ def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
     """
     from repro_torch.kernels import build
     _check_operands(scalars, fn_ids, packed, lo, hi, block_forms, dim,
-                    n_rounds, round_base, block_tcols, sampler, block_sweep)
+                    n_rounds, round_base, block_tcols, sampler, block_sweep,
+                    block_adapt)
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"fused_mc_cuda needs CUDA tensors; got {device}")
@@ -551,16 +648,17 @@ def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
     n_chunks = max(1, math.ceil(n_eff / CHUNK_SAMPLES))
     fid = rng.u32_bits(rng.as_u32(fn_ids)).contiguous()
     has_compact = block_tcols is not None and bool((block_tcols >= 0).any())
+    has_adapt = block_adapt is not None and max(block_adapt[0].tolist(), default=-1) >= 0
     n_sweep = 0 if block_sweep is None else block_sweep.shape[0] // 2
     has_sweep = n_sweep > 0 and bool((block_sweep >= 0).any())
     if block_meta is None:
         block_meta = to_card(block_meta_host(block_forms, block_tcols,
-                                             block_sweep), device)
+                                             block_sweep, block_adapt), device)
     elif (block_meta.device != device or block_meta.dtype != torch.int32
-          or tuple(block_meta.shape) != (2 + 2 * n_sweep, n_blocks)
+          or tuple(block_meta.shape) != (4 + 2 * n_sweep, n_blocks)
           or not block_meta.is_contiguous()):
         raise ValueError(f"block_meta must be contiguous int32 "
-                         f"({2 + 2 * n_sweep}, {n_blocks}) on {device}; got "
+                         f"({4 + 2 * n_sweep}, {n_blocks}) on {device}; got "
                          f"{block_meta.dtype} {tuple(block_meta.shape)} on "
                          f"{block_meta.device}")
     if sampler != "sobol":
@@ -582,8 +680,7 @@ def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
         err = lib.zmc_fused_mc(k0, k1, offset, n_eff, stride, n_rounds,
                                None if base_dev is None else base_dev.data_ptr(),
                                fid.data_ptr(), block_meta.data_ptr(),
-                               n_sweep if has_sweep else 0,
-                               int(has_compact),
+                               n_sweep, int(has_compact) | 2 * int(has_adapt),
                                None if dirvecs is None else dirvecs.data_ptr(),
                                packed.data_ptr(), n_cols,
                                lo.data_ptr(), hi.data_ptr(), dim, n_pad, n_chunks,
@@ -594,7 +691,8 @@ def fused_mc_cuda(scalars, fn_ids, packed, lo, hi, block_forms, *, dim: int,
         _VARIANT_LAUNCHES["fused_mc_rounds" if n_rounds > 1 else "fused_mc"] += 1
         for name, flag in (("fused_mc_compactified", has_compact),
                            ("fused_mc_sobol", sampler == "sobol"),
-                           ("fused_mc_swept", has_sweep)):
+                           ("fused_mc_swept", has_sweep),
+                           ("fused_mc_adapted", has_adapt)):
             _VARIANT_LAUNCHES[name] += flag
     return out
 
@@ -662,12 +760,14 @@ def make_family_impl(form, sampler: str = "mc"):
              sample_offset=0, fn_ids=None) -> SumsState:
         n_fn, dim = family.n_fn, family.dim
         if not form.supports(dim=dim, sampler=sampler,
-                             compactified=family.compact, sweep=family.swept):
+                             compactified=family.compact, sweep=family.swept,
+                             adapted=bool(family.adapt_bins)):
             raise ValueError(
                 f"kernel {form.name!r} does not support dim={dim} with "
                 f"sampler={sampler!r}"
                 + (" on a compactified family" if family.compact else "")
-                + (f" swept over {family.swept}" if family.swept else ""))
+                + (f" swept over {family.swept}" if family.swept else "")
+                + (" on an adapted family" if family.adapt_bins else ""))
         device = family.device
         if fn_ids is None:
             fn_ids = fn_offset + torch.arange(n_fn, dtype=torch.int64,
@@ -687,6 +787,7 @@ def make_family_impl(form, sampler: str = "mc"):
                                    dtype=torch.int32),
             block_sweep=(block_sweep_tensor([sweep_pairs(form, family)] * n_blocks)
                          if family.swept else None),
+            block_adapt=block_adapt_tensor([adapt_col(form, family)] * n_blocks),
             sampler=sampler)[0]
         return SumsState(s1=out[:n_fn, 0], s2=out[:n_fn, 1],
                          n=n_tensor(n_samples, device))

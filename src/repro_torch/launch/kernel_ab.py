@@ -4,15 +4,16 @@ card.
 ``python -m repro_torch.launch.kernel_ab --other DIR`` (from the repo
 root, ``PYTHONPATH=src``) takes ``DIR``, the root of another checkout of
 this repo (for example the parent commit unpacked with ``git archive``)
-whose ``src/repro_torch/kernels/csrc/fused_mc.cu`` exports the same C
-interface.  It builds both sources at once (one ``nvcc`` each, with
-``-Xptxas -v``) and prints each build's seconds and the registers and
+whose fused kernel library exports the same C interface.  It builds both
+libraries at once, each with its own checkout's ``kernels/build.py`` and
+``-Xptxas -v``, and prints each build's seconds and the registers and
 spills of every pass-1 instantiation.  Then it launches each variant
 through each library in turn (this, other, other, this, ...; CUDA
 events) and prints its median ms per library:
 - ``mc``: one MC trial of ``chip_smoke.fig1_spec`` at N = 10^6 (3 launches);
 - ``sobol``: the same trial with Sobol draws;
-- ``compactified``: ``chip_smoke.compact_spec`` at N = 10^6 (3 launches);
+- ``compactified``: ``chip_smoke.compact_spec``, compactified as
+  ``evaluate`` does, at N = 10^6 (3 launches);
 - ``sweep_mc``, ``sweep_sobol``: one wave of service configuration 3, the
   4-d harmonic template swept over a 32 x 32 (a, b) grid, rounds of
   65536 samples, R = 8 (one launch).
@@ -25,10 +26,10 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import importlib.util
 import statistics
-import subprocess
 import sys
-import time
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -57,27 +58,26 @@ def _pass1_lines(log: str) -> list[str]:
     return out
 
 
-def build_both(other_src: Path):
-    """Build this tree's library and ``other_src`` together; returns
-    (other's ctypes library, {"this"|"other": (seconds, ptxas lines)})."""
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    digest = hashlib.sha256(other_src.read_bytes()
-                            + b"".join(f.read_bytes() for f in
-                                       sorted(other_src.parent.glob("*.cuh"))))
-    out = build.BUILD_DIR / f"lib{LIB}-other-{digest.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-                             "-o", str(out), str(other_src)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+def build_both(other_root: Path):
+    """Build this tree's library and ``other_root``'s together, each by its
+    own ``kernels/build.py``; returns (other's ctypes library,
+    {"this"|"other": (seconds, ptxas lines)})."""
+    spec = importlib.util.spec_from_file_location(
+        "other_build", other_root / "src/repro_torch/kernels/build.py")
+    other_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other_build)
+    other = {}
+    worker = threading.Thread(
+        target=lambda: other.update(other_build.build([LIB], verbose=True)))
+    worker.start()
     this = build.build([LIB], verbose=True)[LIB]
-    log, _ = proc.communicate()
-    other_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {other_src}:\n{log}")
-    lib = ctypes.CDLL(str(out))
+    worker.join()
+    if LIB not in other:
+        raise RuntimeError(f"the build of {other_root} failed (see above)")
+    lib = ctypes.CDLL(str(other[LIB]["path"]))
     build._declare(lib)
     return lib, {"this": (this["seconds"], _pass1_lines(this["log"])),
-                 "other": (other_s, _pass1_lines(log))}
+                 "other": (other[LIB]["seconds"], _pass1_lines(other[LIB]["log"]))}
 
 
 def variants(device):
@@ -89,7 +89,8 @@ def variants(device):
     spec, _ = chip_smoke.fig1_spec(device)
     cspec, _ = chip_smoke.compact_spec(device)
     plans = {"mc": multi.plan_spec(spec), "sobol": multi.plan_spec(spec, sampler="sobol"),
-             "compactified": multi.plan_spec(cspec)}
+             "compactified": multi.plan_spec(MultiFunctionSpec.from_families(
+                 [f.compactified() for f in cspec.families]))}
     a = np.linspace(*chip_smoke.SWEEP_A).astype(np.float32)
     b = np.linspace(*chip_smoke.SWEEP_B).astype(np.float32)
     aa, bb = np.meshgrid(a, b, indexing="ij")
@@ -121,8 +122,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ab needs a CUDA device")
     device = torch.device("cuda", 0)
-    other_lib, builds = build_both(
-        args.other / "src/repro_torch/kernels/csrc/fused_mc.cu")
+    other_lib, builds = build_both(args.other.resolve())
     for name, (secs, lines) in builds.items():
         print(f"build {name}: {secs:.1f} s, {sum('entry' in x for x in lines)} "
               f"pass-1 instantiations")

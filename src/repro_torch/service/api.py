@@ -16,9 +16,10 @@ request shapes exist:
   sub-grid level.  Results stream back per point as rounds complete
   (``engine.sweep_partial``).
 
-Both take ``sampler="mc"`` or ``"sobol"``.  Importance-grid adaptation
-(``adaptive=True``) is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item.
+Both take ``sampler="mc"`` or ``"sobol"``.  An
+:class:`IntegrationRequest` with ``adaptive=True`` and a
+``target_stderr`` samples through a VEGAS importance grid the engine
+fits and refits per stream (``repro_torch.core.adaptive``).
 
 ``IntegrationClient`` is the blocking convenience wrapper: it submits,
 drives the engine if no background worker is running, and returns the
@@ -69,8 +70,12 @@ class IntegrationRequest:
         ticket *completes* with a :class:`RequestFailed` (reason
         ``"deadline"``) instead of hanging; retry backoff sleeps are
         clamped to the remaining budget.
-      adaptive: importance-grid adaptation; not ported yet, so
-        ``make`` raises when it is set (ROADMAP queue 1 item 9).
+      adaptive: opt in to VEGAS importance-grid adaptation: the engine
+        fits a per-stream grid from a deterministic pilot and refits it
+        between waves while the stderr target is unmet, each epoch a new
+        cache stream.  Honoured only with a ``target_stderr`` (a sample
+        budget has nothing to adapt toward, so the flag is ignored) and
+        on non-swept families.
     """
 
     families: tuple[IntegrandFamily, ...]
@@ -102,10 +107,6 @@ class IntegrationRequest:
             raise ValueError(f"unknown sampler {sampler!r}")
         if deadline is not None and deadline <= 0:
             raise ValueError("deadline must be positive (seconds)")
-        if adaptive:
-            raise NotImplementedError(
-                "adaptive=True (importance-grid adaptation) is not ported yet "
-                "(ROADMAP queue 1 item 9)")
         return cls(families=families, n_samples=n_samples,
                    target_stderr=target_stderr, sampler=sampler,
                    deadline=deadline, adaptive=bool(adaptive))

@@ -58,7 +58,7 @@ from repro_torch.analysis import streams as _analysis
 from repro_torch.core import direct_mc
 from repro_torch.core.direct_mc import SumsState
 from repro_torch.core.integrand import IntegrandFamily
-from repro_torch.service.store import DurableStore, EntryState
+from repro_torch.service.store import DurableStore, EntryState, GridRecord
 
 # id space addressable by the counter layout: fn_id * DIM_STRIDE + dim
 # must fit u32, so fn_id < 2**24 (DIM_STRIDE = 256)
@@ -169,9 +169,9 @@ class ResultCache:
         self._lock = threading.Lock()
         self.store = store
         self._dormant: dict[str, EntryState] = {}
-        # importance-grid records of a state dir the reference wrote
-        # (adaptation is not ported): kept so compaction never drops them
-        self._grids: dict = {}
+        # adapted streams' importance grids, keyed by the child chash: the
+        # epoch chains a resumed planner adopts (compaction keeps them)
+        self._grids: dict[str, GridRecord] = {}
         self.recovered = None
         if store is not None:
             state = store.load()
@@ -260,6 +260,70 @@ class ResultCache:
                                     n_fn=n_fn,
                                     round_samples=self.round_samples)
         return entry
+
+    # -- importance-grid epoch chains -----------------------------------------
+    def register_grid(self, chash: str, *, parent: str, epoch: int,
+                      edges) -> GridRecord:
+        """Record an adapted stream's importance grid, journal first.
+
+        A refit opens a NEW epoch stream (``chash``) keyed by its edges
+        rather than mutating history, so accumulators stay bit-identically
+        resumable.  Call it *before* ``get_or_allocate(chash, ...)``: the
+        WAL must carry the grid ahead of the child's alloc (the STR007
+        ordering rule).  Idempotent: a re-registration returns the
+        existing record unjournaled.
+        """
+        edges = np.ascontiguousarray(edges, np.float32)
+        with self._lock:
+            rec = self._grids.get(chash)
+            if rec is not None:
+                return rec
+            rec = GridRecord(
+                chash=chash, parent=parent, epoch=int(epoch),
+                n_fn=int(edges.shape[0]), dim=int(edges.shape[1]),
+                n_bins=int(edges.shape[2]) - 1, edges=edges)
+            self._grids[chash] = rec
+        if self.store is not None:
+            # journaled outside the cache lock, as get_or_allocate does: a
+            # grid record with no child alloc is benign on replay
+            self.store.append_grid(chash, parent=parent, epoch=int(epoch),
+                                   edges=edges)
+        return rec
+
+    def grid_for(self, chash: str) -> GridRecord | None:
+        """The importance-grid record of an adapted stream (or None)."""
+        with self._lock:
+            return self._grids.get(chash)
+
+    def grid_chain(self, chash: str) -> list[GridRecord]:
+        """Grid records from epoch 1 up to ``chash``'s epoch, in order
+        (empty for an unadapted stream)."""
+        chain: list[GridRecord] = []
+        with self._lock:
+            rec = self._grids.get(chash)
+            while rec is not None:
+                chain.append(rec)
+                rec = self._grids.get(rec.parent)
+        chain.reverse()
+        return chain
+
+    def grid_tip(self, base_chash: str) -> GridRecord | None:
+        """Deepest journaled epoch of the chain rooted at ``base_chash``
+        (None when the base stream was never adapted).  A resumed planner
+        adopts the tip (its chash and edges) rather than refitting.
+        Should a parent have several children, the lexicographically
+        smallest chash wins, so resume stays stable."""
+        with self._lock:
+            children: dict[str, list[GridRecord]] = {}
+            for rec in self._grids.values():
+                children.setdefault(rec.parent, []).append(rec)
+        tip = None
+        cur = base_chash
+        while cur in children:
+            rec = min(children[cur], key=lambda r: r.chash)
+            tip = rec
+            cur = rec.chash
+        return tip
 
     # -- precision logic ------------------------------------------------------
     def rounds_for_budget(self, n_samples: int) -> int:

@@ -34,6 +34,16 @@ Life of a request:
    serial waves).  In-flight rounds are tracked per stream so the
    planner schedules beyond them instead of re-planning them.
 
+2b. **adapt** (opt-in) — a request with ``adaptive=True`` and a stderr
+   target samples through a VEGAS importance grid
+   (:mod:`repro_torch.core.adaptive`): epoch 1 is fit at submit from a
+   deterministic counter-keyed pilot, and the planner refits between
+   waves while the target is unmet.  Every epoch is a NEW cache stream
+   keyed by its grid's edges (the grid record is journaled *before* the
+   child's alloc, the STR007 chain), so adapted streams keep the
+   bit-identical resume contract: a restarted engine adopts the
+   journaled chain tip instead of refitting.
+
 3. **complete** — requests whose entries all meet their precision are
    finalized from the cache accumulators and their tickets released.
 
@@ -53,8 +63,8 @@ an ordinary cache stream keyed ``f"{family_hash}:{sampler}"``; its
 per-point results stream back through :meth:`IntegrationEngine
 .sweep_partial` as slices finish.
 
-Not ported yet: importance-grid adaptation (ROADMAP queue 1 item 9) and
-the mesh (queue 1 item 11); each raises ``NotImplementedError``.
+Not ported yet: the mesh (ROADMAP queue 1 item 11); ``mesh=`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,11 +73,13 @@ import collections
 import dataclasses
 import math
 import threading
+import zlib
 from typing import Sequence
 
 import numpy as np
 
 from repro_torch.analysis import streams as _analysis
+from repro_torch.core import adaptive
 from repro_torch.core import rng as rng_lib
 from repro_torch.device import resolve_device
 from repro_torch.obs import Observability
@@ -125,6 +137,28 @@ class _SweepInfo:
 
 
 @dataclasses.dataclass
+class _AdaptiveState:
+    """Planner-side record of one base stream's importance-grid chain.
+
+    ``chash``/``edges``/``epoch`` track the current (deepest) epoch
+    stream; ``base_family`` is the canonical pre-grid family every pilot
+    evaluates (pilots never sample through the grid being refit).
+    ``frozen`` marks a converged chain (a refit reproduced the current
+    edges); it is in memory only, and a resumed engine re-derives it from
+    the same deterministic pilot.
+    """
+
+    base_chash: str
+    base_family: object     # the canonical pre-grid IntegrandFamily
+    sampler: str
+    epoch: int
+    edges: np.ndarray
+    chash: str
+    family: object          # the current epoch's adapted IntegrandFamily
+    frozen: bool = False
+
+
+@dataclasses.dataclass
 class _Pending:
     ticket: int
     request: IntegrationRequest | SweepRequest
@@ -158,7 +192,11 @@ class IntegrationEngine:
                  obs: Observability | None = None,
                  retry_policy: RetryPolicy | None = None,
                  faults=None, lease_ttl: float | None = 30.0,
-                 sweep_slice_points: int = DEFAULT_SWEEP_SLICE):
+                 sweep_slice_points: int = DEFAULT_SWEEP_SLICE,
+                 adapt_bins: int = adaptive.N_BINS,
+                 adapt_pilot_samples: int = 4096,
+                 adapt_max_epochs: int = 3,
+                 adapt_rounds_per_epoch: int = 2):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= is not ported yet (ROADMAP queue 1 item 11: "
@@ -213,6 +251,20 @@ class IntegrationEngine:
         self.max_restarts = self.retry.max_attempts - 1
         self.max_retained_results = int(max_retained_results)
         self.watchdog = watchdog if watchdog is not None else StepWatchdog()
+        # importance-grid adaptation knobs: pilots and refit cadence are
+        # deterministic in (seed, base stream, epoch) and the durable
+        # rounds_done, so two engines with the same knobs replay the same
+        # epoch chain
+        if int(adapt_bins) < 2:
+            raise ValueError("adapt_bins must be >= 2")
+        if int(adapt_max_epochs) < 1 or int(adapt_rounds_per_epoch) < 1:
+            raise ValueError("adapt_max_epochs and adapt_rounds_per_epoch "
+                             "must be >= 1")
+        self.adapt_bins = int(adapt_bins)
+        self.adapt_pilot_samples = int(adapt_pilot_samples)
+        self.adapt_max_epochs = int(adapt_max_epochs)
+        self.adapt_rounds_per_epoch = int(adapt_rounds_per_epoch)
+        self._adaptive: dict[str, _AdaptiveState] = {}
         self.stats = EngineStats()
 
         self._pending: dict[int, _Pending] = {}
@@ -256,11 +308,22 @@ class IntegrationEngine:
         """
         if isinstance(request, SweepRequest):
             return self.submit_sweep(request, block=block, timeout=timeout)
+        # adaptation needs a precision target to chase (a pure sample
+        # budget has nothing to adapt toward, so the flag is ignored) and
+        # never applies to swept families (the sweep table and the grid
+        # would compete for the packed row)
+        adapt = bool(request.adaptive and request.target_stderr is not None)
         canon_fams = []
         for fam in request.families:
             canon = canonical_family(fam)
             chash = f"{family_hash(canon, canonicalize=False)}:{request.sampler}"
-            canon_fams.append((chash, canon.to(self.device)))
+            canon = canon.to(self.device)
+            if adapt and not canon.swept:
+                with self._lock:
+                    ast = self._adaptive_state(chash, canon, request.sampler)
+                canon_fams.append((ast.chash, ast.family))
+            else:
+                canon_fams.append((chash, canon))
         return self._submit_canonical(request, canon_fams, block=block,
                                       timeout=timeout)
 
@@ -634,6 +697,112 @@ class IntegrationEngine:
                                              for c in pend.result.stream_ids])
         pend.event.set()
 
+    # -- importance-grid adaptation -------------------------------------------
+    def _pilot_key(self, base_chash: str, epoch: int) -> tuple:
+        """Counter key of the (base stream, epoch) pilot wave: folded onto
+        a stream id from the base hash and the epoch being fit, so pilot
+        counters never collide with the main sample streams (stream 0) and
+        a resumed planner draws the identical pilot."""
+        sid = zlib.crc32(f"adapt:{base_chash}:{int(epoch)}".encode())
+        return rng_lib.fold_key(self.seed, sid)
+
+    def _adaptive_state(self, base_chash: str, canon,
+                        sampler: str) -> _AdaptiveState:
+        """Active importance-grid state of one base stream (caller holds
+        the lock).
+
+        Resume first: when the WAL or snapshot carries an epoch chain
+        rooted at ``base_chash`` the planner adopts its tip (recorded
+        chash, recorded edges), so the resumed stream samples through
+        exactly the journaled grid.  Otherwise epoch 1 is fit here, at
+        submit, from a deterministic pilot, and its grid is journaled
+        before the child stream's alloc (STR007).
+        """
+        ast = self._adaptive.get(base_chash)
+        if ast is not None:
+            return ast
+        tip = self.cache.grid_tip(base_chash)
+        if tip is not None:
+            ast = _AdaptiveState(
+                base_chash=base_chash, base_family=canon, sampler=sampler,
+                epoch=tip.epoch, edges=np.asarray(tip.edges),
+                chash=tip.chash, family=canon.adapted(tip.edges,
+                                                      epoch=tip.epoch))
+        else:
+            edges = adaptive.initial_edges(canon.domains, self.adapt_bins)
+            weights = adaptive.pilot_weights(
+                canon, edges, self._pilot_key(base_chash, 1),
+                self.adapt_pilot_samples)
+            edges = adaptive.refine_edges(edges, weights)
+            fam = canon.adapted(edges, epoch=1)
+            chash = f"{family_hash(fam, canonicalize=False)}:{sampler}"
+            self.cache.register_grid(chash, parent=base_chash, epoch=1,
+                                     edges=edges)
+            self.obs.m["adapted_streams"].inc()
+            ast = _AdaptiveState(
+                base_chash=base_chash, base_family=canon, sampler=sampler,
+                epoch=1, edges=edges, chash=chash, family=fam)
+        self._adaptive[base_chash] = ast
+        return ast
+
+    def _maybe_refit_locked(self) -> None:
+        """Open the next grid epoch for adapted streams still chasing
+        their stderr target (caller holds the lock).
+
+        Every trigger input is durable or deterministic (the epoch
+        stream's WAL-recovered ``rounds_done``, the riders' targets, a
+        pilot keyed by (seed, base stream, epoch)), so a SIGKILLed engine
+        re-decides the identical chain.  Refits fire at a wave boundary
+        with nothing in flight on the stream; the new epoch is a NEW cache
+        stream (grid journaled first, STR007) and every pending holding
+        the old entry moves to the child, so results finalize from the
+        last epoch only.  A refit that reproduces the current edges
+        freezes the chain.
+        """
+        for ast in self._adaptive.values():
+            if ast.frozen or ast.epoch >= self.adapt_max_epochs:
+                continue
+            if self._inflight.get(ast.chash):
+                continue
+            entry = self.cache.get(ast.chash)
+            if entry is None or entry.quarantined:
+                continue
+            if entry.rounds_done < self.adapt_rounds_per_epoch:
+                continue
+            targets = [p.request.target_stderr
+                       for p in self._pending.values()
+                       if p.request.target_stderr is not None
+                       and any(e.chash == ast.chash for e in p.entries)]
+            if not targets:
+                continue    # no rider is still chasing precision
+            if self.cache.meets(entry, target_stderr=min(targets),
+                                n_samples=None):
+                continue    # met: _complete_ready finishes the riders
+            epoch = ast.epoch + 1
+            weights = adaptive.pilot_weights(
+                ast.base_family, ast.edges,
+                self._pilot_key(ast.base_chash, epoch),
+                self.adapt_pilot_samples)
+            edges = adaptive.refine_edges(ast.edges, weights)
+            if np.array_equal(edges, ast.edges):
+                ast.frozen = True    # a resume re-derives this verdict
+                continue
+            fam = ast.base_family.adapted(edges, epoch=epoch)
+            chash = f"{family_hash(fam, canonicalize=False)}:{ast.sampler}"
+            self.cache.register_grid(chash, parent=ast.chash, epoch=epoch,
+                                     edges=edges)
+            child = self.cache.get_or_allocate(chash, fam)
+            for pend in self._pending.values():
+                pend.entries = [child if e.chash == ast.chash else e
+                                for e in pend.entries]
+            self.obs.m["adapted_streams"].inc()
+            self.obs.m["grid_refits"].inc()
+            self.obs.event("grid_refit", base=ast.base_chash[:16],
+                           parent=ast.chash[:16], stream=chash[:16],
+                           epoch=epoch)
+            ast.chash, ast.edges, ast.epoch, ast.family = \
+                chash, edges, epoch, fam
+
     def _plan_wave(self) -> list[WorkItem]:
         """Assign the wave's round budget fairly across pending requests.
 
@@ -646,6 +815,8 @@ class IntegrationEngine:
         registered in-flight; callers retire them after deposit (or on
         permanent failure).  Caller must hold the engine lock.
         """
+        if self._adaptive:
+            self._maybe_refit_locked()
         info: dict[str, dict] = {}
         order: list[str] = []
         for pend in self._pending.values():

@@ -12,12 +12,11 @@ Two files under ``state_dir``:
 * ``journal.bin`` — an append-only **write-ahead journal**.  Each record
   is ``MAGIC | u32 length | u32 crc32 | payload`` with a JSON payload
   (f32 accumulator arrays base64-encoded raw little-endian, so replay
-  folds the *exact bits* the live cache folded).  Two record types:
+  folds the *exact bits* the live cache folded).  Three record types:
   ``alloc`` (a stream's counter-space placement: chash, fn_offset,
   n_fn, round size), ``dep`` (one round's ``(s1, s2, n)`` delta) and
-  ``grid`` (an adapted stream's importance-grid fit, which the
-  reference's adaptive path journals; the port, which has no adaptation
-  yet, reads and keeps such records but writes none).  Records are fsynced by
+  ``grid`` (an adapted stream's importance-grid fit, journaled before
+  the adapted stream's ``alloc``).  Records are fsynced by
   default; a record is journaled *before* the in-memory fold it
   describes (WAL ordering).  Whole waves of deposits
   **group-commit** through :meth:`DurableStore.append_deposits` — one
@@ -370,6 +369,21 @@ class DurableStore:
         self._append({"t": "alloc", "chash": chash,
                       "fn_offset": int(fn_offset), "n_fn": int(n_fn),
                       "round_samples": int(round_samples)})
+
+    def append_grid(self, chash: str, *, parent: str, epoch: int,
+                    edges: np.ndarray) -> None:
+        """Journal an adapted stream's importance grid (exact f32 edges).
+
+        Must precede the child stream's ``alloc`` record, so replay (and
+        the reference auditor's STR007 chain check) sees the grid an
+        adapted stream samples through before the stream itself.
+        """
+        edges = np.ascontiguousarray(edges, np.float32)
+        n_fn, dim, nb1 = edges.shape
+        self._append({"t": "grid", "chash": chash, "parent": parent,
+                      "epoch": int(epoch), "n_fn": int(n_fn),
+                      "dim": int(dim), "n_bins": int(nb1 - 1),
+                      "edges": _encode_f32(edges.ravel())})
 
     @staticmethod
     def deposit_record(chash: str, round_index: int,

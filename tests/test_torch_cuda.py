@@ -358,3 +358,126 @@ def test_swept_kernel_vs_plain(cuda):
     real = torch.cat([torch.arange(s.row_start, s.row_start + s.n_fn)
                       for s in b.slices]).to(cuda)
     torch.testing.assert_close(got[real], want[real], rtol=1e-4, atol=1e-2)
+
+
+def _adapted_spec(device):
+    """One dim-3 bucket: an adapted Genz corner peak, compactified then
+    adapted Gaussians over R^3, and a plain harmonic family; each grid
+    fit from one pilot on the CPU."""
+    from repro_torch.core import adaptive
+    key = rng.fold_key(4, 4)
+
+    def fit(fam, n_bins):
+        edges = adaptive.initial_edges(fam.domains, n_bins)
+        return fam.adapted(adaptive.refine_edges(
+            edges, adaptive.pilot_weights(fam, edges, key, 2048)))
+
+    inf = float("inf")
+    return integrand.MultiFunctionSpec.from_families([
+        fit(genz.corner_peak(20, 3, difficulty=4.0)[0], 16),
+        fit(integrand.gaussian_family(9, 3, sigma=np.linspace(0.2, 0.4, 9),
+                                      lo=-inf, hi=inf).compactified(), 8),
+        integrand.harmonic_family(12, 3),
+    ]).to(device)
+
+
+@pytest.mark.parametrize("sampler", ["mc", "sobol"])
+@pytest.mark.parametrize("n,offset", [(2048 * 9 + 5, 2**32 - 20000), (65536, 0)])
+def test_adapted_kernel_vs_plain(cuda, sampler, n, offset):
+    """Adapted, adapted-and-compactified and plain blocks in one launch:
+    the kernel against its plain version within repro's Sobol bound."""
+    (b,) = multi.plan_spec(_adapted_spec(cuda), sampler=sampler).buckets
+    assert b.block_adapt[0].tolist().count(-1) == 1
+    assert sorted(set(b.block_adapt[1].tolist())) == [0, 8, 16]
+    key = rng.fold_key(3, 8)
+    args = (template.pack_scalars(key, offset, n), b.fn_ids, b.packed, b.lo,
+            b.hi, b.block_forms)
+    kw = dict(dim=b.dim, n_sample_blocks=math.ceil(n / template.S_BLK),
+              block_tcols=b.block_tcols, block_adapt=b.block_adapt,
+              sampler=sampler)
+    template.reset_kernel_launch_count()
+    got = template.fused_mc_cuda(*args, block_meta=b.block_meta,
+                                 dirvecs=b.dirvecs, **kw)[0]
+    assert template.kernel_launch_counts()["fused_mc_adapted"] == 1
+    want = template.fused_mc_plain(*args, **kw)[0]
+    real = torch.cat([torch.arange(s.row_start, s.row_start + s.n_fn)
+                      for s in b.slices]).to(cuda)
+    assert torch.isfinite(got[real]).all()
+    torch.testing.assert_close(got[real], want[real], rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("sampler", ["mc", "sobol"])
+def test_adapted_rounds_bit_identical_to_single_rounds(cuda, sampler):
+    (b,) = multi.plan_spec(_adapted_spec(cuda), sampler=sampler).buckets
+    n_blocks = b.fn_ids.shape[0] // 16
+    base = torch.tensor([(i * 5 * 4096) for i in range(n_blocks)],
+                        dtype=torch.int64)
+    base[-1] = 2**32 - 5000
+    key, n, n_rounds = rng.fold_key(5, 2), 20_000, 3
+    kw = dict(dim=b.dim, n_sample_blocks=math.ceil(n / template.S_BLK),
+              round_base=base, block_tcols=b.block_tcols,
+              block_adapt=b.block_adapt, sampler=sampler)
+    ops = (b.fn_ids, b.packed, b.lo, b.hi, b.block_forms)
+    multi_round = template.fused_mc_cuda(
+        template.pack_scalars(key, 11, n, round_stride=n), *ops,
+        n_rounds=n_rounds, **kw)
+    again = template.fused_mc_cuda(
+        template.pack_scalars(key, 11, n, round_stride=n), *ops,
+        n_rounds=n_rounds, **kw)
+    assert torch.equal(multi_round.view(torch.int32), again.view(torch.int32))
+    for r in range(n_rounds):
+        single = template.fused_mc_cuda(
+            template.pack_scalars(key, 11 + r * n, n), *ops, **kw)[0]
+        assert torch.equal(multi_round[r].view(torch.int32),
+                           single.view(torch.int32))
+
+
+def test_adapted_evaluate_on_card_vs_cpu(cuda):
+    """ZMCMultiFunctions on adapted families: the card's kernel and the
+    CPU's plain version agree within repro's MC bound on the estimates."""
+    spec = _adapted_spec("cpu")
+    got = ZMCMultiFunctions(spec.to(cuda), n_samples=50_000, seed=2,
+                            use_kernel=True, device="cuda").evaluate(2)
+    want = ZMCMultiFunctions(spec, n_samples=50_000, seed=2,
+                             use_kernel=True, device="cpu").evaluate(2)
+    np.testing.assert_allclose(got.means, want.means, rtol=5e-5, atol=5e-3)
+    np.testing.assert_allclose(got.stderrs, want.stderrs, rtol=5e-5, atol=5e-3)
+
+
+@pytest.mark.parametrize("rows,cols", [(13, 512), (6561, 2048), (40, 4096)])
+def test_stratum_moments_kernel_vs_plain(cuda, rows, cols):
+    """The stratum-moments kernel against its plain version and the
+    two-pass oracle (repro's bounds: count exact, mean atol=1e-5 at the
+    data's scale, M2 rtol=1e-4), and repeated launches bit for bit."""
+    from repro_torch.kernels.moments import ops, ref
+    g = torch.Generator().manual_seed(rows + cols)
+    x = (torch.randn(rows, cols, generator=g)
+         * torch.arange(1, rows + 1)[:, None] / rows
+         + torch.arange(rows)[:, None] / rows).to(cuda)
+    ops.reset_kernel_launch_count()
+    got = ops.stratum_moments(x)
+    again = ops.stratum_moments(x)
+    assert ops.kernel_launch_count() == 2
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    plain = ops.moments_plain(torch.nn.functional.pad(
+        x, [0, 0, 0, -rows % ops.R_BLK]))[:rows]
+    want = ref.moments_ref(x)
+    for w in (plain, want):
+        torch.testing.assert_close(got.count, w[:, 0], rtol=0, atol=0)
+        torch.testing.assert_close(got.mean, w[:, 1], rtol=0, atol=1e-5)
+        torch.testing.assert_close(got.m2, w[:, 2], rtol=1e-4, atol=0)
+
+
+def test_eval_strata_kernel_on_card(cuda):
+    from repro_torch.core import stratified
+    table = stratified.initial_grid(np.tile([[0.0, 1.0]], (3, 1)), 4, 64,
+                                    device=cuda)
+    fn = lambda x: torch.exp(-4.0 * torch.sum(torch.square(x - 0.7), -1))
+    slots = torch.arange(64, device=cuda)
+    key = rng.fold_key(8, 1)
+    mean_k, var_k = stratified.eval_strata(fn, table.boxes, slots, 1, 1024,
+                                           key, use_kernel=True)
+    mean_p, var_p = stratified.eval_strata(fn, table.boxes, slots, 1, 1024, key)
+    torch.testing.assert_close(mean_k, mean_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(var_k, var_p, rtol=1e-3, atol=1e-6)

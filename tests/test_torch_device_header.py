@@ -2,8 +2,9 @@
 
 ``src/repro_torch/kernels/csrc/zmc_device.cuh`` holds the per-sample
 arithmetic of the fused kernel (Threefry, the uniform, the affine map,
-the five eval bodies, the compactification's per-axis map and the
-Sobol point, shift and uniform) as host/device inline functions.  This
+the five eval bodies, the compactification's per-axis map, the
+importance grid's per-axis map and the Sobol point, shift and uniform)
+as host/device inline functions.  This
 test
 compiles it with g++ through a small C shim into a shared library, loads
 it with ctypes, and holds it against the port's plain PyTorch versions:
@@ -64,6 +65,19 @@ void host_sobol(const uint32_t* v, int dim, uint32_t k0, uint32_t k1,
 void host_sobol_uniform(const uint32_t* pt, const uint32_t* sh, long n, float* out) {
   for (long i = 0; i < n; ++i) out[i] = zmc::sobol_uniform(pt[i] >> 8, sh[i] >> 8);
 }
+// the grid map of u[i] through the edges e[i, :n_bins + 1]: the mapped
+// point and the Jacobian factor
+void host_apply_map(const float* u, const float* e, int n_bins, long n, float* x,
+                    float* w) {
+  for (long i = 0; i < n; ++i) x[i] = zmc::apply_map_axis(u[i], e + i * (n_bins + 1), n_bins, w + i);
+}
+// an adapted row: grid edges from acol, transform columns from tcol (or -1)
+void host_body_adapted(int form, int dim, const float* p, int n_cols, int acol,
+                       int n_bins, int tcol, const float* u, long n, float* out) {
+  for (long i = 0; i < n; ++i)
+    out[i] = zmc::eval_point_adapted(form, p + i * n_cols, acol, n_bins, tcol,
+                                     u + i * dim, dim);
+}
 // a compactified row: transform columns from tcol
 void host_body_compact(int form, int dim, const float* p, int n_cols, int tcol,
                        const float* x, long n, float* out) {
@@ -98,9 +112,15 @@ def lib(tmp_path_factory):
     out.host_sobol.argtypes = [ptr, ctypes.c_int, u32, u32, ptr, ptr,
                                ctypes.c_long, ptr, ptr]
     out.host_sobol_uniform.argtypes = [ptr, ptr, ctypes.c_long, ptr]
+    out.host_apply_map.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_long, ptr,
+                                   ptr]
+    out.host_body_adapted.argtypes = [ctypes.c_int, ctypes.c_int, ptr,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ptr, ctypes.c_long, ptr]
     for f in (out.host_random_bits, out.host_uniform, out.host_body,
               out.host_transform, out.host_body_compact, out.host_sobol,
-              out.host_sobol_uniform):
+              out.host_sobol_uniform, out.host_apply_map,
+              out.host_body_adapted):
         f.restype = None
     return out
 
@@ -225,3 +245,63 @@ def test_sobol_point_shift_and_uniform_bit_exact(lib, dim):
     want_u = np.asarray(jsobol.sobol_uniforms_for(k0, k1, fn[sub], idx[sub], dim))
     np.testing.assert_array_equal(u.reshape(n, dim)[sub],
                                   np.einsum("iid->id", want_u))
+
+
+@pytest.mark.parametrize("n_bins", [1, 4, 16])
+def test_apply_map_axis_matches_plain(lib, n_bins):
+    """The header's per-axis grid map against the port's apply_map: the
+    bin exactly (the Jacobian factor is n_bins times the width of the bin
+    ``min(int(u * n_bins), n_bins - 1)``, bit for bit), the point within
+    1e-6 (the card may contract e0 + frac * width into one FMA)."""
+    from repro_torch.core import adaptive
+    r = np.random.default_rng(n_bins)
+    n = 5_000
+    widths = r.uniform(0.01, 3.0, (n, n_bins))
+    e = (r.uniform(-5, 5, (n, 1)) + np.concatenate(
+        [np.zeros((n, 1)), np.cumsum(widths, 1)], 1)).astype(np.float32)
+    u = r.integers(0, 1 << 24, n).astype(np.float32) * np.float32(2.0**-24)
+    u[:3] = [0.0, 0.5, 1 - 2.0**-24]
+    x, w = np.empty(n, np.float32), np.empty(n, np.float32)
+    lib.host_apply_map(_ptr(u), _ptr(e), n_bins, n, _ptr(x), _ptr(w))
+    idx = np.minimum((u * np.float32(n_bins)).astype(np.int64), n_bins - 1)
+    rows = np.arange(n)
+    width = e[rows, idx + 1] - e[rows, idx]
+    np.testing.assert_array_equal(w, width * np.float32(n_bins))
+    wx, wj = adaptive.apply_map(torch.from_numpy(u)[:, None],
+                                torch.from_numpy(e)[:, None, :])
+    np.testing.assert_array_equal(w, wj.numpy())
+    np.testing.assert_allclose(x, wx[:, 0].numpy(), rtol=1e-6, atol=1e-6)
+    assert np.all((e[rows, idx] <= x) & (x <= e[rows, idx + 1]))
+
+
+@pytest.mark.parametrize("form_name", ["mc_eval_genz_corner", "mc_eval_gaussian"])
+@pytest.mark.parametrize("compact", [False, True])
+def test_adapted_body_matches_plain(lib, form_name, compact):
+    """An adapted row (grid edges after the form's columns, transform
+    columns after the edges when compactified) through the header against
+    template.adapted_body(compactified_body(body))."""
+    from repro_torch.kernels import template
+    form = registry.form(form_name)
+    dim, n_bins = 3, 8
+    r = np.random.default_rng(11 + compact)
+    n = 2_000
+    base = form.n_cols(dim)
+    widths = r.uniform(0.05, 1.0, (n, dim, n_bins))
+    edges = np.concatenate([np.zeros((n, dim, 1)), np.cumsum(widths, -1)], -1)
+    edges /= edges[..., -1:]                               # span [0, 1]
+    cols = [r.uniform(0.5, 2.0, (n, base)), edges.reshape(n, -1)]
+    if compact:
+        cols += [r.integers(0, 4, (n, dim)), r.uniform(-1.0, 1.0, (n, dim))]
+    p = np.concatenate(cols, axis=1).astype(np.float32)
+    acol, tcol = base, (base + dim * (n_bins + 1) if compact else -1)
+    u = r.integers(0, 1 << 24, (n, dim)).astype(np.float32) * np.float32(2.0**-24)
+    got = np.empty(n, np.float32)
+    lib.host_body_adapted(form.form_id, dim, _ptr(p), p.shape[1], acol, n_bins,
+                          tcol, _ptr(u), n, _ptr(got))
+    body = form.body
+    if compact:
+        body = template.compactified_body(body, tcol)
+    body = template.adapted_body(body, acol, n_bins)
+    ut = torch.from_numpy(u)[:, None, :]
+    want = body(lambda d: ut[:, :, d], torch.from_numpy(p), dim)[:, 0]
+    np.testing.assert_allclose(got, want.numpy(), rtol=2e-5, atol=1e-6)

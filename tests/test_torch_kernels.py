@@ -75,10 +75,9 @@ def test_form_ids_and_capabilities():
     for f in registry.forms():
         jf = jregistry.form(f.name)
         assert f.samplers == jf.samplers == ("mc", "sobol")
-        # the compactification and sweep stages are ported; the grid stage
-        # is not, so no form claims it
+        # the compactification, sweep and grid stages are all ported
         assert f.supports_compactified == jf.supports_compactified
-        assert not f.supports_adapted
+        assert f.supports_adapted == jf.supports_adapted
         for dim in (1, 3, 8):
             assert f.sweep_cols(dim) == jf.sweep_cols(dim)
         assert f.n_cols(3) == jf.n_cols(3)

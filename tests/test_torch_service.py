@@ -168,9 +168,9 @@ def test_pipelined_worker_matches_synchronous(served):
 
 def test_not_ported_paths_raise():
     fams = _workload(n=1)[0].families
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        IntegrationRequest.make(fams, target_stderr=0.1, adaptive=True)
-    # Sobol requests and sweeps are ported now
+    # adaptive requests, Sobol requests and sweeps are ported now
+    req = IntegrationRequest.make(fams, target_stderr=0.1, adaptive=True)
+    assert req.adaptive and req.target_stderr == 0.1
     assert IntegrationRequest.make(fams, n_samples=R, sampler="sobol").sampler == "sobol"
     assert isinstance(serve_integrals.demo_workload(2, sweeps=1)[-1], SweepRequest)
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):

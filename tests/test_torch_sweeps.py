@@ -198,7 +198,10 @@ def test_plan_spec_swept_as_reference_and_plain_vs_pallas():
     # blocks: the (a, b) sweep, two of the sigma sweep, the plain family
     assert b.block_sweep.tolist() == [[0, 0, 0, -1], [4, 1, 1, -1],
                                       [1, -1, -1, -1], [5, -1, -1, -1]]
-    assert torch.equal(b.block_meta[2:], b.block_sweep)
+    # block_meta: forms, transform columns, the sweep pairs, then the
+    # grid-edge columns and bins (no block adapted)
+    assert torch.equal(b.block_meta[2:-2], b.block_sweep)
+    assert b.block_meta[-2:].tolist() == [[-1] * 4, [0] * 4]
     n, r = 2048 + 5, 2
     starts = {0: 0, 1: 7, 2: (2**32 - 3000) // n}
     key = jrng.fold_key(3, 5)

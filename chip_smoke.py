@@ -35,7 +35,9 @@ sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``):
    and standard errors within 1e-2 of a standard error (the raw-sum
    tolerance of step 5 is printed beside it), times both (CUDA events), computes the kernel's
    bound from the operations one trial needs, and reads the instruction
-   mix nvcc emitted for pass 1's inner loops (``cuobjdump -sass``);
+   mix nvcc emitted for pass 1's inner loops (``cuobjdump -sass``) beside
+   the main path's registers and instructions per draw and their reference
+   values (108, 78.11);
 8. times steady-state trials and profiles one (device busy and idle
    share, host operations by time);
 9. rounds: on the Fig.-1 buckets, one R = 4 launch at N = 65536 per round
@@ -63,7 +65,10 @@ sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``):
    counters) within 1e-2 of a standard error, with the wall split into
    kernel and host time;
 13. the device Sobol points and shifts (``zmc_sobol``) bit-exact against
-   ``core.sobol`` on 2^17 indices crossing 2^32, at every dim 1-8;
+   ``core.sobol`` on 2^17 indices crossing 2^32, at every dim 1-8, and the
+   points as pass 1 walks them (``zmc_sobol_walk``: 256 threads, each
+   along its stride-256 run in Gray-code order) on 102400 indices whose
+   runs cross 2^32;
 14. Sobol on the Fig.-1 spec: kernel vs plain raw sums at N = 65536
    (rtol=1e-4, atol=1e-2), repeat launches and each round of an R = 4
    launch sha256-equal to single launches; ``evaluate(num_trials=10)``
@@ -71,8 +76,8 @@ sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``):
    coverage of the harmonics, the median MC-to-Sobol ratio of
    ``trial_std``, and the kernel timed and held against the plain version
    at N = 10^6 within the tolerance of step 7, beside its bound (each
-   distinct point counted once) and the instruction mix of its pass-1
-   instantiation;
+   distinct point counted once) and its pass-1 instantiation's registers,
+   resident blocks per SM and SASS instructions per draw;
 15. service configuration 3, a parameter sweep: the Fig.-1 4-d harmonic
    template over a 32 x 32 (a, b) grid (16 canonical slices of 64), 2^20
    samples per point in rounds of 65536, R = 8, once per sampler: one
@@ -92,7 +97,9 @@ sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``):
    digests, ``evaluate(num_trials=10)`` at N = 10^6 with 30 launches (all
    adapted), 2-sigma coverage >= 0.85 against the exact values, kernel vs
    plain at N = 10^6 within the tolerance of step 7, the kernel timed
-   beside its bound; then the median unadapted-to-adapted ratio of
+   beside its bound and its pass-1 instantiation's registers, resident
+   blocks per SM and SASS instructions per draw; then the median
+   unadapted-to-adapted ratio of
    ``trial_std`` (MC), which must exceed 1;
 18. adaptive requests through the service, the protocol of repro's
    BENCH_10 (``benchmarks/service_bench.py``): a Genz corner peak at
@@ -398,10 +405,10 @@ def distinct_point_dims(plan, n_samples: int, round_bases=None, n_rounds: int = 
 
 
 def built_point_dims(plan, n_samples: int) -> float:
-    """(sample, function block, dim) triples the kernel builds points for:
-    each CUDA block builds its own, so a point is rebuilt once per
-    16-function block that draws it (the kernel's overhead over
-    :func:`distinct_point_dims`)."""
+    """(sample, function block, dim) triples the kernel computes points for:
+    each CUDA block walks its own, so a point is stepped (or built, at a
+    thread's first sample) once per 16-function block that draws it (the
+    kernel's overhead over :func:`distinct_point_dims`)."""
     from repro_torch.kernels import template
     return float(n_samples) * sum(b.fn_ids.shape[0] // template.F_BLK * b.dim
                                   for b in plan.buckets)
@@ -464,6 +471,36 @@ def sass_loops(lib_path, function: str = "fused_mc_pass1ILi0ELb0ELb0EE") -> list
             "fma": sum(n for op, n in ops.items() if op.split(".")[0] in FMA_OPS),
             "ops": ops})
     return found or None
+
+
+def pass1_report(lib_path, res: dict, name: str) -> str:
+    """One line for a pass-1 instantiation ``name`` (``<stages,sobol,swept>``,
+    as ``build.pass1_resources`` names it; ``res`` its entry there): its
+    registers, spill stores and resident blocks per SM, and the SASS
+    instructions per draw of its innermost drawing loops (a draw is one
+    unsigned u32 -> f32 conversion: the uniform's; an adapted axis' bin
+    conversion is signed), split into the loops that draw 16 at a time (dim
+    outer, the 16 functions inside) and the rest."""
+    import re
+    st, sob, sw = re.match(r"<(\d),(\w+),(\w+)>", name).groups()
+    mangled = f"fused_mc_pass1ILi{st}ELb{int(sob == 'true')}ELb{int(sw == 'true')}EE"
+    line = (f"fused_mc_pass1{name}: {res['registers']} registers, {res['spill_stores']} "
+            f"bytes of spill stores, {res['blocks_per_sm']} resident blocks per SM")
+    loops = sass_loops(lib_path, mangled)
+    if not loops:
+        return line + "; SASS not measured (no listing)"
+    for lp in loops:
+        lp["udraws"] = sum(n for op, n in lp["ops"].items()
+                           if op.startswith("I2F") and "U32" in op)
+    groups = {"16 draws an iteration": [lp for lp in loops if lp["udraws"] >= 16],
+              "1-15 draws an iteration": [lp for lp in loops if 0 < lp["udraws"] < 16]}
+    for label, ls in groups.items():
+        if ls:
+            n = sum(lp["udraws"] for lp in ls)
+            line += (f"; {len(ls)} loops of {label}: "
+                     f"{sum(lp['instr'] for lp in ls) / n:.2f} SASS instructions and "
+                     f"{sum(lp['lds'] for lp in ls) / n:.2f} LDS per draw")
+    return line
 
 
 def compact_spec(device):
@@ -598,6 +635,11 @@ def main() -> None:
         for line in info["log"].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    pass1 = {r["name"]: r for r in build.pass1_resources(built["zmc_fused_mc"]["log"])}
+    for r in pass1.values():
+        print(f"  fused_mc_pass1{r['name']}: {r['registers']} registers, "
+              f"{r['spill_stores']} bytes of spill stores, {r['blocks_per_sm']} resident "
+              f"blocks per SM")
 
     # -- 3. device Threefry, bit for bit ------------------------------------
     n = 1 << 20
@@ -741,6 +783,10 @@ def main() -> None:
               f"{draws * sass_clk / (n_sm * clock_hz) * 1e3:.3f} ms per trial "
               f"(ALU {per_draw['alu']:.2f} / {ALU_PER_CLK}, all "
               f"{per_draw['instr']:.2f} / {ISSUE_PER_CLK} per draw per clock per SM)")
+    print(f"main path fused_mc_pass1<0,false,false>: "
+          f"{pass1['<0,false,false>']['registers']} registers (its reference allocation: 108), "
+          + (f"{per_draw['instr']:.2f}" if loops else "not measured")
+          + " SASS instructions per draw (reference: 78.11)")
 
     # -- 8. where a steady-state trial's time goes ---------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -1049,6 +1095,17 @@ def main() -> None:
           f"{n} indices x dims 1-{sobol.MAX_DIM} (indices from {2**32 - n // 4}, "
           f"crossing 2^32)")
     check(bad == 0, f"device Sobol points or shifts differ in {bad} words")
+    # the points as pass 1 walks them: 256 threads, each along its stride-256
+    # run, every run crossing 2^32
+    start = 2**32 - 256 * 200 - 99
+    walk_idx = (start + i[:256 * 400]) & rng.MASK32
+    bad = sum(int((template.sobol_walk_cuda(start, walk_idx.numel(), dim, device)
+                   != sobol.sobol_bits(walk_idx, dim)).sum())
+              for dim in range(1, sobol.MAX_DIM + 1))
+    print(f"device walked Sobol points (sobol_walk, 256 runs of stride 256 crossing "
+          f"2^32) vs core.sobol: {bad} differences over {walk_idx.numel()} indices x "
+          f"dims 1-{sobol.MAX_DIM}")
+    check(bad == 0, f"walked Sobol points differ in {bad} words")
 
     # -- 14. Fig.-1 evaluate with the Sobol sampler --------------------------
     splan = multi.plan_spec(spec, sampler="sobol")
@@ -1137,31 +1194,14 @@ def main() -> None:
     s_op = sobol_op_bound_ms(draws, values, s_pts, n_sm, clock_hz)
     sobol_bound = max(s_op.values())
     print(f"Sobol trial (3 launches, {draws:.4g} draws, {s_pts:.4g} distinct point "
-          f"dims, {s_built:.4g} built, once per 16-function block): kernel "
+          f"dims, {s_built:.4g} walked, once per 16-function block): kernel "
           f"{sobol_ms:.3f} ms, plain {sobol_plain_ms:.1f} ms, bound {sobol_bound:.3f} ms "
           f"(kernel at {100 * sobol_bound / sobol_ms:.1f}% of it): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in s_op.items())
           + f"; MC kernel {kernel_ms:.3f} ms; on {card}")
-    s_loops = sass_loops(built["zmc_fused_mc"]["path"], "fused_mc_pass1ILi0ELb1ELb1EE")
-    draw_loops = [lp for lp in s_loops or () if lp["draws"]]
-    # a point loop: one dim's 32 direction bits, no draw
-    point_loops = [lp for lp in s_loops or () if not lp["draws"] and lp["instr"] >= 64]
-    if not draw_loops or not point_loops:
-        print("Sobol pass-1 SASS: not measured (no listing, or its loops not found)")
-    else:
-        n_d = sum(lp["draws"] for lp in draw_loops)
-        per = {k: sum(lp[k] for lp in draw_loops) / n_d
-               for k in ("instr", "alu", "fma", "lds")}
-        pt_instr = max(lp["instr"] for lp in point_loops)
-        pt_lds = max(lp["lds"] for lp in point_loops)
-        sobol_clk = (draws * per["instr"]
-                     + s_built * pt_instr) / ISSUE_PER_CLK
-        print(f"Sobol pass-1 SASS (<0, true, true>): {len(draw_loops)} inner draw "
-              f"loops, per draw {per['instr']:.2f} instructions (ALU {per['alu']:.2f}, "
-              f"FMA pipes {per['fma']:.2f}, LDS {per['lds']:.2f}); {len(point_loops)} "
-              f"point loops, at most {pt_instr} instructions ({pt_lds} LDS) per "
-              f"(sample, dim); issue bound of this code "
-              f"{sobol_clk / (n_sm * clock_hz) * 1e3:.3f} ms per trial")
+    print("Sobol pass 1: " + pass1_report(built["zmc_fused_mc"]["path"],
+                                          pass1["<0,true,true>"], "<0,true,true>")
+          + f"; kernel {sobol_ms:.3f} ms against its bound {sobol_bound:.3f} ms")
 
     # -- 15. service configuration 3: a parameter sweep at full width --------
     from repro_torch.core.integrand import MultiFunctionSpec, harmonic_family
@@ -1457,6 +1497,10 @@ def main() -> None:
               f"plain {a_plain_ms:.1f} ms, bound {a_bound:.3f} ms (kernel at "
               f"{100 * a_bound / a_ms:.1f}% of it): "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in a_op.items()) + f"; on {card}")
+        inst = "<2,false,true>" if sampler == "mc" else "<2,true,true>"
+        print(f"adapted pass 1 ({sampler}): "
+              + pass1_report(built["zmc_fused_mc"]["path"], pass1[inst], inst)
+              + f"; kernel {a_ms:.3f} ms against its bound {a_bound:.3f} ms")
         adapted[sampler] = dict(launches=a_counts["fused_mc_adapted"], max_abs_err=a_err,
                                 ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound,
                                 res=ares)

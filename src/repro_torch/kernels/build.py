@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,6 +38,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+# Hopper's per-SM limits for resident blocks (CUDA C++ Programming Guide,
+# compute capability 9.0): 65536 registers, allocated per warp in units of
+# 256 (8 a thread), and 2048 threads.
+SM_REGISTERS, SM_THREADS, REG_UNIT = 65536, 2048, 8
+PASS1_THREADS = 256
 
 
 def find_nvcc() -> str:
@@ -112,6 +119,35 @@ def build(names=None, *, verbose: bool = False) -> dict[str, dict]:
     return out
 
 
+def pass1_resources(log: str) -> list[dict]:
+    """Per pass-1 instantiation in a ``-Xptxas -v`` log: its template
+    arguments ``<stages, sobol, swept>``, registers, spill stores (bytes)
+    and resident blocks per SM of 256 threads as its registers allow them
+    (shared memory, under 10 KB a block at every launch shape of the
+    port, does not limit it), in the log's order."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "entry function" in line:
+            m = re.search(r"fused_mc_pass1ILi(\d)ELb(\d)ELb(\d)EE", line)
+            cur = None
+            if m:
+                st, sob, sw = m.groups()
+                cur = {"name": f"<{st},{'true' if sob == '1' else 'false'},"
+                               f"{'true' if sw == '1' else 'false'}>",
+                       "registers": None, "spill_stores": 0, "blocks_per_sm": None}
+                out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur["spill_stores"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif cur is not None and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            per_block = -(-regs // REG_UNIT) * REG_UNIT * PASS1_THREADS
+            cur["registers"] = regs
+            cur["blocks_per_sm"] = min(SM_REGISTERS // per_block,
+                                       SM_THREADS // PASS1_THREADS)
+            cur = None
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed, with every
     exported function's ``argtypes``/``restype`` declared."""
@@ -142,6 +178,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                          ptr, ptr, ptr],         # scratch out stream
         "zmc_random_bits": [u32, u32, ptr, ptr, ptr, i64, ptr],
         "zmc_sobol": [ptr, i32, u32, u32, ptr, ptr, ptr, ptr, i64, ptr],
+        "zmc_sobol_walk": [ptr, i32, u32, i64, ptr, ptr],  # v dim start n pt stream
         "zmc_moments_cblk": [],
         "zmc_stratum_moments": [ptr, i32, i32, ptr, ptr],  # values rows cols out stream
     }

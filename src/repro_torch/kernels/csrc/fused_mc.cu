@@ -42,22 +42,34 @@
 // design keeps all of it in registers: no random bit ever touches memory,
 // the packed rows and boxes sit in shared memory, each rotate is one funnel
 // shift, and the grid (16-function block x round x 16384-sample chunk)
-// gives every SM several blocks at the paper's Fig.-1 size.
+// gives every SM several blocks at the paper's Fig.-1 size.  The main
+// path's loop takes one function at a time, its dims inside: the Threefry
+// chain of 60-odd dependent operations is latency the other warps hide.
+// An adapted block (no transform column) takes the dims outside and its 16
+// functions inside instead, so 16 independent draws and their edge loads
+// are in flight at once, from a per-block table u32x4[dim, 16] (lo,
+// hi - lo, c1) read with one 16-byte load per draw; the adapted
+// instantiation runs at two blocks per SM.  Its blocks with a transform
+// column keep the function-outer loop around the transform's call.
 //
-// The Sobol draw has no Threefry: each thread builds the sample's point
-// for every dim once (32 XORs of direction vectors picked by gray(c0),
-// read from shared memory, into the thread's column of a shared-memory
-// table) and shares it among the block's 16 functions;
-// a function's draw is one XOR with its shift (computed once per CUDA
-// block into shared memory), one u32 -> f32 conversion and the affine
-// map.  What bounds it: issue slots, for those few operations per draw
-// plus two ALU operations per direction bit of each (sample, block, dim)
-// point, which 16 functions share: about a quarter of an MC draw's work.
+// The Sobol draw has no Threefry: each thread walks its samples' points
+// (c0, c0 + 256, ...) in Gray-code order, one register per dim (built in
+// full, 32 XORs of direction vectors, at its first sample; after that two
+// XORs per dim and sample), and shares them among the block's 16
+// functions; a function's draw is one 16-byte table load (lo, hi - lo and
+// its shift's top 24 bits), one XOR, one u32 -> f32 conversion and the
+// affine map, in the same dim-outer loop as an adapted block's.  What
+// bounds it: issue slots, for those few operations per draw and the
+// value's finish (a sin and cos, or an exp) per function and sample; the
+// three Sobol instantiations run at two blocks per SM.
 //
-// Determinism: no float atomics.  Pass 1 reduces each block's per-thread
-// partials in a fixed order (warp shuffles, then shared memory across
-// warps) into scratch[n_rounds, n_fn_pad, n_chunks, 2]; pass 2 sums each
-// (round, function)'s chunk partials in index order.  Chunks start at 0
+// Determinism: no float atomics.  Each thread sums its samples in sample
+// order; in the dim-outer loops the rounding of each sum is pinned with
+// _rn intrinsics (fused_mc_pass1.cuh add_sums), so they give the same bits
+// as the function-outer loops they replaced.  Pass 1 reduces each block's
+// per-thread partials in a fixed order (warp shuffles, then shared memory
+// across warps) into scratch[n_rounds, n_fn_pad, n_chunks, 2]; pass 2 sums
+// each (round, function)'s chunk partials in index order.  Chunks start at 0
 // within each round's window, so round r of an R-round launch runs the
 // same instructions and fold as a single-round launch at that round's
 // offset: the two are bit-identical, and so are repeated launches.
@@ -116,6 +128,20 @@ __global__ void sobol_kernel(const uint32_t* __restrict__ v, int dim, uint32_t k
   }
 }
 
+// Test-only: the Sobol points of indices start + i (u32 wrap), i < n, as
+// pass 1 walks them: one block of THREADS threads, thread t building the
+// point of start + t and walking its run start + t + k * THREADS (SobolRun,
+// with v the full direction vectors u32[dim, 32]); pt[i * dim + d].
+__global__ void sobol_walk_kernel(const uint32_t* __restrict__ v, int dim, uint32_t start,
+                                  long long n, uint32_t* __restrict__ pt) {
+  SobolRun run;
+  run.start(v, dim, start + threadIdx.x);
+  for (long long i = threadIdx.x; i < n; i += THREADS) {
+    for (int d = 0; d < dim; ++d) pt[i * dim + d] = run.at(d);
+    run.step(v, dim, start + (uint32_t)i + THREADS);
+  }
+}
+
 // Test-only: out[i] = random_bits(k0, k1, c0[i], c1[i]).
 __global__ void random_bits_kernel(uint32_t k0, uint32_t k1, const uint32_t* __restrict__ c0,
                                    const uint32_t* __restrict__ c1, uint32_t* __restrict__ out,
@@ -157,14 +183,16 @@ int zmc_fused_mc(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_va
   const long long n_blocks = (long long)(n_fn_pad / F_BLK) * n_rounds * n_chunks;
   if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * ((size_t)F_BLK * (1 + n_cols + 2 * dim) +
-                                       (sobol ? (size_t)(32 + F_BLK + THREADS) * dim : 0));
+  const int stages = (has_stages & 2) ? 2 : (has_stages & 1) ? 1 : 0;
+  // see fused_mc_pass1: the table (Sobol or adapted launches), then the rest
+  const size_t smem = sizeof(float) * ((size_t)F_BLK * n_cols +
+                                       (sobol ? (size_t)32 * dim : (size_t)F_BLK * (1 + 2 * dim))) +
+                      (sobol || stages == 2 ? sizeof(uint4) * F_BLK * dim : 0);
   const zmc::Pass1Args a{k0,     k1,         sample_offset, n_valid, round_stride, n_rounds,
                          round_base, fn_ids, block_meta, n_sweep, sobol_dirs, packed,
                          n_cols, lo,         hi,            dim,     n_fn_pad,     n_chunks,
                          scratch};
   const unsigned nb = (unsigned)n_blocks;
-  const int stages = (has_stages & 2) ? 2 : (has_stages & 1) ? 1 : 0;
   cudaError_t e;
   if (sobol)
     e = stages == 2   ? zmc::launch_pass1_sobol_adapted(a, nb, smem, s)
@@ -193,6 +221,14 @@ int zmc_sobol(const uint32_t* v, int dim, uint32_t k0, uint32_t k1, const uint32
   const long long want = (n + 255) / 256;
   const int blocks = (int)(want < 65536 ? want : 65536);
   sobol_kernel<<<blocks, 256, 0, s>>>(v, dim, k0, k1, idx, fn_ids, pt, sh, n);
+  return (int)cudaGetLastError();
+}
+
+int zmc_sobol_walk(const uint32_t* v, int dim, uint32_t start, long long n, uint32_t* pt,
+                   void* stream) {
+  if (n <= 0) return 0;
+  if (dim <= 0 || dim > zmc::SOBOL_MAX_DIM) return (int)cudaErrorInvalidValue;
+  sobol_walk_kernel<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(v, dim, start, n, pt);
   return (int)cudaGetLastError();
 }
 

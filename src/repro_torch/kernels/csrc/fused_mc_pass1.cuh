@@ -121,42 +121,144 @@ __device__ __forceinline__ void eval_chunk(const float* __restrict__ p_s,
   }
 }
 
-// The Sobol draw: the point of sample c0 (top 24 bits per dim) is built
-// once per sample, outside the function loop, into the thread's own
-// column of pt_s (u32[dim, THREADS] in shared memory: a register array
-// indexed by the runtime dim would go to local memory); v_s holds the
-// direction vectors u32[dim][32], sh_s the top 24 bits of each
-// (function, dim)'s shift.  The function and dim loops are the MC loop's.
+static_assert(THREADS == 256, "SobolRun and zmc::sobol_walk step 256 indices");
+
+// s1 += v and s2 += v * v for one value of the loops below, each rounded as
+// the function-outer loops they replaced rounded it.  There the compiler
+// chose per site whether to fuse v * v + s2 into one FMA: it did for every
+// form and stage except the Sobol draws of the forms whose value ends in
+// expf (the Gaussian and the Genz corner peak) without a grid (STAGE 0 or
+// 1); it never fused v's own last multiply into s1 += v (measured on
+// every form and loop with `kernel_ab`'s every_form variants).  The new
+// loops give the compiler other sites, so each sum's rounding is pinned
+// here with the _rn intrinsics, which it never contracts.
+template <int FORM, int STAGE>
+__device__ __forceinline__ void add_sums(float& s1, float& s2, float v) {
+  s1 = __fadd_rn(s1, v);
+  if constexpr ((FORM == zmc::FORM_GAUSSIAN || FORM == zmc::FORM_GENZ_CORNER) && STAGE < 2)
+    s2 = __fadd_rn(s2, __fmul_rn(v, v));
+  else
+    s2 = __fmaf_rn(v, v, s2);
+}
+
+// One thread's Sobol points along its run of samples c0, c0 + 256, ...
+// (local = begin + tid + k * 256: THREADS must be 256): one register per
+// dim (top 24 bits; v holds the direction vectors' top 24 bits,
+// u32[dim][32]), built in full at the run's first sample and walked in
+// Gray-code order after each (zmc::sobol_walk: two XORs per dim, in place
+// of the 32 of a rebuild).  dim is a runtime value, so each dim loop here
+// is unrolled to SOBOL_MAX_DIM behind a d < dim test, and `at` selects a
+// dim's register by value: the points never leave registers.
+struct SobolRun {
+  uint32_t pt[zmc::SOBOL_MAX_DIM];
+
+  __device__ __forceinline__ void start(const uint32_t* __restrict__ v, int dim, uint32_t c0) {
+#pragma unroll
+    for (int d = 0; d < zmc::SOBOL_MAX_DIM; ++d)
+      pt[d] = d < dim ? zmc::sobol_point(v + 32 * d, c0) : 0u;
+  }
+
+  // From the run's sample next - 256 to sample next.
+  __device__ __forceinline__ void step(const uint32_t* __restrict__ v, int dim, uint32_t next) {
+#pragma unroll
+    for (int d = 0; d < zmc::SOBOL_MAX_DIM; ++d)
+      if (d < dim) pt[d] = zmc::sobol_walk(v + 32 * d, pt[d], next);
+  }
+
+  __device__ __forceinline__ uint32_t at(int d) const {
+    uint32_t r = pt[0];
+#pragma unroll
+    for (int k = 1; k < zmc::SOBOL_MAX_DIM; ++k) r = d == k ? pt[k] : r;
+    return r;
+  }
+};
+
+// A block's loop dim by dim, the 16 functions inside each dim: for Sobol
+// draws without staged blocks, and for the blocks of either sampler with an
+// importance grid and no compactification (ADAPT).  The 16 functions'
+// chains are independent, so a dim's shared-memory loads (its row of tab:
+// lo, hi - lo and the shift or c1 of each function; the grid edges) and
+// its draws overlap across functions instead of waiting one function at a
+// time.  Each function's float operations are those of eval_chunk and
+// stage_axis, in the same order, and add_sums rounds its sums as the loop
+// it replaced did, so they are bit-identical.
+template <int FORM, bool SOBOL, bool ADAPT>
+__device__ __forceinline__ void eval_chunk_dims(const float* __restrict__ p_s,
+                                                const uint4* __restrict__ tab,
+                                                const uint32_t* __restrict__ v_s, int n_cols,
+                                                int acol, int n_bins, int dim, uint32_t k0,
+                                                uint32_t k1, uint32_t window, uint32_t begin,
+                                                uint64_t end, float (&s1)[F_BLK],
+                                                float (&s2)[F_BLK]) {
+  SobolRun run;
+  if constexpr (SOBOL) run.start(v_s, dim, window + begin + threadIdx.x);
+  for (uint64_t local = (uint64_t)begin + threadIdx.x; local < end; local += THREADS) {
+    const uint32_t c0 = window + (uint32_t)local;
+    float acc[F_BLK], jac_a[F_BLK];
+#pragma unroll
+    for (int f = 0; f < F_BLK; ++f) {
+      acc[f] = zmc::Body<FORM>::init(p_s + f * n_cols);
+      jac_a[f] = 1.0f;
+    }
+    for (int d = 0; d < dim; ++d) {
+      const uint4* t = tab + d * F_BLK;
+      const uint32_t pd = SOBOL ? run.at(d) : 0u;
+#pragma unroll
+      for (int f = 0; f < F_BLK; ++f) {
+        const uint4 a = t[f];
+        const float* p = p_s + f * n_cols;
+        const float u = SOBOL ? zmc::sobol_uniform(pd, a.z)
+                              : zmc::bits_to_uniform(zmc::random_bits(k0, k1, c0, a.z));
+        float x = zmc::affine(__uint_as_float(a.x), __uint_as_float(a.y), u);
+        if constexpr (ADAPT) {
+          float w;
+          x = zmc::apply_map_axis(x, p + acol + d * (n_bins + 1), n_bins, &w);
+          jac_a[f] *= w;
+        }
+        acc[f] = zmc::Body<FORM>::step(acc[f], x, p, d);
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < F_BLK; ++f) {
+      float v = zmc::Body<FORM>::fin(acc[f], p_s + f * n_cols, dim);
+      if constexpr (ADAPT) v = staged_value<2>(v, 1.0f, jac_a[f]);
+      add_sums<FORM, ADAPT ? 2 : 0>(s1[f], s2[f], v);
+    }
+    if constexpr (SOBOL) run.step(v_s, dim, c0 + THREADS);
+  }
+}
+
+// The Sobol draw through a compactified block's transform (STAGE 1, or 2:
+// after the grid): the function loop outside, the dim loop inside, as in
+// eval_chunk (the transform is a call, and 16 functions' chains kept live
+// across it would spill); the point from the run's registers.
 template <int FORM, int STAGE>
 __device__ __forceinline__ void eval_chunk_sobol(const float* __restrict__ p_s,
-                                                 const float* __restrict__ lo_s,
-                                                 const float* __restrict__ w_s,
+                                                 const uint4* __restrict__ tab,
                                                  const uint32_t* __restrict__ v_s,
-                                                 const uint32_t* __restrict__ sh_s,
-                                                 uint32_t* __restrict__ pt_s,
                                                  int n_cols, int tcol, int acol, int n_bins,
                                                  int dim, uint32_t window, uint32_t begin,
                                                  uint64_t end, float (&s1)[F_BLK],
                                                  float (&s2)[F_BLK]) {
-  uint32_t* pt = pt_s + threadIdx.x;
+  SobolRun run;
+  run.start(v_s, dim, window + begin + threadIdx.x);
   for (uint64_t local = (uint64_t)begin + threadIdx.x; local < end; local += THREADS) {
-    const uint32_t c0 = window + (uint32_t)local;
-    for (int d = 0; d < dim; ++d) pt[d * THREADS] = zmc::sobol_point(v_s + 32 * d, c0) >> 8;
 #pragma unroll
     for (int f = 0; f < F_BLK; ++f) {
       const float* p = p_s + f * n_cols;
       float acc = zmc::Body<FORM>::init(p);
       float jac = 1.0f, jac_a = 1.0f;
       for (int d = 0; d < dim; ++d) {
-        float x = zmc::affine(lo_s[f * dim + d], w_s[f * dim + d],
-                              zmc::sobol_uniform(pt[d * THREADS], sh_s[f * dim + d]));
-        if (STAGE) x = stage_axis<STAGE>(x, p, tcol, acol, n_bins, d, dim, jac, jac_a);
+        const uint4 a = tab[d * F_BLK + f];
+        float x = zmc::affine(__uint_as_float(a.x), __uint_as_float(a.y),
+                              zmc::sobol_uniform(run.at(d), a.z));
+        x = stage_axis<STAGE>(x, p, tcol, acol, n_bins, d, dim, jac, jac_a);
         acc = zmc::Body<FORM>::step(acc, x, p, d);
       }
       const float v = staged_value<STAGE>(zmc::Body<FORM>::fin(acc, p, dim), jac, jac_a);
-      s1[f] += v;
-      s2[f] += v * v;
+      add_sums<FORM, STAGE>(s1[f], s2[f], v);
     }
+    run.step(v_s, dim, window + (uint32_t)local + THREADS);
   }
 }
 
@@ -167,14 +269,16 @@ __device__ __forceinline__ void eval_chunk_sobol(const float* __restrict__ p_s,
 // transform columns, rows 2 + 2j and 3 + 2j the j-th (base column, table
 // column) pair of a swept block (-1: none), row 2 + 2 n_sweep -1 for an
 // unadapted block or the first of an adapted block's dim * (n_bins + 1)
-// grid-edge columns, and row 3 + 2 n_sweep its n_bins.  Dynamic shared memory: c1
-// base u32[16], packed rows f32[16, n_cols], lo and hi - lo f32[16, dim]
-// each, and for SOBOL the direction vectors u32[dim, 32], the shifts' top
-// 24 bits u32[16, dim] and the threads' points u32[dim, 256].  SWEPT
-// compiles the sweep pairs' copy in (taken when n_sweep > 0 and the block
-// is swept); STAGES 1 adds the compactified blocks' loop (taken where
-// tcol >= 0), STAGES 2 the adapted blocks' loop too (taken where acol >= 0,
-// the transform behind a test of tcol).  Seven instantiations, built from
+// grid-edge columns, and row 3 + 2 n_sweep its n_bins.  Dynamic shared
+// memory: for SOBOL or STAGES 2 first the table of eval_chunk_dims,
+// u32x4[dim, 16] (lo, hi - lo, and the shift's top 24 bits or c1 of each
+// (dim, function)), then for MC the c1 base u32[16], the packed rows
+// f32[16, n_cols], for MC lo and hi - lo f32[16, dim] each, and for SOBOL
+// the direction vectors' top 24 bits u32[dim, 32].  SWEPT compiles the sweep pairs' copy in (taken
+// when n_sweep > 0 and the block is swept); STAGES 1 adds the compactified
+// blocks' loop (taken where tcol >= 0), STAGES 2 the adapted blocks' loops
+// too (taken where acol >= 0: eval_chunk_dims without a transform column,
+// the function-outer loop with one).  Seven instantiations, built from
 // six sources in parallel (launch_pass1 below): the MC launch without
 // staged or swept blocks (<0, false, false>, the main path) runs code and a
 // register allocation that neither the stages, the Sobol point nor the copy
@@ -182,11 +286,13 @@ __device__ __forceinline__ void eval_chunk_sobol(const float* __restrict__ p_s,
 // launches have <0, false, true>; MC launches with compactified blocks
 // <1, false, true> and with adapted ones <2, false, true> (sharing one
 // instantiation cost the compactified blocks 1.0%); Sobol launches
-// <0|1|2, true, true>, each with the copy in.
+// <0|1|2, true, true>, each with the copy in.  The adapted and the Sobol
+// instantiations are held to two blocks per SM (128 registers); the others
+// name no minimum (0), so the compiler allocates them as it did before.
 // A swept block differs from its per-point families only in that copy:
 // the sample loop does the same float operations on the same values.
 template <int STAGES, bool SOBOL, bool SWEPT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, (SOBOL || STAGES == 2) ? 2 : 0)
 fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_valid,
                uint32_t round_stride, int n_rounds, const uint32_t* __restrict__ round_base,
                const uint32_t* __restrict__ fn_ids, const int32_t* __restrict__ block_meta,
@@ -194,15 +300,17 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
                const float* __restrict__ packed, int n_cols, const float* __restrict__ lo,
                const float* __restrict__ hi, int dim, int n_fn_pad, int n_chunks,
                float* __restrict__ scratch) {
-  extern __shared__ float smem[];
+  constexpr bool TABLE = SOBOL || STAGES == 2;
+  extern __shared__ __align__(16) float smem[];
   __shared__ float red[WARPS][F_BLK][2];
-  uint32_t* c1_s = reinterpret_cast<uint32_t*>(smem);
-  float* p_s = smem + F_BLK;
+  uint4* tab = reinterpret_cast<uint4*>(smem);
+  // the MC loops' c1 base, lo and hi - lo (a Sobol launch reads its table)
+  constexpr int MC_ROWS = SOBOL ? 0 : 1;
+  uint32_t* c1_s = reinterpret_cast<uint32_t*>(smem + (TABLE ? 4 * F_BLK * dim : 0));
+  float* p_s = reinterpret_cast<float*>(c1_s) + MC_ROWS * F_BLK;
   float* lo_s = p_s + F_BLK * n_cols;
-  float* w_s = lo_s + F_BLK * dim;
-  uint32_t* v_s = reinterpret_cast<uint32_t*>(w_s + F_BLK * dim);
-  uint32_t* sh_s = v_s + 32 * dim;
-  uint32_t* pt_s = sh_s + F_BLK * dim;
+  float* w_s = lo_s + MC_ROWS * F_BLK * dim;
+  uint32_t* v_s = reinterpret_cast<uint32_t*>(w_s + MC_ROWS * F_BLK * dim);
 
   const int chunk = blockIdx.x % n_chunks;
   const int fr = blockIdx.x / n_chunks;
@@ -210,20 +318,30 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
   const int fb = fr / n_rounds;
   const int row0 = fb * F_BLK;
   const int n_fblocks = n_fn_pad / F_BLK;
-  for (int i = threadIdx.x; i < F_BLK; i += THREADS)
-    c1_s[i] = fn_ids[row0 + i] * zmc::DIM_STRIDE;
+  if constexpr (!SOBOL) {
+    for (int i = threadIdx.x; i < F_BLK; i += THREADS)
+      c1_s[i] = fn_ids[row0 + i] * zmc::DIM_STRIDE;
+  }
   for (int i = threadIdx.x; i < F_BLK * n_cols; i += THREADS)
     p_s[i] = packed[(size_t)row0 * n_cols + i];
-  for (int i = threadIdx.x; i < F_BLK * dim; i += THREADS) {
-    const float l = lo[(size_t)row0 * dim + i];
-    lo_s[i] = l;
-    w_s[i] = hi[(size_t)row0 * dim + i] - l;
-  }
-  if (SOBOL) {
-    for (int i = threadIdx.x; i < 32 * dim; i += THREADS) v_s[i] = sobol_dirs[i];
+  if constexpr (!SOBOL) {
     for (int i = threadIdx.x; i < F_BLK * dim; i += THREADS) {
-      const int f = i / dim, d = i % dim;
-      sh_s[i] = zmc::sobol_shift(k0, k1, fn_ids[row0 + f] * zmc::DIM_STRIDE + (uint32_t)d) >> 8;
+      const float l = lo[(size_t)row0 * dim + i];
+      lo_s[i] = l;
+      w_s[i] = hi[(size_t)row0 * dim + i] - l;
+    }
+  }
+  if constexpr (SOBOL) {
+    for (int i = threadIdx.x; i < 32 * dim; i += THREADS) v_s[i] = sobol_dirs[i] >> 8;
+  }
+  if constexpr (TABLE) {
+    for (int i = threadIdx.x; i < F_BLK * dim; i += THREADS) {
+      const int d = i / F_BLK, f = i % F_BLK;
+      const size_t j = (size_t)(row0 + f) * dim + d;
+      const float l = lo[j];
+      const uint32_t c1 = fn_ids[row0 + f] * zmc::DIM_STRIDE + (uint32_t)d;
+      tab[i] = make_uint4(__float_as_uint(l), __float_as_uint(hi[j] - l),
+                          SOBOL ? zmc::sobol_shift(k0, k1, c1) >> 8 : c1, 0u);
     }
   }
   __syncthreads();
@@ -258,11 +376,17 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
   }
   // form, tcol and acol are uniform across the block, so this switch never
   // diverges
+#define ZMC_DIMS(FORM, ADAPT)                                                            \
+  eval_chunk_dims<FORM, SOBOL, ADAPT>(p_s, tab, v_s, n_cols, acol, n_bins, dim, k0, k1,  \
+                                      window, begin, end, s1, s2);
 #define ZMC_RUN(FORM, S)                                                                 \
   if constexpr (SOBOL) {                                                                 \
-    eval_chunk_sobol<FORM, S>(p_s, lo_s, w_s, v_s, sh_s, pt_s, n_cols, S ? tcol : 0,     \
-                              S == 2 ? acol : -1, S == 2 ? n_bins : 0, dim, window,      \
-                              begin, end, s1, s2);                                       \
+    if constexpr (S == 0) {                                                              \
+      ZMC_DIMS(FORM, false)                                                              \
+    } else {                                                                             \
+      eval_chunk_sobol<FORM, S>(p_s, tab, v_s, n_cols, tcol, S == 2 ? acol : -1,         \
+                                S == 2 ? n_bins : 0, dim, window, begin, end, s1, s2);   \
+    }                                                                                    \
   } else {                                                                               \
     eval_chunk<FORM, S>(p_s, lo_s, w_s, c1_s, n_cols, S ? tcol : 0, S == 2 ? acol : -1,  \
                         S == 2 ? n_bins : 0, dim, k0, k1, window, begin, end, s1, s2);   \
@@ -270,7 +394,11 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
 #define ZMC_EVAL(FORM)          \
   if constexpr (STAGES == 2) {  \
     if (acol >= 0) {            \
-      ZMC_RUN(FORM, 2)          \
+      if (tcol >= 0) {          \
+        ZMC_RUN(FORM, 2)        \
+      } else {                  \
+        ZMC_DIMS(FORM, true)    \
+      }                         \
       break;                    \
     }                           \
   }                             \
@@ -294,6 +422,7 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
   }
 #undef ZMC_EVAL
 #undef ZMC_RUN
+#undef ZMC_DIMS
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;

@@ -12,8 +12,9 @@
 //     repro/kernels/template.py:compactified_body puts around a body;
 //   * the Sobol point of one index on one dim (sobol_point, the Gray-code
 //     construction of repro/core/sobol.py:sobol_bits and
-//     repro/kernels/template.py:sobol_tiles) and its digital shift
-//     (sobol_shift, repro/core/sobol.py:shifts_for);
+//     repro/kernels/template.py:sobol_tiles), the step from one index's
+//     point to that of the index 256 on (sobol_walk) and the digital
+//     shift (sobol_shift, repro/core/sobol.py:shifts_for);
 //   * the VEGAS importance map of one axis (apply_map_axis), the per-axis
 //     arithmetic of repro/core/adaptive.py:apply_map that the wrapper stage
 //     repro/kernels/template.py:adapted_body puts around a body.
@@ -105,6 +106,28 @@ ZMC_HD uint32_t sobol_point(const uint32_t* v, uint32_t idx) {
   for (int j = 0; j < 32; ++j)
     if ((gray >> j) & 1u) acc ^= v[j];
   return acc;
+}
+
+// The Gray-code walk along a stride-256 run of indices (a pass-1 thread's
+// samples idx, idx + 256, ...).  From idx to next = idx + 256 (u32 wrap),
+// gray(idx) changes in exactly two bits: bit 7 (idx's bit 8 flips, its
+// bit 7 does not) and bit 8 + ctz(next >> 8), the Gray step of the 24-bit
+// count idx >> 8.  Where that count wraps to 0 (next crosses 2^32) its Gray
+// code loses its top bit, gray bit 31: ctz of the count with bit 23 set
+// gives both cases.  So the point of next is the point of idx XOR v[7] XOR
+// v[sobol_walk_bit(next)], bit for bit, for direction vectors v of any
+// width (the kernel keeps their top 24 bits).
+ZMC_HD int sobol_walk_bit(uint32_t next) {
+  const uint32_t h = (next >> 8) | 0x800000u;
+#if defined(__CUDA_ARCH__)
+  return 7 + __ffs((int)h);
+#else
+  return 8 + __builtin_ctz(h);
+#endif
+}
+
+ZMC_HD uint32_t sobol_walk(const uint32_t* v, uint32_t point, uint32_t next) {
+  return point ^ v[7] ^ v[sobol_walk_bit(next)];
 }
 
 // Digital shift of (function, dim) with c1 = fn_id * DIM_STRIDE + d.

@@ -751,6 +751,29 @@ def sobol_cuda(k0: int, k1: int, idx: torch.Tensor, fn_ids: torch.Tensor,
     return rng.as_u32(pts), rng.as_u32(shs)
 
 
+def sobol_walk_cuda(start: int, n: int, dim: int, device) -> torch.Tensor:
+    """Sobol points of the indices ``start + i`` (u32 wrap), ``i < n``, as
+    pass 1 computes them (test-only kernel; nothing on the main path calls
+    it): one CUDA block of 256 threads, thread ``t`` building the point of
+    ``start + t`` and walking its stride-256 run in Gray-code order.
+    Returns int64 u32 points of shape ``(n, dim)`` on ``device``, to hold
+    against ``core.sobol.sobol_bits``."""
+    from repro_torch.kernels import build
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"sobol_walk_cuda needs a CUDA device; got {device}")
+    lib = build.load("zmc_fused_mc")
+    v = to_card(sobol_dirvecs(dim), device)
+    pts = torch.empty(n, dim, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.zmc_sobol_walk(v.data_ptr(), dim, int(start) & rng.MASK32, n,
+                                 pts.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"zmc_sobol_walk launch failed with CUDA error {err}")
+    return rng.as_u32(pts)
+
+
 def make_family_impl(form, sampler: str = "mc"):
     """Single-family impl of one form and sampler: pads the family to
     ``F_BLK`` rows and makes one :func:`fused_mc` launch."""

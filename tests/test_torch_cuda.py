@@ -265,6 +265,19 @@ def test_device_sobol_points_and_shifts_bit_exact(cuda):
         assert torch.equal(shs, want)
 
 
+def test_device_walked_sobol_points_bit_exact(cuda):
+    """The points pass 1 walks (each of 256 threads from its first index
+    along its stride-256 run, sobol_walk) against core.sobol at every
+    Sobol dim, over runs that cross 2^32."""
+    from repro_torch.core import sobol
+    start = 2**32 - 256 * 40 - 123
+    n = 256 * 90 + 17
+    idx = (start + torch.arange(n, dtype=torch.int64, device=cuda)) & rng.MASK32
+    for dim in range(1, sobol.MAX_DIM + 1):
+        pts = template.sobol_walk_cuda(start, n, dim, cuda)
+        assert torch.equal(pts, sobol.sobol_bits(idx, dim))
+
+
 def _sobol_bucket(device):
     spec = ZMCMultiFunctions(_compact_spec(device), device=device).spec
     (b,) = multi.plan_spec(spec, sampler="sobol").buckets

@@ -3,7 +3,8 @@
 ``src/repro_torch/kernels/csrc/zmc_device.cuh`` holds the per-sample
 arithmetic of the fused kernel (Threefry, the uniform, the affine map,
 the five eval bodies, the compactification's per-axis map, the
-importance grid's per-axis map and the Sobol point, shift and uniform)
+importance grid's per-axis map and the Sobol point, its walk, shift and
+uniform)
 as host/device inline functions.  This
 test
 compiles it with g++ through a small C shim into a shared library, loads
@@ -62,6 +63,15 @@ void host_sobol(const uint32_t* v, int dim, uint32_t k0, uint32_t k1,
       sh[i * dim + d] = zmc::sobol_shift(k0, k1, fn_ids[i] * zmc::DIM_STRIDE + d);
     }
 }
+// one thread's run of indices start + 256 k (u32 wrap), k < n, as the
+// kernel walks it: the point built at k = 0, then stepped by sobol_walk
+void host_sobol_walk(const uint32_t* v, int dim, uint32_t start, long n, uint32_t* pt) {
+  for (int d = 0; d < dim; ++d) pt[d] = zmc::sobol_point(v + 32 * d, start);
+  for (long k = 1; k < n; ++k)
+    for (int d = 0; d < dim; ++d)
+      pt[k * dim + d] = zmc::sobol_walk(v + 32 * d, pt[(k - 1) * dim + d],
+                                        start + (uint32_t)(256 * k));
+}
 void host_sobol_uniform(const uint32_t* pt, const uint32_t* sh, long n, float* out) {
   for (long i = 0; i < n; ++i) out[i] = zmc::sobol_uniform(pt[i] >> 8, sh[i] >> 8);
 }
@@ -112,6 +122,7 @@ def lib(tmp_path_factory):
     out.host_sobol.argtypes = [ptr, ctypes.c_int, u32, u32, ptr, ptr,
                                ctypes.c_long, ptr, ptr]
     out.host_sobol_uniform.argtypes = [ptr, ptr, ctypes.c_long, ptr]
+    out.host_sobol_walk.argtypes = [ptr, ctypes.c_int, u32, ctypes.c_long, ptr]
     out.host_apply_map.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_long, ptr,
                                    ptr]
     out.host_body_adapted.argtypes = [ctypes.c_int, ctypes.c_int, ptr,
@@ -119,7 +130,7 @@ def lib(tmp_path_factory):
                                       ctypes.c_int, ptr, ctypes.c_long, ptr]
     for f in (out.host_random_bits, out.host_uniform, out.host_body,
               out.host_transform, out.host_body_compact, out.host_sobol,
-              out.host_sobol_uniform, out.host_apply_map,
+              out.host_sobol_uniform, out.host_sobol_walk, out.host_apply_map,
               out.host_body_adapted):
         f.restype = None
     return out
@@ -245,6 +256,25 @@ def test_sobol_point_shift_and_uniform_bit_exact(lib, dim):
     want_u = np.asarray(jsobol.sobol_uniforms_for(k0, k1, fn[sub], idx[sub], dim))
     np.testing.assert_array_equal(u.reshape(n, dim)[sub],
                                   np.einsum("iid->id", want_u))
+
+
+@pytest.mark.parametrize("dim", range(1, 9))
+def test_sobol_walk_bit_exact(lib, dim):
+    """The header's Gray-code walk along one kernel thread's run of indices
+    (start, start + 256, ...), from a start near 2^32 across the wrap,
+    against sobol_bits of the port and of repro at every index."""
+    from repro.core import sobol as jsobol
+    from repro_torch.core import sobol
+    n = 300
+    for start in (2**32 - 256 * 120 - 77, 2**32 - 256 * 3 + 255, 2**32 - 256):
+        v = np.ascontiguousarray(jsobol.direction_vectors(dim))
+        pt = np.empty((n, dim), np.uint32)
+        lib.host_sobol_walk(_ptr(v), dim, start, n, _ptr(pt))
+        idx = ((start + 256 * np.arange(n, dtype=np.int64)) % 2**32).astype(np.uint32)
+        assert idx[-1] < idx[0]                            # the run crosses 2^32
+        np.testing.assert_array_equal(pt, np.asarray(jsobol.sobol_bits(idx, dim)))
+        want = sobol.sobol_bits(torch.from_numpy(idx.astype(np.int64)), dim)
+        np.testing.assert_array_equal(pt, want.numpy().astype(np.uint32))
 
 
 @pytest.mark.parametrize("n_bins", [1, 4, 16])

@@ -37,7 +37,7 @@ sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``):
    bound from the operations one trial needs, and reads the instruction
    mix nvcc emitted for pass 1's inner loops (``cuobjdump -sass``) beside
    the main path's registers and instructions per draw and their reference
-   values (108, 78.11);
+   values (96, 72.01: the dim-outer loop, 16 draws an iteration);
 8. times steady-state trials and profiles one (device busy and idle
    share, host operations by time);
 9. rounds: on the Fig.-1 buckets, one R = 4 launch at N = 65536 per round
@@ -49,7 +49,12 @@ sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``):
    mixed with finite families at N = 10^6: kernel vs plain estimates
    within the tolerance of step 7 (the kernel timed over warm launches,
    as in step 7), and 2-sigma coverage >= 0.85 of the Gaussians against
-   their analytic values;
+   their analytic values; then the same spec with ``sampler="sobol"``
+   (``fused_mc_pass1<1, true, true>``): kernel vs plain raw sums at
+   N = 65536 (rtol=1e-4, atol=1e-2) and estimates at N = 10^6 (as step
+   14), ``evaluate`` (3 launches, all Sobol and compactified), the same
+   coverage gate, and the kernel timed beside its bound (tan-map and
+   half-line axes counted as in the MC bound);
 11. the service on the launcher's defaults (64 requests, seven families
    at dims 2-4, 16384 samples in rounds of 8192, R <= 8), served
    synchronously, with the pipelined worker thread, and again after a
@@ -132,6 +137,7 @@ rest of the repository beside it, the script fails and prints no result.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -173,13 +179,26 @@ FP32_PER_VALUE = 30           # the body's finish (cos/sin/exp/log) and the sums
 # one warp instruction (32 lanes) each per clock.
 ALU_PER_CLK, FMA_PER_CLK, IMAD_PER_CLK, CONV_PER_CLK, ISSUE_PER_CLK = 64, 128, 64, 16, 128
 HBM_BYTES_PER_S = 3.35e12
-# The compactification of one axis, at least: the clamp, the map and the
-# Jacobian's products and its fold into the value in f32, and on the
-# special-function unit (16 per clock per SM: sine, cosine, reciprocal)
-# sin, cos and 1/cos for the tan map (tan = sin / cos, pi / cos^2) or one
-# reciprocal 1/(1-u) for a half-line (u / (1-u) and 1 / (1-u)^2 reuse it).
-FP32_PER_AXIS = 8
-SFU_PER_TAN_AXIS, SFU_PER_HALF_AXIS, SFU_PER_CLK = 3, 1, 16
+# The compactification of one axis, at least: what an f32 tan map and
+# half-line map must compute on the only path the clamp leaves them (|a| <
+# pi/2), whatever a compiler emits for them; what is the same for every
+# sample of a (function, dim), the kind and its tests, is left out.  Both
+# maps: the clamp's min and max (ALU pipe) and the Jacobian's product (1).
+# The tan map: u - 1/2 and the scale by pi (2); one range reduction shared
+# by sin and cos (the quadrant rounded with a shifter constant and taken
+# back, 2, its parity read from the sum's bits, 1 ALU; three Cody-Waite
+# products, 3); r^2 (1); the sin polynomial to r^7 (2 Horner steps, r r^2
+# and the last FMA, 4) and the cos polynomial to r^8 (4); the quadrant's
+# swap of sin and cos and its sign (3 ALU); one reciprocal of the cosine
+# (1 SFU) with its Newton step (2), shared by tan = sin / cos (the
+# quotient, its residual and its correction, 3) and the Jacobian pi / cos^2
+# (2): 24 FP32, 1 SFU, 6 ALU.  The half-line map: 1 - u (1); one reciprocal
+# (1 SFU) with its Newton step (2), shared by u / (1 - u) (3) and the
+# Jacobian 1 / (1 - u)^2 (1); the shift (1): 9 FP32, 1 SFU, 2 ALU.
+# Reciprocals go to the special-function unit, 16 per clock per SM.
+TAN_AXIS = dict(fp32=2 + 2 + 3 + 1 + 4 + 4 + 2 + 3 + 2 + 1, sfu=1, conv=0, alu=2 + 1 + 3)
+HALF_AXIS = dict(fp32=1 + 2 + 3 + 1 + 1 + 1, sfu=1, conv=0, alu=2)
+SFU_PER_CLK = 16
 
 # The least a Sobol point costs per (sample index, dim), walked in Gray-code
 # order: the index's trailing ones (a NOT, a bit reverse and a
@@ -338,13 +357,15 @@ def op_bound_ms(draws: float, values: float, n_sm: int, clock_hz: float,
     draws through the compactification's tan map and half-line map,
     ``adapt_axes`` draws through an importance grid and ``adapt_values``
     the values its Jacobian multiplies."""
-    alu_only = draws * TF_ALU_ONLY + adapt_axes * ALU_PER_ADAPT_AXIS
+    def axes(k):                        # the compactification's operations of kind k
+        return tan_axes * TAN_AXIS[k] + half_axes * HALF_AXIS[k]
+
+    alu_only = draws * TF_ALU_ONLY + adapt_axes * ALU_PER_ADAPT_AXIS + axes("alu")
     adds = draws * TF_ADDS
-    fp = (draws * FP32_PER_DRAW + values * FP32_PER_VALUE
-          + (tan_axes + half_axes) * FP32_PER_AXIS
+    fp = (draws * FP32_PER_DRAW + values * FP32_PER_VALUE + axes("fp32")
           + adapt_axes * FP32_PER_ADAPT_AXIS + adapt_values)
-    conv = draws * CONV_PER_DRAW + adapt_axes * CONV_PER_ADAPT_AXIS
-    sfu = tan_axes * SFU_PER_TAN_AXIS + half_axes * SFU_PER_HALF_AXIS
+    conv = draws * CONV_PER_DRAW + adapt_axes * CONV_PER_ADAPT_AXIS + axes("conv")
+    sfu = axes("sfu")
 
     def pipes(a):                       # a: adds issued on the ALU pipe
         return max((alu_only + a) / ALU_PER_CLK, (adds - a) / IMAD_PER_CLK,
@@ -360,7 +381,7 @@ def op_bound_ms(draws: float, values: float, n_sm: int, clock_hz: float,
 
 
 def sobol_op_bound_ms(draws: float, values: float, point_dims: float, n_sm: int,
-                      clock_hz: float, tan_axes: float = 0.0,
+                      clock_hz: float, tan_axes: float = 0.0, half_axes: float = 0.0,
                       adapt_axes: float = 0.0, adapt_values: float = 0.0) -> dict:
     """The least time the card needs for a Sobol launch's operations, per
     resource (ms).  A draw is one XOR with its shift on the ALU pipe, one
@@ -368,13 +389,17 @@ def sobol_op_bound_ms(draws: float, values: float, point_dims: float, n_sm: int,
     costs SOBOL_ALU_PER_POINT ALU operations per distinct (sample index,
     dim) the launch draws (``point_dims``, from :func:`distinct_point_dims`),
     once however many functions and blocks share it; the values cost what
-    they cost under MC, and the stages (``tan_axes``, ``adapt_axes``,
-    ``adapt_values``) what they cost in :func:`op_bound_ms`."""
-    alu = draws + point_dims * SOBOL_ALU_PER_POINT + adapt_axes * ALU_PER_ADAPT_AXIS
-    conv = draws * CONV_PER_DRAW + adapt_axes * CONV_PER_ADAPT_AXIS
-    fp = (draws * FP32_PER_DRAW + values * FP32_PER_VALUE + tan_axes * FP32_PER_AXIS
+    they cost under MC, and the stages (``tan_axes``, ``half_axes``,
+    ``adapt_axes``, ``adapt_values``) what they cost in :func:`op_bound_ms`."""
+    def axes(k):                        # the compactification's operations of kind k
+        return tan_axes * TAN_AXIS[k] + half_axes * HALF_AXIS[k]
+
+    alu = (draws + point_dims * SOBOL_ALU_PER_POINT + adapt_axes * ALU_PER_ADAPT_AXIS
+           + axes("alu"))
+    conv = draws * CONV_PER_DRAW + adapt_axes * CONV_PER_ADAPT_AXIS + axes("conv")
+    fp = (draws * FP32_PER_DRAW + values * FP32_PER_VALUE + axes("fp32")
           + adapt_axes * FP32_PER_ADAPT_AXIS + adapt_values)
-    sfu = tan_axes * SFU_PER_TAN_AXIS
+    sfu = axes("sfu")
     clocks = {"ALU pipe": alu / ALU_PER_CLK, "FMA pipes": fp / FMA_PER_CLK,
               "issue": (alu + conv + fp + sfu) / ISSUE_PER_CLK,
               "conversion": conv / CONV_PER_CLK,
@@ -419,6 +444,41 @@ ALU_OPS = ("IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "FSETP", "SEL",
 FMA_OPS = ("IMAD", "FFMA", "FADD", "FMUL")
 
 
+@functools.lru_cache(maxsize=2)
+def _cuobjdump(lib_path) -> str | None:
+    import shutil
+    from repro_torch.kernels import build
+    tool = (shutil.which("cuobjdump")
+            or os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump"))
+    try:
+        out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                             text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return out.stdout if out.returncode == 0 else None
+
+
+def sass_listing(lib_path, function: str) -> list[tuple] | None:
+    """(address, opcode, operands) of each instruction of
+    the function whose mangled name contains ``function``, from
+    ``cuobjdump -sass`` of the built library; None when the tool is missing
+    or its listing cannot be read."""
+    import re
+    listing = _cuobjdump(str(lib_path))
+    if listing is None:
+        return None
+    body, inside = [], False
+    for line in listing.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside:
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+                          line)
+            if m:
+                body.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return body
+
+
 def sass_loops(lib_path, function: str = "fused_mc_pass1ILi0ELb0ELb0EE") -> list[dict] | None:
     """Instruction mix of the innermost loops of one pass-1 instantiation
     (by default the main path's MC one without compactified or swept
@@ -430,26 +490,9 @@ def sass_loops(lib_path, function: str = "fused_mc_pass1ILi0ELb0ELb0EE") -> list
     emitted, not a check."""
     import collections
     import re
-    import shutil
-    from repro_torch.kernels import build
-    tool = (shutil.which("cuobjdump")
-            or os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump"))
-    try:
-        out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                             text=True, timeout=120)
-    except OSError:
+    body = sass_listing(lib_path, function)
+    if body is None:
         return None
-    if out.returncode != 0:
-        return None
-    body, inside = [], False
-    for line in out.stdout.splitlines():
-        if "Function :" in line:
-            inside = function in line
-        elif inside:
-            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
-                          line)
-            if m:
-                body.append((int(m.group(1), 16), m.group(2), m.group(3)))
     loops = []
     for addr, op, args in body:
         t = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
@@ -784,9 +827,9 @@ def main() -> None:
               f"(ALU {per_draw['alu']:.2f} / {ALU_PER_CLK}, all "
               f"{per_draw['instr']:.2f} / {ISSUE_PER_CLK} per draw per clock per SM)")
     print(f"main path fused_mc_pass1<0,false,false>: "
-          f"{pass1['<0,false,false>']['registers']} registers (its reference allocation: 108), "
+          f"{pass1['<0,false,false>']['registers']} registers (its reference allocation: 96), "
           + (f"{per_draw['instr']:.2f}" if loops else "not measured")
-          + " SASS instructions per draw (reference: 78.11)")
+          + " SASS instructions per draw (reference: 72.01)")
 
     # -- 8. where a steady-state trial's time goes ---------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -908,6 +951,76 @@ def main() -> None:
           f"{compact_ms:.3f} ms, plain {compact_plain_ms:.1f} ms, bound "
           f"{compact_bound:.3f} ms (kernel at {100 * compact_bound / compact_ms:.1f}%): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in c_op.items()) + f"; on {card}")
+    print("compactified pass 1: " + pass1_report(
+        built["zmc_fused_mc"]["path"], pass1["<1,false,true>"], "<1,false,true>"))
+    print(f"compactification per axis in the bounds: tan map {TAN_AXIS}, half-line "
+          f"{HALF_AXIS}")
+
+    # compactified Sobol: the same spec through fused_mc_pass1<1, true, true>
+    cszmc = ZMCMultiFunctions(cspec, n_samples=N_MAIN, seed=3, use_kernel=True,
+                              sampler="sobol", device="cuda")
+    csplan = cszmc._get_fusion_plan()
+    check(csplan.unfused == () and csplan.n_launches == 3 and csplan.sampler == "sobol",
+          f"compactified Sobol spec: {csplan.n_launches} buckets, unfused {csplan.unfused}")
+    cs_kw = [dict(sampler="sobol", dirvecs=b.dirvecs, block_tcols=b.block_tcols)
+             for b in csplan.buckets]
+    cs_err = 0.0
+    for b, kw in zip(csplan.buckets, cs_kw):
+        k_out = launch_bucket(template.fused_mc_cuda, b, N_CHECK, key, **kw)
+        p_out = launch_bucket(template.fused_mc_plain, b, N_CHECK, key, sampler="sobol",
+                              block_tcols=b.block_tcols)
+        torch.cuda.synchronize()
+        cs_err = max(cs_err, compare_sums(b, k_out, p_out, N_CHECK))
+    template.reset_kernel_launch_count()
+    csres = cszmc.evaluate(num_trials=1)
+    cs_counts = variant_counts({"fused_mc": True, "fused_mc_sobol": True,
+                                "fused_mc_compactified": True},
+                               "compactified Sobol evaluate")
+    check(cs_counts["fused_mc_sobol"] == cs_counts["fused_mc_compactified"]
+          == csplan.n_launches, "a compactified Sobol launch ran as MC or unstaged")
+    covered, total = 0, 0
+    for idx, (region, d) in c_exact.items():
+        sl = slice(offs[idx], offs[idx] + cspec.families[idx].n_fn)
+        want = gaussian_analytic(64, d, half=region != "R^d")
+        covered += int((np.abs(csres.means[0][sl] - want) <= 2 * csres.stderrs[0][sl]).sum())
+        total += len(want)
+    cover_cs = covered / total
+    print(f"compactified Gaussians, Sobol: 2-sigma coverage {cover_cs:.4f} over "
+          f"{total} integrals at N={N_MAIN}")
+    check(cover_cs >= 0.85, f"compactified Sobol coverage {cover_cs} < 0.85")
+
+    def compact_sobol_launches():
+        return [launch_bucket(template.fused_mc_cuda, b, N_MAIN, key, **kw)
+                for b, kw in zip(csplan.buckets, cs_kw)]
+
+    compact_sobol_launches()
+    torch.cuda.synchronize()
+    ev0.record()
+    for _ in range(TIMING_REPS):
+        csk_outs = compact_sobol_launches()
+    ev1.record()
+    torch.cuda.synchronize()
+    cs_ms = ev0.elapsed_time(ev1) / TIMING_REPS
+    ev0.record()
+    csp_outs = [launch_bucket(template.fused_mc_plain, b, N_MAIN, key, sampler="sobol",
+                              block_tcols=b.block_tcols) for b in csplan.buckets]
+    ev1.record()
+    torch.cuda.synchronize()
+    cs_plain_ms = ev0.elapsed_time(ev1)
+    for b, k_out, p_out in zip(csplan.buckets, csk_outs, csp_outs):
+        cs_err = max(cs_err, compare_estimates(b, k_out, p_out, N_MAIN))
+    cs_pts = distinct_point_dims(csplan, N_MAIN)
+    cs_op = sobol_op_bound_ms(c_draws, c_values, cs_pts, n_sm, clock_hz, tan_axes,
+                              half_axes)
+    cs_bound = max(cs_op.values())
+    compact_sobol = dict(launches=cs_counts["fused_mc_compactified"], max_abs_err=cs_err,
+                         ms=cs_ms, plain_ms=cs_plain_ms, bound_ms=cs_bound)
+    print(f"compactified Sobol buckets (3 launches, {c_draws:.4g} draws, {cs_pts:.4g} "
+          f"distinct point dims): kernel {cs_ms:.3f} ms, plain {cs_plain_ms:.1f} ms, "
+          f"bound {cs_bound:.3f} ms (kernel at {100 * cs_bound / cs_ms:.1f}%): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in cs_op.items()) + f"; on {card}")
+    print("compactified Sobol pass 1: " + pass1_report(
+        built["zmc_fused_mc"]["path"], pass1["<1,true,true>"], "<1,true,true>"))
 
     # -- 11. the service on the launcher's defaults --------------------------
     import tempfile
@@ -1763,6 +1876,8 @@ def main() -> None:
              launches=service_counts["fused_mc_compactified"],
              max_abs_err=compact_err, ms=compact_ms, plain_ms=compact_plain_ms,
              bound_ms=compact_bound),
+        dict(entry, name="fused_mc_sobol_compactified",
+             replaces="src/repro/kernels/template.py:189", **compact_sobol),
         dict(entry, name="fused_mc_sobol",
              replaces="src/repro/kernels/template.py:172",
              launches=sobol_counts["fused_mc_sobol"], max_abs_err=sobol_err,

@@ -1,5 +1,5 @@
-"""Fault tolerance for the integration driver: restart-on-exception and
-a step watchdog (port of the framework-free part of
+"""Fault tolerance for the integration driver: restart-on-exception, a
+step watchdog and a re-issuable work queue (port of
 ``repro.distributed.fault_tolerance``).
 
 * :func:`run_with_restarts` wraps a driver body; on any exception it
@@ -8,6 +8,9 @@ a step watchdog (port of the framework-free part of
   so a restart replays the identical computation.
 * :class:`StepWatchdog` tracks a running median of step time and records
   a :class:`StragglerEvent` for steps slower than ``threshold x median``.
+* :class:`WorkQueue` hands out (sample_offset, n_samples) chunks and puts
+  a failed worker's chunk back at the front: counters make any chunk
+  recomputable by any worker.
 """
 
 from __future__ import annotations
@@ -75,3 +78,43 @@ def run_with_restarts(body: Callable[[int], Any], *, max_restarts: int = 3,
             if attempt == max_restarts:
                 raise
     raise AssertionError("unreachable")
+
+
+class WorkQueue:
+    """Re-issuable chunk queue for the MC engine (counter-addressed work).
+
+    Chunks are (sample_offset, n_samples) ranges; because the RNG is
+    counter-based, *any* worker can (re)compute any chunk at any time and
+    the merged result is independent of who computed what.
+    """
+
+    def __init__(self, total_samples: int, chunk: int):
+        self.chunk = chunk
+        self.pending: list[tuple[int, int]] = [
+            (off, min(chunk, total_samples - off))
+            for off in range(0, total_samples, chunk)]
+        self.in_flight: dict[int, tuple[int, int]] = {}
+        self.done: list[tuple[int, int]] = []
+        self._next_ticket = 0
+
+    def take(self) -> tuple[int, tuple[int, int]] | None:
+        """The next pending chunk and its ticket, or None when none is
+        pending."""
+        if not self.pending:
+            return None
+        item = self.pending.pop(0)
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        self.in_flight[ticket] = item
+        return ticket, item
+
+    def complete(self, ticket: int) -> None:
+        self.done.append(self.in_flight.pop(ticket))
+
+    def fail(self, ticket: int) -> None:
+        """Worker died: its chunk goes back to the front of pending."""
+        self.pending.insert(0, self.in_flight.pop(ticket))
+
+    @property
+    def finished(self) -> bool:
+        return not self.pending and not self.in_flight

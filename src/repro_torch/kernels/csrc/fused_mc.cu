@@ -36,21 +36,22 @@
 // and dim), of which 38 rotates, xors and shifts can issue only on the
 // 64-lane-per-SM ALU pipe; against that stand a few float operations and
 // 8 bytes of parameters per (function, dim) for the whole launch.  A
-// compactified axis adds a tanf and a cosf (or a division) per draw, an
-// adapted axis a bin select, two shared-memory loads of its edges and an
-// interpolation (about 10 operations).  The
-// design keeps all of it in registers: no random bit ever touches memory,
-// the packed rows and boxes sit in shared memory, each rotate is one funnel
-// shift, and the grid (16-function block x round x 16384-sample chunk)
-// gives every SM several blocks at the paper's Fig.-1 size.  The main
-// path's loop takes one function at a time, its dims inside: the Threefry
-// chain of 60-odd dependent operations is latency the other warps hide.
-// An adapted block (no transform column) takes the dims outside and its 16
-// functions inside instead, so 16 independent draws and their edge loads
-// are in flight at once, from a per-block table u32x4[dim, 16] (lo,
-// hi - lo, c1) read with one 16-byte load per draw; the adapted
-// instantiation runs at two blocks per SM.  Its blocks with a transform
-// column keep the function-outer loop around the transform's call.
+// compactified axis adds the precise tanf, cosf and divisions of its map
+// (about 28 float operations, 2 reciprocals and 13 ALU operations for the
+// tan map), an adapted axis a bin select, two shared-memory loads of its
+// edges and an interpolation (about 10 operations).  The design keeps all
+// of it in registers: no random bit ever touches memory, the packed rows
+// and boxes sit in shared memory, each rotate is one funnel shift, and the
+// grid (16-function block x round x 16384-sample chunk) gives every SM
+// several blocks at the paper's Fig.-1 size.  A block without a transform
+// column (the main path's, and the adapted blocks') takes the dims outside
+// and its 16 functions inside, so 16 independent Threefry chains (or
+// points) and their loads are in flight at once, from a per-block table
+// u32x4[dim, 16] (lo, hi - lo, c1) read with one 16-byte load per draw.  A
+// block with a transform column and MC draws takes one function at a time
+// and that function's run of samples inside, its sums in two registers,
+// with the transform inlined: without 16-wide arrays the precise
+// functions' long chains need no call and no spills.
 //
 // The Sobol draw has no Threefry: each thread walks its samples' points
 // (c0, c0 + 256, ...) in Gray-code order, one register per dim (built in
@@ -64,9 +65,9 @@
 // three Sobol instantiations run at two blocks per SM.
 //
 // Determinism: no float atomics.  Each thread sums its samples in sample
-// order; in the dim-outer loops the rounding of each sum is pinned with
-// _rn intrinsics (fused_mc_pass1.cuh add_sums), so they give the same bits
-// as the function-outer loops they replaced.  Pass 1 reduces each block's
+// order, whichever loop is outermost, and the rounding of each sum is
+// pinned with _rn intrinsics (fused_mc_pass1.cuh add_sums), so every loop
+// order gives the same bits.  Pass 1 reduces each block's
 // per-thread partials in a fixed order (warp shuffles, then shared memory
 // across warps) into scratch[n_rounds, n_fn_pad, n_chunks, 2]; pass 2 sums
 // each (round, function)'s chunk partials in index order.  Chunks start at 0
@@ -184,10 +185,10 @@ int zmc_fused_mc(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_va
   if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int stages = (has_stages & 2) ? 2 : (has_stages & 1) ? 1 : 0;
-  // see fused_mc_pass1: the table (Sobol or adapted launches), then the rest
-  const size_t smem = sizeof(float) * ((size_t)F_BLK * n_cols +
-                                       (sobol ? (size_t)32 * dim : (size_t)F_BLK * (1 + 2 * dim))) +
-                      (sobol || stages == 2 ? sizeof(uint4) * F_BLK * dim : 0);
+  // see fused_mc_pass1: the table, the packed rows and, for Sobol, the
+  // direction vectors
+  const size_t smem = sizeof(uint4) * F_BLK * dim +
+                      sizeof(float) * ((size_t)F_BLK * n_cols + (sobol ? (size_t)32 * dim : 0));
   const zmc::Pass1Args a{k0,     k1,         sample_offset, n_valid, round_stride, n_rounds,
                          round_base, fn_ids, block_meta, n_sweep, sobol_dirs, packed,
                          n_cols, lo,         hi,            dim,     n_fn_pad,     n_chunks,

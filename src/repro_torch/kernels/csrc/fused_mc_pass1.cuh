@@ -52,9 +52,9 @@ constexpr int CHUNK_SAMPLES = CHUNK_BLOCKS * S_BLK;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
-// One axis of a compactified block.  Not inlined: the precise tanf/cosf
-// would otherwise be copied into each of the 16 unrolled functions of
-// every form's loop.  Returns (x, dx/du) in registers.
+// One axis of a compactified block, as a call: the Sobol transform loop
+// unrolls its 16 functions, and inlined there the precise tanf/cosf would
+// be copied into each of them.  Returns (x, dx/du) in registers.
 __device__ __noinline__ float2 transform_axis(float x, float kind, float shift) {
   float jac;
   const float y = zmc::apply_transform(x, kind, shift, &jac);
@@ -67,7 +67,9 @@ __device__ __noinline__ float2 transform_axis(float x, float kind, float shift) 
 // compactification where tcol >= 0 (a test uniform across the CUDA block,
 // so it never diverges).  Each stage's Jacobian product is folded into the
 // value after the body, the transform's first, as repro composes them.
-template <int STAGE>
+// INLINE: the transform inlined (the MC loop, one function at a time), or
+// the call above (the Sobol loop).
+template <int STAGE, bool INLINE>
 __device__ __forceinline__ float stage_axis(float x, const float* __restrict__ p, int tcol,
                                             int acol, int n_bins, int d, int dim,
                                             float& jac_t, float& jac_a) {
@@ -77,9 +79,15 @@ __device__ __forceinline__ float stage_axis(float x, const float* __restrict__ p
     jac_a *= w;
   }
   if (STAGE == 1 || (STAGE == 2 && tcol >= 0)) {
-    const float2 xj = transform_axis(x, p[tcol + d], p[tcol + dim + d]);
-    x = xj.x;
-    jac_t *= xj.y;
+    float j;
+    if constexpr (INLINE) {
+      x = zmc::apply_transform(x, p[tcol + d], p[tcol + dim + d], &j);
+    } else {
+      const float2 xj = transform_axis(x, p[tcol + d], p[tcol + dim + d]);
+      x = xj.x;
+      j = xj.y;
+    }
+    jac_t *= j;
   }
   return x;
 }
@@ -91,55 +99,83 @@ __device__ __forceinline__ float staged_value(float v, float jac_t, float jac_a)
   return v;
 }
 
-template <int FORM, int STAGE>
-__device__ __forceinline__ void eval_chunk(const float* __restrict__ p_s,
-                                           const float* __restrict__ lo_s,
-                                           const float* __restrict__ w_s,
-                                           const uint32_t* __restrict__ c1_s,
-                                           int n_cols, int tcol, int acol, int n_bins,
-                                           int dim, uint32_t k0, uint32_t k1,
-                                           uint32_t window, uint32_t begin, uint64_t end,
-                                           float (&s1)[F_BLK], float (&s2)[F_BLK]) {
-  for (uint64_t local = (uint64_t)begin + threadIdx.x; local < end; local += THREADS) {
-    const uint32_t c0 = window + (uint32_t)local;
-#pragma unroll
-    for (int f = 0; f < F_BLK; ++f) {
-      const float* p = p_s + f * n_cols;
-      float acc = zmc::Body<FORM>::init(p);
-      float jac = 1.0f, jac_a = 1.0f;
-      for (int d = 0; d < dim; ++d) {
-        const uint32_t bits = zmc::random_bits(k0, k1, c0, c1_s[f] + (uint32_t)d);
-        float x = zmc::affine(lo_s[f * dim + d], w_s[f * dim + d],
-                              zmc::bits_to_uniform(bits));
-        if (STAGE) x = stage_axis<STAGE>(x, p, tcol, acol, n_bins, d, dim, jac, jac_a);
-        acc = zmc::Body<FORM>::step(acc, x, p, d);
-      }
-      const float v = staged_value<STAGE>(zmc::Body<FORM>::fin(acc, p, dim), jac, jac_a);
-      s1[f] += v;
-      s2[f] += v * v;
-    }
-  }
-}
-
-static_assert(THREADS == 256, "SobolRun and zmc::sobol_walk step 256 indices");
-
-// s1 += v and s2 += v * v for one value of the loops below, each rounded as
-// the function-outer loops they replaced rounded it.  There the compiler
-// chose per site whether to fuse v * v + s2 into one FMA: it did for every
-// form and stage except the Sobol draws of the forms whose value ends in
-// expf (the Gaussian and the Genz corner peak) without a grid (STAGE 0 or
-// 1); it never fused v's own last multiply into s1 += v (measured on
-// every form and loop with `kernel_ab`'s every_form variants).  The new
-// loops give the compiler other sites, so each sum's rounding is pinned
-// here with the _rn intrinsics, which it never contracts.
-template <int FORM, int STAGE>
+// s1 += v and s2 += v * v for one value, each sum rounded as the compiler
+// rounded it in the loop order with the 16 functions inside each sample,
+// where it chose per site whether to fuse v * v + s2 into one FMA: it did
+// for every form and stage of the MC draws, and for every form and stage
+// of the Sobol draws except the forms whose value ends in expf (the
+// Gaussian and the Genz corner peak) without a grid (STAGE 0 or 1); it
+// never fused v's own last multiply into s1 += v (measured on every form
+// and loop with `kernel_ab`'s every_form variants).  Each loop order gives
+// the compiler other sites, so each sum's rounding is pinned here with the
+// _rn intrinsics, which it never contracts, and every loop gives the same
+// bits.
+template <int FORM, int STAGE, bool SOBOL>
 __device__ __forceinline__ void add_sums(float& s1, float& s2, float v) {
   s1 = __fadd_rn(s1, v);
-  if constexpr ((FORM == zmc::FORM_GAUSSIAN || FORM == zmc::FORM_GENZ_CORNER) && STAGE < 2)
+  if constexpr (SOBOL && (FORM == zmc::FORM_GAUSSIAN || FORM == zmc::FORM_GENZ_CORNER) &&
+                STAGE < 2)
     s2 = __fadd_rn(s2, __fmul_rn(v, v));
   else
     s2 = __fmaf_rn(v, v, s2);
 }
+
+// One function's sums over a warp's 32 lanes into red[warp][f]: a shuffle
+// tree in a fixed order, lane 0 ending with the warp's sums.
+__device__ __forceinline__ void warp_partial(float (&red)[WARPS][F_BLK][2], int f, float a,
+                                             float b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5][f][0] = a;
+    red[threadIdx.x >> 5][f][1] = b;
+  }
+}
+
+// The MC draw of a compactified block (STAGE 1, or 2: after the grid): one
+// function at a time, each the thread's whole run of samples (c0, c0 + 256,
+// ...) with its dims inside, its sums in two registers, reduced over the
+// warp into red when the run ends.  A thread's sums take the same values
+// in the same sample order as with the 16 functions inside each sample, so
+// the bits do not depend on the loop order.  No 16-wide arrays stay live
+// through the loop (it needs 40 registers alone), and the function loop is
+// not unrolled, so the transform (its precise tanf, cosf and divisions) is
+// inlined once per form instead of called: no call barrier, no registers
+// saved around it, and the draws, the transform and the body of one sample
+// schedule together.
+template <int FORM, int STAGE>
+__device__ __forceinline__ void eval_chunk(const float* __restrict__ p_s,
+                                           const uint4* __restrict__ tab,
+                                           int n_cols, int tcol, int acol, int n_bins,
+                                           int dim, uint32_t k0, uint32_t k1,
+                                           uint32_t window, uint32_t begin, uint64_t end,
+                                           float (&red)[WARPS][F_BLK][2]) {
+#pragma unroll 1
+  for (int f = 0; f < F_BLK; ++f) {
+    const float* p = p_s + f * n_cols;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (uint64_t local = (uint64_t)begin + threadIdx.x; local < end; local += THREADS) {
+      const uint32_t c0 = window + (uint32_t)local;
+      float acc = zmc::Body<FORM>::init(p);
+      float jac = 1.0f, jac_a = 1.0f;
+      for (int d = 0; d < dim; ++d) {
+        const uint4 a = tab[d * F_BLK + f];
+        float x = zmc::affine(__uint_as_float(a.x), __uint_as_float(a.y),
+                              zmc::bits_to_uniform(zmc::random_bits(k0, k1, c0, a.z)));
+        x = stage_axis<STAGE, true>(x, p, tcol, acol, n_bins, d, dim, jac, jac_a);
+        acc = zmc::Body<FORM>::step(acc, x, p, d);
+      }
+      const float v = staged_value<STAGE>(zmc::Body<FORM>::fin(acc, p, dim), jac, jac_a);
+      add_sums<FORM, STAGE, false>(s1, s2, v);
+    }
+    warp_partial(red, f, s1, s2);
+  }
+}
+
+static_assert(THREADS == 256, "SobolRun and zmc::sobol_walk step 256 indices");
 
 // One thread's Sobol points along its run of samples c0, c0 + 256, ...
 // (local = begin + tid + k * 256: THREADS must be 256): one register per
@@ -173,15 +209,16 @@ struct SobolRun {
   }
 };
 
-// A block's loop dim by dim, the 16 functions inside each dim: for Sobol
-// draws without staged blocks, and for the blocks of either sampler with an
-// importance grid and no compactification (ADAPT).  The 16 functions'
-// chains are independent, so a dim's shared-memory loads (its row of tab:
-// lo, hi - lo and the shift or c1 of each function; the grid edges) and
-// its draws overlap across functions instead of waiting one function at a
-// time.  Each function's float operations are those of eval_chunk and
-// stage_axis, in the same order, and add_sums rounds its sums as the loop
-// it replaced did, so they are bit-identical.
+// A block's loop dim by dim, the 16 functions inside each dim: for the MC
+// and Sobol launches without stages (the main path's among them), and for
+// the blocks of either sampler with an importance grid and no
+// compactification (ADAPT).  The 16 functions' chains are independent, so
+// a dim's shared-memory loads (its row of tab: lo, hi - lo and the shift
+// or c1 of each function; the grid edges) and its draws (16 Threefry
+// chains, or the shifted point) overlap across functions instead of
+// waiting one function at a time.  Each function's float operations are
+// those of eval_chunk and stage_axis, in the same order, and add_sums
+// rounds its sums as the loops it replaced did, so they are bit-identical.
 template <int FORM, bool SOBOL, bool ADAPT>
 __device__ __forceinline__ void eval_chunk_dims(const float* __restrict__ p_s,
                                                 const uint4* __restrict__ tab,
@@ -222,7 +259,7 @@ __device__ __forceinline__ void eval_chunk_dims(const float* __restrict__ p_s,
     for (int f = 0; f < F_BLK; ++f) {
       float v = zmc::Body<FORM>::fin(acc[f], p_s + f * n_cols, dim);
       if constexpr (ADAPT) v = staged_value<2>(v, 1.0f, jac_a[f]);
-      add_sums<FORM, ADAPT ? 2 : 0>(s1[f], s2[f], v);
+      add_sums<FORM, ADAPT ? 2 : 0, SOBOL>(s1[f], s2[f], v);
     }
     if constexpr (SOBOL) run.step(v_s, dim, c0 + THREADS);
   }
@@ -252,11 +289,11 @@ __device__ __forceinline__ void eval_chunk_sobol(const float* __restrict__ p_s,
         const uint4 a = tab[d * F_BLK + f];
         float x = zmc::affine(__uint_as_float(a.x), __uint_as_float(a.y),
                               zmc::sobol_uniform(run.at(d), a.z));
-        x = stage_axis<STAGE>(x, p, tcol, acol, n_bins, d, dim, jac, jac_a);
+        x = stage_axis<STAGE, false>(x, p, tcol, acol, n_bins, d, dim, jac, jac_a);
         acc = zmc::Body<FORM>::step(acc, x, p, d);
       }
       const float v = staged_value<STAGE>(zmc::Body<FORM>::fin(acc, p, dim), jac, jac_a);
-      add_sums<FORM, STAGE>(s1[f], s2[f], v);
+      add_sums<FORM, STAGE, true>(s1[f], s2[f], v);
     }
     run.step(v_s, dim, window + (uint32_t)local + THREADS);
   }
@@ -270,27 +307,29 @@ __device__ __forceinline__ void eval_chunk_sobol(const float* __restrict__ p_s,
 // column) pair of a swept block (-1: none), row 2 + 2 n_sweep -1 for an
 // unadapted block or the first of an adapted block's dim * (n_bins + 1)
 // grid-edge columns, and row 3 + 2 n_sweep its n_bins.  Dynamic shared
-// memory: for SOBOL or STAGES 2 first the table of eval_chunk_dims,
-// u32x4[dim, 16] (lo, hi - lo, and the shift's top 24 bits or c1 of each
-// (dim, function)), then for MC the c1 base u32[16], the packed rows
-// f32[16, n_cols], for MC lo and hi - lo f32[16, dim] each, and for SOBOL
-// the direction vectors' top 24 bits u32[dim, 32].  SWEPT compiles the sweep pairs' copy in (taken
-// when n_sweep > 0 and the block is swept); STAGES 1 adds the compactified
+// memory: first the table every loop reads, u32x4[dim, 16] (lo, hi - lo,
+// and the shift's top 24 bits or c1 of each (dim, function)); then the
+// packed rows f32[16, n_cols]; and for SOBOL the direction vectors' top 24
+// bits u32[dim, 32].
+// Every block without a transform column runs eval_chunk_dims (with the
+// grid where acol >= 0); a block with one runs eval_chunk (MC) or
+// eval_chunk_sobol.  SWEPT compiles the sweep pairs' copy in (taken when
+// n_sweep > 0 and the block is swept); STAGES 1 adds the compactified
 // blocks' loop (taken where tcol >= 0), STAGES 2 the adapted blocks' loops
-// too (taken where acol >= 0: eval_chunk_dims without a transform column,
-// the function-outer loop with one).  Seven instantiations, built from
-// six sources in parallel (launch_pass1 below): the MC launch without
-// staged or swept blocks (<0, false, false>, the main path) runs code and a
-// register allocation that neither the stages, the Sobol point nor the copy
-// shape (the copy alone, in the load phase, cost it 0.35%); MC swept
-// launches have <0, false, true>; MC launches with compactified blocks
+// too (taken where acol >= 0).  Seven instantiations, built from six
+// sources in parallel (launch_pass1 below): the MC launch without staged or
+// swept blocks (<0, false, false>, the main path) runs code and a register
+// allocation that neither the stages, the Sobol point nor the copy shape
+// (the copy alone, in the load phase, cost it 0.35%); MC swept launches
+// have <0, false, true>; MC launches with compactified blocks
 // <1, false, true> and with adapted ones <2, false, true> (sharing one
 // instantiation cost the compactified blocks 1.0%); Sobol launches
 // <0|1|2, true, true>, each with the copy in.  The adapted and the Sobol
 // instantiations are held to two blocks per SM (128 registers); the others
-// name no minimum (0), so the compiler allocates them as it did before.
-// A swept block differs from its per-point families only in that copy:
-// the sample loop does the same float operations on the same values.
+// name no minimum (0): a minimum of 3 for the main path's 96 registers
+// spilled and cost it 1.3%.  A swept block differs from its per-point
+// families only in that copy: the sample loop does the same float
+// operations on the same values.
 template <int STAGES, bool SOBOL, bool SWEPT>
 __global__ void __launch_bounds__(THREADS, (SOBOL || STAGES == 2) ? 2 : 0)
 fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_valid,
@@ -300,17 +339,11 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
                const float* __restrict__ packed, int n_cols, const float* __restrict__ lo,
                const float* __restrict__ hi, int dim, int n_fn_pad, int n_chunks,
                float* __restrict__ scratch) {
-  constexpr bool TABLE = SOBOL || STAGES == 2;
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[WARPS][F_BLK][2];
   uint4* tab = reinterpret_cast<uint4*>(smem);
-  // the MC loops' c1 base, lo and hi - lo (a Sobol launch reads its table)
-  constexpr int MC_ROWS = SOBOL ? 0 : 1;
-  uint32_t* c1_s = reinterpret_cast<uint32_t*>(smem + (TABLE ? 4 * F_BLK * dim : 0));
-  float* p_s = reinterpret_cast<float*>(c1_s) + MC_ROWS * F_BLK;
-  float* lo_s = p_s + F_BLK * n_cols;
-  float* w_s = lo_s + MC_ROWS * F_BLK * dim;
-  uint32_t* v_s = reinterpret_cast<uint32_t*>(w_s + MC_ROWS * F_BLK * dim);
+  float* p_s = smem + 4 * F_BLK * dim;
+  uint32_t* v_s = reinterpret_cast<uint32_t*>(p_s + F_BLK * n_cols);
 
   const int chunk = blockIdx.x % n_chunks;
   const int fr = blockIdx.x / n_chunks;
@@ -318,31 +351,18 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
   const int fb = fr / n_rounds;
   const int row0 = fb * F_BLK;
   const int n_fblocks = n_fn_pad / F_BLK;
-  if constexpr (!SOBOL) {
-    for (int i = threadIdx.x; i < F_BLK; i += THREADS)
-      c1_s[i] = fn_ids[row0 + i] * zmc::DIM_STRIDE;
-  }
   for (int i = threadIdx.x; i < F_BLK * n_cols; i += THREADS)
     p_s[i] = packed[(size_t)row0 * n_cols + i];
-  if constexpr (!SOBOL) {
-    for (int i = threadIdx.x; i < F_BLK * dim; i += THREADS) {
-      const float l = lo[(size_t)row0 * dim + i];
-      lo_s[i] = l;
-      w_s[i] = hi[(size_t)row0 * dim + i] - l;
-    }
-  }
   if constexpr (SOBOL) {
     for (int i = threadIdx.x; i < 32 * dim; i += THREADS) v_s[i] = sobol_dirs[i] >> 8;
   }
-  if constexpr (TABLE) {
-    for (int i = threadIdx.x; i < F_BLK * dim; i += THREADS) {
-      const int d = i / F_BLK, f = i % F_BLK;
-      const size_t j = (size_t)(row0 + f) * dim + d;
-      const float l = lo[j];
-      const uint32_t c1 = fn_ids[row0 + f] * zmc::DIM_STRIDE + (uint32_t)d;
-      tab[i] = make_uint4(__float_as_uint(l), __float_as_uint(hi[j] - l),
-                          SOBOL ? zmc::sobol_shift(k0, k1, c1) >> 8 : c1, 0u);
-    }
+  for (int i = threadIdx.x; i < F_BLK * dim; i += THREADS) {
+    const int d = i / F_BLK, f = i % F_BLK;
+    const size_t j = (size_t)(row0 + f) * dim + d;
+    const float l = lo[j];
+    const uint32_t c1 = fn_ids[row0 + f] * zmc::DIM_STRIDE + (uint32_t)d;
+    tab[i] = make_uint4(__float_as_uint(l), __float_as_uint(hi[j] - l),
+                        SOBOL ? zmc::sobol_shift(k0, k1, c1) >> 8 : c1, 0u);
   }
   __syncthreads();
   // a swept block: each table column over the base column it overrides
@@ -358,9 +378,11 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
     __syncthreads();
   }
 
+  // the dim-outer loops' sums; eval_chunk reduces its own into red
   float s1[F_BLK], s2[F_BLK];
 #pragma unroll
   for (int f = 0; f < F_BLK; ++f) s1[f] = s2[f] = 0.0f;
+  bool in_red = false;
 
   // round r's window, in u32 arithmetic that wraps as the TPU kernel's does
   const uint32_t window = sample_offset + (round_base != nullptr ? round_base[fb] : 0u) +
@@ -380,16 +402,15 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
   eval_chunk_dims<FORM, SOBOL, ADAPT>(p_s, tab, v_s, n_cols, acol, n_bins, dim, k0, k1,  \
                                       window, begin, end, s1, s2);
 #define ZMC_RUN(FORM, S)                                                                 \
-  if constexpr (SOBOL) {                                                                 \
-    if constexpr (S == 0) {                                                              \
-      ZMC_DIMS(FORM, false)                                                              \
-    } else {                                                                             \
-      eval_chunk_sobol<FORM, S>(p_s, tab, v_s, n_cols, tcol, S == 2 ? acol : -1,         \
-                                S == 2 ? n_bins : 0, dim, window, begin, end, s1, s2);   \
-    }                                                                                    \
+  if constexpr (S == 0) {                                                                \
+    ZMC_DIMS(FORM, false)                                                                \
+  } else if constexpr (SOBOL) {                                                          \
+    eval_chunk_sobol<FORM, S>(p_s, tab, v_s, n_cols, tcol, S == 2 ? acol : -1,           \
+                              S == 2 ? n_bins : 0, dim, window, begin, end, s1, s2);     \
   } else {                                                                               \
-    eval_chunk<FORM, S>(p_s, lo_s, w_s, c1_s, n_cols, S ? tcol : 0, S == 2 ? acol : -1,  \
-                        S == 2 ? n_bins : 0, dim, k0, k1, window, begin, end, s1, s2);   \
+    eval_chunk<FORM, S>(p_s, tab, n_cols, tcol, S == 2 ? acol : -1, S == 2 ? n_bins : 0,  \
+                        dim, k0, k1, window, begin, end, red);                           \
+    in_red = true;                                                                       \
   }
 #define ZMC_EVAL(FORM)          \
   if constexpr (STAGES == 2) {  \
@@ -424,20 +445,9 @@ fused_mc_pass1(uint32_t k0, uint32_t k1, uint32_t sample_offset, uint32_t n_vali
 #undef ZMC_RUN
 #undef ZMC_DIMS
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  if (!in_red) {
 #pragma unroll
-  for (int f = 0; f < F_BLK; ++f) {
-    float a = s1[f], b = s2[f];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a += __shfl_down_sync(0xffffffffu, a, off);
-      b += __shfl_down_sync(0xffffffffu, b, off);
-    }
-    if (lane == 0) {
-      red[warp][f][0] = a;
-      red[warp][f][1] = b;
-    }
+    for (int f = 0; f < F_BLK; ++f) warp_partial(red, f, s1[f], s2[f]);
   }
   __syncthreads();
   if (threadIdx.x < F_BLK * 2) {

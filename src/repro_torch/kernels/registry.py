@@ -13,6 +13,7 @@ PyTorch version switches on too.
 
 Dispatch entry points:
 
+* :func:`register` — a bare callable under a name, without metadata.
 * :func:`get` — name -> impl, raising on unknown names.
 * :func:`lookup` — capability-checked: the impl if the named form
   supports (dim, sampler, compactified, sweep, adapted), else ``None``
@@ -105,6 +106,17 @@ class KernelForm:
             from repro_torch.core.sobol import MAX_DIM
             return dim <= MAX_DIM
         return True
+
+
+def register(name: str):
+    """Register a bare callable under ``name`` (no capability metadata);
+    raises ``ValueError`` if the name is taken."""
+    def deco(fn: Callable) -> Callable:
+        if name in _REGISTRY:
+            raise ValueError(f"kernel {name!r} already registered")
+        _REGISTRY[name] = fn
+        return fn
+    return deco
 
 
 def register_form(form: KernelForm) -> KernelForm:

@@ -16,6 +16,11 @@ events) and prints its median ms per library:
 - ``compactified``: ``chip_smoke.compact_spec``, compactified as
   ``evaluate`` does, at N = 10^6 (3 launches); ``compactified_sobol``:
   the same with Sobol draws;
+- ``rounds``: one wave of service configuration 2 as ``chip_smoke.py``
+  step 12 launches it, the Fig.-1 spec as requests of 2^20 samples in
+  rounds of 65536: R = 8 rounds per launch from per-block window starts
+  (the second wave's, round 8), through ``multi.launch_plan_rounds`` (3
+  launches);
 - ``sweep_mc``, ``sweep_sobol``: one wave of service configuration 3, the
   4-d harmonic template swept over a 32 x 32 (a, b) grid, rounds of
   65536 samples, R = 8 (one launch);
@@ -27,9 +32,10 @@ events) and prints its median ms per library:
 - ``every_form_sobol``, ``every_form_mc``: each of the five forms through
   every loop of the kernel (:func:`every_form_spec`: finite,
   compactified, adapted and compactified-then-adapted families) at
-  N = 2^20, Sobol launches of the finite families alone, with the
-  compactified ones and with all four kinds (the three Sobol
-  instantiations), and the MC launch of all four kinds.
+  N = 2^20, per sampler three launches: the finite families alone, with
+  the compactified ones and with all four kinds (the instantiations
+  ``<0|1|2, true, true>`` for Sobol, ``<0, false, false>``,
+  ``<1, false, true>`` and ``<2, false, true>`` for MC).
 It fails unless both libraries' outputs agree bit for bit.  Needs one
 card; builds into ``kernels/_build/``.
 """
@@ -144,23 +150,22 @@ def variants(device):
             block_adapt=bk.block_adapt, block_meta=bk.block_meta,
             dirvecs=bk.dirvecs) for bk in plan.buckets]
 
-    def wave(plan):
+    def wave(plan, start_round=0):
+        starts = {sl.family_index: start_round for bk in plan.buckets for sl in bk.slices}
         return lambda: multi.launch_plan_rounds(
             plan, chip_smoke.FULL_ROUND, chip_smoke.FULL_R, key,
-            start_rounds={0: 0})[1]
+            start_rounds=starts)[1]
 
     out = {name: trial(plan) for name, plan in plans.items()}
+    out["rounds"] = wave(plans["mc"], chip_smoke.FULL_R)
     for sampler in ("mc", "sobol"):
         out[f"sweep_{sampler}"] = wave(multi.plan_spec(sweep, sampler=sampler))
     for sampler in ("mc", "sobol"):
         out[f"adapted_{sampler}"] = trial(multi.plan_spec(aspec, sampler=sampler))
-    every_plans = [multi.plan_spec(k, sampler="sobol") for k in kinds]
-
-    def every_sobol():
-        return [o for plan in every_plans for o in trial_at(plan, 1 << 20)()]
-
-    out["every_form_sobol"] = every_sobol
-    out["every_form_mc"] = trial_at(multi.plan_spec(kinds[-1]), 1 << 20)
+    for sampler in ("sobol", "mc"):
+        every_plans = [multi.plan_spec(k, sampler=sampler) for k in kinds]
+        out[f"every_form_{sampler}"] = (
+            lambda ps=every_plans: [o for p in ps for o in trial_at(p, 1 << 20)()])
     return out
 
 

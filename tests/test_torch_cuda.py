@@ -163,6 +163,49 @@ def test_compactified_kernel_vs_plain(cuda):
     torch.testing.assert_close(got[real], want[real], rtol=1e-4, atol=1e-2)
 
 
+def test_compactified_sobol_kernel_vs_plain(cuda):
+    """A Sobol launch whose blocks are all compactified (fused_mc_pass1<1,
+    true, true>, its transform loop only) against the plain version within
+    repro's Sobol bound."""
+    inf = float("inf")
+    spec = ZMCMultiFunctions(integrand.MultiFunctionSpec.from_families([
+        integrand.gaussian_family(16, 3, lo=-inf, hi=inf),
+        integrand.gaussian_family(16, 3, lo=0.0, hi=inf),
+        integrand.gaussian_family(16, 3, lo=-inf, hi=0.5),
+    ]).to(cuda), device="cuda").spec
+    (b,) = multi.plan_spec(spec, sampler="sobol").buckets
+    assert (b.block_tcols >= 0).all()
+    key, n = rng.fold_key(6, 5), 65536
+    args = (template.pack_scalars(key, 2**32 - 3000, n), b.fn_ids, b.packed, b.lo, b.hi,
+            b.block_forms)
+    kw = dict(dim=b.dim, n_sample_blocks=n // template.S_BLK, block_tcols=b.block_tcols,
+              sampler="sobol")
+    template.reset_kernel_launch_count()
+    got = template.fused_mc_cuda(*args, dirvecs=b.dirvecs, **kw)[0]
+    counts = template.kernel_launch_counts()
+    assert counts["fused_mc_sobol"] == counts["fused_mc_compactified"] == 1
+    want = template.fused_mc_plain(*args, **kw)[0]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("form", range(5))
+def test_mc_loop_per_form_vs_plain(cuda, form):
+    """Each form alone in an MC launch without stages
+    (fused_mc_pass1<0, false, false>, the main path's loop), its window
+    crossing 2^32 and its last chunk cut, against the plain version."""
+    fam = _spec(cuda).families[form]
+    (b,) = multi.plan_spec(integrand.MultiFunctionSpec.from_families([fam])).buckets
+    assert set(b.block_forms.tolist()) == {form}
+    key, n, offset = rng.fold_key(9, 5), 2048 * 9 + 5, 2**32 - 20000
+    template.reset_kernel_launch_count()
+    got = _launch(template.fused_mc_cuda, b, n, key, offset)
+    assert template.kernel_launch_counts()["fused_mc"] == 1
+    want = _launch(template.fused_mc_plain, b, n, key, offset)
+    real = torch.arange(fam.n_fn, device=cuda)
+    torch.testing.assert_close(got[real], want[real], rtol=1e-4, atol=1e-2)
+
+
 def test_pipelined_service_on_card(cuda):
     from repro_torch.launch.serve_integrals import demo_workload
     from repro_torch.service import IntegrationEngine

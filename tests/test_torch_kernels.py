@@ -68,6 +68,27 @@ def _rows(sums, n_fn=None):
     return np.stack([s1, s2], -1)
 
 
+def test_register_bare_callable():
+    """``registry.register`` as repro's: the decorated callable comes back
+    unchanged and ``get`` reaches it; a second registration under the
+    same name raises and keeps the first."""
+    name = "test_bare_kernel"
+
+    def fn(x):
+        return x + 1
+
+    try:
+        assert registry.register(name)(fn) is fn
+        assert registry.get(name) is fn
+        with pytest.raises(ValueError, match="already registered"):
+            registry.register(name)(lambda x: x)
+        assert registry.get(name) is fn
+        with pytest.raises(ValueError, match="already registered"):
+            registry.register("mc_eval_harmonic")(fn)
+    finally:
+        registry._REGISTRY.pop(name, None)
+
+
 # -- packing and scalars, bit for bit -----------------------------------------
 
 def test_form_ids_and_capabilities():

@@ -196,8 +196,7 @@ def host_fused_mc(lib, bucket, sampler, key, offset, n, n_rounds=1, round_base=N
             else np.ascontiguousarray(np.asarray(round_base, np.int64).astype(np.uint32)))
     scratch = np.full((n_rounds, n_pad, n_chunks, 2), UNWRITTEN, np.uint32).view(np.float32)
     # zmc_fused_mc's dynamic shared memory, in bytes
-    smem = (4 * (16 * n_cols + (32 * dim if sobol else 16 * (1 + 2 * dim)))
-            + (16 * 16 * dim if sobol or stages == 2 else 0))
+    smem = 16 * 16 * dim + 4 * (16 * n_cols + (32 * dim if sobol else 0))
 
     def ptr(a):
         return None if a is None else a.ctypes.data
@@ -265,11 +264,13 @@ def test_host_pass1_matches_plain(lib, specs, kind, sampler):
 
 
 @pytest.mark.parametrize("sampler", ["mc", "sobol"])
-def test_host_pass1_rounds_equal_single_rounds(lib, specs, sampler):
-    """An R = 2 launch with per-block window starts (one crossing 2^32):
-    each round bit-identical to a single-round launch at its window, and
-    within tolerance of the plain version with the same rounds."""
-    (bucket,) = multi.plan_spec(specs["adapted"], sampler=sampler).buckets
+@pytest.mark.parametrize("kind", ["plain", "compactified", "adapted"])
+def test_host_pass1_rounds_equal_single_rounds(lib, specs, kind, sampler):
+    """An R = 2 launch with per-block window starts (one crossing 2^32) on
+    each instantiation (<0|1|2, sampler, *>): each round bit-identical to a
+    single-round launch at its window, and within tolerance of the plain
+    version with the same rounds."""
+    (bucket,) = multi.plan_spec(specs[kind], sampler=sampler).buckets
     key = rng.fold_key(15, 4)
     n = 4096
     n_blocks = bucket.fn_ids.shape[0] // template.F_BLK

@@ -16,7 +16,8 @@ repro_torch.launch.serve_integrals``) on the launcher's default workload,
 on the Fig.-1 spec served as requests (MC and Sobol) and on a full-width
 parameter sweep (MC and Sobol), VEGAS-adapted families through
 ``evaluate`` and adaptive requests through the service, and stratified
-sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``):
+sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``), and the
+multi-device path (a mesh of one NCCL rank, then four gloo ranks):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -123,10 +124,26 @@ sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``):
    its HBM bound and ``torch.var_mean``; ``eval_strata(use_kernel=True)``
    (one launch) against the plain path; ``ZMCNormal`` with its defaults
    on an 8-d Genz Gaussian peak, 5 trials, within 4 trial standard
-   deviations of the exact value; then prints the ``{"kernels": [...]}``
+   deviations of the exact value;
+20. the multi-device path (``mesh=``): the Fig.-1 evaluate at N = 10^6 x
+   10 trials, MC and Sobol, on a (1, 1) mesh of a world-size-1 NCCL group,
+   sha256-equal to steps 6 and 14 with 30 launches each, timed beside one
+   device in turns (the collectives' cost); then four gloo ranks spawned
+   on this card (not scaling: they split it), each holding its launches
+   to the CUDA kernel: the (1, 4) mesh's per-function sums sha256-equal to
+   the single launch, (4, 1) and (2, 2) raw sums at N = 65538 within the
+   ROADMAP's tolerances of one device with n exact and estimates at 10^6
+   within 1e-2 of a standard error of steps 6 and 14, one digest over the
+   ranks and repeats of (2, 2), an R = 4 sharded launch sha256-equal to 4
+   single rounds, service configuration 2 on (2, 2) against step 12,
+   ``ZMCNormal`` at dim 8 on (2, 2) (the moments kernel per rank) against
+   step 19, ``compressed_psum`` within its int8 bound, and each rank's
+   kernel ms for its shard of a Fig.-1 trial (against plain at 65536)
+   beside the collectives' ms; then prints the ``{"kernels": [...]}``
    line, one entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
-   ``fused_mc_sobol_adapted``) and the stratum-moments kernel.
+   ``fused_mc_sobol_adapted``, a rank's shard on the (2, 2) mesh as
+   ``fused_mc_sharded``) and the stratum-moments kernel.
 
 Every path is driven with the kernel's launch counters set to 0 just
 before it and read just after; a variant the path should run and did
@@ -238,6 +255,11 @@ RESUME_TARGET = 5e-5
 # strata of 2048 samples, depth 8, k_split 32; and a matrix of 512 MiB to
 # read the stratum-moments kernel's bandwidth
 NORMAL_DIM, NORMAL_SPLITS, NORMAL_N_PER, NORMAL_TRIALS = 8, 3, 2048, 5
+# step 20: four gloo ranks share the card; raw sums at an n not divisible by
+# them, against one device within the ROADMAP's tolerances
+MESH_RANKS = 4
+N_ODD = N_CHECK + 2
+MESH_TOL = {"mc": dict(rtol=5e-5, atol=5e-3), "sobol": dict(rtol=1e-4, atol=1e-2)}
 BIG_MOMENTS = (32768, 4096)
 
 
@@ -650,6 +672,197 @@ def served_digest(results) -> str:
     return h.hexdigest()
 
 
+def mesh_rank() -> dict:
+    """One of step 20's four gloo ranks, all on the card of the parent:
+    every mesh check that needs the ranks, returned to the parent (which
+    holds them against the single-device steps) as numpy and numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import genz, rng
+    from repro_torch.core.multifunctions import ZMCMultiFunctions
+    from repro_torch.core.normal import ZMCNormal
+    from repro_torch.distributed import collectives, compression
+    from repro_torch.kernels import template
+    from repro_torch.kernels.mc_eval import multi
+    from repro_torch.kernels.moments import ops as mops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.service import IntegrationEngine, IntegrationRequest
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    device = torch.device("cuda", 0)
+    spec, _ = fig1_spec(device)
+    key = rng.fold_key(0, 0)
+    plans = {s: multi.plan_spec(spec, sampler=s) for s in ("mc", "sobol")}
+    meshes = {shape: make_mesh_for(model_parallel=shape[1], device="cuda")
+              for shape in ((1, MESH_RANKS), (MESH_RANKS, 1), (2, 2))}
+    out = {"rank": rank}
+
+    def digest(states) -> str:
+        h = hashlib.sha256()
+        for i in sorted(states):
+            h.update(states[i].s1.cpu().numpy().tobytes())
+            h.update(states[i].s2.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def sharded(plan, n, mesh):
+        """sharded_eval_plan with the launches counted: every one through
+        the CUDA kernel, on the card."""
+        template.reset_kernel_launch_count()
+        got = multi.sharded_eval_plan(plan, n, key, mesh)
+        torch.cuda.synchronize()
+        check(template.kernel_launch_count() == plan.n_launches,
+              f"rank {rank}: {template.kernel_launch_count()} CUDA launches for "
+              f"{plan.n_launches} buckets")
+        check(all(st.s1.device.type == "cuda" for st in got.values()),
+              f"rank {rank}: sums left the card")
+        return got
+
+    # (1, 4), functions only: each function's sums the single launch's bits
+    out["fn_only_equal"] = {}
+    for s, plan in plans.items():
+        one = multi.eval_plan(plan, N_MAIN, key)
+        got = sharded(plan, N_MAIN, meshes[(1, MESH_RANKS)])
+        out["fn_only_equal"][s] = sum(digest({0: got[i]}) == digest({0: one[i]})
+                                      for i in one)
+    # (4, 1) and (2, 2): raw sums at N_ODD against one device, n exact, the
+    # estimates at N_MAIN (held by the parent against steps 6 and 14)
+    for shape in ((MESH_RANKS, 1), (2, 2)):
+        mesh = meshes[shape]
+        for s, plan in plans.items():
+            one = multi.eval_plan(plan, N_ODD, key)
+            got = sharded(plan, N_ODD, mesh)
+            ok = all(torch.allclose(got[i].s1, one[i].s1, **MESH_TOL[s])
+                     and torch.allclose(got[i].s2, one[i].s2, **MESH_TOL[s])
+                     for i in one)
+            worst = max(float((got[i].s1 - one[i].s1).abs().max()) for i in one)
+            again = digest(sharded(plan, N_ODD, mesh))
+            zmc = ZMCMultiFunctions(spec, n_samples=N_MAIN, seed=0, use_kernel=True,
+                                    sampler=s, mesh=mesh)
+            template.reset_kernel_launch_count()
+            mops.reset_kernel_launch_count()
+            est = zmc.evaluate(num_trials=1)
+            torch.cuda.synchronize()
+            out[(shape, s)] = dict(
+                sums_ok=ok, max_abs=worst, digest=digest(got), repeat=again,
+                n_exact=all(float(st.n) == N_ODD for st in got.values()),
+                means=est.means[0], stderrs=est.stderrs[0],
+                counts=template.kernel_launch_counts())
+    mesh = meshes[(2, 2)]
+    # R = 4 rounds in one sharded launch against 4 single-round ones
+    start = {i: 3 * i for i in range(len(spec.families))}
+    _, stack = multi.sharded_eval_plan_rounds(plans["mc"], N_ROUND, ROUNDS, key, mesh,
+                                              start_rounds=start)
+    same = 0
+    for r in range(ROUNDS):
+        _, one = multi.sharded_eval_plan_rounds(
+            plans["mc"], N_ROUND, 1, key, mesh,
+            start_rounds={i: v + r for i, v in start.items()})
+        same += all(sha256_of(a[r]) == sha256_of(b[0]) for a, b in zip(stack, one))
+    out["rounds_same"] = same
+    # service configuration 2 on (2, 2), in memory
+    engine = IntegrationEngine(round_samples=FULL_ROUND, max_rounds_per_wave=FULL_R,
+                               mesh=mesh)
+    template.reset_kernel_launch_count()
+    tickets = [engine.submit(IntegrationRequest.make([f], n_samples=N_FULL))
+               for f in spec.families]
+    while engine.step():
+        pass
+    served = [engine.poll(t) for t in tickets]
+    torch.cuda.synchronize()
+    out["service"] = dict(means=np.concatenate([r.means for r in served]),
+                          stderrs=np.concatenate([r.stderrs for r in served]),
+                          launches=template.kernel_launch_count(),
+                          waves=engine.stats.waves,
+                          fallback=engine.batcher.fallback_rounds)
+    engine.close()
+    # ZMCNormal at dim 8, samples over all four ranks, moments on the card
+    gpeak = genz.gaussian_peak(1, NORMAL_DIM)[0].to(device)
+
+    def normal_fn(x):
+        return gpeak.fn(x.reshape(1, -1, NORMAL_DIM), gpeak.params).reshape(x.shape[:-1])
+
+    mops.reset_kernel_launch_count()
+    t0 = time.perf_counter()
+    nres = ZMCNormal(normal_fn, np.tile([[0.0, 1.0]], (NORMAL_DIM, 1)), seed=0,
+                     mesh=mesh, use_kernel=True).evaluate(num_trials=NORMAL_TRIALS)
+    torch.cuda.synchronize()
+    out["normal"] = dict(integral=nres.integral, trial_std=nres.trial_std,
+                         s_per_trial=(time.perf_counter() - t0) / NORMAL_TRIALS,
+                         moments_launches=mops.kernel_launch_count())
+    # compressed_psum over "data" against the exact sum and its int8 bound
+    x = torch.randn(4096, device=device, generator=torch.Generator(
+        device=device).manual_seed(20 + collectives.axis_index(mesh, ("data",))))
+    exact = collectives.psum_fixed(x, mesh, ("data",))
+    comp = compression.compressed_psum(x, mesh, "data")
+    amax = float(collectives.pmax(x.abs().max(), mesh, ("data",)))
+    out["compressed"] = dict(err=float((comp - exact).abs().max()),
+                             bound=2 * amax / 127 + 1e-5,
+                             on_card=comp.device.type == "cuda")
+    # the kernel on this rank's shard of one Fig.-1 trial: against its plain
+    # version at N_CHECK, then timed at N_MAIN with the ranks taking turns
+    per_shard, first, n_local = multi._sample_window(mesh, ("data",), N_MAIN)
+    rbs = multi._rank_buckets(plans["mc"], mesh, "model")
+    err = 0.0
+    for rb in rbs:
+        scal = template.pack_scalars(key, first, N_CHECK)
+        k = multi._launch_local(rb, scal, N_CHECK // template.S_BLK, "mc")[0]
+        b = rb.local
+        p = template.fused_mc_plain(scal, b.fn_ids, b.packed, b.lo, b.hi, b.block_forms,
+                                    dim=b.dim, n_sample_blocks=N_CHECK // template.S_BLK,
+                                    block_tcols=b.block_tcols)[0]
+        real = torch.zeros(b.fn_ids.shape[0], dtype=torch.bool, device=device)
+        r0 = rb.b0 * template.F_BLK
+        for sl in rb.padded.slices:
+            lo_r, hi_r = max(sl.row_start, r0), min(sl.row_start + sl.n_fn, r0 + real.numel())
+            if lo_r < hi_r:
+                real[lo_r - r0:hi_r - r0] = True
+        check(torch.allclose(k[real], p[real], rtol=RTOL, atol=ATOL),
+              f"rank {rank}: the kernel disagrees with plain on its shard")
+        err = max(err, float((k[real] - p[real]).abs().max()))
+    rows = [int(sum(max(0, min(sl.row_start + sl.n_fn, (rb.b1) * template.F_BLK)
+                        - max(sl.row_start, rb.b0 * template.F_BLK))
+                    for sl in rb.padded.slices)) for rb in rbs]
+    out["shard"] = dict(max_abs_err=err, n_local=n_local,
+                        draws=sum(n * rb.local.dim for n, rb in zip(rows, rbs)) * n_local,
+                        values=sum(rows) * n_local)
+    scal = template.pack_scalars(key, first, n_local)
+    blocks = -(-per_shard // template.S_BLK)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for turn in range(world):
+        dist.barrier()
+        if turn != rank:
+            continue
+        parts = [multi._launch_local(rb, scal, blocks, "mc")[0] for rb in rbs]
+        torch.cuda.synchronize()
+        ev0.record()
+        for _ in range(TIMING_REPS):
+            parts = [multi._launch_local(rb, scal, blocks, "mc")[0] for rb in rbs]
+        ev1.record()
+        torch.cuda.synchronize()
+        out["shard"]["ms"] = ev0.elapsed_time(ev1) / TIMING_REPS
+        if rank == 0:
+            ev0.record()
+            for rb in rbs:
+                b = rb.local
+                template.fused_mc_plain(scal, b.fn_ids, b.packed, b.lo, b.hi,
+                                        b.block_forms, dim=b.dim, n_sample_blocks=blocks,
+                                        block_tcols=b.block_tcols)
+            ev1.record()
+            torch.cuda.synchronize()
+            out["shard"]["plain_ms"] = ev0.elapsed_time(ev1)
+    dist.barrier()
+    parts = [multi._launch_local(rb, scal, blocks, "mc")[0] for rb in rbs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMING_REPS):
+        for part in parts:
+            collectives.psum_gather_rows(part, mesh, ("data",), "model")
+    torch.cuda.synchronize()
+    out["shard"]["collectives_ms"] = (time.perf_counter() - t0) * 1e3 / TIMING_REPS
+    return out
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     t_start = time.perf_counter()
@@ -743,6 +956,7 @@ def main() -> None:
     check(launches == plan.n_launches * TRIALS,
           f"expected {plan.n_launches * TRIALS} kernel launches, got {launches}")
     main_counts = variant_counts({"fused_mc": True}, "evaluate path")
+    main_est = (res.means.copy(), res.stderrs.copy())    # held again in step 20
     check(res.means.shape == (TRIALS, spec.n_fn_total), "bad result shape")
     check(bool(np.isfinite(res.means).all() and np.isfinite(res.stderrs).all()),
           "non-finite estimates")
@@ -1861,6 +2075,161 @@ def main() -> None:
           f"{n_wall / NORMAL_TRIALS:.3f} s per trial")
     check(n_dev <= 4 * nres.trial_std, "ZMCNormal is off its exact value")
 
+    # -- 20. the multi-device path: a mesh of one NCCL rank, then four gloo ranks
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_mesh_for
+    t20 = time.perf_counter()
+
+    def est_digest(means, stderrs) -> str:
+        return hashlib.sha256(np.ascontiguousarray(means).tobytes()
+                              + np.ascontiguousarray(stderrs).tobytes()).hexdigest()
+
+    # (a) world size 1 under NCCL, a (1, 1) mesh: the single-device bits
+    with tempfile.TemporaryDirectory() as rv:
+        dist.init_process_group("nccl", init_method=f"file://{rv}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            mesh11 = make_mesh_for(device="cuda")
+            for sampler, (m_ref, s_ref) in (("mc", main_est),
+                                            ("sobol", (sres.means, sres.stderrs))):
+                z = ZMCMultiFunctions(spec, n_samples=N_MAIN, seed=0, use_kernel=True,
+                                      sampler=sampler, mesh=mesh11)
+                template.reset_kernel_launch_count()
+                t0 = time.perf_counter()
+                r1 = z.evaluate(num_trials=TRIALS)
+                torch.cuda.synchronize()
+                w1 = (time.perf_counter() - t0) / TRIALS
+                n1 = template.kernel_launch_count()
+                same = est_digest(r1.means, r1.stderrs) == est_digest(m_ref, s_ref)
+                print(f"mesh (1, 1), NCCL, {sampler}: evaluate(num_trials={TRIALS}) at "
+                      f"N={N_MAIN}: {n1} kernel launches, {w1:.4f} s per trial (wall); "
+                      f"means and stderrs sha256 {'equal' if same else 'DIFFER'} to "
+                      f"the single-device run's (step {6 if sampler == 'mc' else 14})")
+                check(n1 == plan.n_launches * TRIALS, f"mesh (1, 1) {sampler}: {n1} launches")
+                check(same, f"mesh (1, 1) {sampler}: not the single-device bits")
+                if sampler == "mc":
+                    # steady state beside one device, in turns: one, mesh,
+                    # mesh, one; 3 trials each
+                    ws1_steady = {"one": [], "mesh": []}
+                    for side, zz in (("one", zmc), ("mesh", z), ("mesh", z), ("one", zmc)):
+                        t0 = time.perf_counter()
+                        zz.evaluate(num_trials=3)
+                        torch.cuda.synchronize()
+                        ws1_steady[side].append((time.perf_counter() - t0) / 3)
+            outs = [launch_bucket(template.fused_mc_cuda, b, N_MAIN, key)[0]
+                    for b in plan.buckets]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                for o in outs:
+                    collectives.psum_gather_rows(o, mesh11, ("data",), "model")
+            torch.cuda.synchronize()
+            ws1_coll = (time.perf_counter() - t0) * 1e3 / 20
+        finally:
+            dist.destroy_process_group()
+    one_s, mesh_s = (sum(ws1_steady[k]) / 2 for k in ("one", "mesh"))
+    print(f"mesh (1, 1), NCCL: steady state {1e3 * mesh_s:.3f} ms per trial against "
+          f"{1e3 * one_s:.3f} on one device, in turns (one, mesh, mesh, one; 3 trials "
+          f"each: one {', '.join(f'{1e3 * v:.3f}' for v in ws1_steady['one'])}, mesh "
+          f"{', '.join(f'{1e3 * v:.3f}' for v in ws1_steady['mesh'])}): "
+          f"{1e3 * (mesh_s - one_s):+.3f} ms per trial; the three gathers of one trial "
+          f"alone {ws1_coll:.3f} ms; on {card}")
+
+    # (b) four gloo ranks sharing this card (not scaling: one card's time is
+    # split among them)
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(mesh_rank, MESH_RANKS, device="cuda", backend="gloo",
+                            timeout=600)
+    print(f"{MESH_RANKS} gloo ranks on one card: {time.perf_counter() - t0:.1f} s "
+          f"(process start, mesh setup and every check)")
+    n_fam = len(spec.families)
+    for rk in ranks:
+        check(rk["fn_only_equal"] == {"mc": n_fam, "sobol": n_fam},
+              f"rank {rk['rank']}: mesh (1, {MESH_RANKS}): per-function sums differ "
+              f"from the single launch: {rk['fn_only_equal']}")
+    print(f"mesh (1, {MESH_RANKS}), functions only: every family's sums sha256-equal to "
+          f"the single-device launch on all {MESH_RANKS} ranks, MC and Sobol, N={N_MAIN}")
+    for shape in ((MESH_RANKS, 1), (2, 2)):
+        for sampler, (m_ref, s_ref) in (("mc", main_est), ("sobol", (sres.means, sres.stderrs))):
+            got = [rk[(shape, sampler)] for rk in ranks]
+            d_mean = max(float(np.max(np.abs(g["means"] - m_ref[0]) / s_ref[0])) for g in got)
+            d_se = max(float(np.max(np.abs(g["stderrs"] - s_ref[0]) / s_ref[0])) for g in got)
+            print(f"mesh {shape} {sampler}: raw sums at N={N_ODD} within "
+                  f"{MESH_TOL[sampler]} of one device: {all(g['sums_ok'] for g in got)} "
+                  f"(max|d s1| {max(g['max_abs'] for g in got):.4g}), n exact: "
+                  f"{all(g['n_exact'] for g in got)}; estimates at N={N_MAIN} vs step "
+                  f"{6 if sampler == 'mc' else 14}'s trial 0: max |d mean| {d_mean:.3g}, "
+                  f"|d stderr| {d_se:.3g} standard errors (limit {EST_TOL})")
+            check(all(g["sums_ok"] and g["n_exact"] for g in got),
+                  f"mesh {shape} {sampler}: sums or n off")
+            check(d_mean <= EST_TOL and d_se <= EST_TOL,
+                  f"mesh {shape} {sampler}: estimates off the single device's")
+            if shape == (2, 2):
+                digests = {g["digest"] for g in got} | {g["repeat"] for g in got}
+                print(f"mesh (2, 2) {sampler}: {len(digests)} distinct sha256 over "
+                      f"{MESH_RANKS} ranks x 2 repeats")
+                check(len(digests) == 1, f"mesh (2, 2) {sampler}: ranks or repeats differ")
+    mesh_counts = ranks[0][((2, 2), "mc")]["counts"]
+    print(f"mesh (2, 2) main path (evaluate at N={N_MAIN}, one trial), rank 0: kernel "
+          f"launches by variant {mesh_counts}")
+    for rk in ranks:
+        check(rk[((2, 2), "mc")]["counts"]["fused_mc"] == plan.n_launches,
+              f"rank {rk['rank']}: the (2, 2) evaluate did not launch fused_mc per bucket")
+    check(all(rk["rounds_same"] == ROUNDS for rk in ranks),
+          "a sharded R-round launch differs from its single-round launches")
+    print(f"mesh (2, 2): an R={ROUNDS} sharded rounds launch sha256-equal to {ROUNDS} "
+          f"single-round sharded launches on every rank")
+    full_m = np.concatenate([r.means for r in full])
+    full_s = np.concatenate([r.stderrs for r in full])
+    for rk in ranks:
+        sv = rk["service"]
+        d_mean = float(np.max(np.abs(sv["means"] - full_m) / full_s))
+        d_se = float(np.max(np.abs(sv["stderrs"] - full_s) / full_s))
+        check(d_mean <= EST_TOL and d_se <= EST_TOL and sv["fallback"] == 0
+              and sv["launches"] <= plan.n_launches * sv["waves"],
+              f"rank {rk['rank']}: service config 2 on (2, 2) off: {d_mean}, {d_se}, {sv}")
+    sv = ranks[0]["service"]
+    print(f"service config 2 on (2, 2): {sv['waves']} waves, {sv['launches']} launches "
+          f"per rank, {sv['fallback']} fallback rounds; estimates within {EST_TOL} "
+          f"standard errors of step 12's on every rank")
+    for rk in ranks:
+        nm = rk["normal"]
+        check(abs(nm["integral"] - nres.integral) <= 4 * nres.trial_std
+              and nm["moments_launches"] > 0,
+              f"rank {rk['rank']}: ZMCNormal on (2, 2) off: {nm}")
+    nm = ranks[0]["normal"]
+    print(f"ZMCNormal dim {NORMAL_DIM} on (2, 2) (samples over 4 ranks, moments kernel "
+          f"per rank, {nm['moments_launches']} launches on rank 0): {nm['integral']:.7f} "
+          f"vs step 19's {nres.integral:.7f} (4 trial stds: {4 * nres.trial_std:.3g}); "
+          f"{nm['s_per_trial']:.3f} s per trial")
+    for rk in ranks:
+        c = rk["compressed"]
+        check(c["err"] <= c["bound"] and c["on_card"],
+              f"rank {rk['rank']}: compressed_psum off its bound: {c}")
+    print(f"compressed_psum over data (2 shards): max|err| "
+          f"{max(rk['compressed']['err'] for rk in ranks):.3g} within its int8 bound "
+          f"{ranks[0]['compressed']['bound']:.3g}")
+    for rk in ranks:
+        sh = rk["shard"]
+        print(f"rank {rk['rank']}: its shard of one Fig.-1 trial ({sh['n_local']} samples, "
+              f"{sh['values']:.4g} values): kernel {sh['ms']:.3f} ms (the ranks taking "
+              f"turns on the card), collectives {sh['collectives_ms']:.3f} ms per trial "
+              f"(3 gathers, gloo through the host, the ranks together); max|kernel - "
+              f"plain| {sh['max_abs_err']:.4g} at N={N_CHECK}")
+    sh = ranks[0]["shard"]
+    shard_bound = max(op_bound_ms(sh["draws"], sh["values"], n_sm, clock_hz).values())
+    print(f"four ranks share one card: these times split one card's work, they are not "
+          f"scaling; rank 0's shard kernel {sh['ms']:.3f} ms against its bound "
+          f"{shard_bound:.3f} ms, plain {sh['plain_ms']:.1f} ms; step 20 "
+          f"{time.perf_counter() - t20:.1f} s; on {card}")
+    sharded = dict(launches=mesh_counts["fused_mc"], max_abs_err=max(
+        rk["shard"]["max_abs_err"] for rk in ranks), ms=sh["ms"],
+        plain_ms=sh["plain_ms"], bound_ms=shard_bound)
+
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)
     print(json.dumps({"kernels": [
@@ -1889,6 +2258,8 @@ def main() -> None:
         *(dict(entry, name=name, replaces="src/repro/kernels/template.py:318",
                **{k: v for k, v in adapted[s].items() if k != "res"})
           for name, s in (("fused_mc_adapted", "mc"), ("fused_mc_sobol_adapted", "sobol"))),
+        dict(entry, name="fused_mc_sharded",
+             replaces="src/repro/kernels/template.py:425", **sharded),
         dict(name="stratum_moments", route="cuda",
              source="src/repro_torch/kernels/csrc/moments.cu",
              replaces="src/repro/kernels/moments/kernel.py:43", bound_by="bytes", **mom),

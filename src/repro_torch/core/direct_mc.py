@@ -29,6 +29,7 @@ from repro_torch.core import rng
 from repro_torch.core.domains import affine_from_unit, box_volume
 from repro_torch.core.integrand import IntegrandFamily
 from repro_torch.core.tree import tree_map
+from repro_torch.distributed import collectives
 
 
 class SumsState(NamedTuple):
@@ -148,6 +149,63 @@ def finalize(family: IntegrandFamily, sums: SumsState) -> MCResult:
 
 def merge_sums(a: SumsState, b: SumsState) -> SumsState:
     return SumsState(s1=a.s1 + b.s1, s2=a.s2 + b.s2, n=a.n + b.n)
+
+
+def _pad_family_to(family: IntegrandFamily, n_fn_padded: int) -> IntegrandFamily:
+    """``family`` with zero rows appended up to ``n_fn_padded`` functions:
+    every params leaf zero-padded, padded boxes ``[0, 1]`` (a padded
+    compactified row gets transform kind 0, the identity)."""
+    pad = n_fn_padded - family.n_fn
+    if pad == 0:
+        return family
+
+    def pad_leaf(leaf):
+        return F.pad(leaf, [0, 0] * (leaf.ndim - 1) + [0, pad])
+
+    domains = pad_leaf(family.domains)
+    domains[family.n_fn:, :, 1] = 1.0
+    return dataclasses.replace(family, params=tree_map(pad_leaf, family.params),
+                               domains=domains)
+
+
+def sharded_family_sums(family: IntegrandFamily, n_samples: int, key: tuple,
+                        mesh, *, fn_axis: str = "model", sample_axes=("data",),
+                        fn_offset: int = 0, sample_offset: int = 0,
+                        chunk: int = 8192, use_kernel: bool = False,
+                        sampler: str = "mc"):
+    """Multi-device (s1, s2) sums of one family.
+
+    Functions shard over ``fn_axis`` (the family zero-padded to a multiple
+    of the shards), and each sample-axis shard draws ``ceil(n /
+    shards)`` samples from its own counter window, so the call draws
+    ``[sample_offset, sample_offset + ceil(n / shards) * shards)`` and
+    reports that rounded total as ``n``, as ``repro`` does (the service
+    keeps its rounds divisible by the shards).  The shards' sums are added
+    in rank order and the rows reassembled on every rank.
+
+    Returns ``(sums, padded_family)``; ``sums`` has the padded rows.
+    """
+    sample_axes = tuple(sample_axes)
+    fn_par = collectives.mesh_shape(mesh)[fn_axis]
+    sample_par = collectives.axis_size(mesh, sample_axes)
+    n_fn_padded = math.ceil(family.n_fn / fn_par) * fn_par
+    fam = _pad_family_to(family, n_fn_padded)
+    per_shard = math.ceil(int(n_samples) / sample_par)
+    per_fn = n_fn_padded // fn_par
+    f0 = collectives.axis_index(mesh, (fn_axis,)) * per_fn
+    rows = slice(f0, f0 + per_fn)
+    local = dataclasses.replace(fam, params=tree_map(lambda v: v[rows], fam.params),
+                                domains=fam.domains[rows])
+    fn_ids = (fn_offset + f0 + torch.arange(per_fn, dtype=torch.int64,
+                                            device=fam.device)) & rng.MASK32
+    shard_offset = (int(sample_offset)
+                    + collectives.axis_index(mesh, sample_axes) * per_shard) & rng.MASK32
+    part = _sums_with_ids(local, per_shard, key, fn_ids, shard_offset, chunk,
+                          use_kernel, sampler=sampler)
+    sums = collectives.psum_gather_rows(torch.stack([part.s1, part.s2], dim=-1),
+                                        mesh, sample_axes, fn_axis)
+    return SumsState(s1=sums[:, 0], s2=sums[:, 1],
+                     n=n_tensor(per_shard * sample_par, fam.device)), fam
 
 
 def _sums_with_ids(family, n_samples, key, fn_ids, sample_offset, chunk,

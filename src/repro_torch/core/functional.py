@@ -32,7 +32,8 @@ class ZMCFunctional:
         with leading axis ``n_param``.
       domain: (dim, 2) integration box shared by every point (may contain
         inf: the solver compactifies it).
-      device: as for :class:`ZMCMultiFunctions` (default ``"cuda"``).
+      mesh, device: as for :class:`ZMCMultiFunctions` (default device
+        ``"cuda"``).
     """
 
     def __init__(

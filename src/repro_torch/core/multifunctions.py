@@ -1,5 +1,5 @@
 """``ZMCMultiFunctions`` — the v5.1 headline feature (PyTorch port of
-``repro.core.multifunctions``, single device).
+``repro.core.multifunctions``).
 
 Evaluates a collection of integrand families (different forms,
 dimensions and boxes) in one shot::
@@ -17,10 +17,19 @@ With ``use_kernel=True`` every family whose form is registered runs in
 one fused launch per dim bucket (the CUDA kernel on the card, its plain
 version on the CPU); other families take the chunked path.
 
+On a mesh (``mesh=``, a ``DeviceMesh`` from
+:mod:`repro_torch.launch.mesh`) every rank runs the same calls: functions
+shard over ``fn_axis`` and samples over ``sample_axes``, the fused
+buckets through ``multi.sharded_eval_plan`` and the rest through
+``direct_mc.sharded_family_sums``, and every rank ends with the same
+sums.
+
 Fault tolerance: :meth:`evaluate_resumable` splits the sample budget into
 rounds and checkpoints the raw ``(s1, s2, n)`` accumulators after each
 round, in ``repro``'s ``.npz`` layout.  The RNG is counter-based, so a
-restart continues the exact same sample stream.
+restart continues the exact same sample stream.  On a mesh rank 0 alone
+writes the checkpoint; the counters do not depend on the mesh, so a
+checkpoint written on one mesh resumes on another or on one device.
 """
 
 from __future__ import annotations
@@ -33,10 +42,12 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import direct_mc, rng
 from repro_torch.core.integrand import IntegrandFamily, MultiFunctionSpec
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives
 
 
 @dataclasses.dataclass
@@ -61,13 +72,15 @@ class MultiFunctionResult:
 
 
 class ZMCMultiFunctions:
-    """Multi-function direct-MC integrator on one device.
+    """Multi-function direct-MC integrator (one device or a mesh).
 
     ``device`` defaults to ``"cuda"`` and raises when there is no GPU;
-    pass ``device="cpu"`` for the plain PyTorch path.  Families with
-    infinite boxes are compactified.  ``sampler`` is ``"mc"`` or
+    pass ``device="cpu"`` for the plain PyTorch path.  With ``mesh`` the
+    device is the rank's own (``collectives.mesh_device``).  Families
+    with infinite boxes are compactified.  ``sampler`` is ``"mc"`` or
     ``"sobol"`` (randomised QMC, dim <= 8; families above that degrade
-    to MC, as in ``repro``).  ``mesh=`` is not ported yet and raises.
+    to MC, as in ``repro``).  ``sample_axes`` defaults to every mesh axis
+    but ``fn_axis``.
     """
 
     def __init__(
@@ -77,21 +90,27 @@ class ZMCMultiFunctions:
         seed: int = 0,
         *,
         mesh=None,
+        fn_axis: str = "model",
+        sample_axes: Sequence[str] | None = None,
         chunk: int = 8192,
         fn_chunk: int | None = None,
         use_kernel: bool = False,
         sampler: str = "mc",          # "mc" | "sobol" (dim <= 8, RQMC)
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet (ROADMAP queue 1 item 11: "
-                "multi-device on torch.distributed)")
         if sampler not in ("mc", "sobol"):
             raise ValueError(f"unknown sampler {sampler!r}")
         if not isinstance(spec, MultiFunctionSpec):
             spec = MultiFunctionSpec.from_families(spec)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.fn_axis = fn_axis
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = collectives.mesh_device(mesh, device)
+            if sample_axes is None:
+                sample_axes = tuple(a for a in mesh.mesh_dim_names if a != fn_axis)
+        self.sample_axes = tuple(sample_axes) if sample_axes else ("data",)
         # infinite domains are rewritten into finite boxes up-front
         self.spec = MultiFunctionSpec(families=tuple(
             f.compactified() for f in spec.to(self.device).families))
@@ -117,13 +136,28 @@ class ZMCMultiFunctions:
         fused = {}
         if self.use_kernel:
             from repro_torch.kernels.mc_eval import multi
-            fused = multi.eval_plan(self._get_fusion_plan(), n_samples, key,
-                                    sample_offset=sample_offset)
+            if self.mesh is None:
+                fused = multi.eval_plan(self._get_fusion_plan(), n_samples, key,
+                                        sample_offset=sample_offset)
+            else:
+                fused = multi.sharded_eval_plan(
+                    self._get_fusion_plan(), n_samples, key, self.mesh,
+                    fn_axis=self.fn_axis, sample_axes=self.sample_axes,
+                    sample_offset=sample_offset)
         out = []
         offsets = self.spec.offsets()
         for idx, (fam, off) in enumerate(zip(self.spec.families, offsets)):
             if idx in fused:
                 out.append(fused[idx])
+                continue
+            if self.mesh is not None:
+                sums, _ = direct_mc.sharded_family_sums(
+                    fam, n_samples, key, self.mesh, fn_axis=self.fn_axis,
+                    sample_axes=self.sample_axes, fn_offset=off,
+                    sample_offset=sample_offset, chunk=self.chunk,
+                    use_kernel=self.use_kernel, sampler=self.sampler)
+                out.append(direct_mc.SumsState(s1=sums.s1[:fam.n_fn],
+                                               s2=sums.s2[:fam.n_fn], n=sums.n))
                 continue
             out.append(direct_mc.family_sums(
                 fam, n_samples, key, fn_offset=off,
@@ -172,7 +206,10 @@ class ZMCMultiFunctions:
 
         ``fail_after_round`` injects a crash (for the fault-tolerance
         tests); re-calling with the same ``checkpoint_dir`` resumes and
-        produces sums identical to an uninterrupted run.
+        produces sums identical to an uninterrupted run.  On a mesh every
+        rank reads the checkpoint, rank 0 alone writes it, and a barrier
+        follows each write (``checkpoint_dir`` must be one directory all
+        ranks see).
         """
         per_round = -(-self.n_samples // rounds)  # ceil
         state = None   # list[SumsState] per family
@@ -200,14 +237,17 @@ class ZMCMultiFunctions:
             else:
                 state = [direct_mc.merge_sums(a, b) for a, b in zip(state, sums)]
             if path is not None:
-                payload = {"round": r + 1}
-                for i, st in enumerate(state):
-                    payload[f"s1_{i}"] = st.s1.cpu().numpy()
-                    payload[f"s2_{i}"] = st.s2.cpu().numpy()
-                    payload[f"n_{i}"] = st.n.cpu().numpy()
-                tmp = path + ".tmp.npz"
-                np.savez(tmp, **payload)
-                os.replace(tmp, path)
+                if self.mesh is None or dist.get_rank() == 0:
+                    payload = {"round": r + 1}
+                    for i, st in enumerate(state):
+                        payload[f"s1_{i}"] = st.s1.cpu().numpy()
+                        payload[f"s2_{i}"] = st.s2.cpu().numpy()
+                        payload[f"n_{i}"] = st.n.cpu().numpy()
+                    tmp = path + ".tmp.npz"
+                    np.savez(tmp, **payload)
+                    os.replace(tmp, path)
+                if self.mesh is not None:
+                    collectives.barrier(self.mesh)
             if fail_after_round is not None and r == fail_after_round:
                 raise RuntimeError(f"injected failure after round {r}")
 

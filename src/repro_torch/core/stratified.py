@@ -12,6 +12,12 @@ The table has a fixed capacity with an active mask, as ``repro``'s.  With
 ``use_kernel=True`` the per-stratum reduction goes through
 :func:`repro_torch.kernels.moments.ops.stratum_moments` (the CUDA kernel
 on the card, its plain version on the CPU).
+
+On a mesh, :func:`eval_strata` splits every stratum's samples over all
+the mesh's ranks (``repro`` only annotates a sharding of the samples): each rank draws its
+slice by the same counters, and the per-rank (count, mean, M2) are merged
+in rank order by the Chan/Welford rule, so every rank holds the same
+table.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import rng
+from repro_torch.distributed import collectives
 
 # Counter stride between refinement epochs of one stratum slot.
 EPOCH_STRIDE = 1 << 16
@@ -82,18 +89,30 @@ def stratum_ids(slot_ids, epoch: int) -> torch.Tensor:
 
 
 def eval_strata(fn: Callable, boxes: torch.Tensor, slot_ids, epoch: int,
-                n_per: int, key, use_kernel: bool = False):
+                n_per: int, key, use_kernel: bool = False, mesh=None):
     """Sample ``n_per`` points in each box; return (mean, var) per box.
 
     ``fn`` maps (..., dim) -> (...).  Samples are drawn on ``boxes``'
     device.  ``use_kernel`` routes the per-stratum moments through
-    ``stratum_moments`` (one pass over the values; ``n_per`` must be a
-    multiple of 512).
+    ``stratum_moments`` (one pass over the values; the samples per rank
+    must be a multiple of 512).  With ``mesh``, samples ``[i * n_per / P,
+    (i + 1) * n_per / P)`` of every stratum are drawn by rank ``i`` of the
+    mesh's ``P`` (``n_per`` must divide evenly), and the ranks' moments
+    merged.
     """
     k0, k1 = key
     device = boxes.device
     ids = stratum_ids(torch.as_tensor(slot_ids).to(device), epoch)
-    sample_ids = torch.arange(int(n_per), dtype=torch.int64, device=device)
+    n_local, first = int(n_per), 0
+    if mesh is not None:
+        sample_axes = tuple(mesh.mesh_dim_names)
+        shards = collectives.axis_size(mesh, sample_axes)
+        if n_local % shards:
+            raise ValueError(f"n_per={n_per} must divide evenly over the "
+                             f"{shards} sample shards of the mesh")
+        n_local //= shards
+        first = collectives.axis_index(mesh, sample_axes) * n_local
+    sample_ids = first + torch.arange(n_local, dtype=torch.int64, device=device)
     u = rng.uniforms_for(k0, k1, ids, sample_ids, boxes.shape[-2])
     lo = boxes[:, None, :, 0]
     hi = boxes[:, None, :, 1]
@@ -101,11 +120,31 @@ def eval_strata(fn: Callable, boxes: torch.Tensor, slot_ids, epoch: int,
     if use_kernel:
         from repro_torch.kernels.moments.ops import stratum_moments
         m = stratum_moments(vals)
-        return m.mean, m.m2 / torch.clamp(m.count, min=1.0)
-    mean = torch.mean(vals, dim=-1)
-    var = torch.clamp(torch.mean(torch.square(vals), dim=-1)
-                      - torch.square(mean), min=0.0)
-    return mean, var
+        mean, var = m.mean, m.m2 / torch.clamp(m.count, min=1.0)
+    else:
+        mean = torch.mean(vals, dim=-1)
+        var = torch.clamp(torch.mean(torch.square(vals), dim=-1)
+                          - torch.square(mean), min=0.0)
+    if mesh is None:
+        return mean, var
+    return _merge_moments(collectives.gather(torch.stack([mean, var]), mesh,
+                                             sample_axes), float(n_local))
+
+
+def _merge_moments(parts, n_b: float):
+    """Fold per-shard (mean, var) stacks of ``n_b`` samples each in order
+    by the Chan/Welford rule; (mean, var) of all of them."""
+    mean, var = parts[0][0], parts[0][1]
+    if len(parts) == 1:
+        return mean, var
+    n, m2 = n_b, var * n_b
+    for p in parts[1:]:
+        tot = n + n_b
+        delta = p[0] - mean
+        mean = mean + delta * (n_b / tot)
+        m2 = m2 + p[1] * n_b + torch.square(delta) * (n * n_b / tot)
+        n = tot
+    return mean, m2 / n
 
 
 def table_estimate(table: StratumTable, n_per: int):

@@ -36,9 +36,11 @@ class TreeSearchResult(NamedTuple):
 
 
 def refine_step(fn: Callable, tab: stratified.StratumTable, key, it: int, *,
-                n0: int, n_per: int, k_split: int) -> stratified.StratumTable:
+                n0: int, n_per: int, k_split: int,
+                **eval_opts) -> stratified.StratumTable:
     """Refinement iteration ``it``: split the top ``k_split`` strata and
-    evaluate their children at counter epoch ``it + 2``."""
+    evaluate their children at counter epoch ``it + 2`` (``eval_opts``:
+    ``use_kernel`` and ``mesh`` of :func:`stratified.eval_strata`)."""
     vol = stratified.stratum_volumes(tab)
     priority = torch.where(tab.active, vol * torch.sqrt(tab.var),
                            torch.full_like(vol, -float("inf")))
@@ -64,7 +66,7 @@ def refine_step(fn: Callable, tab: stratified.StratumTable, key, it: int, *,
     child_slots = torch.cat([idx, slot_b])
     # epoch it + 2: epoch 0 was the initial grid's evaluation
     mean_c, var_c = stratified.eval_strata(fn, child_boxes, child_slots,
-                                           it + 2, n_per, key)
+                                           it + 2, n_per, key, **eval_opts)
     mean = tab.mean.clone()
     var = tab.var.clone()
     mean[child_slots] = mean_c
@@ -74,17 +76,18 @@ def refine_step(fn: Callable, tab: stratified.StratumTable, key, it: int, *,
 
 
 def refine(fn: Callable, table: stratified.StratumTable, key, *, n0: int,
-           n_per: int, depth: int, k_split: int) -> stratified.StratumTable:
+           n_per: int, depth: int, k_split: int,
+           **eval_opts) -> stratified.StratumTable:
     """Run ``depth`` refinement iterations on an initialised table."""
     for it in range(int(depth)):
         table = refine_step(fn, table, key, it, n0=n0, n_per=n_per,
-                            k_split=k_split)
+                            k_split=k_split, **eval_opts)
     return table
 
 
 def integrate(fn: Callable, domain, key, *, splits_per_dim: int = 3,
               n_per: int = 2048, depth: int = 8, k_split: int = 32,
-              device=None) -> TreeSearchResult:
+              device=None, **eval_opts) -> TreeSearchResult:
     """Stratified + tree-search integration of one integrand.
 
     Args:
@@ -93,6 +96,9 @@ def integrate(fn: Callable, domain, key, *, splits_per_dim: int = 3,
       key: (k0, k1) Threefry key words.
       device: where the table lives and the samples are drawn:
         ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
+      eval_opts: ``use_kernel`` and ``mesh``, passed to every
+        :func:`stratified.eval_strata`; on a mesh every rank runs the same
+        search on the same merged table.
     """
     domain = np.asarray(domain, np.float32)
     dim = domain.shape[0]
@@ -106,14 +112,14 @@ def integrate(fn: Callable, domain, key, *, splits_per_dim: int = 3,
                                     device=resolve_device(device))
     slots = torch.arange(n0, dtype=torch.int64, device=table.boxes.device)
     mean0, var0 = stratified.eval_strata(fn, table.boxes[:n0], slots, 0,
-                                         n_per, key)
+                                         n_per, key, **eval_opts)
     mean = table.mean.clone()
     var = table.var.clone()
     mean[:n0] = mean0
     var[:n0] = var0
     table = table._replace(mean=mean, var=var)
     table = refine(fn, table, key, n0=n0, n_per=n_per, depth=depth,
-                   k_split=k_split)
+                   k_split=k_split, **eval_opts)
     integral, stderr = stratified.table_estimate(table, n_per)
     return TreeSearchResult(integral=integral, stderr=stderr, table=table,
                             n_evals=(n0 + 2 * depth * k_split) * n_per)

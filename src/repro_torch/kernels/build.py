@@ -7,7 +7,9 @@ of every library is compiled at once, one ``nvcc`` each, then each
 library's objects are linked.  Libraries go to ``kernels/_build/`` (listed
 in ``.gitignore``), named by a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.  Nothing is
-built at import: the first call that needs a library builds it.
+built at import: the first call that needs a library builds it, except
+in a rank of a multi-process run, which raises instead: the process that
+starts the ranks builds first.
 """
 
 from __future__ import annotations
@@ -154,11 +156,24 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LOADED:
         path = _lib_path(name)
         if not path.exists():
+            if _in_group_of_ranks():
+                raise RuntimeError(
+                    f"{path.name} is not built: build the kernels "
+                    "(repro_torch.kernels.build.build()) before starting "
+                    "ranks; ranks never build them")
             build([name])
         lib = ctypes.CDLL(str(path))
         _declare(lib)
         _LOADED[name] = lib
     return _LOADED[name]
+
+
+def _in_group_of_ranks() -> bool:
+    """Whether this process is one rank of several (every rank would
+    otherwise start its own nvcc builds of the same files)."""
+    import torch.distributed as dist
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -1,5 +1,5 @@
 """Fused multi-family dispatch: one launch per (dim, sampler) bucket
-(port of ``repro.kernels.mc_eval.multi``, single device).
+(port of ``repro.kernels.mc_eval.multi``).
 
 1. every family whose ``kernel`` names a registered form supporting
    (dim, sampler) and its wrapper stages is **fusable**, compactified
@@ -34,6 +34,14 @@ buckets costs B launches.  Per-family start rounds become per-block
 launch; each round's sums are bit-identical to the single-round launch
 at that offset.  It returns each launch's ``[R, F, 2]`` output whole, so
 the caller copies it to the host once and slices it there.
+
+On a mesh (:func:`sharded_eval_plan`, :func:`sharded_eval_plan_rounds`)
+each rank launches the same kernel once per bucket on its slice of the
+bucket's function blocks (``fn_axis``) and its window of the samples
+(the other axes), and :func:`repro_torch.distributed.collectives
+.psum_gather_rows` sums the windows in rank order and reassembles the
+rows, so every rank ends with the whole bucket's sums, the same bits on
+every rank.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import rng
+from repro_torch.distributed import collectives
 from repro_torch.kernels import registry, template
 from repro_torch.kernels.template import F_BLK, S_BLK
 
@@ -81,6 +90,9 @@ class FusionPlan:
     buckets: tuple[_Bucket, ...]
     unfused: tuple[int, ...]   # family indices left to the chunked path
     sampler: str
+    # (fn shards, this rank's fn index) -> its _RankBucket per bucket
+    shards: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     @property
     def n_launches(self) -> int:
@@ -265,6 +277,158 @@ def launch_plan_rounds(plan: FusionPlan, round_samples: int, n_rounds: int,
             block_tcols=bucket.block_tcols, block_sweep=bucket.block_sweep,
             block_adapt=bucket.block_adapt, sampler=plan.sampler,
             block_meta=bucket.block_meta, dirvecs=bucket.dirvecs))
+        for sl in bucket.slices:
+            where[sl.family_index] = (b, sl.row_start, sl.n_fn)
+    return where, outputs
+
+
+# -- the mesh ---------------------------------------------------------------------
+
+def _shard_bucket(bucket: _Bucket, fn_par: int) -> _Bucket:
+    """Pad a bucket so its ``F_BLK`` blocks divide evenly over ``fn_par``.
+
+    Every per-block array is padded alike, so each block's metadata stays
+    beside its packed rows: a padded block has the bucket's first form
+    (``repro``'s body index 0, whose base columns every row of the bucket
+    holds), no transform column, no sweep pair and no grid, and zero rows
+    (sliced off by the caller, as the per-family padding is).
+    """
+    blocks = bucket.fn_ids.shape[0] // F_BLK
+    extra = math.ceil(blocks / fn_par) * fn_par - blocks
+    if extra == 0:
+        return bucket
+    rows = extra * F_BLK
+    forms = torch.cat([bucket.block_forms, bucket.block_forms[:1].repeat(extra)])
+    tcols = torch.cat([bucket.block_tcols, torch.full((extra,), -1, dtype=torch.int32)])
+    sweep = (None if bucket.block_sweep is None
+             else F.pad(bucket.block_sweep, [0, extra], value=-1))
+    adapt = torch.cat([bucket.block_adapt,
+                       template.block_adapt_tensor([(-1, 0)] * extra)], dim=1)
+    packed = template.pad_rows(bucket.packed, rows)
+    return dataclasses.replace(
+        bucket, packed=packed, lo=template.pad_rows(bucket.lo, rows),
+        hi=template.pad_rows(bucket.hi, rows),
+        fn_ids=template.pad_rows(bucket.fn_ids, rows), block_forms=forms,
+        block_tcols=tcols, block_sweep=sweep, block_adapt=adapt,
+        block_meta=template.to_card(
+            template.block_meta_host(forms, tcols, sweep, adapt), packed.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class _RankBucket:
+    """One rank's part of a bucket: the bucket padded for the mesh, its
+    blocks ``[b0, b1)`` and the launch operands of those blocks."""
+    padded: _Bucket
+    b0: int
+    b1: int
+    local: _Bucket
+
+
+def _rank_buckets(plan: FusionPlan, mesh, fn_axis: str) -> tuple[_RankBucket, ...]:
+    """This rank's fn slice of every bucket (built once per plan and
+    (fn shards, fn index))."""
+    fn_par = collectives.mesh_shape(mesh)[fn_axis]
+    fn_idx = collectives.axis_index(mesh, (fn_axis,))
+    cached = plan.shards.get((fn_par, fn_idx))
+    if cached is not None:
+        return cached
+    out = []
+    for bucket in plan.buckets:
+        sb = _shard_bucket(bucket, fn_par)
+        per = sb.fn_ids.shape[0] // F_BLK // fn_par
+        b0, b1 = fn_idx * per, (fn_idx + 1) * per
+        rows = slice(b0 * F_BLK, b1 * F_BLK)
+        out.append(_RankBucket(sb, b0, b1, dataclasses.replace(
+            sb, packed=sb.packed[rows], lo=sb.lo[rows], hi=sb.hi[rows],
+            fn_ids=sb.fn_ids[rows], block_forms=sb.block_forms[b0:b1],
+            block_tcols=sb.block_tcols[b0:b1],
+            block_sweep=(None if sb.block_sweep is None
+                         else sb.block_sweep[:, b0:b1].contiguous()),
+            block_adapt=sb.block_adapt[:, b0:b1].contiguous(),
+            block_meta=sb.block_meta[:, b0:b1].contiguous(), slices=())))
+    plan.shards[(fn_par, fn_idx)] = out = tuple(out)
+    return out
+
+
+def _sample_window(mesh, sample_axes, n_samples: int) -> tuple[int, int, int]:
+    """(per_shard, start, n_local) of this rank's samples: an exact split,
+    the last shards masking the tail (``n_local`` may be 0 when
+    ``n_samples`` is below the shard count)."""
+    per_shard = math.ceil(int(n_samples) / collectives.axis_size(mesh, sample_axes))
+    start = min(collectives.axis_index(mesh, sample_axes) * per_shard, int(n_samples))
+    return per_shard, start, min(int(n_samples) - start, per_shard)
+
+
+def _launch_local(rb: _RankBucket, scalars, n_sample_blocks: int, sampler: str,
+                  **kw) -> torch.Tensor:
+    b = rb.local
+    return template.fused_mc(
+        scalars, b.fn_ids, b.packed, b.lo, b.hi, b.block_forms, dim=b.dim,
+        n_sample_blocks=n_sample_blocks, block_tcols=b.block_tcols,
+        block_sweep=b.block_sweep, block_adapt=b.block_adapt, sampler=sampler,
+        block_meta=b.block_meta, dirvecs=b.dirvecs, **kw)
+
+
+def sharded_eval_plan(plan: FusionPlan, n_samples: int, key, mesh, *,
+                      fn_axis: str = "model", sample_axes=("data",),
+                      sample_offset=0):
+    """Mesh variant of :func:`eval_plan`: one fused launch per bucket on
+    every rank.
+
+    Function blocks shard over ``fn_axis`` (the bucket padded to a
+    multiple of the shards); the sample-axis shards draw disjoint counter
+    windows, ``ceil(n / shards)`` each, the last ones masking the tail, so
+    the call draws exactly ``[sample_offset, sample_offset + n)``: the
+    service's consecutive windows never overlap.  The windows' sums are
+    added in rank order.  Returns {family_index: SumsState}, ``n`` exactly
+    ``n_samples``, the same bits on every rank.
+    """
+    from repro_torch.core.direct_mc import SumsState, n_tensor
+
+    sample_axes = tuple(sample_axes)
+    per_shard, start, n_local = _sample_window(mesh, sample_axes, n_samples)
+    n_sample_blocks = max(1, math.ceil(per_shard / S_BLK))
+    scalars = template.pack_scalars(key, int(sample_offset) + start, n_local)
+    out: dict[int, SumsState] = {}
+    for bucket, rb in zip(plan.buckets, _rank_buckets(plan, mesh, fn_axis)):
+        part = _launch_local(rb, scalars, n_sample_blocks, plan.sampler)[0]
+        sums = collectives.psum_gather_rows(part, mesh, sample_axes, fn_axis)
+        n = n_tensor(n_samples, sums.device)
+        for sl in bucket.slices:
+            rows = sums[sl.row_start:sl.row_start + sl.n_fn]
+            out[sl.family_index] = SumsState(s1=rows[:, 0], s2=rows[:, 1], n=n)
+    return out
+
+
+def sharded_eval_plan_rounds(plan: FusionPlan, round_samples: int, n_rounds: int,
+                             key, mesh, *, start_rounds, fn_axis: str = "model",
+                             sample_axes=("data",)):
+    """Mesh variant of :func:`launch_plan_rounds`: R rounds x B buckets in
+    B launches per rank.
+
+    Every rank evaluates its window of every round (the split of
+    :func:`sharded_eval_plan`, each round drawing exactly
+    ``round_samples`` counters in all), its fn slice of each bucket, with
+    the window starts of ``start_rounds``; the ``[R, F, 2]`` stacks are
+    added in rank order and their rows reassembled.  Returns what
+    :func:`launch_plan_rounds` returns; each round's sums are the bits of
+    the single-round :func:`sharded_eval_plan` call at that round's
+    offset (the same per-rank counters and fold, and the sum across ranks
+    is elementwise in a fixed order, whatever R).
+    """
+    sample_axes = tuple(sample_axes)
+    per_shard, start, n_local = _sample_window(mesh, sample_axes, round_samples)
+    n_sample_blocks = max(1, math.ceil(per_shard / S_BLK))
+    scalars = template.pack_scalars(key, start, n_local, round_stride=round_samples)
+    where: dict[int, tuple[int, int, int]] = {}
+    outputs = []
+    for b, (bucket, rb) in enumerate(zip(plan.buckets,
+                                         _rank_buckets(plan, mesh, fn_axis))):
+        base = _round_base_for(rb.padded, start_rounds, round_samples)[rb.b0:rb.b1]
+        part = _launch_local(rb, scalars, n_sample_blocks, plan.sampler,
+                             n_rounds=int(n_rounds), round_base=base)
+        outputs.append(collectives.psum_gather_rows(part, mesh, sample_axes,
+                                                    fn_axis, dim=1))
         for sl in bucket.slices:
             where[sl.family_index] = (b, sl.row_start, sl.n_fn)
     return where, outputs

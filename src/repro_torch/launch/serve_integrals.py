@@ -1,5 +1,5 @@
 """Integration-as-a-service launcher (port of
-``repro.launch.serve_integrals``, one card).
+``repro.launch.serve_integrals``).
 
 ``python -m repro_torch.launch.serve_integrals --requests 64`` stands up
 the continuously-batching
@@ -34,22 +34,31 @@ wraps each span in ``torch.profiler.record_function``;
 ``http://127.0.0.1:P/metrics``; ``--metrics-json PATH`` writes a final
 metrics + convergence snapshot.
 
+``--mesh`` serves on every rank of a mesh (as ``integrate --mesh``:
+torchrun's processes, or ``--ranks`` started here; ``--backend gloo`` for
+ranks that share a card).  The ranks work in lockstep: each submits the
+same workload in the same order, with ``--thread`` before its worker
+starts.  Rank 0 prints.
+
 Sweep requests ride the library entry point, ``demo_workload(sweeps=k)``,
 as in the reference launcher, which has no flag for them either.  Not
-ported yet: ``--mesh`` (queue 1 item 11) and ``--audit-state`` (queue 1
-item 12); the reference's auditor reads the port's state dirs as they
-are (``python -m repro.analysis --state-dir DIR``).
+ported yet: ``--audit-state`` (queue 1 item 2); the reference's auditor
+reads the port's state dirs as they are (``python -m repro.analysis
+--state-dir DIR``).
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.core import genz
 from repro_torch.core.integrand import (abs_sum_family, gaussian_family,
                                         harmonic_family)
+from repro_torch.launch import multihost
 from repro_torch.obs import clock as _clock
 from repro_torch.service.api import IntegrationRequest, SweepRequest
 
@@ -125,8 +134,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--no-kernel", action="store_true",
                     help="chunked PyTorch path instead of the fused kernel")
-    ap.add_argument("--mesh", action="store_true",
-                    help="shard over all local devices (not ported yet)")
+    multihost.add_mesh_args(ap)
     ap.add_argument("--thread", action="store_true",
                     help="run the async worker thread (submit/poll mode)")
     ap.add_argument("--state-dir", default=None,
@@ -155,13 +163,18 @@ def main(argv=None) -> dict:
     """Serve the demo workload; returns a summary (the results, the
     engine's stats and counts) for callers that check it."""
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet (ROADMAP queue 1 item 11: "
-            "multi-device on torch.distributed)")
+    if args.mesh and not multihost.initialize_if_needed(
+            verbose=False, device=args.device, backend=args.backend):
+        return multihost.spawn_launcher(main, args,
+                                        sys.argv[1:] if argv is None else argv)
 
     from repro_torch.kernels import template
+    from repro_torch.launch.mesh import launcher_mesh, mesh_info
     from repro_torch.service import IntegrationEngine
+
+    mesh = launcher_mesh(args.device) if args.mesh else None
+    # rank 0 speaks for the lockstepped ranks
+    say = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
 
     telemetry = (args.trace_out is not None or args.torch_trace
                  or args.metrics_port is not None
@@ -177,11 +190,11 @@ def main(argv=None) -> dict:
             metrics_server = MetricsServer(obs.metrics,
                                            port=args.metrics_port,
                                            convergence=obs.convergence)
-            print(f"metrics: http://127.0.0.1:{metrics_server.port}/metrics")
+            say(f"metrics: http://127.0.0.1:{metrics_server.port}/metrics")
 
     engine = IntegrationEngine(
         seed=args.seed, round_samples=args.round_samples,
-        use_kernel=not args.no_kernel, device=args.device,
+        use_kernel=not args.no_kernel, device=args.device, mesh=mesh,
         max_rounds_per_wave=args.max_rounds_per_wave,
         max_items_per_wave=args.max_items_per_wave,
         pipeline_waves=not args.no_pipeline,
@@ -189,9 +202,9 @@ def main(argv=None) -> dict:
         obs=obs)
     if engine.cache.recovered is not None:
         rec = engine.cache.recovered
-        print(f"warm start: {len(rec.entries)} persisted streams "
-              f"({rec.journal_records} journal records replayed, "
-              f"{rec.truncated_bytes} corrupt tail bytes truncated)")
+        say(f"warm start: {len(rec.entries)} persisted streams "
+            f"({rec.journal_records} journal records replayed, "
+            f"{rec.truncated_bytes} corrupt tail bytes truncated)")
     reqs = demo_workload(
         args.requests, n_fn=args.n_fn,
         n_samples=None if args.target_stderr else args.samples,
@@ -201,8 +214,14 @@ def main(argv=None) -> dict:
     t0 = _clock.monotonic()
     try:
         if args.thread:
-            engine.start()
-            tickets = [engine.submit(r) for r in reqs]
+            if mesh is None:
+                engine.start()
+                tickets = [engine.submit(r) for r in reqs]
+            else:
+                # lockstep: every rank's worker sees the whole workload at
+                # its first wave, so all plan the same waves
+                tickets = [engine.submit(r) for r in reqs]
+                engine.start()
             results = [engine.result(t, timeout=600.0) for t in tickets]
             engine.stop()
         else:
@@ -217,40 +236,41 @@ def main(argv=None) -> dict:
 
     n_fn_total = sum(r.n_fn_total for r in results)
     hits = sum(r.served_from_cache for r in results)
-    print(f"served {len(results)} requests ({n_fn_total} integrands) "
-          f"on {engine.device} in {dt:.1f}s -> {len(results) / dt:.1f} "
-          f"req/s, {launches} kernel launches "
-          f"({engine.batcher.fallback_rounds} chunked fallback rounds), "
-          f"{hits} pure cache hits")
-    print(f"engine: {engine.stats}")
-    print(f"cache:  {engine.cache.stats()}")
-    print(f"stragglers: {engine.watchdog.straggler_count}")
+    where = engine.device if mesh is None else mesh_info(mesh)["shape"]
+    say(f"served {len(results)} requests ({n_fn_total} integrands) "
+        f"on {where} in {dt:.1f}s -> {len(results) / dt:.1f} "
+        f"req/s, {launches} kernel launches "
+        f"({engine.batcher.fallback_rounds} chunked fallback rounds), "
+        f"{hits} pure cache hits")
+    say(f"engine: {engine.stats}")
+    say(f"cache:  {engine.cache.stats()}")
+    say(f"stragglers: {engine.watchdog.straggler_count}")
     worst = max(float(r.stderrs.max()) for r in results)
-    print(f"worst stderr served: {worst:.3e}")
+    say(f"worst stderr served: {worst:.3e}")
     if args.state_dir:
-        print(f"state snapshotted to {args.state_dir} "
-              f"(journal compacted to {engine.store.journal_size()} bytes)")
+        say(f"state snapshotted to {args.state_dir} "
+            f"(journal compacted to {engine.store.journal_size()} bytes)")
 
     if obs is not None:
         streams = obs.convergence.streams()
         if streams:
-            print(f"convergence: {len(streams)} streams tracked; "
-                  "final stderr per stream:")
+            say(f"convergence: {len(streams)} streams tracked; "
+                "final stderr per stream:")
             for sid in streams:
                 last = obs.convergence.trajectory(sid)[-1]
-                print(f"  {sid[:16]}  rounds={last.rounds_done:4d} "
-                      f"n={last.n:9d}  stderr_max={last.stderr_max:.3e}")
+                say(f"  {sid[:16]}  rounds={last.rounds_done:4d} "
+                    f"n={last.n:9d}  stderr_max={last.stderr_max:.3e}")
         if args.metrics_json:
             from repro_torch.obs.export import write_snapshot
             write_snapshot(args.metrics_json, obs.metrics,
                            convergence=obs.convergence)
-            print(f"metrics snapshot written to {args.metrics_json}")
+            say(f"metrics snapshot written to {args.metrics_json}")
         if metrics_server is not None:
             metrics_server.close()
         obs.close()
         if args.trace_out:
-            print(f"trace written to {args.trace_out} "
-                  "(open in https://ui.perfetto.dev)")
+            say(f"trace written to {args.trace_out} "
+                "(open in https://ui.perfetto.dev)")
     return {"results": results, "seconds": dt, "launches": launches,
             "fallback_rounds": engine.batcher.fallback_rounds,
             "hits": hits, "stats": engine.stats, "device": engine.device}

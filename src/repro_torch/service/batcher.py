@@ -1,5 +1,5 @@
 """Cross-request coalescing into fused multi-round dimension buckets
-(port of ``repro.service.batcher``, single device).
+(port of ``repro.service.batcher``).
 
 The unit of work in the service is a **(canonical family, round)** pair:
 ``round_samples`` samples of one cached stream, addressed purely by
@@ -42,6 +42,13 @@ safe.
 Fusion plans (the packed/concatenated bucket operands) are cached per
 (entry set, sampler) with **LRU eviction** — steady-state request mixes
 keep their plans instead of re-planning everything.
+
+On a mesh the fused waves go through ``multi.sharded_eval_plan_rounds``
+and the chunked rounds through ``direct_mc.sharded_family_sums``; the sum
+across ranks happens inside the launch, as ``repro``'s ``psum`` sits
+inside its ``shard_map``, so every rank deposits the same bits.  Every
+rank must launch the same waves in the same order (the engine's lockstep
+rule).
 """
 
 from __future__ import annotations
@@ -106,12 +113,9 @@ class RoundBatcher:
     """Coalesces work items into fused multi-round launches, one RNG key."""
 
     def __init__(self, cache: ResultCache, key, *, use_kernel: bool = True,
-                 mesh=None, chunk: int = 8192, plan_cache_size: int = 256,
+                 mesh=None, fn_axis: str = "model", sample_axes=("data",),
+                 chunk: int = 8192, plan_cache_size: int = 256,
                  obs=None, faults=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet (ROADMAP queue 1 item 11: "
-                "multi-device on torch.distributed)")
         if obs is None:
             from repro_torch.obs import Observability
             obs = Observability.disabled()
@@ -120,6 +124,9 @@ class RoundBatcher:
         self.cache = cache
         self.key = key
         self.use_kernel = bool(use_kernel)
+        self.mesh = mesh
+        self.fn_axis = fn_axis
+        self.sample_axes = tuple(sample_axes)
         self.chunk = int(chunk)
         self.plan_cache_size = int(plan_cache_size)
         # rounds served by the chunked per-round path instead of a fused
@@ -275,8 +282,14 @@ class RoundBatcher:
             self.faults.check("device_error")
             plan = self._plan_for(entries, sampler, spec, fn_offsets)
             start_rounds = {i: sp.start for i, sp in enumerate(healthy)}
-            where, outputs = multi.launch_plan_rounds(
-                plan, n, count, self.key, start_rounds=start_rounds)
+            if self.mesh is None:
+                where, outputs = multi.launch_plan_rounds(
+                    plan, n, count, self.key, start_rounds=start_rounds)
+            else:
+                where, outputs = multi.sharded_eval_plan_rounds(
+                    plan, n, count, self.key, self.mesh,
+                    start_rounds=start_rounds, fn_axis=self.fn_axis,
+                    sample_axes=self.sample_axes)
             first = len(wave.host)
             wave.host.extend(outputs)
             where = {i: (first + b, row, n_fn)
@@ -299,10 +312,17 @@ class RoundBatcher:
         self.obs.m["fallback_rounds"].inc(count)
         out = []
         for r in range(count):
-            sums = direct_mc.family_sums(
-                sp.entry.family, n, self.key, fn_offset=sp.entry.fn_offset,
-                sample_offset=(sp.start + r) * n, chunk=self.chunk,
-                use_kernel=self.use_kernel, sampler=sampler)
+            kw = dict(fn_offset=sp.entry.fn_offset,
+                      sample_offset=(sp.start + r) * n, chunk=self.chunk,
+                      use_kernel=self.use_kernel, sampler=sampler)
+            if self.mesh is None:
+                sums = direct_mc.family_sums(sp.entry.family, n, self.key, **kw)
+            else:
+                sums, _ = direct_mc.sharded_family_sums(
+                    sp.entry.family, n, self.key, self.mesh,
+                    fn_axis=self.fn_axis, sample_axes=self.sample_axes, **kw)
+                sums = SumsState(s1=sums.s1[:sp.entry.n_fn],
+                                 s2=sums.s2[:sp.entry.n_fn], n=sums.n)
             out.append((sp.entry, sp.start + r, SumsState(
                 s1=sums.s1, s2=sums.s2, n=n)))
         return out

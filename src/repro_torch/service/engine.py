@@ -1,5 +1,5 @@
 """The continuously-batching integration engine (submit/poll worker);
-port of ``repro.service.engine`` on one card.
+port of ``repro.service.engine``.
 
 Life of a request:
 
@@ -63,8 +63,15 @@ an ordinary cache stream keyed ``f"{family_hash}:{sampler}"``; its
 per-point results stream back through :meth:`IntegrationEngine
 .sweep_partial` as slices finish.
 
-Not ported yet: the mesh (ROADMAP queue 1 item 11); ``mesh=`` raises
-``NotImplementedError``.
+On a mesh (``mesh=``) every rank runs one engine and the engines work in
+**lockstep** (SPMD): each wave's launches end in collectives, so every
+rank must submit the same requests in the same order and step the same
+waves.  Driving ``step()`` after the same submits does that.  With the
+worker thread, submit every request before ``start()``: each rank's one
+worker then plans and launches the same waves in the same order.
+Request deadlines and retried faults are local to a rank and can break
+lockstep; leave them off on a mesh.  A ``state_dir`` on a mesh of more
+than one rank is not ported yet (ROADMAP queue 1 item 5) and raises.
 """
 
 from __future__ import annotations
@@ -82,6 +89,7 @@ from repro_torch.analysis import streams as _analysis
 from repro_torch.core import adaptive
 from repro_torch.core import rng as rng_lib
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives
 from repro_torch.obs import Observability
 from repro_torch.obs import clock as _clock
 from repro_torch.service.api import (Backpressure, IntegrationRequest,
@@ -175,11 +183,15 @@ class IntegrationEngine:
 
     ``device`` defaults to ``"cuda"`` and raises when there is no GPU;
     pass ``device="cpu"`` for the plain PyTorch versions of the kernels.
-    Families are moved to the device at submit.
+    Families are moved to the device at submit.  With ``mesh`` the device
+    is the rank's own, functions shard over ``fn_axis`` and samples over
+    ``sample_axes`` (default: every other axis), over which
+    ``round_samples`` must divide evenly.
     """
 
     def __init__(self, *, seed: int = 0, round_samples: int = 65536,
-                 use_kernel: bool = True, mesh=None, device=None,
+                 use_kernel: bool = True, mesh=None, fn_axis: str = "model",
+                 sample_axes: Sequence[str] | None = None, device=None,
                  chunk: int = 8192, max_pending: int = 256,
                  max_rounds_per_wave: int = 8,
                  max_items_per_wave: int | None = None,
@@ -197,11 +209,24 @@ class IntegrationEngine:
                  adapt_pilot_samples: int = 4096,
                  adapt_max_epochs: int = 3,
                  adapt_rounds_per_epoch: int = 2):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet (ROADMAP queue 1 item 11: "
-                "multi-device on torch.distributed)")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = collectives.mesh_device(mesh, device)
+            if sample_axes is None:
+                sample_axes = tuple(a for a in mesh.mesh_dim_names if a != fn_axis)
+            sample_par = collectives.axis_size(mesh, sample_axes)
+            # the unfused fallback (sharded_family_sums) rounds the budget
+            # up to per-shard multiples; an inexact split would draw
+            # overlapping counters across consecutive cache rounds
+            if round_samples % sample_par:
+                raise ValueError(
+                    f"round_samples={round_samples} must divide evenly over "
+                    f"the {sample_par} sample-axis shards of the mesh")
+            if state_dir is not None and mesh.size() > 1:
+                raise ValueError(
+                    "state_dir on a mesh of more than one rank is not ported "
+                    "yet (ROADMAP queue 1 item 5)")
         # telemetry first: every layer below receives the same bundle
         self.obs = obs if obs is not None else Observability.disabled()
         self.seed = int(seed)
@@ -222,8 +247,9 @@ class IntegrationEngine:
         self.cache = ResultCache(round_samples=round_samples,
                                  store=self.store, obs=self.obs)
         self.batcher = RoundBatcher(
-            self.cache, self.key, use_kernel=use_kernel, chunk=chunk,
-            obs=self.obs, faults=self.faults)
+            self.cache, self.key, use_kernel=use_kernel, mesh=mesh,
+            fn_axis=fn_axis, sample_axes=sample_axes or ("data",),
+            chunk=chunk, obs=self.obs, faults=self.faults)
         if self.store is not None:
             # only after every constructor check passed: a rejected
             # configuration must not pin meta into a fresh state dir.

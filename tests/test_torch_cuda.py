@@ -537,3 +537,27 @@ def test_eval_strata_kernel_on_card(cuda):
     mean_p, var_p = stratified.eval_strata(fn, table.boxes, slots, 1, 1024, key)
     torch.testing.assert_close(mean_k, mean_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(var_k, var_p, rtol=1e-3, atol=1e-6)
+
+
+def test_world_size_one_mesh_on_card(cuda, tmp_path):
+    """A (1, 1) mesh of a world-size-1 NCCL group: the single-device bits,
+    the fused buckets through the CUDA kernel, the chunked family through
+    the sharded chunked path, the result on the card."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
+    spec = integrand.MultiFunctionSpec.from_families(
+        list(_spec(cuda).families) + [genz.continuous(5, 3)[0].to(cuda)])
+    want = ZMCMultiFunctions(spec, n_samples=65536, seed=3, use_kernel=True,
+                             device="cuda").evaluate(2)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        template.reset_kernel_launch_count()
+        got = ZMCMultiFunctions(spec, n_samples=65536, seed=3, use_kernel=True,
+                                mesh=make_mesh_for(device="cuda")).evaluate(2)
+        assert template.kernel_launch_count() == 2
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got.means.view(np.uint32), want.means.view(np.uint32))
+    np.testing.assert_array_equal(got.stderrs.view(np.uint32),
+                                  want.stderrs.view(np.uint32))

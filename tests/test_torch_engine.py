@@ -8,6 +8,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import direct_mc, domains, genz, integrand, rng
 from repro_torch.core.multifunctions import ZMCMultiFunctions
@@ -16,6 +17,7 @@ from repro_torch.distributed.fault_tolerance import StepWatchdog, run_with_resta
 from repro_torch.kernels import build, registry, template
 from repro_torch.kernels.mc_eval.ref import mc_harmonic_ref
 from repro_torch.launch import integrate
+from repro_torch.launch.mesh import make_mesh_for
 
 # One intra-op thread: the suite runs in several worker processes at once.
 torch.set_num_threads(1)
@@ -59,9 +61,27 @@ def test_resolve_device_cpu_and_bad_device():
         resolve_device("meta")
 
 
-def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        ZMCMultiFunctions(_spec(), mesh=object(), device="cpu")
+@pytest.fixture
+def mesh11(tmp_path):
+    """A (1, 1) ("data", "model") mesh on a world-size-1 gloo group."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh_for(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_not_ported_options_raise(mesh11):
+    # the mesh is ported now: a (1, 1) mesh gives the single-device bits,
+    # fused buckets and the chunked family alike
+    for use_kernel in (True, False):
+        want = ZMCMultiFunctions(_spec(), n_samples=3000, seed=2, device="cpu",
+                                 use_kernel=use_kernel).evaluate(2)
+        got = ZMCMultiFunctions(_spec(), n_samples=3000, seed=2, device="cpu",
+                                use_kernel=use_kernel, mesh=mesh11).evaluate(2)
+        np.testing.assert_array_equal(got.means, want.means)
+        np.testing.assert_array_equal(got.stderrs, want.stderrs)
     # the Sobol sampler is ported now; only unknown samplers raise
     assert ZMCMultiFunctions(_spec(), sampler="sobol", device="cpu").sampler == "sobol"
     with pytest.raises(ValueError, match="unknown sampler"):

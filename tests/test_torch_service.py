@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.analysis.streams import audit_state_dir
 from repro.launch import serve_integrals as jserve
@@ -25,6 +26,7 @@ from repro.service import canonical as jcanonical
 from repro.service.store import DurableStore as JStore
 from repro_torch.kernels import template
 from repro_torch.launch import serve_integrals
+from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.obs import MetricsRegistry
 from repro_torch.obs.metrics import service_metrics
 from repro_torch.service import (FaultPlan, IntegrationEngine,
@@ -166,19 +168,33 @@ def test_pipelined_worker_matches_synchronous(served):
     assert eng.batcher.fallback_rounds == 0
 
 
-def test_not_ported_paths_raise():
+def test_not_ported_paths_raise(tmp_path):
     fams = _workload(n=1)[0].families
     # adaptive requests, Sobol requests and sweeps are ported now
     req = IntegrationRequest.make(fams, target_stderr=0.1, adaptive=True)
     assert req.adaptive and req.target_stderr == 0.1
     assert IntegrationRequest.make(fams, n_samples=R, sampler="sobol").sampler == "sobol"
     assert isinstance(serve_integrals.demo_workload(2, sweeps=1)[-1], SweepRequest)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        IntegrationEngine(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        serve_integrals.main(["--device", "cpu", "--mesh"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         IntegrationEngine()
+    # the mesh is ported now: on a (1, 1) mesh of a world-size-1 gloo group
+    # the engine and the launcher serve the single-device bits
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        reqs = _workload()
+        want = _serve_sync(IntegrationEngine(round_samples=R, device="cpu"), reqs)
+        got = _serve_sync(IntegrationEngine(round_samples=R, device="cpu",
+                                            mesh=make_mesh_for(device="cpu")), reqs)
+        assert _digest(got) == _digest(want)
+        argv = ["--device", "cpu", "--requests", "4", "--n-fn", "2",
+                "--samples", str(2 * R), "--round-samples", str(R)]
+        plain = serve_integrals.main(argv)
+        meshed = serve_integrals.main(argv + ["--mesh"])
+        assert _digest(meshed["results"]) == _digest(plain["results"])
+        assert meshed["launches"] == plain["launches"]
+    finally:
+        dist.destroy_process_group()
 
 
 # -- durable state -----------------------------------------------------------

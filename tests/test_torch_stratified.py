@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core import adaptive as jad
 from repro.core import reduction as jred
@@ -28,6 +29,7 @@ from repro.kernels.moments.ref import moments_ref as jmoments_ref
 from repro_torch.core import adaptive, reduction, rng, stratified, tree_search
 from repro_torch.core.normal import ZMCNormal
 from repro_torch.kernels.moments import ops, ref
+from repro_torch.launch.mesh import make_mesh_for
 
 # One intra-op thread: the suite runs in several worker processes at once.
 torch.set_num_threads(1)
@@ -238,8 +240,22 @@ def test_zmcnormal_vs_reference():
     assert abs(got.stderr - want.stderr) <= 0.1 * want.stderr
 
 
-def test_zmcnormal_rejects_infinite_box_and_mesh():
+def test_zmcnormal_rejects_infinite_box_and_mesh(tmp_path):
     with pytest.raises(ValueError, match="finite box"):
         ZMCNormal(lambda x: x[..., 0], [[0, np.inf]], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        ZMCNormal(_sep, [[0, 1]] * 3, device="cpu", mesh=object())
+    # the mesh is ported now: a (1, 1) mesh of a world-size-1 gloo group
+    # gives the single-device bits, with the plain and the kernel reduction
+    opts = dict(splits_per_dim=3, n_per_stratum=512, depth=2, k_split=8)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for(device="cpu")
+        for use_kernel in (False, True):
+            want = ZMCNormal(_sep, [[0, 1]] * 3, seed=4, device="cpu",
+                             use_kernel=use_kernel, **opts).evaluate(2)
+            got = ZMCNormal(_sep, [[0, 1]] * 3, seed=4, device="cpu",
+                            use_kernel=use_kernel, mesh=mesh, **opts).evaluate(2)
+            np.testing.assert_array_equal(got.trial_values, want.trial_values)
+            assert got.stderr == want.stderr
+    finally:
+        dist.destroy_process_group()

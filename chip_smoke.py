@@ -139,8 +139,22 @@ multi-device path (a mesh of one NCCL rank, then four gloo ranks):
    ``ZMCNormal`` at dim 8 on (2, 2) (the moments kernel per rank) against
    step 19, ``compressed_psum`` within its int8 bound, and each rank's
    kernel ms for its shard of a Fig.-1 trial (against plain at 65536)
-   beside the collectives' ms; then prints the ``{"kernels": [...]}``
-   line, one entry per kernel variant (the Sobol sweep's launches as
+   beside the collectives' ms;
+21. a state dir on a mesh and the invariant checker: four gloo ranks on
+   this card serve service configuration 2 on the (2, 2) mesh with a state
+   dir that rank 0 owns, abandoned after its first wave (no close()) and
+   resumed by four new ranks: every launch the CUDA kernel, the resumed
+   run only the remaining wave, its estimates sha256-equal to step 20's
+   run on every rank, a warm replay with 0 launches, lease.json naming
+   only rank 0's pid; each wave's wall beside step 20's, with the time
+   in the store's operations, and warm ranks in turns without and with a
+   state dir (the journal's cost per wave); then the port's auditor
+   (``repro_torch.analysis.streams.audit_state_dir``) over the state dirs
+   of steps 11, 18 and 21 (the abandoned journal included; 0 violations
+   each, its ms), and
+   ``python -m repro_torch.analysis``'s main (the lint and every form's
+   contracts) exiting 0; then prints the ``{"kernels": [...]}`` line, one
+   entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
    ``fused_mc_sobol_adapted``, a rank's shard on the (2, 2) mesh as
    ``fused_mc_sharded``) and the stratum-moments kernel.
@@ -760,20 +774,26 @@ def mesh_rank() -> dict:
             start_rounds={i: v + r for i, v in start.items()})
         same += all(sha256_of(a[r]) == sha256_of(b[0]) for a, b in zip(stack, one))
     out["rounds_same"] = same
-    # service configuration 2 on (2, 2), in memory
+    # service configuration 2 on (2, 2), in memory (step 21 serves it again
+    # with a state dir and holds it against this run)
     engine = IntegrationEngine(round_samples=FULL_ROUND, max_rounds_per_wave=FULL_R,
                                mesh=mesh)
     template.reset_kernel_launch_count()
     tickets = [engine.submit(IntegrationRequest.make([f], n_samples=N_FULL))
                for f in spec.families]
-    while engine.step():
-        pass
+    wave_s = []
+    while True:
+        t0 = time.perf_counter()
+        if not engine.step():
+            break
+        torch.cuda.synchronize()
+        wave_s.append(time.perf_counter() - t0)
     served = [engine.poll(t) for t in tickets]
     torch.cuda.synchronize()
     out["service"] = dict(means=np.concatenate([r.means for r in served]),
                           stderrs=np.concatenate([r.stderrs for r in served]),
                           launches=template.kernel_launch_count(),
-                          waves=engine.stats.waves,
+                          waves=engine.stats.waves, wave_s=wave_s,
                           fallback=engine.batcher.fallback_rounds)
     engine.close()
     # ZMCNormal at dim 8, samples over all four ranks, moments on the card
@@ -860,6 +880,124 @@ def mesh_rank() -> dict:
             collectives.psum_gather_rows(part, mesh, ("data",), "model")
     torch.cuda.synchronize()
     out["shard"]["collectives_ms"] = (time.perf_counter() - t0) * 1e3 / TIMING_REPS
+    return out
+
+
+def state_rank(state_dir: str, waves) -> dict:
+    """One of step 21's four gloo ranks: service configuration 2 on the
+    (2, 2) mesh with a state dir that rank 0 owns.  With ``waves`` the run
+    stops after that many waves and is abandoned (no close(): no
+    snapshot, the lease left behind); without, it runs to the end, closes,
+    and a fresh engine replays it warm.  Every wave is timed, with its
+    ``deposit`` and ``wal_commit`` spans and the time the rank spent in
+    the store's operations (each ends in a broadcast from rank 0), its
+    kernel launches counted, and the pid in lease.json read after it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import template
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.obs import Observability
+    from repro_torch.obs.trace import span_totals
+    from repro_torch.service import IntegrationEngine, IntegrationRequest
+
+    device = torch.device("cuda", 0)
+    spec, _ = fig1_spec(device)
+    mesh = make_mesh_for(model_parallel=2, device="cuda")
+    lease = os.path.join(state_dir, "lease.json")
+    out = {"rank": dist.get_rank(), "pid": os.getpid(), "lease_pids": set()}
+
+    def lease_pid():
+        if os.path.exists(lease):
+            with open(lease, encoding="utf-8") as f:
+                out["lease_pids"].add(json.load(f)["pid"])
+
+    def serve(stop=None, path=state_dir):
+        events, store_s = [], [0.0]
+        t0 = time.perf_counter()
+        engine = IntegrationEngine(round_samples=FULL_ROUND, max_rounds_per_wave=FULL_R,
+                                   mesh=mesh, state_dir=path,
+                                   obs=Observability.enabled(sinks=[events.append]))
+        run = dict(open_s=time.perf_counter() - t0)
+        if path is not None:
+            on_rank0 = engine.store._on_rank0
+
+            def timed(fn, **kw):
+                t = time.perf_counter()
+                try:
+                    return on_rank0(fn, **kw)
+                finally:
+                    store_s[0] += time.perf_counter() - t
+
+            engine.store._on_rank0 = timed
+        lease_pid()
+        template.reset_launch_count()
+        template.reset_kernel_launch_count()
+        t0 = time.perf_counter()
+        tickets = [engine.submit(IntegrationRequest.make([f], n_samples=N_FULL))
+                   for f in spec.families]
+        run["submit_s"] = time.perf_counter() - t0
+        run.update(wave_s=[], store_s=[], deposit_s=[], wal_s=[])
+        while stop is None or len(run["wave_s"]) < stop:
+            del events[:]
+            store_s[0] = 0.0
+            t0 = time.perf_counter()
+            if not engine.step():
+                break
+            torch.cuda.synchronize()
+            run["wave_s"].append(time.perf_counter() - t0)
+            tot = span_totals(events)
+            run["store_s"].append(store_s[0])
+            run["deposit_s"].append(tot.get("deposit", 0.0))
+            run["wal_s"].append(tot.get("wal_commit", 0.0))
+            lease_pid()
+        served = [engine.poll(t) for t in tickets]
+        run.update(dispatches=template.launch_count(),
+                   kernel_launches=template.kernel_launch_count(),
+                   counts=template.kernel_launch_counts(),
+                   hits=sum(r is not None and r.served_from_cache for r in served),
+                   fallback=engine.batcher.fallback_rounds)
+        if all(r is not None for r in served):
+            run["means"] = np.concatenate([r.means for r in served])
+            run["stderrs"] = np.concatenate([r.stderrs for r in served])
+        return engine, run
+
+    if waves is not None:
+        _, out["abandoned"] = serve(stop=waves)
+        return out              # the engine is dropped unclosed
+    engine, out["resumed"] = serve()
+    t0 = time.perf_counter()
+    engine.close()
+    out["resumed"]["close_s"] = time.perf_counter() - t0
+    engine, out["replay"] = serve()
+    engine.close()
+    # in these processes, now warm, turns without a state dir and with a
+    # fresh one (none, dir, dir, none): the journal's cost per wave apart
+    # from a fresh process's first wave
+    out["turns"] = []
+    for k, disk in enumerate((False, True, True, False)):
+        engine, run = serve(path=f"{state_dir}_warm{k}" if disk else None)
+        engine.close()
+        out["turns"].append((disk, run["wave_s"], run["store_s"], run["submit_s"]))
+    # one outcome broadcast alone (what every store operation adds)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        dist.broadcast_object_list([None, None], src=0)
+    out["broadcast_s"] = (time.perf_counter() - t0) / 20
+    # the state dir's file system: one journal-sized append and its fsync
+    if out["rank"] == 0:
+        path = os.path.join(state_dir, "fsync_probe")
+        fsync_s = []
+        with open(path, "ab") as f:
+            for _ in range(5):
+                f.write(os.urandom(100_000))
+                f.flush()
+                t0 = time.perf_counter()
+                os.fsync(f.fileno())
+                fsync_s.append(time.perf_counter() - t0)
+        os.unlink(path)
+        out["fsync_s"] = fsync_s
     return out
 
 
@@ -1913,8 +2051,7 @@ def main() -> None:
     eng = bench10_engine(os.path.join(work, "interrupted"))
     r_b = IntegrationClient(eng).integrate([corner], target_stderr=RESUME_TARGET,
                                            adaptive=True)
-    eng.close()
-    shutil.rmtree(work, ignore_errors=True)
+    eng.close()                # both of work's state dirs are audited at step 21
     same_ids = r_a.stream_ids == r_b.stream_ids
     same_bytes = (served_digest([r_a]) == served_digest([r_b])
                   and r_a.n_per_family == r_b.n_per_family)
@@ -2229,6 +2366,117 @@ def main() -> None:
     sharded = dict(launches=mesh_counts["fused_mc"], max_abs_err=max(
         rk["shard"]["max_abs_err"] for rk in ranks), ms=sh["ms"],
         plain_ms=sh["plain_ms"], bound_ms=shard_bound)
+
+    # -- 21. a state dir on the (2, 2) mesh, resumed; the invariant checker -----
+    from repro_torch.analysis import __main__ as analysis_cli
+    from repro_torch.analysis import contracts as analysis_contracts
+    from repro_torch.analysis.streams import audit_state_dir
+    from repro_torch.kernels import registry
+    t21 = time.perf_counter()
+    sv20 = ranks[0]["service"]
+    whole = est_digest(sv20["means"], sv20["stderrs"])
+    mesh_state = tempfile.mkdtemp(prefix="zmc_mesh_state_")
+    lease_path = os.path.join(mesh_state, "lease.json")
+    # (a) configuration 2 with a state dir, abandoned after its first wave by
+    # four ranks, resumed by four new ones, then replayed warm
+    # (no device: spawn's default is the card)
+    first = multihost.spawn(state_rank, MESH_RANKS, mesh_state, 1, backend="gloo",
+                            timeout=600)
+    with open(lease_path, encoding="utf-8") as f:
+        left = json.load(f)["pid"]
+    # the journal as the abandoned ranks left it, audited in (b)
+    shutil.copytree(mesh_state, f"{mesh_state}_abandoned")
+    second = multihost.spawn(state_rank, MESH_RANKS, mesh_state, None, device="cuda",
+                             backend="gloo", timeout=600)
+    ab, rs, rp = first[0]["abandoned"], second[0]["resumed"], second[0]["replay"]
+    for group, run in ((first, "abandoned"), (second, "resumed"), (second, "replay")):
+        for rk in group:
+            got = rk[run]
+            check(got["kernel_launches"] == got["dispatches"] and got["fallback"] == 0,
+                  f"rank {rk['rank']}, {run}: {got['dispatches']} dispatches, "
+                  f"{got['kernel_launches']} CUDA kernel launches, {got['fallback']} "
+                  "fallback rounds")
+            check(rk["lease_pids"] == {group[0]["pid"]},
+                  f"rank {rk['rank']}, {run}: lease.json named pids {rk['lease_pids']}, "
+                  f"rank 0 is {group[0]['pid']}")
+            if run != "abandoned":
+                check(est_digest(got["means"], got["stderrs"]) == whole,
+                      f"rank {rk['rank']}, {run}: served estimates differ from step 20's")
+            if run == "resumed":
+                check(got["counts"]["fused_mc_rounds"] > 0,
+                      f"rank {rk['rank']}: the resumed run never launched fused_mc_rounds")
+    check(left == first[0]["pid"], f"the abandoned dir's lease names pid {left}")
+    check(not os.path.exists(lease_path), "the resumed ranks' close() left the lease")
+    check(len(ab["wave_s"]) == 1 and len(rs["wave_s"]) == sv20["waves"] - 1
+          and ab["kernel_launches"] + rs["kernel_launches"] == sv20["launches"],
+          f"abandoned {ab['kernel_launches']} + resumed {rs['kernel_launches']} launches "
+          f"over {len(ab['wave_s'])} + {len(rs['wave_s'])} waves, step 20 "
+          f"{sv20['launches']} over {sv20['waves']}")
+    check(rp["dispatches"] == 0 and rp["hits"] == len(spec.families),
+          f"warm replay: {rp['dispatches']} launches, {rp['hits']} pure hits")
+    print(f"service config 2 on (2, 2) with a state dir (rank 0 owns it): abandoned "
+          f"after wave 1 ({ab['kernel_launches']} launches), resumed by 4 new ranks "
+          f"({rs['kernel_launches']} launches over {len(rs['wave_s'])} wave(s), "
+          f"{rs['counts']}), served estimates sha256-equal to step 20's run on every "
+          f"rank ({whole[:16]}); warm replay {rp['dispatches']} launches, "
+          f"{rp['hits']} pure hits; lease.json only ever named rank 0's pid")
+    def ms(xs):
+        return [round(1e3 * x, 3) for x in xs]
+
+    turns = second[0]["turns"]
+    mean_wave = {disk: float(np.mean([w for d, ws, _, _ in turns if d == disk for w in ws]))
+                 for disk in (False, True)}
+    print("mesh (2, 2) config 2, warm ranks in turns (none, dir, dir, none; rank 0): "
+          + "; ".join(f"{'state dir' if d else 'no state dir'} waves {ms(ws)} ms"
+                      + (f" (store operations {ms(st)} ms)" if d else "")
+                      + f", submit {1e3 * sub:.1f} ms" for d, ws, st, sub in turns)
+          + f"; mean wave {1e3 * mean_wave[True]:.3f} ms with the state dir against "
+          f"{1e3 * mean_wave[False]:.3f} without: "
+          f"{1e3 * (mean_wave[True] - mean_wave[False]):+.3f} ms per wave; on {card}")
+    print(f"mesh (2, 2) config 2 wall per wave (ms, rank 0): step 20 without a state "
+          f"dir {ms(sv20['wave_s'])}; with one: abandoned run's wave 1 {ms(ab['wave_s'])}, "
+          f"resumed run's wave 2 {ms(rs['wave_s'])}; on {card}")
+    for label, group, run in (("abandoned wave 1", first, "abandoned"),
+                              ("resumed wave 2", second, "resumed")):
+        print(f"  {label}: per rank, time in the store's operations (rank 0's write, "
+              f"then the broadcast) {[ms(rk[run]['store_s']) for rk in group]} ms; rank "
+              f"0's deposit span {ms(group[0][run]['deposit_s'])} ms, of which "
+              f"wal_commit {ms(group[0][run]['wal_s'])} ms")
+    print(f"  resume (rank 0): open and recover {1e3 * rs['open_s']:.3f} ms, submit "
+          f"{1e3 * rs['submit_s']:.3f} ms, its wave {ms(rs['wave_s'])} ms, close with "
+          f"the snapshot {1e3 * rs['close_s']:.3f} ms; the state dir's file system: "
+          f"fsync of a 100 KB append {ms(second[0]['fsync_s'])} ms; one outcome "
+          f"broadcast alone {ms([rk['broadcast_s'] for rk in second])} ms per rank; "
+          f"the abandoned run "
+          f"opened in {1e3 * ab['open_s']:.3f} ms and submitted in "
+          f"{1e3 * ab['submit_s']:.3f} ms")
+    # (b) every state dir this script wrote, through the port's auditor
+    for label, path in (("step 11", state),
+                        ("step 18 uninterrupted", os.path.join(work, "uninterrupted")),
+                        ("step 18 abandoned and resumed", os.path.join(work, "interrupted")),
+                        ("step 21 abandoned after wave 1", f"{mesh_state}_abandoned"),
+                        ("step 21", mesh_state),
+                        ("step 21 warm turn 1", f"{mesh_state}_warm1"),
+                        ("step 21 warm turn 2", f"{mesh_state}_warm2")):
+        t0 = time.perf_counter()
+        report = audit_state_dir(path)
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"audit ({label}): {report.summary()}; {ms:.3f} ms")
+        check(report.ok and report.streams > 0, f"audit ({label}): {report.violations}")
+    # (c) the lint and every registered form's contracts
+    t0 = time.perf_counter()
+    rc = analysis_cli.main([])
+    secs = time.perf_counter() - t0
+    forms = registry.forms()
+    combos = sum(len(analysis_contracts._combos(f)) for f in forms)
+    print(f"python -m repro_torch.analysis: exit {rc}; lint of src/repro_torch and "
+          f"{len(forms)} forms' contracts over {combos} capability combinations in "
+          f"{secs:.3f} s")
+    check(rc == 0, "the invariant checker found violations")
+    for path in (state, work, mesh_state, f"{mesh_state}_abandoned",
+                 f"{mesh_state}_warm1", f"{mesh_state}_warm2"):
+        shutil.rmtree(path, ignore_errors=True)
+    print(f"step 21 {time.perf_counter() - t21:.1f} s; on {card}")
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)

@@ -162,10 +162,17 @@ def load(name: str) -> ctypes.CDLL:
                     "(repro_torch.kernels.build.build()) before starting "
                     "ranks; ranks never build them")
             build([name])
-        lib = ctypes.CDLL(str(path))
-        _declare(lib)
-        _LOADED[name] = lib
+        _LOADED[name] = load_path(path)
     return _LOADED[name]
+
+
+def load_path(path) -> ctypes.CDLL:
+    """The built library at ``path`` (this tree's, or another checkout's
+    for ``launch.kernel_ab``), loaded with every exported function's
+    ``argtypes``/``restype`` declared; not cached."""
+    lib = ctypes.CDLL(str(path))
+    _declare(lib)
+    return lib
 
 
 def _in_group_of_ranks() -> bool:

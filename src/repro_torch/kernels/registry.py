@@ -119,14 +119,27 @@ def register(name: str):
     return deco
 
 
-def register_form(form: KernelForm) -> KernelForm:
+def register_form(form: KernelForm, *, validate: bool = True) -> KernelForm:
     """Register a form and generate its impl for every sampler it
-    supports."""
+    supports.
+
+    By default the form's kernel contracts are proven eagerly BEFORE the
+    registry mutates (:mod:`repro_torch.analysis.contracts`): the eval
+    body must run pure and f32 under every advertised capability
+    combination, and its outputs must match every already-registered
+    form it would share a fused bucket with, so a contract-breaking form
+    raises a ``ValueError`` naming the KCT rule here, at its definition
+    site, instead of failing inside the fused kernel at first launch.
+    Tests exercising deliberately broken forms pass ``validate=False``.
+    """
     if form.name in _FORMS:
         raise ValueError(f"kernel form {form.name!r} already registered")
     if not set(form.samplers) <= {"mc", "sobol"}:
         raise ValueError(f"form {form.name!r}: unknown samplers "
                          f"{form.samplers}")
+    if validate:
+        from repro_torch.analysis.contracts import validate_form_registration
+        validate_form_registration(form, _FORMS.values())
     if not 0 <= form.form_id < N_DEVICE_FORMS or form.form_id in _BY_ID:
         raise ValueError(
             f"form {form.name!r}: form_id {form.form_id} must be a free index "

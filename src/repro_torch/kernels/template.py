@@ -135,6 +135,20 @@ def pack_scalars(key, sample_offset, n_samples, round_stride=None) -> torch.Tens
     return torch.tensor(words, dtype=torch.int64) & rng.MASK32
 
 
+def probe_operands(dim: int, n_cols: int, device="cpu"):
+    """Zero-filled operands for one eval body, shaped exactly like what
+    :func:`fused_mc_plain` hands a body for one block: ``draws`` is
+    f32[dim, F_BLK, S_BLK] (``draws[d]`` is dimension ``d``'s samples of
+    the block's functions, what ``draw(d)`` returns) and ``packed`` the
+    f32[F_BLK, n_cols] parameter block.  The contract checker
+    (:mod:`repro_torch.analysis.contracts`) runs bodies on them without a
+    card or a kernel; ``device="meta"`` gives the same shapes without
+    data.
+    """
+    return (torch.zeros((dim, F_BLK, S_BLK), dtype=torch.float32, device=device),
+            torch.zeros((F_BLK, n_cols), dtype=torch.float32, device=device))
+
+
 def compactified_body(body, base_cols: int):
     """Wrap an eval body with the compactification stage (plain version
     of the CUDA kernel's compactified blocks).

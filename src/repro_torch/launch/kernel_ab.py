@@ -43,7 +43,6 @@ card; builds into ``kernels/_build/``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import hashlib
 import importlib.util
 import statistics
@@ -81,8 +80,7 @@ def build_both(other_root: Path):
     worker.join()
     if LIB not in other:
         raise RuntimeError(f"the build of {other_root} failed (see above)")
-    lib = ctypes.CDLL(str(other[LIB]["path"]))
-    build._declare(lib)
+    lib = build.load_path(other[LIB]["path"])
     return lib, {"this": (this["seconds"], build.pass1_resources(this["log"])),
                  "other": (other[LIB]["seconds"],
                            build.pass1_resources(other[LIB]["log"]))}

@@ -106,10 +106,14 @@ def _rank_main(fn, rank, world, backend, kind, init_method, results, args):
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn(fn, n_ranks: int, *args, device="cpu", backend: str | None = None,
+def spawn(fn, n_ranks: int, *args, device=None, backend: str | None = None,
           init_file: str | None = None, timeout: float | None = 600.0) -> list:
     """Run ``fn(*args)`` as each rank of a fresh ``n_ranks`` process group
     on this host; returns the ranks' results in rank order.
+
+    ``device`` defaults to the card and raises without one, as every entry
+    point does (:func:`repro_torch.device.resolve_device`); pass
+    ``device="cpu"`` for gloo ranks on the CPU.
 
     ``fn`` must be importable by name (processes start with ``spawn``) and
     return something picklable.  CPU ranks split the host's cores between

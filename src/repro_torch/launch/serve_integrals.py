@@ -38,13 +38,18 @@ metrics + convergence snapshot.
 torchrun's processes, or ``--ranks`` started here; ``--backend gloo`` for
 ranks that share a card).  The ranks work in lockstep: each submits the
 same workload in the same order, with ``--thread`` before its worker
-starts.  Rank 0 prints.
+starts.  Rank 0 prints, and with ``--state-dir`` rank 0 alone owns the
+dir (lease, journal, snapshots); every rank starts from the state it
+recovered.
+
+``--audit-state --state-dir PATH`` serves nothing: it audits the state
+dir against the determinism invariants
+(:func:`repro_torch.analysis.streams.audit_state_dir`, rules STR001-STR007)
+and exits 0 when it is clean, 1 with one ``RULE path:line message`` per
+violation (2 without ``--state-dir``).
 
 Sweep requests ride the library entry point, ``demo_workload(sweeps=k)``,
-as in the reference launcher, which has no flag for them either.  Not
-ported yet: ``--audit-state`` (queue 1 item 2); the reference's auditor
-reads the port's state dirs as they are (``python -m repro.analysis
---state-dir DIR``).
+as in the reference launcher, which has no flag for them either.
 """
 
 from __future__ import annotations
@@ -143,6 +148,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--compact-on-start", action="store_true",
                     help="fold the replayed journal into one npz snapshot "
                          "before serving")
+    ap.add_argument("--audit-state", action="store_true",
+                    help="audit --state-dir against the determinism "
+                         "invariants (repro_torch.analysis Layer 3) and "
+                         "exit; serves nothing")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome-trace/Perfetto span timeline of "
                          "every wave-pipeline stage here")
@@ -162,7 +171,18 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Serve the demo workload; returns a summary (the results, the
     engine's stats and counts) for callers that check it."""
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.audit_state:
+        if not args.state_dir:
+            ap.error("--audit-state requires --state-dir")
+        from repro_torch.analysis import render
+        from repro_torch.analysis.streams import audit_state_dir
+        report = audit_state_dir(args.state_dir)
+        if report.violations:
+            print(render(report.violations))
+        print(report.summary())
+        raise SystemExit(0 if report.ok else 1)
     if args.mesh and not multihost.initialize_if_needed(
             verbose=False, device=args.device, backend=args.backend):
         return multihost.spawn_launcher(main, args,

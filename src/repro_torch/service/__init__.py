@@ -27,7 +27,7 @@ from repro_torch.service.resilience import (Deadline, DeadlineExceeded,
                                             RetryExhausted, RetryPolicy,
                                             run_with_policy)
 from repro_torch.service.store import (DurableStore, EntryState, LeaseHeld,
-                                       LeaseLost, RecoveredState)
+                                       LeaseLost, MeshStore, RecoveredState)
 
 __all__ = [
     "Backpressure",
@@ -46,6 +46,7 @@ __all__ = [
     "IntegrationResult",
     "LeaseHeld",
     "LeaseLost",
+    "MeshStore",
     "NullFaultPlan",
     "RecoveredState",
     "RequestError",

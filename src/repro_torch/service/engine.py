@@ -70,8 +70,14 @@ waves.  Driving ``step()`` after the same submits does that.  With the
 worker thread, submit every request before ``start()``: each rank's one
 worker then plans and launches the same waves in the same order.
 Request deadlines and retried faults are local to a rank and can break
-lockstep; leave them off on a mesh.  A ``state_dir`` on a mesh of more
-than one rank is not ported yet (ROADMAP queue 1 item 5) and raises.
+lockstep; leave them off on a mesh.  With a ``state_dir`` on a mesh of
+more than one rank, rank 0 owns the dir
+(:class:`~repro_torch.service.store.MeshStore`): it alone holds the lease
+and writes meta, journal and snapshots, in the single-device format; on
+restart it recovers and broadcasts the state, so every rank's cache
+starts from rank 0's bits, and a store failure on rank 0 (a held or lost
+lease, a meta mismatch, a corrupt snapshot, a failed journal write)
+raises the same error on every rank.
 """
 
 from __future__ import annotations
@@ -104,7 +110,7 @@ from repro_torch.service.faults import NULL_FAULTS, InjectedCrash
 from repro_torch.service.resilience import (Deadline, DeadlineExceeded,
                                             RetryExhausted, RetryPolicy,
                                             StepWatchdog, run_with_policy)
-from repro_torch.service.store import DurableStore
+from repro_torch.service.store import DurableStore, MeshStore
 
 
 def _wave_streams(items: Sequence[WorkItem]) -> list[str]:
@@ -223,10 +229,6 @@ class IntegrationEngine:
                 raise ValueError(
                     f"round_samples={round_samples} must divide evenly over "
                     f"the {sample_par} sample-axis shards of the mesh")
-            if state_dir is not None and mesh.size() > 1:
-                raise ValueError(
-                    "state_dir on a mesh of more than one rank is not ported "
-                    "yet (ROADMAP queue 1 item 5)")
         # telemetry first: every layer below receives the same bundle
         self.obs = obs if obs is not None else Observability.disabled()
         self.seed = int(seed)
@@ -241,9 +243,14 @@ class IntegrationEngine:
                        else faults).bind(self.obs)
         self.store = None
         if state_dir is not None:
-            self.store = DurableStore(state_dir, fsync=store_fsync,
-                                      obs=self.obs, faults=self.faults,
-                                      lease_ttl=lease_ttl)
+            store_kw = dict(fsync=store_fsync, obs=self.obs,
+                            faults=self.faults, lease_ttl=lease_ttl)
+            if mesh is not None and mesh.size() > 1:
+                # rank 0 owns the dir; every rank learns each outcome
+                self.store = MeshStore(state_dir, device=self.device,
+                                       **store_kw)
+            else:
+                self.store = DurableStore(state_dir, **store_kw)
         self.cache = ResultCache(round_samples=round_samples,
                                  store=self.store, obs=self.obs)
         self.batcher = RoundBatcher(

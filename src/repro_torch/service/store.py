@@ -59,6 +59,14 @@ raises :class:`LeaseHeld` — the first concrete step of the ROADMAP's
 replicated-engine scale-out item.  Heartbeats verify the on-disk token
 still matches; a usurped writer gets :class:`LeaseLost` instead of
 silently double-writing (fencing).
+
+**On a mesh** (:class:`MeshStore`) every rank runs an engine, and the
+ranks hold the same cache bit for bit, so one state dir serves them all:
+rank 0 owns it (the only :class:`DurableStore`: lease, meta, journal,
+snapshots) and the other ranks write nothing.  Each store operation runs
+on rank 0 and then broadcasts its outcome, so a failure on rank 0
+raises the same error on every rank, and recovery broadcasts the state
+rank 0 read, so every rank's cache starts from the same bits.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ import dataclasses
 import errno
 import json
 import os
+import pickle
 import struct
 import threading
 import zlib
@@ -647,3 +656,114 @@ class DurableStore:
         """Release the journal handle and the lease (idempotent)."""
         self._close_journal()
         self._release_lease()
+
+
+class MeshStore:
+    """The durable store of one rank of a mesh: rank 0 owns the state dir.
+
+    The ranks of a mesh work in lockstep and every deposit carries the
+    same bits on every rank (the collectives fold in a fixed order), so
+    one journal describes every rank's cache.  Rank 0 holds the only
+    :class:`DurableStore` (the lease, ``ensure_meta``, the journal, the
+    snapshots); the other ranks touch no file.  Every operation that can
+    fail — opening (and leasing) the dir, ``ensure_meta``, ``load``,
+    each append, ``snapshot``, ``close`` — runs on rank 0 and is then
+    followed by a broadcast of its outcome from rank 0, and every rank
+    raises the same error (type and message) when it failed, instead of
+    waiting in the next collective for a rank that is gone.  ``load``
+    broadcasts the recovered state too, so every rank's cache starts
+    from rank 0's, bit for bit, and no rank reads a journal rank 0 may
+    be writing.  A lease renewal between operations (the worker loop's
+    :meth:`heartbeat`) is local to rank 0; its failure is raised, on
+    every rank, by the next operation.
+
+    Every rank must call the operations in the same order, which the
+    engine's lockstep gives.  Errors are not retried on one rank alone:
+    a retry policy sees the same error on every rank.  The broadcasts run
+    on the default process group, which the mesh spans; with NCCL the
+    rank's card is made the current device first.
+    """
+
+    deposit_record = staticmethod(DurableStore.deposit_record)
+
+    def __init__(self, state_dir: str, *, device=None, **store_kw):
+        import torch
+        import torch.distributed as dist
+        self._dist = dist
+        self.rank = dist.get_rank()
+        self.journal_path = os.path.join(str(state_dir), DurableStore.JOURNAL)
+        self._device = None
+        if dist.get_backend() == "nccl":
+            self._device = torch.device(device if device is not None else "cuda")
+            torch.cuda.set_device(self._device)
+        # the cache holds this across append + fold, as with DurableStore
+        self.mutex = threading.RLock()
+        self._deferred: Exception | None = None
+        self._store: DurableStore | None = None
+        self._store = self._on_rank0(
+            lambda: DurableStore(state_dir, **store_kw))
+
+    def _on_rank0(self, fn, *, share: bool = False):
+        """Run ``fn`` on rank 0, broadcast its outcome, and raise rank 0's
+        error on every rank.  Returns ``fn``'s result: on every rank with
+        ``share`` (broadcast with the outcome), else on rank 0 alone."""
+        out = err = None
+        if self.rank == 0:
+            try:
+                if self._deferred is not None:
+                    err, self._deferred = self._deferred, None
+                else:
+                    out = fn()
+            except Exception as exc:  # noqa: BLE001 - re-raised on every rank below
+                err = exc
+            try:
+                pickle.dumps(err)
+            except Exception:  # noqa: BLE001 - any unpicklable error
+                err = RuntimeError(f"{type(err).__name__}: {err}")
+        box = [err, out if share and err is None else None]
+        with self.mutex:
+            self._dist.broadcast_object_list(box, src=0, device=self._device)
+        if box[0] is not None:
+            if self.rank == 0 and err is box[0]:
+                raise err
+            raise box[0]
+        return box[1] if share else out
+
+    # -- the DurableStore operations, rank 0 writing -------------------------
+    def ensure_meta(self, meta: dict) -> None:
+        self._on_rank0(lambda: self._store.ensure_meta(meta))
+
+    def load(self) -> RecoveredState:
+        return self._on_rank0(lambda: self._store.load(), share=True)
+
+    def append_alloc(self, chash: str, **kw) -> None:
+        self._on_rank0(lambda: self._store.append_alloc(chash, **kw))
+
+    def append_grid(self, chash: str, **kw) -> None:
+        self._on_rank0(lambda: self._store.append_grid(chash, **kw))
+
+    def append_deposits(self, payloads) -> None:
+        self._on_rank0(lambda: self._store.append_deposits(payloads))
+
+    def snapshot(self, states, **kw) -> None:
+        self._on_rank0(lambda: self._store.snapshot(states, **kw))
+
+    def heartbeat(self) -> None:
+        """Renew rank 0's lease (no collective: the worker loop calls this
+        a varying number of times per rank); a failure is raised on every
+        rank by the next operation."""
+        if self._store is None or self._deferred is not None:
+            return
+        try:
+            self._store.heartbeat()
+        except (LeaseLost, OSError) as exc:
+            self._deferred = exc
+
+    def close(self) -> None:
+        self._on_rank0(lambda: self._store.close())
+
+    def journal_size(self) -> int:
+        try:
+            return os.path.getsize(self.journal_path)
+        except OSError:
+            return 0

@@ -102,7 +102,7 @@ def _psum_rank():
 
 
 def test_compressed_psum_within_its_bound(tmp_path):
-    got = multihost.spawn(_psum_rank, 2, init_file=str(tmp_path / "rendezvous"),
+    got = multihost.spawn(_psum_rank, 2, device="cpu", init_file=str(tmp_path / "rendezvous"),
                           timeout=120)
     x = np.arange(32, dtype=np.float32).reshape(8, 4) / 7.0
     want = x.reshape(2, 4, 4).sum(0)

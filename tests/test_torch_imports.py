@@ -33,13 +33,16 @@ def test_files_found():
 
 
 @pytest.mark.parametrize("part", ["obs", "service", "analysis",
+                                  "analysis/boundary.py", "analysis/contracts.py",
+                                  "launch/check_analysis.py",
                                   "launch/serve_integrals.py",
                                   "core/adaptive.py", "core/stratified.py",
                                   "core/reduction.py", "core/tree_search.py",
                                   "core/normal.py", "kernels/moments"])
 def test_scan_covers_service_slice(part):
-    """The service slice's subpackages, and the adaptive and stratified
-    slice's modules, are among the scanned files."""
+    """The service slice's subpackages, the adaptive and stratified
+    slice's modules and the invariant checker's are among the scanned
+    files."""
     root = ROOT / "src" / "repro_torch" / part
     assert any(p == root or root in p.parents for p in FILES), part
 

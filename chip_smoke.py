@@ -16,8 +16,9 @@ repro_torch.launch.serve_integrals``) on the launcher's default workload,
 on the Fig.-1 spec served as requests (MC and Sobol) and on a full-width
 parameter sweep (MC and Sobol), VEGAS-adapted families through
 ``evaluate`` and adaptive requests through the service, and stratified
-sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``), and the
-multi-device path (a mesh of one NCCL rank, then four gloo ranks):
+sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``), the
+multi-device path (a mesh of one NCCL rank, then four gloo ranks), and
+the LM stack's serving path at full width:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -153,8 +154,30 @@ multi-device path (a mesh of one NCCL rank, then four gloo ranks):
    of steps 11, 18 and 21 (the abandoned journal included; 0 violations
    each, its ms), and
    ``python -m repro_torch.analysis``'s main (the lint and every form's
-   contracts) exiting 0; then prints the ``{"kernels": [...]}`` line, one
-   entry per kernel variant (the Sobol sweep's launches as
+   contracts) exiting 0;
+22. the LM stack's serving path (``repro_torch.launch.serve.Server``, no
+   kernel of its own: the products are cuBLAS calls, attention the
+   reference's full score rectangle in PyTorch) for stablelm-3b (2.796e9
+   parameters stored in f32, served from a bf16 copy) and chatglm3-6b
+   (6.244e9 in bf16, GQA 32/2, 2d RoPE) at full width and depth, weights
+   from the port's seeded init: 4 requests with 512-token prompts from
+   ``concrete_batch``, 64 greedy tokens, a cache of 576.  Gates: (a) at full
+   width with 2 layers in f32 (TF32 off), the card's prefill logits and 8
+   decode steps against the same weights on the CPU within 5e-3 of the
+   largest |logit|, and the greedy tokens equal wherever the top-2 gap
+   exceeds that; (b) at full depth in bf16, each block's decode step at
+   position 512 against the same block's prefill over 513 positions on the
+   same input, and the head on both, the RMS of the difference within 1e-2
+   of the prefill's (the free-running logits are printed beside it: the
+   seeded model amplifies rounding 2-7 times a layer, so at full depth two
+   prefills of 512 and 513 tokens disagree at position 511 as much);
+   (c) two ``generate`` calls sha256-equal; (d) no NaN or Inf in any
+   logits.  Prints prefill ms, decode ms per step, tokens per second and
+   ``torch.cuda.max_memory_allocated``, each time beside its bound (the
+   weights' and the full rectangle's operations at 989 TFLOP/s dense bf16,
+   the weights' and the cache's bytes at 3.35 TB/s: NVIDIA's H100 SXM data
+   sheet) and its share of it; then prints the ``{"kernels": [...]}`` line,
+   one entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
    ``fused_mc_sobol_adapted``, a rank's shard on the (2, 2) mesh as
    ``fused_mc_sharded``) and the stratum-moments kernel.
@@ -275,6 +298,35 @@ MESH_RANKS = 4
 N_ODD = N_CHECK + 2
 MESH_TOL = {"mc": dict(rtol=5e-5, atol=5e-3), "sobol": dict(rtol=1e-4, atol=1e-2)}
 BIG_MOMENTS = (32768, 4096)
+# step 22: the LM serving path (repro_torch.launch.serve.Server) at full
+# width and depth: 4 requests with 512-token prompts from concrete_batch, 64
+# greedy tokens each, a cache of 576 positions
+LM_ARCHS = ("stablelm-3b", "chatglm3-6b")
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 64
+LM_CAP = LM_PROMPT + LM_NEW
+LM_TIMING_REPS = 3
+# gate (a): the card against the CPU at full width, 2 layers, f32 compute
+# with TF32 off, on the prefill and 8 decode steps fed the same tokens:
+# max |diff| within LM_F32_REL of the largest |logit|.  f32 sums in another
+# order differ by ~1e-7 of each, and a layer of this seeded model multiplies
+# a difference in its input 2-7 times (the reference's fan-in init makes
+# |q.k| / sqrt(hd) ~ 80, so attention is near one-hot, and each block adds
+# ~5x its normalised input to the residual).  On the card, two layers left
+# 1.8e-4 (stablelm-3b) and 1.2e-3 (chatglm3-6b, 2 KV heads read by 32
+# query heads); a fault in the path (a mask, a position, a cache row) moves
+# logits by their own size
+LM_CHECK_LAYERS, LM_CHECK_STEPS, LM_F32_REL = 2, 8, 5e-3
+# gate (b): at full depth in bf16, each block's decode step at position 512
+# against the same block's prefill over 513 positions, both fed the
+# prefill's input to that block (and the head on the last block's): RMS of
+# the difference within LM_BF16_LAYER_RMS of the RMS of the prefill's row.
+# One bf16 rounding is 2^-9 relative and a block's output carries a few;
+# the free-running logits are printed, not gated: that amplification makes
+# two prefills of 512 and 513 tokens disagree at position 511 as much
+LM_BF16_LAYER_RMS = 1e-2
+# NVIDIA's H100 SXM data sheet: the dense bf16 tensor-core peak and the HBM3
+# rate, both at the 700 W limit
+H100_BF16_FLOPS, H100_HBM_BYTES_S = 989e12, 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -999,6 +1051,289 @@ def state_rank(state_dir: str, waves) -> dict:
         os.unlink(path)
         out["fsync_s"] = fsync_s
     return out
+
+
+def lm_run(model, batch: dict, steps: int, tokens=None):
+    """Prefill, then ``steps`` decode steps fed ``tokens`` (B, steps) or,
+    without them, the greedy choice.  Returns (the steps + 1 logits, the
+    tokens fed)."""
+    import torch
+    logits, cache = model.prefill(batch, LM_CAP)
+    out, fed = [logits], []
+    for i in range(steps):
+        tok = (tokens[:, i:i + 1] if tokens is not None
+               else torch.argmax(logits, dim=-1)[:, None].to(torch.int32))
+        fed.append(tok)
+        logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
+        out.append(logits)
+    return out, torch.cat(fed, dim=1)
+
+
+def lm_bounds(cfg) -> dict:
+    """The least time the card could take for step 22's prefill, one decode
+    step (the mean over the 64 positions served) and a generate call: the
+    larger of the bytes over the HBM rate and the operations over the bf16
+    peak.  Weights are the layers and the output head in the compute dtype;
+    the prefill's attention is the full score rectangle it computes; a
+    decode step reads the cache up to its own position."""
+    from repro_torch.models.config import count_params
+    from repro_torch.models.model import param_defs
+    b, s, new = LM_BATCH, LM_PROMPT, LM_NEW
+    L, d, vp = cfg.n_layers, cfg.d_model, cfg.vocab_padded
+    esize = 2                                          # bf16
+    defs = param_defs(cfg)
+    weights = count_params(defs) - count_params(defs["embed"])
+    layer_w = weights - d - (0 if cfg.tie_embeddings else d * vp)  # less final norm, head
+    kv_row = 2 * L * cfg.n_kv_heads * cfg.head_dim * esize         # K and V, all layers
+    attn_flops = lambda q, k: 4 * b * L * cfg.n_heads * cfg.head_dim * q * k
+    pre_flops = 2 * layer_w * b * s + attn_flops(s, s) + 2 * d * vp * b
+    pre_bytes = (weights * esize + b * s * d * esize + b * LM_CAP * kv_row
+                 + b * vp * esize)
+    dec_flops = dec_bytes = 0.0
+    for i in range(new):
+        pos = s + i
+        dec_flops += 2 * (layer_w + d * vp) * b + attn_flops(1, pos + 1)
+        dec_bytes += (weights * esize + b * d * esize + b * (pos + 1) * kv_row
+                      + b * vp * esize)
+    dec_flops, dec_bytes = dec_flops / new, dec_bytes / new
+    pre = max(pre_flops / H100_BF16_FLOPS, pre_bytes / H100_HBM_BYTES_S)
+    dec = max(dec_flops / H100_BF16_FLOPS, dec_bytes / H100_HBM_BYTES_S)
+    return dict(prefill_ms=1e3 * pre, decode_ms=1e3 * dec,
+                prefill_by="operations" if pre_flops / H100_BF16_FLOPS
+                >= pre_bytes / H100_HBM_BYTES_S else "bytes",
+                decode_by="operations" if dec_flops / H100_BF16_FLOPS
+                >= dec_bytes / H100_HBM_BYTES_S else "bytes",
+                prefill_flops=pre_flops, decode_bytes=dec_bytes,
+                tokens_per_s=b * new / (pre + new * dec))
+
+
+def rel_rms(a, b) -> float:
+    """RMS of a - b over the RMS of b, in f32."""
+    d = a.float() - b.float()
+    return float(d.pow(2).mean().sqrt() / b.float().pow(2).mean().sqrt())
+
+
+def lm_layerwise(model, tokens, tok) -> list[float]:
+    """Gate (b): every block's decode step at position S (the prompt's
+    length) against the same block's prefill over S + 1 positions, both fed
+    the prefill's input to that block, the cache of positions < S from a
+    prefill of the prompt's rows; then the head on the two last outputs.
+    Returns each block's ``rel_rms`` and the logits' last."""
+    import torch
+    s = tokens.shape[1]
+    x, positions = model.embed_input({"tokens": torch.cat([tokens, tok], 1)})
+    errs = []
+    for block in model.blocks:
+        y, _ = block.prefill(x, positions, LM_CAP)
+        _, cache = block.prefill(x[:, :s], positions[:, :s], LM_CAP)
+        d, _ = block.decode(x[:, s:], cache, s)
+        errs.append(rel_rms(d, y[:, s:]))
+        x = y
+    v = model.cfg.vocab_size
+    errs.append(rel_rms(model.logits(d)[..., :v], model.logits(y[:, s:])[..., :v]))
+    return errs
+
+
+def lm_depth_probe() -> None:
+    """Not part of the run: how the seeded dense models amplify rounding
+    with depth, the evidence behind gates (a) and (b) of step 22.  On the
+    card, at full width, the decode step at 512 against a prefill over 513
+    and two prefills' shared position 511, by depth and compute dtype; on
+    the CPU, at d = 512, each block's f32 output against f64.  Run as
+    ``python -c 'import chip_smoke as c; c.lm_depth_probe()'``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import blocks
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in LM_ARCHS:
+        full = get_config(arch)
+        v = full.vocab_size
+        for dtype, depths in (("bfloat16", (1, 2, 4, 8, 16, full.n_layers)),
+                              ("float32", (2, 8, full.n_layers))):
+            for n in depths:
+                cfg = full.with_overrides(n_layers=n, compute_dtype=dtype)
+                model = Model(cfg, device="cuda", seed=0).cast(cfg.dtype("compute"))
+                tokens = concrete_batch(cfg, LM_BATCH, LM_PROMPT, train=False,
+                                        device="cuda")["tokens"]
+                logits, cache = model.prefill({"tokens": tokens}, LM_CAP)
+                tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+                dec, _ = model.decode_step(cache, tok, LM_PROMPT)
+                ext = model.forward({"tokens": torch.cat([tokens, tok], 1)})
+                print(f"depth probe {arch} {dtype} {n} layers: decode vs prefill RMS ratio "
+                      f"{rel_rms(dec[:, :v], ext[:, -1, :v]):.3e}, two prefills at "
+                      f"{LM_PROMPT - 1} {rel_rms(logits[:, :v], ext[:, -2, :v]):.3e}")
+                del model, cache
+                torch.cuda.empty_cache()
+    cfg = get_config("stablelm-3b").with_overrides(
+        n_layers=24, d_model=512, n_heads=8, n_kv_heads=8, head_dim=64, d_ff=1376,
+        vocab_size=1024, compute_dtype="float32")
+    model = Model(cfg, device="cpu", seed=0)
+    tokens = concrete_batch(cfg, 2, 128, train=False, device="cpu")
+    x32, positions = model.embed_input(tokens)
+    x64, f64 = x32.double(), cfg.with_overrides(compute_dtype="float64")
+    errs = []
+    for block in model.blocks:
+        x32 = block(x32, positions)
+        x64 = blocks.dense_block(x64, block, f64, positions)
+        errs.append(float((x32.double() - x64).pow(2).mean().sqrt() / x64.pow(2).mean().sqrt()))
+    print(f"depth probe, CPU, d = 512, 24 layers: each block's f32 output against f64, "
+          f"RMS ratio {[f'{e:.1e}' for e in errs]}")
+
+
+def lm_serving(card: str) -> None:
+    """Step 22: the LM serving path of the dense family at full width and
+    depth, for each of ``LM_ARCHS``, with gates (a)-(d) and the times
+    beside their bounds.  Every number of an architecture is printed before
+    its gates are checked."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"step 22 peaks: {H100_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16, "
+          f"{H100_HBM_BYTES_S / 1e12:.2f} TB/s HBM (NVIDIA's H100 SXM data sheet, 700 W); "
+          f"the card: {card}")
+    for arch in LM_ARCHS:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        v = full.vocab_size
+        failures = []
+        # (a) the card against the CPU: full width, 2 layers, f32 compute
+        cfg_a = full.with_overrides(n_layers=LM_CHECK_LAYERS, compute_dtype="float32")
+        srv = Server(cfg_a, device=dev, seed=0)
+        batch = concrete_batch(cfg_a, LM_BATCH, LM_PROMPT, train=False, device=dev)
+        card_logits, fed = lm_run(srv.compute, batch, LM_CHECK_STEPS)
+        card_logits = [x[:, :v].cpu() for x in card_logits]
+        t_cpu = time.perf_counter()
+        cpu_model = srv.compute.cpu()                  # the same weights, moved
+        cpu_logits, _ = lm_run(cpu_model, {k: x.cpu() for k, x in batch.items()},
+                               LM_CHECK_STEPS, tokens=fed.cpu())
+        cpu_logits = [x[:, :v] for x in cpu_logits]
+        t_cpu = time.perf_counter() - t_cpu
+        scale_a = max(float(x.abs().max()) for x in cpu_logits)
+        tol_a = LM_F32_REL * scale_a
+        err_a = max(float((c - h).abs().max()) for c, h in zip(card_logits, cpu_logits))
+        rms_a = max(rel_rms(c, h) for c, h in zip(card_logits, cpu_logits))
+        decided = agree = 0
+        for c, h in zip(card_logits, cpu_logits):
+            top2 = torch.topk(h, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > tol_a
+            decided += int(sure.sum())
+            agree += int((torch.argmax(c, -1) == torch.argmax(h, -1))[sure].sum())
+        finite_a = all(bool(torch.isfinite(x).all()) for x in card_logits + cpu_logits)
+        print(f"step 22 {arch} (a) card vs CPU, {LM_CHECK_LAYERS} layers at full width, f32 "
+              f"(TF32 off), prefill + {LM_CHECK_STEPS} decode steps: max |diff| {err_a:.3e} "
+              f"against {tol_a:.3e} ({LM_F32_REL} of the largest |logit|, {scale_a:.3f}); "
+              f"largest RMS ratio {rms_a:.2e}; greedy tokens equal in {agree}/{decided} rows "
+              f"whose top-2 gap exceeds it; the CPU run {t_cpu:.1f} s")
+        if not finite_a:
+            failures.append("(a) non-finite logits")
+        if err_a > tol_a:
+            failures.append(f"(a) card vs CPU {err_a:.3e} > {tol_a:.3e}")
+        if agree != decided:
+            failures.append(f"(a) greedy tokens differ in {decided - agree} rows")
+        del srv, batch, cpu_model, card_logits, cpu_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the served configuration at full width and depth
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        srv = Server(full, device=dev, seed=0)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated()  # the init draws each stacked leaf in f32
+        torch.cuda.reset_peak_memory_stats()
+        model = srv.compute
+        batch = concrete_batch(full, LM_BATCH, LM_PROMPT, train=False, device=dev)
+        srv.generate(batch, 2, seq_cap=LM_CAP)         # warm-up: cuBLAS handles
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        pre_ms = []
+        for _ in range(LM_TIMING_REPS):
+            start.record()
+            logits0, cache = model.prefill(batch, LM_CAP)
+            end.record()
+            torch.cuda.synchronize()
+            pre_ms.append(start.elapsed_time(end))
+        prefill_ms = sorted(pre_ms)[len(pre_ms) // 2]
+        tok = torch.argmax(logits0, dim=-1)[:, None].to(torch.int32)
+        first_tok, dec_logits = tok, []
+        start.record()
+        for i in range(LM_NEW):
+            logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
+            dec_logits.append(logits)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        end.record()
+        torch.cuda.synchronize()
+        decode_ms = start.elapsed_time(end) / LM_NEW
+        del cache
+        # (b) each block's decode step against its prefill; the free-running
+        # logits and two prefills' shared position beside them, not gated
+        layer_errs = lm_layerwise(model, batch["tokens"], first_tok)
+        ext = model.forward({"tokens": torch.cat([batch["tokens"], first_tok], 1)})
+        free = rel_rms(dec_logits[0][:, :v], ext[:, -1, :v])
+        floor = rel_rms(logits0[:, :v], ext[:, -2, :v])
+        same_b = int((torch.argmax(dec_logits[0][:, :v], -1)
+                      == torch.argmax(ext[:, -1, :v], -1)).sum())
+        # (c) two generate calls, each from a fresh cache
+        walls, digests = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = srv.generate(batch, LM_NEW, seq_cap=LM_CAP)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            digests.append(sha256_of(toks))
+        # (d) no NaN or Inf in any logits of the step
+        finite = all(bool(torch.isfinite(x[..., :v]).all())
+                     for x in [logits0, ext] + dec_logits)
+        peak = torch.cuda.max_memory_allocated()
+        bd = lm_bounds(full)
+        tps = LM_BATCH * LM_NEW / min(walls)
+        print(f"step 22 {arch}: {sum(p.numel() for p in srv.model.parameters()):,} parameters "
+              f"stored in {full.param_dtype}, served in {full.compute_dtype}; loaded in "
+              f"{t_load:.2f} s; batch {LM_BATCH} x {LM_PROMPT}-token prompts, {LM_NEW} new "
+              f"tokens, cache {LM_CAP}")
+        print(f"step 22 {arch}: prefill {prefill_ms:.3f} ms (runs {[round(x, 3) for x in pre_ms]}; "
+              f"bound {bd['prefill_ms']:.3f} ms by {bd['prefill_by']}, "
+              f"{bd['prefill_flops'] / 1e12:.3f} TFLOP; {100 * bd['prefill_ms'] / prefill_ms:.1f}% "
+              f"of it)")
+        print(f"step 22 {arch}: decode {decode_ms:.3f} ms per step over {LM_NEW} steps (bound "
+              f"{bd['decode_ms']:.3f} ms by {bd['decode_by']}, {bd['decode_bytes'] / 1e9:.3f} GB "
+              f"per step; {100 * bd['decode_ms'] / decode_ms:.1f}% of it)")
+        print(f"step 22 {arch}: generate {[round(w, 4) for w in walls]} s for {LM_BATCH} x "
+              f"{LM_NEW} tokens: {tps:.1f} tokens/s (bound {bd['tokens_per_s']:.1f}; "
+              f"{100 * tps / bd['tokens_per_s']:.1f}% of it); peak memory "
+              f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
+              f"{load_peak / 1e9:.3f} GB while loading")
+        print(f"step 22 {arch} (b) bf16, full depth, each block's decode at {LM_PROMPT} vs its "
+              f"prefill over {LM_PROMPT + 1} on the same input: RMS ratio max "
+              f"{max(layer_errs[:-1]):.3e} over {len(layer_errs) - 1} blocks "
+              f"({sum(e == 0 for e in layer_errs[:-1])} bit-equal), logits {layer_errs[-1]:.3e} "
+              f"(gate {LM_BF16_LAYER_RMS}); free-running logits {free:.4f}, argmax equal in "
+              f"{same_b}/{LM_BATCH} (not gated: two prefills of {LM_PROMPT} and "
+              f"{LM_PROMPT + 1} tokens at position {LM_PROMPT - 1}: {floor:.4f})")
+        print(f"step 22 {arch} (c) generate sha256 {digests[0][:16]} {digests[1][:16]} "
+              f"{'equal' if digests[0] == digests[1] else 'DIFFER'}; (d) finite {finite}; "
+              f"{time.perf_counter() - t_arch:.1f} s")
+        if max(layer_errs) > LM_BF16_LAYER_RMS:
+            failures.append(f"(b) decode vs prefill per block {layer_errs}")
+        if digests[0] != digests[1]:
+            failures.append("(c) repeated generate calls differ")
+        if not finite:
+            failures.append("(d) non-finite logits")
+        del srv, model, batch, logits0, logits, dec_logits, ext, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(not failures, f"{arch}: {'; '.join(failures)}")
 
 
 def main() -> None:
@@ -2477,6 +2812,11 @@ def main() -> None:
                  f"{mesh_state}_warm1", f"{mesh_state}_warm2"):
         shutil.rmtree(path, ignore_errors=True)
     print(f"step 21 {time.perf_counter() - t21:.1f} s; on {card}")
+
+    # -- 22. the LM serving path at full width and depth ---------------------------
+    t22 = time.perf_counter()
+    lm_serving(card)
+    print(f"step 22 {time.perf_counter() - t22:.1f} s; on {card}")
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)

@@ -38,11 +38,13 @@ def test_files_found():
                                   "launch/serve_integrals.py",
                                   "core/adaptive.py", "core/stratified.py",
                                   "core/reduction.py", "core/tree_search.py",
-                                  "core/normal.py", "kernels/moments"])
+                                  "core/normal.py", "kernels/moments",
+                                  "models", "configs", "launch/serve.py",
+                                  "launch/specs.py"])
 def test_scan_covers_service_slice(part):
     """The service slice's subpackages, the adaptive and stratified
-    slice's modules and the invariant checker's are among the scanned
-    files."""
+    slice's modules, the invariant checker's and the LM serving slice's
+    are among the scanned files."""
     root = ROOT / "src" / "repro_torch" / part
     assert any(p == root or root in p.parents for p in FILES), part
 

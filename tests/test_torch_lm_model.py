@@ -1,0 +1,237 @@
+"""The port's dense-family model (repro_torch.models.model) against repro's,
+with the reference's weights carried across by params_from_reference: for
+every dense configuration under reduced(), forward logits, prefill logits
+and caches, and three decode steps, in f32 at the reference's
+decode-consistency atol=2e-4 (tests/models/test_decode_consistency.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
+from repro.models.config import count_params as jcount_params
+from repro.models.model import Model as JModel
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import layers
+from repro_torch.models.config import count_params
+from repro_torch.models.convert import params_from_reference
+from repro_torch.models.model import LATER_FAMILIES, Model, param_defs
+
+# One intra-op thread: the suite runs in several worker processes at once.
+torch.set_num_threads(1)
+
+ATOL = 2e-4
+DECODABLE = ["stablelm_3b", "chatglm3_6b", "minitron_4b", "qwen2_5_32b", "qwen2_vl_7b"]
+DENSE = DECODABLE + ["hubert_xlarge"]
+B, S, CAP = 2, 12, 16
+
+
+def _pair(arch, **over):
+    """(reference model, its params, port model holding the same weights)."""
+    jcfg = jreduced(jget_config(arch)).with_overrides(**over)
+    cfg = reduced(get_config(arch)).with_overrides(**over)
+    jm = JModel(jcfg)
+    params = jm.init(jax.random.key(0))
+    model = params_from_reference(jax.tree.map(np.asarray, params), Model(cfg, device="cpu"))
+    return jm, params, model
+
+
+def _batch(cfg, seed=1, seq=S):
+    """The same inputs as a jax dict and a torch dict."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encoder":
+        arrays = {"frames": rng.standard_normal((B, seq, cfg.frontend_dim)).astype(np.float32)}
+    else:
+        arrays = {"tokens": rng.integers(0, cfg.vocab_size, (B, seq), dtype=np.int32)}
+    if cfg.family == "vlm":
+        arrays["vision_embeds"] = rng.standard_normal((B, 3, cfg.frontend_dim)).astype(np.float32)
+        arrays["positions"] = np.stack([np.broadcast_to(np.arange(seq, dtype=np.int32) + c,
+                                                        (B, seq)) for c in range(3)])
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()})
+
+
+def _logits(t, cfg):
+    return t.float().numpy()[..., :cfg.vocab_size]
+
+
+def _ref_logits(a, cfg):
+    return np.asarray(a).astype(np.float32)[..., :cfg.vocab_size]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_matches_reference(arch):
+    jm, params, model = _pair(arch)
+    jb, tb = _batch(model.cfg)
+    got = model.forward(tb)
+    assert got.shape == (B, S, model.cfg.vocab_padded)
+    np.testing.assert_allclose(_logits(got, model.cfg),
+                               _ref_logits(jm.forward(params, jb), model.cfg), atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", DECODABLE)
+def test_prefill_and_three_decode_steps_match_reference(arch):
+    jm, params, model = _pair(arch)
+    cfg = model.cfg
+    jb, tb = _batch(cfg)
+    jlog, jcache = jm.prefill(params, jb, seq_cap=CAP)
+    log, cache = model.prefill(tb, CAP)
+    np.testing.assert_allclose(_logits(log, cfg), _ref_logits(jlog, cfg), atol=ATOL)
+    assert len(cache) == cfg.n_layers
+
+    def check_cache():
+        for name in ("k", "v"):
+            ref = np.asarray(jcache["stages"]["layers"][name])
+            got = np.stack([c[name].numpy() for c in cache])
+            assert got.shape == ref.shape == (cfg.n_layers, B, CAP, cfg.n_kv_heads,
+                                              cfg.head_dim)
+            # K/V reach |x| ~ 20 (the fan-in init): the decode bound per
+            # unit of the largest magnitude
+            np.testing.assert_allclose(got, ref, rtol=0,
+                                       atol=ATOL * max(1.0, float(np.abs(ref).max())))
+
+    check_cache()
+    rng = np.random.default_rng(2)
+    for i in range(3):
+        tok = rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32)
+        jlog, jcache = jm.decode_step(params, jcache, jnp.asarray(tok), jnp.int32(S + i))
+        log, cache = model.decode_step(cache, torch.from_numpy(tok), S + i)
+        np.testing.assert_allclose(_logits(log, cfg), _ref_logits(jlog, cfg), atol=ATOL)
+    check_cache()
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "chatglm3_6b", "minitron_4b"])
+def test_decode_matches_extended_prefill(arch):
+    """Three decode steps equal a prefill over the prompt and the three
+    tokens (the port alone, as repro's test_multi_step_decode)."""
+    _, _, model = _pair(arch)
+    _, tb = _batch(model.cfg)
+    extra = torch.tensor([[3, 9, 11], [5, 7, 13]], dtype=torch.int32)
+    _, cache = model.prefill(tb, CAP)
+    for i in range(3):
+        dec, cache = model.decode_step(cache, extra[:, i:i + 1], S + i)
+        full, _ = model.prefill({"tokens": torch.cat([tb["tokens"], extra[:, :i + 1]], 1)}, CAP)
+        np.testing.assert_allclose(dec.numpy(), full.numpy(), atol=ATOL)
+    logits = model.forward({"tokens": torch.cat([tb["tokens"], extra], 1)})
+    np.testing.assert_allclose(dec.numpy(), logits[:, -1].numpy(), atol=ATOL)
+
+
+BF16_ATOL = 2 * 2.0 ** -8     # two bf16 ulps of a logit in [0.5, 1)
+
+
+def _bf16_case():
+    jm, params, model = _pair("chatglm3_6b", compute_dtype="bfloat16")
+    jb, tb = _batch(model.cfg)
+    ref = _ref_logits(jm.forward(params, jb), model.cfg)
+    assert np.abs(ref).max() < 1.0
+    return model, tb, ref
+
+
+def test_bf16_compute_matches_reference():
+    """bf16 compute, f32 storage (stablelm-3b's split) on chatglm3-6b's
+    reduced shape (GQA, qkv bias, 2d RoPE): within two bf16 ulps of the
+    logits' magnitude (|logit| < 1: 2 x 2^-8 = 0.0078)."""
+    model, tb, ref = _bf16_case()
+    got = model.forward(tb)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_logits(got, model.cfg), ref, atol=BF16_ATOL)
+
+
+def test_bf16_tolerance_catches_a_missing_cast(monkeypatch):
+    """The bf16 bound sees a cast dropped: rmsnorm's statistics taken in
+    bf16 instead of f32 move the logits past it."""
+    model, tb, ref = _bf16_case()
+
+    def rmsnorm_without_f32(x, params, eps):
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+        return x * torch.rsqrt(var + eps) * params["scale"].to(x.dtype)
+
+    monkeypatch.setattr(layers, "rmsnorm", rmsnorm_without_f32)
+    err = np.abs(_logits(model.forward(tb), model.cfg) - ref).max()
+    assert err > 2 * BF16_ATOL, err
+
+
+def test_bf16_cache_dtype_and_cast_copy():
+    _, _, model = _pair("stablelm_3b", compute_dtype="bfloat16")
+    _, tb = _batch(model.cfg)
+    log, cache = model.prefill(tb, CAP)
+    assert cache[0]["k"].dtype == torch.bfloat16 and log.dtype == torch.bfloat16
+    fresh = model.init_cache(B, CAP)
+    assert len(fresh) == model.cfg.n_layers and fresh[0]["v"].shape == (B, CAP, 4, 16)
+    assert fresh[0]["v"].dtype == torch.bfloat16 and not fresh[0]["v"].any()
+    copy = model.cast(torch.bfloat16)
+    for (name, a), (name2, b) in zip(model.state_dict().items(), copy.state_dict().items()):
+        assert name == name2 and b.dtype == torch.bfloat16
+        assert torch.equal(a.to(torch.bfloat16), b)
+    # the cast copy serves the same bits as the f32 weights cast at each use
+    _, cache2 = copy.prefill(tb, CAP)
+    tok = torch.tensor([[1], [2]], dtype=torch.int32)
+    assert torch.equal(model.decode_step(cache, tok, S)[0], copy.decode_step(cache2, tok, S)[0])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_count_params_equals_reference(arch):
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    assert count_params(param_defs(cfg)) == jcount_params(JModel(jcfg).param_defs())
+    if arch == "stablelm_3b":
+        assert count_params(param_defs(cfg)) == 2_795_932_160
+
+
+def test_seeded_init_follows_the_rule():
+    cfg = reduced(get_config("chatglm3_6b"))
+    a, b = Model(cfg, device="cpu", seed=3), Model(cfg, device="cpu", seed=3)
+    assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                   b.state_dict().values()))
+    assert not torch.equal(Model(cfg, device="cpu", seed=4).embed["tok"], a.embed["tok"])
+    blk = a.blocks[0]
+    assert torch.equal(blk["ln1"]["scale"], torch.ones(cfg.d_model))
+    assert not blk["attn"]["bq"].any()
+    # std 0.02 for the embedding, 1/sqrt(shape[-2]) otherwise
+    assert abs(float(a.embed["tok"].std()) - 0.02) < 0.002
+    assert abs(float(blk["ffn"]["wd"].std()) - cfg.d_ff ** -0.5) < 0.1 * cfg.d_ff ** -0.5
+    assert abs(float(blk["attn"]["wq"].std()) - cfg.n_heads ** -0.5) < 0.1 * cfg.n_heads ** -0.5
+    assert not any(p.requires_grad for p in a.parameters())
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "deepseek_v3_671b",
+                                  "mamba2_130m", "zamba2_7b"])
+def test_later_families_refused_by_name(arch):
+    cfg = reduced(get_config(arch))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the LM stack"):
+        Model(cfg, device="cpu")
+    assert cfg.family in LATER_FAMILIES
+
+
+def test_model_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(reduced(get_config("stablelm_3b")))
+
+
+def test_padding_logits_masked():
+    _, _, model = _pair("stablelm_3b", vocab_size=300)
+    _, tb = _batch(model.cfg)
+    log, _ = model.prefill(tb, CAP)
+    assert log.shape == (B, 512) and bool((log[:, 300:] == -1e30).all())
+
+
+def test_bf16_tree_carried_bit_for_bit():
+    jcfg = jreduced(jget_config("chatglm3_6b")).with_overrides(param_dtype="bfloat16")
+    cfg = reduced(get_config("chatglm3_6b")).with_overrides(param_dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, JModel(jcfg).init(jax.random.key(0)))
+    model = params_from_reference(tree, Model(cfg, device="cpu"))
+    got = model.blocks[1]["attn"]["wq"]
+    assert got.dtype == torch.bfloat16
+    want = tree["stages"]["layers"]["attn"]["wq"][1].astype(np.float32)
+    assert np.array_equal(got.float().numpy(), want)
+    del tree["final_norm"]
+    with pytest.raises(RuntimeError, match="final_norm.scale"):
+        params_from_reference(tree, Model(cfg, device="cpu"))
+    tree = jax.tree.map(np.asarray, JModel(jcfg.with_overrides(n_layers=3)).init(
+        jax.random.key(0)))
+    with pytest.raises(ValueError, match="3 layers, the model has 4"):
+        params_from_reference(tree, Model(cfg, device="cpu"))

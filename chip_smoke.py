@@ -18,7 +18,7 @@ parameter sweep (MC and Sobol), VEGAS-adapted families through
 ``evaluate`` and adaptive requests through the service, and stratified
 sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``), the
 multi-device path (a mesh of one NCCL rank, then four gloo ranks), and
-the LM stack's serving path at full width:
+the LM stack's serving path at full width, dense and MoE (MLA) models:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -176,7 +176,28 @@ the LM stack's serving path at full width:
    ``torch.cuda.max_memory_allocated``, each time beside its bound (the
    weights' and the full rectangle's operations at 989 TFLOP/s dense bf16,
    the weights' and the cache's bytes at 3.35 TB/s: NVIDIA's H100 SXM data
-   sheet) and its share of it; then prints the ``{"kernels": [...]}`` line,
+   sheet) and its share of it;
+23. the same serving path for the moe family (``models.mla``, ``models.moe``:
+   no kernel of its own either) with step 22's traffic: deepseek-v2-lite-16b
+   (15.706e9 parameters in bf16; MLA with kv_lora 512, 26 MoE layers of 64
+   experts top-6 and 2 shared) at full width and depth, and deepseek-v3-671b
+   at full width with its depth cut to 4 (3 dense layers and 1 MoE layer of
+   256 experts top-8, q-lora 1536; 15.797e9 parameters with the mtp
+   subtree).  Gates: (a) v2-lite alone, 1 dense and 1 MoE layer in f32 as
+   step 22's, with the router's (token, expert) choices compared call by
+   call and the smallest k-th to (k+1)-th probability margin printed;
+   (b) each block's decode step against its prefill, MoE blocks dropless,
+   request by request, in f32 compute on the served bf16 weights within
+   1e-2 (the bf16 ratios printed beside it: MLA's absorbed step and its
+   expanded prefill round scores of ~1e3 to bf16 differently, as the
+   reference's do); (c) and (d) as step 22's.  Prints the same times
+   beside the bounds (``lm_bounds`` extended: the latent cache row, MLA's
+   score widths, each token's top-k experts, a decode step's distinct
+   experts counted from its routing) and the bytes the reference's
+   formulation reads per decode step (every expert), the dropped pairs per
+   MoE layer of the served prefill at capacity factor 1.25, and a profile
+   of four decode steps (device busy share, operations per step); then
+   prints the ``{"kernels": [...]}`` line,
    one entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
    ``fused_mc_sobol_adapted``, a rank's shard on the (2, 2) mesh as
@@ -191,6 +212,7 @@ rest of the repository beside it, the script fails and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import json
@@ -324,6 +346,16 @@ LM_CHECK_LAYERS, LM_CHECK_STEPS, LM_F32_REL = 2, 8, 5e-3
 # the free-running logits are printed, not gated: that amplification makes
 # two prefills of 512 and 513 tokens disagree at position 511 as much
 LM_BF16_LAYER_RMS = 1e-2
+# step 23: the LM serving path of the moe family (MLA attention, the MoE
+# feed-forward) with step 22's traffic and gates: (arch, depth, gate (a)).
+# deepseek-v2-lite-16b at full width and depth; deepseek-v3-671b at full
+# width with its depth cut to 4 (its 3 dense layers and 1 MoE layer: the
+# whole model's 671.7e9 parameters fit no card), without gate (a), whose f32
+# copy of two layers (13.9e9 parameters) would not fit beside the bf16 one.
+# Gate (b) runs the MoE blocks dropless (capacity_factor = n_experts /
+# top_k): at the served 1.25 a prefill over 4 x 513 tokens drops pairs that
+# a 4-token decode step keeps, by design
+LM_MOE_ARCHS = (("deepseek-v2-lite-16b", None, True), ("deepseek-v3-671b", 4, False))
 # NVIDIA's H100 SXM data sheet: the dense bf16 tensor-core peak and the HBM3
 # rate, both at the 700 W limit
 H100_BF16_FLOPS, H100_HBM_BYTES_S = 989e12, 3.35e12
@@ -1069,42 +1101,75 @@ def lm_run(model, batch: dict, steps: int, tokens=None):
     return out, torch.cat(fed, dim=1)
 
 
-def lm_bounds(cfg) -> dict:
-    """The least time the card could take for step 22's prefill, one decode
-    step (the mean over the 64 positions served) and a generate call: the
-    larger of the bytes over the HBM rate and the operations over the bf16
-    peak.  Weights are the layers and the output head in the compute dtype;
-    the prefill's attention is the full score rectangle it computes; a
-    decode step reads the cache up to its own position."""
+def lm_bounds(cfg, experts_per_step: float | None = None) -> dict:
+    """The least time the card could take for step 22's (and 23's) prefill,
+    one decode step (the mean over the 64 positions served) and a generate
+    call: the larger of the bytes over the HBM rate and the operations over
+    the bf16 peak.  Weights are the layers and the output head in the
+    compute dtype (not the embedding, whose rows are gathered, nor the mtp
+    subtree, which serving does not read); the prefill's attention is the
+    full score rectangle it computes; a decode step reads the cache up to
+    its own position.  MLA: a cache row is the latent and the roped key,
+    the prefill's scores are taken at nope + rope and its values at
+    v_head_dim, the absorbed step's in the latent space.  MoE: operations
+    count each token's ``top_k`` experts; a decode step's bytes count
+    ``experts_per_step`` routed experts (the distinct experts its routing
+    selected, summed over the MoE layers; every expert where not given),
+    and ``formulation_bytes`` what the reference's formulation reads, which
+    runs every expert's capacity rows."""
+    from repro_torch.models import moe
     from repro_torch.models.config import count_params
     from repro_torch.models.model import param_defs
     b, s, new = LM_BATCH, LM_PROMPT, LM_NEW
-    L, d, vp = cfg.n_layers, cfg.d_model, cfg.vocab_padded
+    L, d, vp, h = cfg.n_layers, cfg.d_model, cfg.vocab_padded, cfg.n_heads
     esize = 2                                          # bf16
     defs = param_defs(cfg)
-    weights = count_params(defs) - count_params(defs["embed"])
-    layer_w = weights - d - (0 if cfg.tie_embeddings else d * vp)  # less final norm, head
-    kv_row = 2 * L * cfg.n_kv_heads * cfg.head_dim * esize         # K and V, all layers
-    attn_flops = lambda q, k: 4 * b * L * cfg.n_heads * cfg.head_dim * q * k
-    pre_flops = 2 * layer_w * b * s + attn_flops(s, s) + 2 * d * vp * b
+    weights = (count_params(defs) - count_params(defs["embed"])
+               - count_params(defs.get("mtp", {})))
+    head = d + (0 if cfg.tie_embeddings else d * vp)   # final norm and head
+    expert = 3 * d * cfg.moe_d_ff                      # one routed expert's weights
+    moe_layers = cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
+    routed = moe_layers * cfg.n_experts * expert
+    layer_w = weights - routed + moe_layers * cfg.top_k * expert - head  # one token's
+    if experts_per_step is None:
+        experts_per_step = moe_layers * cfg.n_experts
+    if cfg.attn_type == "mla":
+        kv_row = L * (cfg.kv_lora_rank + cfg.qk_rope_dim) * esize  # latent and key, all layers
+        dqk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+        step_attn = 2 * (2 * cfg.kv_lora_rank + cfg.qk_rope_dim)   # per head and position
+    else:
+        kv_row = 2 * L * cfg.n_kv_heads * cfg.head_dim * esize     # K and V, all layers
+        dqk = dv = cfg.head_dim
+        step_attn = 2 * (dqk + dv)
+    pre_flops = 2 * layer_w * b * s + 2 * b * L * h * s * s * (dqk + dv) + 2 * d * vp * b
     pre_bytes = (weights * esize + b * s * d * esize + b * LM_CAP * kv_row
                  + b * vp * esize)
-    dec_flops = dec_bytes = 0.0
+    read = (weights - routed + experts_per_step * expert) * esize
+    dec_flops = dec_bytes = form_bytes = 0.0
     for i in range(new):
         pos = s + i
-        dec_flops += 2 * (layer_w + d * vp) * b + attn_flops(1, pos + 1)
-        dec_bytes += (weights * esize + b * d * esize + b * (pos + 1) * kv_row
-                      + b * vp * esize)
-    dec_flops, dec_bytes = dec_flops / new, dec_bytes / new
+        dec_flops += 2 * (layer_w + d * vp) * b + b * L * h * (pos + 1) * step_attn
+        rest = b * d * esize + b * (pos + 1) * kv_row + b * vp * esize
+        dec_bytes += read + rest
+        form_bytes += weights * esize + rest
+    dec_flops, dec_bytes, form_bytes = dec_flops / new, dec_bytes / new, form_bytes / new
     pre = max(pre_flops / H100_BF16_FLOPS, pre_bytes / H100_HBM_BYTES_S)
     dec = max(dec_flops / H100_BF16_FLOPS, dec_bytes / H100_HBM_BYTES_S)
-    return dict(prefill_ms=1e3 * pre, decode_ms=1e3 * dec,
-                prefill_by="operations" if pre_flops / H100_BF16_FLOPS
-                >= pre_bytes / H100_HBM_BYTES_S else "bytes",
-                decode_by="operations" if dec_flops / H100_BF16_FLOPS
-                >= dec_bytes / H100_HBM_BYTES_S else "bytes",
-                prefill_flops=pre_flops, decode_bytes=dec_bytes,
-                tokens_per_s=b * new / (pre + new * dec))
+    out = dict(prefill_ms=1e3 * pre, decode_ms=1e3 * dec,
+               prefill_by="operations" if pre_flops / H100_BF16_FLOPS
+               >= pre_bytes / H100_HBM_BYTES_S else "bytes",
+               decode_by="operations" if dec_flops / H100_BF16_FLOPS
+               >= dec_bytes / H100_HBM_BYTES_S else "bytes",
+               prefill_flops=pre_flops, decode_bytes=dec_bytes,
+               tokens_per_s=b * new / (pre + new * dec))
+    if moe_layers:
+        t = b * s
+        out.update(formulation_bytes=form_bytes,
+                   formulation_ms=1e3 * form_bytes / H100_HBM_BYTES_S,
+                   active_params=layer_w + head,
+                   # the formulation's expert rows in the prefill over the active ones
+                   expert_rows_ratio=cfg.n_experts * moe.capacity(t, cfg) / (t * cfg.top_k))
+    return out
 
 
 def rel_rms(a, b) -> float:
@@ -1322,6 +1387,285 @@ def lm_serving(card: str) -> None:
               f"{same_b}/{LM_BATCH} (not gated: two prefills of {LM_PROMPT} and "
               f"{LM_PROMPT + 1} tokens at position {LM_PROMPT - 1}: {floor:.4f})")
         print(f"step 22 {arch} (c) generate sha256 {digests[0][:16]} {digests[1][:16]} "
+              f"{'equal' if digests[0] == digests[1] else 'DIFFER'}; (d) finite {finite}; "
+              f"{time.perf_counter() - t_arch:.1f} s")
+        if max(layer_errs) > LM_BF16_LAYER_RMS:
+            failures.append(f"(b) decode vs prefill per block {layer_errs}")
+        if digests[0] != digests[1]:
+            failures.append("(c) repeated generate calls differ")
+        if not finite:
+            failures.append("(d) non-finite logits")
+        del srv, model, batch, logits0, logits, dec_logits, ext, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(not failures, f"{arch}: {'; '.join(failures)}")
+
+
+@contextlib.contextmanager
+def routes_logged(margins: bool = False):
+    """Every call of the port's MoE router while open, in order: (expert ids
+    (T, k), and with ``margins`` each token's gap between its k-th and
+    (k+1)-th router probability)."""
+    import torch
+    from repro_torch.models import moe
+    route, log = moe._route, []
+
+    def logged(x_flat, router_w, cfg):
+        w, idx = route(x_flat, router_w, cfg)
+        gap = None
+        if margins:
+            probs = torch.softmax(torch.matmul(x_flat.float(), router_w.float()), dim=-1)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            gap = top[:, -2] - top[:, -1]
+        log.append((idx, gap))
+        return w, idx
+
+    moe._route = logged
+    try:
+        yield log
+    finally:
+        moe._route = route
+
+
+def route_flips(card_log, cpu_log, n_experts: int) -> tuple[int, float, float]:
+    """(token, expert) choices that differ between two logs of the same
+    calls, the smallest k-th to (k+1)-th margin of the second log, and the
+    smallest margin among the tokens whose choices differ (inf if none)."""
+    import torch
+    flips, least, at_flip = 0, float("inf"), float("inf")
+    for (a, _), (b, gap) in zip(card_log, cpu_log, strict=True):
+        one = lambda idx: torch.zeros(idx.shape[0], n_experts, dtype=torch.bool).scatter_(
+            1, idx.cpu(), True)
+        diff = one(a) != one(b)
+        flips += int(diff.sum()) // 2
+        least = min(least, float(gap.min()))
+        moved = diff.any(dim=1)
+        if moved.any():
+            at_flip = min(at_flip, float(gap.cpu()[moved].min()))
+    return flips, least, at_flip
+
+
+def decode_profile(model, batch: dict, steps: int = 4) -> str:
+    """``steps`` greedy decode steps from a fresh prefill under
+    ``torch.profiler``: wall and device-busy ms per step, the device's
+    operations per step and the five that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    logits, cache = model.prefill(batch, LM_CAP)
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    on_device = [e for e in prof.key_averages() if dev(e) > 0 and e.self_cpu_time_total == 0]
+    busy = sum(dev(e) for e in on_device) / 1e3 / steps
+    if busy == 0:
+        return f"{wall:.3f} ms wall per step; device time not measured (no CUDA events)"
+    top = sorted(on_device, key=dev, reverse=True)[:5]
+    return (f"{wall:.3f} ms wall per step, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%, "
+            f"idle {100 - 100 * busy / wall:.1f}%), {sum(e.count for e in on_device) / steps:.0f} "
+            f"device operations per step; most device time: "
+            + "; ".join(f"{e.key[:60]} {dev(e) / 1e3 / steps:.3f} ms x{e.count // steps}"
+                        for e in top))
+
+
+def lm_moe_serving(card: str) -> None:
+    """Step 23: the LM serving path of the moe family (MLA and MoE) for each
+    of ``LM_MOE_ARCHS``, with step 22's traffic, gates (a)-(d) and the times
+    beside their bounds.  Every number of an architecture is printed before
+    its gates are checked."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"step 23: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
+          f"on {card}")
+    for arch, depth, gate_a in LM_MOE_ARCHS:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        label = arch if depth is None else f"{arch} (depth {depth} of {full.n_layers})"
+        if depth is not None:
+            full = full.with_overrides(n_layers=depth)
+        v = full.vocab_size
+        n_moe = full.n_layers - full.first_dense_layers
+        failures = []
+        if gate_a:
+            # (a) the card against the CPU: full width, 1 dense and 1 MoE
+            # layer, f32 compute; the router's choices compared call by call
+            cfg_a = full.with_overrides(n_layers=full.first_dense_layers + 1,
+                                        compute_dtype="float32")
+            srv = Server(cfg_a, device=dev, seed=0)
+            batch = concrete_batch(cfg_a, LM_BATCH, LM_PROMPT, train=False, device=dev)
+            with routes_logged(margins=True) as card_log:
+                card_logits, fed = lm_run(srv.compute, batch, LM_CHECK_STEPS)
+            card_logits = [x[:, :v].cpu() for x in card_logits]
+            t_cpu = time.perf_counter()
+            cpu_model = srv.compute.cpu()              # the same weights, moved
+            with routes_logged(margins=True) as cpu_log:
+                cpu_logits, _ = lm_run(cpu_model, {k: x.cpu() for k, x in batch.items()},
+                                       LM_CHECK_STEPS, tokens=fed.cpu())
+            cpu_logits = [x[:, :v] for x in cpu_logits]
+            t_cpu = time.perf_counter() - t_cpu
+            flips, least, at_flip = route_flips(card_log, cpu_log, full.n_experts)
+            scale_a = max(float(x.abs().max()) for x in cpu_logits)
+            tol_a = LM_F32_REL * scale_a
+            err_a = max(float((c - h).abs().max()) for c, h in zip(card_logits, cpu_logits))
+            rms_a = max(rel_rms(c, h) for c, h in zip(card_logits, cpu_logits))
+            decided = agree = 0
+            for c, h in zip(card_logits, cpu_logits):
+                top2 = torch.topk(h, 2, dim=-1).values
+                sure = (top2[:, 0] - top2[:, 1]) > tol_a
+                decided += int(sure.sum())
+                agree += int((torch.argmax(c, -1) == torch.argmax(h, -1))[sure].sum())
+            finite_a = all(bool(torch.isfinite(x).all()) for x in card_logits + cpu_logits)
+            print(f"step 23 {label} (a) card vs CPU, {cfg_a.n_layers} layers (1 MoE) at full "
+                  f"width, f32 (TF32 off), prefill + {LM_CHECK_STEPS} decode steps: max |diff| "
+                  f"{err_a:.3e} against {tol_a:.3e} ({LM_F32_REL} of the largest |logit|, "
+                  f"{scale_a:.3f}); largest RMS ratio {rms_a:.2e}; greedy tokens equal in "
+                  f"{agree}/{decided} rows whose top-2 gap exceeds it; router: {flips} of "
+                  f"{sum(int(i.numel()) for i, _ in cpu_log)} (token, expert) choices differ "
+                  f"over {len(cpu_log)} calls, smallest k-th to (k+1)-th probability margin "
+                  f"{least:.3e}, {'no token differs' if flips == 0 else f'at a differing token {at_flip:.3e}'}; "
+                  f"the CPU run {t_cpu:.1f} s")
+            if not finite_a:
+                failures.append("(a) non-finite logits")
+            if err_a > tol_a:
+                failures.append(f"(a) card vs CPU {err_a:.3e} > {tol_a:.3e}")
+            if agree != decided:
+                failures.append(f"(a) greedy tokens differ in {decided - agree} rows")
+            del srv, batch, cpu_model, card_logits, cpu_logits, card_log, cpu_log
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # the served configuration
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        srv = Server(full, device=dev, seed=0)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated()  # the init draws each stacked leaf in f32
+        torch.cuda.reset_peak_memory_stats()
+        model = srv.compute
+        batch = concrete_batch(full, LM_BATCH, LM_PROMPT, train=False, device=dev)
+        srv.generate(batch, 2, seq_cap=LM_CAP)         # warm-up: cuBLAS handles
+        with routes_logged() as log:                   # the served capacity's drops
+            model.prefill(batch, LM_CAP)
+        cap = moe.capacity(LM_BATCH * LM_PROMPT, full)
+        dropped = [int((~moe.dispatch_plan(idx, full)[3]).sum()) for idx, _ in log]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        pre_ms = []
+        for _ in range(LM_TIMING_REPS):
+            start.record()
+            logits0, cache = model.prefill(batch, LM_CAP)
+            end.record()
+            torch.cuda.synchronize()
+            pre_ms.append(start.elapsed_time(end))
+        prefill_ms = sorted(pre_ms)[len(pre_ms) // 2]
+        tok = torch.argmax(logits0, dim=-1)[:, None].to(torch.int32)
+        first_tok, dec_logits = tok, []
+        with routes_logged() as log:
+            start.record()
+            for i in range(LM_NEW):
+                logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
+                dec_logits.append(logits)
+                tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            end.record()
+            torch.cuda.synchronize()
+        decode_ms = start.elapsed_time(end) / LM_NEW
+        check(len(log) == LM_NEW * n_moe, f"{arch}: {len(log)} router calls in the decode")
+        distinct = [int(idx.unique().numel()) for idx, _ in log]
+        experts_per_step = sum(distinct) / LM_NEW
+        del cache, log
+        # (c) two generate calls, each from a fresh cache
+        walls, digests = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = srv.generate(batch, LM_NEW, seq_cap=LM_CAP)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            digests.append(sha256_of(toks))
+        peak = torch.cuda.max_memory_allocated()
+        profiled = decode_profile(model, batch)
+        # (b) each block's decode step against its prefill, MoE blocks
+        # dropless, request by request on the served weights: gated in f32
+        # compute (each bf16 weight cast at its use), printed in bf16 as
+        # served, where MLA's absorbed step and its expanded prefill round
+        # scores of ~1e3 to bf16 in two different ways, as the reference's
+        # do (LM_MOE_ARCHS); the free-running logits and two prefills'
+        # shared position beside them, not gated
+        errs = {}
+        for dtype in ("bfloat16", "float32"):
+            twin = Model(full.with_overrides(compute_dtype=dtype,
+                                             capacity_factor=full.n_experts / full.top_k),
+                         device="meta", dtype=full.dtype("param"))
+            twin.load_state_dict(model.state_dict(), assign=True)
+            per = [lm_layerwise(twin, batch["tokens"][i:i + 1], first_tok[i:i + 1])
+                   for i in range(LM_BATCH)]
+            errs[dtype] = [max(e) for e in zip(*per)]
+            if dtype == "bfloat16":
+                ext = twin.forward({"tokens": torch.cat([batch["tokens"], first_tok], 1)})
+            del twin, per
+            torch.cuda.empty_cache()
+        layer_errs = errs["float32"]
+        free = rel_rms(dec_logits[0][:, :v], ext[:, -1, :v])
+        floor = rel_rms(logits0[:, :v], ext[:, -2, :v])
+        same_b = int((torch.argmax(dec_logits[0][:, :v], -1)
+                      == torch.argmax(ext[:, -1, :v], -1)).sum())
+        # (d) no NaN or Inf in any logits of the step
+        finite = all(bool(torch.isfinite(x[..., :v]).all())
+                     for x in [logits0, ext] + dec_logits)
+        bd = lm_bounds(full, experts_per_step)
+        tps = LM_BATCH * LM_NEW / min(walls)
+        n_params = sum(p.numel() for p in srv.model.parameters())
+        print(f"step 23 {label}: {n_params:,} parameters ({bd['active_params']:,} read per "
+              f"token: no embedding, no mtp, top-{full.top_k} of {full.n_experts} experts) "
+              f"stored in {full.param_dtype}, served in {full.compute_dtype}; loaded in "
+              f"{t_load:.2f} s; batch {LM_BATCH} x {LM_PROMPT}-token prompts, {LM_NEW} new "
+              f"tokens, cache {LM_CAP}")
+        print(f"step 23 {label}: prefill {prefill_ms:.3f} ms (runs "
+              f"{[round(x, 3) for x in pre_ms]}; bound {bd['prefill_ms']:.3f} ms by "
+              f"{bd['prefill_by']}, {bd['prefill_flops'] / 1e12:.3f} TFLOP; "
+              f"{100 * bd['prefill_ms'] / prefill_ms:.1f}% of it); the formulation's expert "
+              f"rows {bd['expert_rows_ratio']:.3f}x the active ones (capacity {cap} per expert "
+              f"at {full.capacity_factor}); dropped (token, expert) pairs per MoE layer "
+              f"{dropped} of {LM_BATCH * LM_PROMPT * full.top_k}")
+        print(f"step 23 {label}: decode {decode_ms:.3f} ms per step over {LM_NEW} steps (bound "
+              f"{bd['decode_ms']:.3f} ms by {bd['decode_by']}, {bd['decode_bytes'] / 1e9:.3f} GB "
+              f"per step with {experts_per_step:.2f} distinct experts per step over {n_moe} MoE "
+              f"layers, {min(distinct)}-{max(distinct)} per layer; "
+              f"{100 * bd['decode_ms'] / decode_ms:.1f}% of it); the reference's formulation "
+              f"reads {bd['formulation_bytes'] / 1e9:.3f} GB per step (every expert: "
+              f"{bd['formulation_ms']:.3f} ms at the HBM rate)")
+        print(f"step 23 {label}: generate {[round(w, 4) for w in walls]} s for {LM_BATCH} x "
+              f"{LM_NEW} tokens: {tps:.1f} tokens/s (bound {bd['tokens_per_s']:.1f}; "
+              f"{100 * tps / bd['tokens_per_s']:.1f}% of it); peak memory "
+              f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
+              f"{load_peak / 1e9:.3f} GB while loading")
+        print(f"step 23 {label}: {LM_PROMPT}-{LM_PROMPT + 3} decode steps profiled: {profiled}")
+        print(f"step 23 {label} (b) MoE blocks dropless, each block's decode at {LM_PROMPT} "
+              f"vs its prefill over {LM_PROMPT + 1} on the same input, request by request, "
+              f"RMS ratio: f32 compute on the bf16 weights max {max(layer_errs[:-1]):.3e} over "
+              f"{len(layer_errs) - 1} blocks, logits {layer_errs[-1]:.3e} (gate "
+              f"{LM_BF16_LAYER_RMS}); bf16 as served (not gated) "
+              f"{[float(f'{e:.2e}') for e in errs['bfloat16']]}; free-running bf16 logits "
+              f"{free:.4f}, argmax equal in {same_b}/{LM_BATCH} (not gated: two prefills of "
+              f"{LM_PROMPT} and {LM_PROMPT + 1} tokens at position {LM_PROMPT - 1}: "
+              f"{floor:.4f})")
+        print(f"step 23 {label} (c) generate sha256 {digests[0][:16]} {digests[1][:16]} "
               f"{'equal' if digests[0] == digests[1] else 'DIFFER'}; (d) finite {finite}; "
               f"{time.perf_counter() - t_arch:.1f} s")
         if max(layer_errs) > LM_BF16_LAYER_RMS:
@@ -2817,6 +3161,11 @@ def main() -> None:
     t22 = time.perf_counter()
     lm_serving(card)
     print(f"step 22 {time.perf_counter() - t22:.1f} s; on {card}")
+
+    # -- 23. the LM serving path of the moe family (MLA and MoE) ------------------
+    t23 = time.perf_counter()
+    lm_moe_serving(card)
+    print(f"step 23 {time.perf_counter() - t23:.1f} s; on {card}")
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)

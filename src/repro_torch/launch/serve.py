@@ -1,7 +1,8 @@
 """Serving: batched prefill and decode (port of ``repro.launch.serve``).
 
 ``python -m repro_torch.launch.serve --arch stablelm-3b`` generates on the
-card at full width from the port's seeded weights; ``--reduced --device
+card at full width from the port's seeded weights (any dense or MoE
+configuration: ``--arch deepseek-v2-lite-16b``); ``--reduced --device
 cpu`` runs a small generation on the CPU.  Without a GPU and without
 ``--device cpu`` it exits with an error.
 """

@@ -1,4 +1,5 @@
-"""The LM stack's serving path (port of ``repro.models``), dense family.
+"""The LM stack's serving path (port of ``repro.models``), dense and MoE
+families.
 
 * ``config`` — :class:`ModelConfig`, :class:`PSpec` parameter declarations,
   seeded initialisation from a ``torch.Generator``, ``count_params``.
@@ -6,10 +7,15 @@
   GQA attention (full rectangle and q-chunked) and the gated MLP, as plain
   functions on tensors.
 * ``decode`` — the KV cache and one-token GQA attention.
-* ``blocks`` — the dense block (:class:`DenseBlock`) and its
-  forward / prefill / decode functions.
+* ``mla`` — Multi-head Latent Attention (DeepSeek): the expanded prefill,
+  the absorbed decode step and its latent cache.
+* ``moe`` — the MoE feed-forward: the f32 router, capacity dispatch, three
+  batched expert products, the combine in a fixed order, shared experts.
+* ``blocks`` — the dense block (:class:`DenseBlock`: GQA or MLA, the gated
+  MLP or MoE) and its forward / prefill / decode functions.
 * ``model`` — :class:`Model`, an ``nn.Module`` over a ``ModuleList`` of
-  dense blocks: ``forward`` logits, ``prefill`` and ``decode_step``.
+  blocks in the reference's stages: ``forward`` logits, ``prefill`` and
+  ``decode_step``.
 * ``convert`` — ``params_from_reference``: the reference's parameter tree
   (numpy arrays) loaded into a :class:`Model`.
 """

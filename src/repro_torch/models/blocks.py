@@ -1,11 +1,14 @@
 """The dense decoder block (port of the dense part of
-``repro.models.blocks``): GQA attention and a gated MLP, each behind an
-rmsnorm and a residual add.
+``repro.models.blocks``): GQA or MLA attention, and a gated MLP or the MoE
+feed-forward, each behind an rmsnorm and a residual add.
 
 ``dense_block`` (forward), ``dense_block_prefill`` (forward plus the
 layer's cache) and ``dense_block_decode`` (one token against the cache)
 are plain functions of a parameter dict ``p`` with the reference's keys
-(``ln1``, ``attn``, ``ln2``, ``ffn``); :class:`DenseBlock` holds one
+(``ln1``, ``attn``, ``ln2``, ``ffn``); ``use_moe`` picks the MoE
+feed-forward (the ``moe`` stage of the DeepSeek configurations), and
+``cfg.attn_type == "mla"`` picks MLA, whose cache is ``{"c_kv",
+"k_rope"}`` where GQA's is ``{"k", "v"}``.  :class:`DenseBlock` holds one
 layer's parameters as an ``nn.Module`` and calls them.
 """
 
@@ -15,70 +18,114 @@ import torch
 from torch import nn
 
 from repro_torch.models import decode as dec
-from repro_torch.models import layers
+from repro_torch.models import layers, mla, moe
 from repro_torch.models.config import ModelConfig
 
 
-def dense_block_defs(cfg: ModelConfig) -> dict:
+def dense_block_defs(cfg: ModelConfig, use_moe: bool = False) -> dict:
     return {
         "ln1": layers.rmsnorm_defs(cfg.d_model),
-        "attn": layers.attn_defs(cfg),
+        "attn": mla.mla_defs(cfg) if cfg.attn_type == "mla" else layers.attn_defs(cfg),
         "ln2": layers.rmsnorm_defs(cfg.d_model),
-        "ffn": layers.mlp_defs(cfg),
+        "ffn": moe.moe_defs(cfg) if use_moe else layers.mlp_defs(cfg),
     }
 
 
-def dense_block(x, p, cfg: ModelConfig, positions):
-    x = x + layers.attention(layers.rmsnorm(x, p["ln1"], cfg.norm_eps), p["attn"],
-                             cfg, positions)
-    return x + layers.mlp(layers.rmsnorm(x, p["ln2"], cfg.norm_eps), p["ffn"], cfg)
+def _ffn(x, p, cfg: ModelConfig, use_moe: bool):
+    h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return moe.moe_ffn(h, p["ffn"], cfg) if use_moe else layers.mlp(h, p["ffn"], cfg)
 
 
-def dense_block_prefill(x, p, cfg: ModelConfig, positions, seq_cap: int):
-    """Returns (x, the layer's cache padded to ``seq_cap``)."""
-    h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = layers.qkv_proj(h, p["attn"], cfg, positions)
+def _attn_with_kv(x, p, cfg: ModelConfig, positions):
+    """(attention output, what the layer's cache holds of this sequence)."""
+    if cfg.attn_type == "mla":
+        return mla.mla_attention(x, p, cfg, positions)
+    q, k, v = layers.qkv_proj(x, p, cfg, positions)
     o = layers.sdpa(q, k, v, cfg, causal=cfg.causal and not cfg.is_encoder)
-    x = x + layers.attn_out(o, p["attn"], cfg)
-    x = x + layers.mlp(layers.rmsnorm(x, p["ln2"], cfg.norm_eps), p["ffn"], cfg)
-    return x, dec.prefill_kv(k, v, seq_cap)
+    return layers.attn_out(o, p, cfg), (k, v)
 
 
-def dense_block_decode(x, p, cfg: ModelConfig, cache: dict, pos: int):
-    """Returns (x, cache), the cache updated in place at ``pos``."""
-    a, cache = dec.gqa_decode(layers.rmsnorm(x, p["ln1"], cfg.norm_eps), p["attn"],
-                              cfg, cache, pos)
+def dense_block(x, p, cfg: ModelConfig, positions, use_moe: bool = False):
+    a, _ = _attn_with_kv(layers.rmsnorm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg,
+                         positions)
     x = x + a
-    x = x + layers.mlp(layers.rmsnorm(x, p["ln2"], cfg.norm_eps), p["ffn"], cfg)
-    return x, cache
+    return x + _ffn(x, p, cfg, use_moe)
+
+
+def dense_block_prefill(x, p, cfg: ModelConfig, positions, seq_cap: int,
+                        use_moe: bool = False):
+    """Returns (x, the layer's cache padded to ``seq_cap``)."""
+    a, kv = _attn_with_kv(layers.rmsnorm(x, p["ln1"], cfg.norm_eps), p["attn"], cfg,
+                          positions)
+    x = x + a
+    x = x + _ffn(x, p, cfg, use_moe)
+    if cfg.attn_type == "mla":
+        c_kv, k_rope = kv
+        return x, {"c_kv": dec.pad_seq(c_kv, seq_cap), "k_rope": dec.pad_seq(k_rope, seq_cap)}
+    return x, dec.prefill_kv(*kv, seq_cap)
+
+
+def dense_block_decode(x, p, cfg: ModelConfig, cache: dict, pos: int,
+                       use_moe: bool = False):
+    """Returns (x, cache), the cache updated in place at ``pos``."""
+    h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if cfg.attn_type == "mla":
+        a, cache = mla.mla_decode(h, p["attn"], cfg, cache, pos)
+    else:
+        a, cache = dec.gqa_decode(h, p["attn"], cfg, cache, pos)
+    x = x + a
+    return x + _ffn(x, p, cfg, use_moe), cache
 
 
 def dense_cache_defs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    if cfg.attn_type == "mla":
+        return mla.mla_cache_defs(cfg, batch, seq)
     return dec.gqa_cache_defs(cfg, batch, seq)
+
+
+class ParamTree(nn.Module):
+    """A tree node that holds both leaves and subtrees (the MoE ``ffn``:
+    ``router``, ``wg``, ``wu``, ``wd`` beside ``shared``), indexed by key."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, param_module(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
 
 
 def param_module(tree: dict) -> nn.Module:
     """A tree of tensors as nested ``nn.ModuleDict`` / ``nn.ParameterDict``
-    (frozen parameters: the serving path computes no gradients)."""
+    (a :class:`ParamTree` where a node mixes the two; frozen parameters:
+    the serving path computes no gradients)."""
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
         return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                                  for k, v in tree.items()})
+    if any(isinstance(v, torch.Tensor) for v in tree.values()):
+        return ParamTree(tree)
     return nn.ModuleDict({k: param_module(v) for k, v in tree.items()})
 
 
 class DenseBlock(nn.ModuleDict):
     """One dense layer's parameters, keyed as the reference's layer tree
-    (``ln1``, ``attn``, ``ln2``, ``ffn``), so the block is its own ``p``."""
+    (``ln1``, ``attn``, ``ln2``, ``ffn``), so the block is its own ``p``;
+    ``use_moe`` for a layer of the ``moe`` stage."""
 
-    def __init__(self, cfg: ModelConfig, tree: dict):
+    def __init__(self, cfg: ModelConfig, tree: dict, use_moe: bool = False):
         super().__init__({k: param_module(tree[k]) for k in ("ln1", "attn", "ln2", "ffn")})
         self.cfg = cfg
+        self.use_moe = use_moe
 
     def forward(self, x, positions):
-        return dense_block(x, self, self.cfg, positions)
+        return dense_block(x, self, self.cfg, positions, self.use_moe)
 
     def prefill(self, x, positions, seq_cap: int):
-        return dense_block_prefill(x, self, self.cfg, positions, seq_cap)
+        return dense_block_prefill(x, self, self.cfg, positions, seq_cap, self.use_moe)
 
     def decode(self, x, cache: dict, pos: int):
-        return dense_block_decode(x, self, self.cfg, cache, pos)
+        return dense_block_decode(x, self, self.cfg, cache, pos, self.use_moe)

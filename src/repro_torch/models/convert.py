@@ -5,7 +5,9 @@ nested dict of ``Model.init``, its leaves as numpy arrays:
 ``jax.tree.map(np.asarray, params)``) into a port :class:`Model`.  The two
 packages keep the same weight layouts, so each leaf is a copy; the stacked
 ``stages/<stage>`` leaves (a leading ``layers`` axis) are split along axis 0
-into the blocks.
+into the blocks, stage after stage (``layers``; or ``dense_layers`` then
+``moe_layers``), and the other subtrees (``embed``, ``final_norm``,
+``head``, the multi-token-prediction ``mtp``) are copied as they are.
 """
 
 from __future__ import annotations

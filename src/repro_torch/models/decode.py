@@ -56,11 +56,13 @@ def gqa_decode(x, p, cfg: ModelConfig, cache: dict, pos: int):
     return out, cache
 
 
+def pad_seq(t, seq_cap: int):
+    """``t`` (B, S, ...) zero-padded along its sequence axis to ``seq_cap``."""
+    if seq_cap <= t.shape[1]:
+        return t
+    return torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, seq_cap - t.shape[1]))
+
+
 def prefill_kv(k, v, seq_cap: int) -> dict:
     """A cache of capacity ``seq_cap`` holding the prefill's K/V."""
-    s = k.shape[1]
-    if seq_cap > s:
-        pad = (0, 0, 0, 0, 0, seq_cap - s)
-        k = torch.nn.functional.pad(k, pad)
-        v = torch.nn.functional.pad(v, pad)
-    return {"k": k, "v": v}
+    return {"k": pad_seq(k, seq_cap), "v": pad_seq(v, seq_cap)}

@@ -1,17 +1,23 @@
-"""Model assembly for serving (port of ``repro.models.model``), dense family.
+"""Model assembly for serving (port of ``repro.models.model``), the dense
+and MoE families.
 
 The reference stacks each stage's layers and runs them under ``lax.scan``;
 here :class:`Model` is an ``nn.Module`` holding an ``nn.ModuleList`` of
 :class:`~repro_torch.models.blocks.DenseBlock` and loops over it.  The
-dense, encoder and vlm families are one stage of dense blocks.  The other
-families wait for later slices of the port, and ``Model`` refuses them by
-name (:data:`LATER_FAMILIES`).
+dense, encoder and vlm families are one stage of dense blocks; the moe
+family (DeepSeek) is a stage of ``first_dense_layers`` dense blocks and a
+stage of MoE blocks, both with MLA attention, and declares the
+reference's multi-token-prediction subtree (``mtp``) where ``mtp_depth``
+asks for it, which serving does not read.  The ssm and hybrid families
+wait for a later slice of the port, and ``Model`` refuses them by name
+(:data:`LATER_FAMILIES`).
 
 Entries: ``forward`` (logits over the whole sequence), ``prefill``
-(last-position logits and the KV caches, padded to ``seq_cap``) and
+(last-position logits and the caches, padded to ``seq_cap``) and
 ``decode_step`` (one token; the caches are updated in place).  A cache is a
-list with one ``{"k", "v"}`` dict per block.  The training loss waits for
-the training slice; ``remat`` has no meaning in serving.
+list with one dict per block: ``{"k", "v"}`` (GQA) or ``{"c_kv",
+"k_rope"}`` (MLA).  The training loss waits for the training slice;
+``remat`` has no meaning in serving.
 """
 
 from __future__ import annotations
@@ -24,13 +30,12 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
-from repro_torch.models.config import (ModelConfig, init_params, stack_defs, tree_map)
+from repro_torch.models.config import (ModelConfig, PSpec, init_params, stack_defs,
+                                       tree_map)
 
-# Families whose blocks this slice does not port, and the part of ROADMAP
+# Families whose blocks the port does not have yet, and the part of ROADMAP
 # queue 1's LM stack item that ports them.
 LATER_FAMILIES = {
-    "moe": "the MLA and MoE blocks (deepseek-v2-lite-16b, deepseek-v3-671b) come "
-           "with ROADMAP queue 1, the LM stack's 'MLA and MoE' part",
     "ssm": "the SSM blocks (mamba2-130m) come with ROADMAP queue 1, the LM "
            "stack's 'SSM and hybrid' part",
     "hybrid": "the SSM and shared-attention blocks (zamba2-7b) come with ROADMAP "
@@ -41,13 +46,19 @@ LATER_FAMILIES = {
 @dataclasses.dataclass(frozen=True)
 class StageDesc:
     name: str
-    kind: str        # dense (the one kind of this slice)
+    kind: str        # dense | moe
     n_layers: int
 
 
 def _stages_for(cfg: ModelConfig) -> list[StageDesc]:
     if cfg.family in ("dense", "encoder", "vlm"):
         return [StageDesc("layers", "dense", cfg.n_layers)]
+    if cfg.family == "moe":
+        out = []
+        if cfg.first_dense_layers:
+            out.append(StageDesc("dense_layers", "dense", cfg.first_dense_layers))
+        out.append(StageDesc("moe_layers", "moe", cfg.n_layers - cfg.first_dense_layers))
+        return out
     if cfg.family in LATER_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
@@ -56,14 +67,22 @@ def _stages_for(cfg: ModelConfig) -> list[StageDesc]:
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    """The reference's PSpec tree for ``cfg`` (layers stacked under
-    ``stages/layers``); ``count_params`` of it equals the reference's."""
+    """The reference's PSpec tree for ``cfg`` (each stage's layers stacked
+    under ``stages/<stage>``); ``count_params`` of it equals the reference's."""
     defs: dict[str, Any] = {"embed": layers.embed_defs(cfg)}
-    defs["stages"] = {s.name: stack_defs(blocks.dense_block_defs(cfg), s.n_layers)
+    defs["stages"] = {s.name: stack_defs(blocks.dense_block_defs(cfg, s.kind == "moe"),
+                                         s.n_layers)
                       for s in _stages_for(cfg)}
     defs["final_norm"] = layers.rmsnorm_defs(cfg.d_model)
     if layers.head_defs(cfg):
         defs["head"] = layers.head_defs(cfg)
+    if cfg.mtp_depth:
+        defs["mtp"] = {
+            "proj": PSpec((2 * cfg.d_model, cfg.d_model), (None, "embed")),
+            "ln_h": layers.rmsnorm_defs(cfg.d_model),
+            "ln_e": layers.rmsnorm_defs(cfg.d_model),
+            "block": blocks.dense_block_defs(cfg),
+        }
     return defs
 
 
@@ -72,7 +91,7 @@ def _layer(stacked: dict, i: int) -> dict:
 
 
 class Model(nn.Module):
-    """A dense-family LM with its parameters.
+    """A dense- or MoE-family LM with its parameters.
 
     ``device`` defaults to the card and raises without one
     (:func:`repro_torch.device.resolve_device`); ``"meta"`` builds the
@@ -98,10 +117,12 @@ class Model(nn.Module):
             tree = init_params(defs, gen, dtype, dev)
         self.embed = blocks.param_module(tree["embed"])
         self.blocks = nn.ModuleList(
-            blocks.DenseBlock(cfg, _layer(tree["stages"][s.name], i))
+            blocks.DenseBlock(cfg, _layer(tree["stages"][s.name], i), s.kind == "moe")
             for s in self.stages for i in range(s.n_layers))
         self.final_norm = blocks.param_module(tree["final_norm"])
         self.head = blocks.param_module(tree["head"]) if "head" in tree else None
+        # the multi-token-prediction module: carried, counted, not served
+        self.mtp = blocks.param_module(tree["mtp"]) if "mtp" in tree else None
 
     @property
     def device(self) -> torch.device:
@@ -162,7 +183,7 @@ class Model(nn.Module):
             for s in self.stages}}
 
     def init_cache(self, batch: int, seq_cap: int) -> list[dict]:
-        """Zero caches in the compute dtype, one ``{"k", "v"}`` per block."""
+        """Zero caches in the compute dtype, one dict per block."""
         cd, dev = self.cfg.dtype("compute"), self.device
         stacked = tree_map(lambda p: torch.zeros(p.shape, dtype=cd, device=dev),
                            self.cache_defs(batch, seq_cap))

@@ -40,10 +40,10 @@ def test_files_found():
                                   "core/reduction.py", "core/tree_search.py",
                                   "core/normal.py", "kernels/moments",
                                   "models", "configs", "launch/serve.py",
-                                  "launch/specs.py"])
+                                  "launch/specs.py", "models/mla.py", "models/moe.py"])
 def test_scan_covers_service_slice(part):
     """The service slice's subpackages, the adaptive and stratified
-    slice's modules, the invariant checker's and the LM serving slice's
+    slice's modules, the invariant checker's and the LM serving slices'
     are among the scanned files."""
     root = ROOT / "src" / "repro_torch" / part
     assert any(p == root or root in p.parents for p in FILES), part

@@ -1,8 +1,9 @@
-"""The port's dense-family model (repro_torch.models.model) against repro's,
-with the reference's weights carried across by params_from_reference: for
-every dense configuration under reduced(), forward logits, prefill logits
-and caches, and three decode steps, in f32 at the reference's
-decode-consistency atol=2e-4 (tests/models/test_decode_consistency.py)."""
+"""The port's model (repro_torch.models.model) against repro's, with the
+reference's weights carried across by params_from_reference: for every
+dense configuration and both DeepSeek (MLA and MoE) configurations under
+reduced(), forward logits, prefill logits and caches, and three decode
+steps, in f32 at the reference's decode-consistency atol=2e-4
+(tests/models/test_decode_consistency.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ torch.set_num_threads(1)
 ATOL = 2e-4
 DECODABLE = ["stablelm_3b", "chatglm3_6b", "minitron_4b", "qwen2_5_32b", "qwen2_vl_7b"]
 DENSE = DECODABLE + ["hubert_xlarge"]
+MOE = ["deepseek_v2_lite_16b", "deepseek_v3_671b"]
 B, S, CAP = 2, 12, 16
 
 
@@ -62,7 +64,7 @@ def _ref_logits(a, cfg):
     return np.asarray(a).astype(np.float32)[..., :cfg.vocab_size]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_matches_reference(arch):
     jm, params, model = _pair(arch)
     jb, tb = _batch(model.cfg)
@@ -72,7 +74,7 @@ def test_forward_matches_reference(arch):
                                _ref_logits(jm.forward(params, jb), model.cfg), atol=ATOL)
 
 
-@pytest.mark.parametrize("arch", DECODABLE)
+@pytest.mark.parametrize("arch", DECODABLE + MOE)
 def test_prefill_and_three_decode_steps_match_reference(arch):
     jm, params, model = _pair(arch)
     cfg = model.cfg
@@ -82,12 +84,18 @@ def test_prefill_and_three_decode_steps_match_reference(arch):
     np.testing.assert_allclose(_logits(log, cfg), _ref_logits(jlog, cfg), atol=ATOL)
     assert len(cache) == cfg.n_layers
 
+    shape = ({"c_kv": (B, CAP, cfg.kv_lora_rank), "k_rope": (B, CAP, cfg.qk_rope_dim)}
+             if cfg.attn_type == "mla" else
+             {"k": (B, CAP, cfg.n_kv_heads, cfg.head_dim)} | {"v": (B, CAP, cfg.n_kv_heads,
+                                                                  cfg.head_dim)})
+
     def check_cache():
-        for name in ("k", "v"):
-            ref = np.asarray(jcache["stages"]["layers"][name])
+        assert [st.name for st in model.stages] == list(jcache["stages"])
+        for name in shape:
+            ref = np.concatenate([np.asarray(jcache["stages"][st.name][name])
+                                  for st in model.stages])
             got = np.stack([c[name].numpy() for c in cache])
-            assert got.shape == ref.shape == (cfg.n_layers, B, CAP, cfg.n_kv_heads,
-                                              cfg.head_dim)
+            assert got.shape == ref.shape == (cfg.n_layers,) + shape[name]
             # K/V reach |x| ~ 20 (the fan-in init): the decode bound per
             # unit of the largest magnitude
             np.testing.assert_allclose(got, ref, rtol=0,
@@ -103,7 +111,8 @@ def test_prefill_and_three_decode_steps_match_reference(arch):
     check_cache()
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "chatglm3_6b", "minitron_4b"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "chatglm3_6b", "minitron_4b",
+                                  "deepseek_v2_lite_16b"])
 def test_decode_matches_extended_prefill(arch):
     """Three decode steps equal a prefill over the prompt and the three
     tokens (the port alone, as repro's test_multi_step_decode)."""
@@ -172,12 +181,20 @@ def test_bf16_cache_dtype_and_cast_copy():
     assert torch.equal(model.decode_step(cache, tok, S)[0], copy.decode_step(cache2, tok, S)[0])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+FULL_COUNTS = {"stablelm_3b": 2_795_932_160, "deepseek_v2_lite_16b": 15_706_484_224,
+               "deepseek_v3_671b": 671_712_662_528}
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_count_params_equals_reference(arch):
     jcfg, cfg = jget_config(arch), get_config(arch)
     assert count_params(param_defs(cfg)) == jcount_params(JModel(jcfg).param_defs())
-    if arch == "stablelm_3b":
-        assert count_params(param_defs(cfg)) == 2_795_932_160
+    if arch in FULL_COUNTS:
+        assert count_params(param_defs(cfg)) == FULL_COUNTS[arch]
+    if arch in MOE:        # the full configuration builds on meta, mtp leaves and all
+        model = Model(cfg, device="meta")
+        assert sum(p.numel() for p in model.parameters()) == FULL_COUNTS[arch]
+        assert (model.mtp is not None) == bool(cfg.mtp_depth)
 
 
 def test_seeded_init_follows_the_rule():
@@ -196,13 +213,13 @@ def test_seeded_init_follows_the_rule():
     assert not any(p.requires_grad for p in a.parameters())
 
 
-@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "deepseek_v3_671b",
-                                  "mamba2_130m", "zamba2_7b"])
+@pytest.mark.parametrize("arch", ["mamba2_130m", "zamba2_7b"])
 def test_later_families_refused_by_name(arch):
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the LM stack"):
         Model(cfg, device="cpu")
     assert cfg.family in LATER_FAMILIES
+    assert sorted(LATER_FAMILIES) == ["hybrid", "ssm"]
 
 
 def test_model_defaults_to_the_card():

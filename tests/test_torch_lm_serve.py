@@ -77,7 +77,7 @@ def test_input_specs_and_axes_equal_reference(shape):
             jspecs.batch_logical_axes(jcfg, jshapes.SHAPES[shape])
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "chatglm3_6b"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "chatglm3_6b", "deepseek_v2_lite_16b"])
 def test_greedy_tokens_equal_reference(arch):
     jcfg = jconfigs.reduced(jconfigs.get_config(arch))
     cfg = configs.reduced(configs.get_config(arch))
@@ -138,6 +138,15 @@ def test_cli_reduced_on_cpu():
                           "--device", "cpu", "--arch", "hubert-xlarge"],
                          capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
     assert enc.returncode != 0 and "encoder-only" in enc.stderr
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-v3-671b"])
+def test_cli_serves_moe_configs_on_cpu(arch, capsys):
+    """The launcher's entry, in process, on the reduced MLA and MoE
+    configurations (q-lora and the mtp subtree with v3)."""
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "generated (2, 4)" in out and "on cpu" in out
 
 
 def test_generate_prompt_length_from_vlm_batch():

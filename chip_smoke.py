@@ -18,7 +18,8 @@ parameter sweep (MC and Sobol), VEGAS-adapted families through
 ``evaluate`` and adaptive requests through the service, and stratified
 sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``), the
 multi-device path (a mesh of one NCCL rank, then four gloo ranks), and
-the LM stack's serving path at full width, dense and MoE (MLA) models:
+the LM stack's serving path at full width, dense, MoE (MLA), SSM
+(Mamba-2) and hybrid models:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -196,8 +197,26 @@ the LM stack's serving path at full width, dense and MoE (MLA) models:
    experts counted from its routing) and the bytes the reference's
    formulation reads per decode step (every expert), the dropped pairs per
    MoE layer of the served prefill at capacity factor 1.25, and a profile
-   of four decode steps (device busy share, operations per step); then
-   prints the ``{"kernels": [...]}`` line,
+   of four decode steps (device busy share, operations per step);
+24. the same serving path for the ssm and hybrid families
+   (``models.ssm``: no kernel of its own either) with step 22's traffic:
+   mamba2-130m (129.06e6 parameters, 24 Mamba-2 blocks) and zamba2-7b
+   (6.751e9 parameters in bf16: 78 Mamba-2 blocks in 13 groups of 6, each
+   followed by one shared attention block with a KV cache per invocation,
+   then 3 more) at full width and depth.  Gates: (a) as step 22's, at 2
+   layers for mamba2-130m and at 3 for zamba2-7b with the shared block
+   after 2; (b) in bf16 as served, every Mamba-2 block and every
+   invocation of the shared block; (c) and (d) as step 22's.  Prints the
+   same times beside the bounds (``lm_bounds`` extended: the shared block's
+   weights read and run at each invocation, the SSD's per-token terms, the
+   SSM state and convolution tails read and written by each decode step)
+   and a profile of four decode steps; then mamba2-130m's long prompt: one
+   request of 32,768 tokens (prefill_32k's length) and 64 new ones, its
+   prefill and decode times beside a 512-token request's, the cache's
+   bytes of both (they must be equal) and the peak, and its gate at 2
+   layers in f32: the decode step at 32,768 against the last logits of a
+   prefill over 32,769 within 5e-3 of the largest |logit|; then prints
+   the ``{"kernels": [...]}`` line,
    one entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
    ``fused_mc_sobol_adapted``, a rank's shard on the (2, 2) mesh as
@@ -356,6 +375,18 @@ LM_BF16_LAYER_RMS = 1e-2
 # top_k): at the served 1.25 a prefill over 4 x 513 tokens drops pairs that
 # a 4-token decode step keeps, by design
 LM_MOE_ARCHS = (("deepseek-v2-lite-16b", None, True), ("deepseek-v3-671b", 4, False))
+# step 24: the LM serving path of the ssm and hybrid families (the Mamba-2
+# block; zamba2-7b's shared attention block run after every 6 Mamba-2
+# blocks, a KV cache per invocation) with step 22's traffic and gates, at
+# full width and depth: (arch, gate (a)'s depth).  Gate (a) runs
+# mamba2-130m at 2 layers and zamba2-7b at 3 with the shared block after 2
+# (one group of 2 Mamba-2 blocks, the shared block, one tail block); gate
+# (b) covers every Mamba-2 block and every invocation of the shared block
+LM_SSM_ARCHS = (("mamba2-130m", {"n_layers": LM_CHECK_LAYERS}),
+                ("zamba2-7b", {"n_layers": 3, "shared_attn_every": 2}))
+# the long prompt: one request of prefill_32k's length (configs/shapes.py)
+# and 64 new tokens, on the ssm family's constant-size cache
+LM_LONG_ARCH, LM_LONG_PROMPT = "mamba2-130m", 32768
 # NVIDIA's H100 SXM data sheet: the dense bf16 tensor-core peak and the HBM3
 # rate, both at the 700 W limit
 H100_BF16_FLOPS, H100_HBM_BYTES_S = 989e12, 3.35e12
@@ -1101,32 +1132,47 @@ def lm_run(model, batch: dict, steps: int, tokens=None):
     return out, torch.cat(fed, dim=1)
 
 
-def lm_bounds(cfg, experts_per_step: float | None = None) -> dict:
-    """The least time the card could take for step 22's (and 23's) prefill,
-    one decode step (the mean over the 64 positions served) and a generate
-    call: the larger of the bytes over the HBM rate and the operations over
-    the bf16 peak.  Weights are the layers and the output head in the
-    compute dtype (not the embedding, whose rows are gathered, nor the mtp
-    subtree, which serving does not read); the prefill's attention is the
-    full score rectangle it computes; a decode step reads the cache up to
-    its own position.  MLA: a cache row is the latent and the roped key,
-    the prefill's scores are taken at nope + rope and its values at
-    v_head_dim, the absorbed step's in the latent space.  MoE: operations
-    count each token's ``top_k`` experts; a decode step's bytes count
-    ``experts_per_step`` routed experts (the distinct experts its routing
-    selected, summed over the MoE layers; every expert where not given),
-    and ``formulation_bytes`` what the reference's formulation reads, which
-    runs every expert's capacity rows."""
+def lm_bounds(cfg, experts_per_step: float | None = None, batch: int = LM_BATCH,
+              prompt: int = LM_PROMPT) -> dict:
+    """The least time the card could take for step 22's (and 23's, 24's)
+    prefill of ``batch`` prompts of ``prompt`` tokens, one decode step (the
+    mean over the 64 positions served) and a generate call: the larger of
+    the bytes over the HBM rate and the operations over the bf16 peak.
+    Weights are the layers and the output head in the compute dtype (not
+    the embedding, whose rows are gathered, unless the head is tied to it,
+    nor the mtp subtree, which serving does not read); the prefill's
+    attention is the full score rectangle it computes; a decode step reads
+    the cache up to its own position.  MLA: a cache row is the latent and
+    the roped key, the prefill's scores are taken at nope + rope and its
+    values at v_head_dim, the absorbed step's in the latent space.  MoE:
+    operations count each token's ``top_k`` experts; a decode step's bytes
+    count ``experts_per_step`` routed experts (the distinct experts its
+    routing selected, summed over the MoE layers; every expert where not
+    given), and ``formulation_bytes`` what the reference's formulation
+    reads, which runs every expert's capacity rows.  SSM and hybrid: the
+    hybrid's shared block is read and run once per invocation (its weights
+    do not stay in the 50 MB L2 between them), each invocation with its own
+    KV cache; a Mamba-2 layer's SSD adds, per token, C.B over its chunk,
+    the chunk's scores against x, its share of the chunk state and the
+    inter-chunk read-out (its recurrence is negligible), and its state and
+    convolution tails are written by the prefill and read and written by
+    each decode step, in the compute dtype."""
     from repro_torch.models import moe
     from repro_torch.models.config import count_params
     from repro_torch.models.model import param_defs
-    b, s, new = LM_BATCH, LM_PROMPT, LM_NEW
+    b, s, new = batch, prompt, LM_NEW
+    cap = s + new
     L, d, vp, h = cfg.n_layers, cfg.d_model, cfg.vocab_padded, cfg.n_heads
     esize = 2                                          # bf16
     defs = param_defs(cfg)
+    # Mamba-2 layers, and attention layers run (the hybrid's G invocations)
+    n_ssm = L if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = L // cfg.shared_attn_every if cfg.family == "hybrid" else L - n_ssm
     weights = (count_params(defs) - count_params(defs["embed"])
-               - count_params(defs.get("mtp", {})))
-    head = d + (0 if cfg.tie_embeddings else d * vp)   # final norm and head
+               - count_params(defs.get("mtp", {}))
+               + (n_attn - 1) * count_params(defs.get("shared_attn", {}))
+               + (d * vp if cfg.tie_embeddings else 0))
+    head = d + d * vp                                  # final norm and head
     expert = 3 * d * cfg.moe_d_ff                      # one routed expert's weights
     moe_layers = cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
     routed = moe_layers * cfg.n_experts * expert
@@ -1134,22 +1180,30 @@ def lm_bounds(cfg, experts_per_step: float | None = None) -> dict:
     if experts_per_step is None:
         experts_per_step = moe_layers * cfg.n_experts
     if cfg.attn_type == "mla":
-        kv_row = L * (cfg.kv_lora_rank + cfg.qk_rope_dim) * esize  # latent and key, all layers
+        kv_row = n_attn * (cfg.kv_lora_rank + cfg.qk_rope_dim) * esize  # latent and key
         dqk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
         step_attn = 2 * (2 * cfg.kv_lora_rank + cfg.qk_rope_dim)   # per head and position
     else:
-        kv_row = 2 * L * cfg.n_kv_heads * cfg.head_dim * esize     # K and V, all layers
+        kv_row = 2 * n_attn * cfg.n_kv_heads * cfg.head_dim * esize  # K and V, all layers
         dqk = dv = cfg.head_dim
         step_attn = 2 * (dqk + dv)
-    pre_flops = 2 * layer_w * b * s + 2 * b * L * h * s * s * (dqk + dv) + 2 * d * vp * b
-    pre_bytes = (weights * esize + b * s * d * esize + b * LM_CAP * kv_row
-                 + b * vp * esize)
+    pre_flops = 2 * layer_w * b * s + 2 * b * n_attn * h * s * s * (dqk + dv) + 2 * d * vp * b
+    pre_bytes = weights * esize + b * s * d * esize + b * cap * kv_row + b * vp * esize
+    state = ssd = step_ssm = 0
+    if n_ssm:
+        di, n, q = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_chunk
+        state = n_ssm * b * (di * n + (cfg.ssm_conv_width - 1) * (di + 2 * n)) * esize
+        s_pad = -(-s // q) * q
+        ssd = n_ssm * b * s_pad * (2 * q * n + 2 * q * di + 4 * n * di)
+        step_ssm = n_ssm * b * 6 * di * n   # decay, dt B x, add, C . state
+    pre_flops += ssd
+    pre_bytes += state
     read = (weights - routed + experts_per_step * expert) * esize
     dec_flops = dec_bytes = form_bytes = 0.0
     for i in range(new):
         pos = s + i
-        dec_flops += 2 * (layer_w + d * vp) * b + b * L * h * (pos + 1) * step_attn
-        rest = b * d * esize + b * (pos + 1) * kv_row + b * vp * esize
+        dec_flops += 2 * (layer_w + d * vp) * b + b * n_attn * h * (pos + 1) * step_attn + step_ssm
+        rest = b * d * esize + b * (pos + 1) * kv_row + b * vp * esize + 2 * state
         dec_bytes += read + rest
         form_bytes += weights * esize + rest
     dec_flops, dec_bytes, form_bytes = dec_flops / new, dec_bytes / new, form_bytes / new
@@ -1183,12 +1237,14 @@ def lm_layerwise(model, tokens, tok) -> list[float]:
     length) against the same block's prefill over S + 1 positions, both fed
     the prefill's input to that block, the cache of positions < S from a
     prefill of the prompt's rows; then the head on the two last outputs.
-    Returns each block's ``rel_rms`` and the logits' last."""
+    Blocks in the order they run (``Model.plan``: the hybrid's shared block
+    at each of its invocations).  Returns each block's ``rel_rms`` and the
+    logits' last."""
     import torch
     s = tokens.shape[1]
     x, positions = model.embed_input({"tokens": torch.cat([tokens, tok], 1)})
     errs = []
-    for block in model.blocks:
+    for block in model.plan:
         y, _ = block.prefill(x, positions, LM_CAP)
         _, cache = block.prefill(x[:, :s], positions[:, :s], LM_CAP)
         d, _ = block.decode(x[:, s:], cache, s)
@@ -1248,6 +1304,110 @@ def lm_depth_probe() -> None:
           f"RMS ratio {[f'{e:.1e}' for e in errs]}")
 
 
+def lm_card_vs_cpu(cfg_a, dev) -> dict:
+    """Gate (a): ``cfg_a`` (full width, its depth cut, f32 compute) served on
+    the card, then the same weights moved to the CPU, each running the
+    prefill and ``LM_CHECK_STEPS`` decode steps fed the same tokens.
+    Returns the largest |diff|, its tolerance (``LM_F32_REL`` of the largest
+    |logit|) and that logit, the largest RMS ratio, the greedy tokens equal
+    among the rows whose top-2 gap exceeds the tolerance, the CPU run's
+    seconds, and the gate's failures."""
+    import gc
+
+    import torch
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+    v = cfg_a.vocab_size
+    srv = Server(cfg_a, device=dev, seed=0)
+    batch = concrete_batch(cfg_a, LM_BATCH, LM_PROMPT, train=False, device=dev)
+    card_logits, fed = lm_run(srv.compute, batch, LM_CHECK_STEPS)
+    card_logits = [x[:, :v].cpu() for x in card_logits]
+    t_cpu = time.perf_counter()
+    cpu_model = srv.compute.cpu()                      # the same weights, moved
+    cpu_logits, _ = lm_run(cpu_model, {k: x.cpu() for k, x in batch.items()},
+                           LM_CHECK_STEPS, tokens=fed.cpu())
+    cpu_logits = [x[:, :v] for x in cpu_logits]
+    t_cpu = time.perf_counter() - t_cpu
+    scale = max(float(x.abs().max()) for x in cpu_logits)
+    tol = LM_F32_REL * scale
+    err = max(float((c - h).abs().max()) for c, h in zip(card_logits, cpu_logits))
+    rms = max(rel_rms(c, h) for c, h in zip(card_logits, cpu_logits))
+    decided = agree = 0
+    for c, h in zip(card_logits, cpu_logits):
+        top2 = torch.topk(h, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol
+        decided += int(sure.sum())
+        agree += int((torch.argmax(c, -1) == torch.argmax(h, -1))[sure].sum())
+    failures = []
+    if not all(bool(torch.isfinite(x).all()) for x in card_logits + cpu_logits):
+        failures.append("(a) non-finite logits")
+    if err > tol:
+        failures.append(f"(a) card vs CPU {err:.3e} > {tol:.3e}")
+    if agree != decided:
+        failures.append(f"(a) greedy tokens differ in {decided - agree} rows")
+    del srv, batch, cpu_model, card_logits, cpu_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(err=err, tol=tol, scale=scale, rms=rms, agree=agree, decided=decided,
+                cpu_s=t_cpu, failures=failures)
+
+
+def lm_served(full, dev) -> dict:
+    """The served configuration at full width and depth: the server built
+    from the seeded init (its load seconds and peak), one warm-up call,
+    ``LM_TIMING_REPS`` prefills and ``LM_NEW`` greedy decode steps timed
+    with CUDA events.  The peak is reset after loading, for serving's."""
+    import torch
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Server(full, device=dev, seed=0)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()      # the init draws each stacked leaf in f32
+    torch.cuda.reset_peak_memory_stats()
+    model = srv.compute
+    batch = concrete_batch(full, LM_BATCH, LM_PROMPT, train=False, device=dev)
+    srv.generate(batch, 2, seq_cap=LM_CAP)             # warm-up: cuBLAS handles
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    pre_ms = []
+    for _ in range(LM_TIMING_REPS):
+        start.record()
+        logits0, cache = model.prefill(batch, LM_CAP)
+        end.record()
+        torch.cuda.synchronize()
+        pre_ms.append(start.elapsed_time(end))
+    tok = torch.argmax(logits0, dim=-1)[:, None].to(torch.int32)
+    first_tok, dec_logits = tok, []
+    start.record()
+    for i in range(LM_NEW):
+        logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
+        dec_logits.append(logits)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    end.record()
+    torch.cuda.synchronize()
+    return dict(srv=srv, model=model, batch=batch, t_load=t_load, load_peak=load_peak,
+                pre_ms=pre_ms, prefill_ms=sorted(pre_ms)[len(pre_ms) // 2],
+                decode_ms=start.elapsed_time(end) / LM_NEW, logits0=logits0,
+                first_tok=first_tok, dec_logits=dec_logits)
+
+
+def lm_generate_twice(srv, batch) -> tuple[list[float], list[str]]:
+    """Gate (c): two ``generate`` calls, each from a fresh cache: their wall
+    seconds and the sha256 of their tokens."""
+    import torch
+    walls, digests = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = srv.generate(batch, LM_NEW, seq_cap=LM_CAP)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        digests.append(sha256_of(toks))
+    return walls, digests
+
+
 def lm_serving(card: str) -> None:
     """Step 22: the LM serving path of the dense family at full width and
     depth, for each of ``LM_ARCHS``, with gates (a)-(d) and the times
@@ -1257,8 +1417,6 @@ def lm_serving(card: str) -> None:
 
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import Server
-    from repro_torch.launch.specs import concrete_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
     torch.backends.cudnn.allow_tf32 = False
@@ -1270,76 +1428,21 @@ def lm_serving(card: str) -> None:
         t_arch = time.perf_counter()
         full = get_config(arch)
         v = full.vocab_size
-        failures = []
         # (a) the card against the CPU: full width, 2 layers, f32 compute
-        cfg_a = full.with_overrides(n_layers=LM_CHECK_LAYERS, compute_dtype="float32")
-        srv = Server(cfg_a, device=dev, seed=0)
-        batch = concrete_batch(cfg_a, LM_BATCH, LM_PROMPT, train=False, device=dev)
-        card_logits, fed = lm_run(srv.compute, batch, LM_CHECK_STEPS)
-        card_logits = [x[:, :v].cpu() for x in card_logits]
-        t_cpu = time.perf_counter()
-        cpu_model = srv.compute.cpu()                  # the same weights, moved
-        cpu_logits, _ = lm_run(cpu_model, {k: x.cpu() for k, x in batch.items()},
-                               LM_CHECK_STEPS, tokens=fed.cpu())
-        cpu_logits = [x[:, :v] for x in cpu_logits]
-        t_cpu = time.perf_counter() - t_cpu
-        scale_a = max(float(x.abs().max()) for x in cpu_logits)
-        tol_a = LM_F32_REL * scale_a
-        err_a = max(float((c - h).abs().max()) for c, h in zip(card_logits, cpu_logits))
-        rms_a = max(rel_rms(c, h) for c, h in zip(card_logits, cpu_logits))
-        decided = agree = 0
-        for c, h in zip(card_logits, cpu_logits):
-            top2 = torch.topk(h, 2, dim=-1).values
-            sure = (top2[:, 0] - top2[:, 1]) > tol_a
-            decided += int(sure.sum())
-            agree += int((torch.argmax(c, -1) == torch.argmax(h, -1))[sure].sum())
-        finite_a = all(bool(torch.isfinite(x).all()) for x in card_logits + cpu_logits)
+        a = lm_card_vs_cpu(full.with_overrides(n_layers=LM_CHECK_LAYERS,
+                                               compute_dtype="float32"), dev)
+        failures = a["failures"]
         print(f"step 22 {arch} (a) card vs CPU, {LM_CHECK_LAYERS} layers at full width, f32 "
-              f"(TF32 off), prefill + {LM_CHECK_STEPS} decode steps: max |diff| {err_a:.3e} "
-              f"against {tol_a:.3e} ({LM_F32_REL} of the largest |logit|, {scale_a:.3f}); "
-              f"largest RMS ratio {rms_a:.2e}; greedy tokens equal in {agree}/{decided} rows "
-              f"whose top-2 gap exceeds it; the CPU run {t_cpu:.1f} s")
-        if not finite_a:
-            failures.append("(a) non-finite logits")
-        if err_a > tol_a:
-            failures.append(f"(a) card vs CPU {err_a:.3e} > {tol_a:.3e}")
-        if agree != decided:
-            failures.append(f"(a) greedy tokens differ in {decided - agree} rows")
-        del srv, batch, cpu_model, card_logits, cpu_logits
-        gc.collect()
-        torch.cuda.empty_cache()
+              f"(TF32 off), prefill + {LM_CHECK_STEPS} decode steps: max |diff| {a['err']:.3e} "
+              f"against {a['tol']:.3e} ({LM_F32_REL} of the largest |logit|, {a['scale']:.3f}); "
+              f"largest RMS ratio {a['rms']:.2e}; greedy tokens equal in "
+              f"{a['agree']}/{a['decided']} rows whose top-2 gap exceeds it; the CPU run "
+              f"{a['cpu_s']:.1f} s")
 
         # the served configuration at full width and depth
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        srv = Server(full, device=dev, seed=0)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-        load_peak = torch.cuda.max_memory_allocated()  # the init draws each stacked leaf in f32
-        torch.cuda.reset_peak_memory_stats()
-        model = srv.compute
-        batch = concrete_batch(full, LM_BATCH, LM_PROMPT, train=False, device=dev)
-        srv.generate(batch, 2, seq_cap=LM_CAP)         # warm-up: cuBLAS handles
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        pre_ms = []
-        for _ in range(LM_TIMING_REPS):
-            start.record()
-            logits0, cache = model.prefill(batch, LM_CAP)
-            end.record()
-            torch.cuda.synchronize()
-            pre_ms.append(start.elapsed_time(end))
-        prefill_ms = sorted(pre_ms)[len(pre_ms) // 2]
-        tok = torch.argmax(logits0, dim=-1)[:, None].to(torch.int32)
-        first_tok, dec_logits = tok, []
-        start.record()
-        for i in range(LM_NEW):
-            logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
-            dec_logits.append(logits)
-            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-        end.record()
-        torch.cuda.synchronize()
-        decode_ms = start.elapsed_time(end) / LM_NEW
-        del cache
+        run = lm_served(full, dev)
+        srv, model, batch = run["srv"], run["model"], run["batch"]
+        logits0, first_tok, dec_logits = run["logits0"], run["first_tok"], run["dec_logits"]
         # (b) each block's decode step against its prefill; the free-running
         # logits and two prefills' shared position beside them, not gated
         layer_errs = lm_layerwise(model, batch["tokens"], first_tok)
@@ -1349,28 +1452,22 @@ def lm_serving(card: str) -> None:
         same_b = int((torch.argmax(dec_logits[0][:, :v], -1)
                       == torch.argmax(ext[:, -1, :v], -1)).sum())
         # (c) two generate calls, each from a fresh cache
-        walls, digests = [], []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            toks = srv.generate(batch, LM_NEW, seq_cap=LM_CAP)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            digests.append(sha256_of(toks))
+        walls, digests = lm_generate_twice(srv, batch)
         # (d) no NaN or Inf in any logits of the step
         finite = all(bool(torch.isfinite(x[..., :v]).all())
                      for x in [logits0, ext] + dec_logits)
         peak = torch.cuda.max_memory_allocated()
         bd = lm_bounds(full)
         tps = LM_BATCH * LM_NEW / min(walls)
+        prefill_ms, decode_ms = run["prefill_ms"], run["decode_ms"]
         print(f"step 22 {arch}: {sum(p.numel() for p in srv.model.parameters()):,} parameters "
               f"stored in {full.param_dtype}, served in {full.compute_dtype}; loaded in "
-              f"{t_load:.2f} s; batch {LM_BATCH} x {LM_PROMPT}-token prompts, {LM_NEW} new "
-              f"tokens, cache {LM_CAP}")
-        print(f"step 22 {arch}: prefill {prefill_ms:.3f} ms (runs {[round(x, 3) for x in pre_ms]}; "
-              f"bound {bd['prefill_ms']:.3f} ms by {bd['prefill_by']}, "
-              f"{bd['prefill_flops'] / 1e12:.3f} TFLOP; {100 * bd['prefill_ms'] / prefill_ms:.1f}% "
-              f"of it)")
+              f"{run['t_load']:.2f} s; batch {LM_BATCH} x {LM_PROMPT}-token prompts, {LM_NEW} "
+              f"new tokens, cache {LM_CAP}")
+        print(f"step 22 {arch}: prefill {prefill_ms:.3f} ms (runs "
+              f"{[round(x, 3) for x in run['pre_ms']]}; bound {bd['prefill_ms']:.3f} ms by "
+              f"{bd['prefill_by']}, {bd['prefill_flops'] / 1e12:.3f} TFLOP; "
+              f"{100 * bd['prefill_ms'] / prefill_ms:.1f}% of it)")
         print(f"step 22 {arch}: decode {decode_ms:.3f} ms per step over {LM_NEW} steps (bound "
               f"{bd['decode_ms']:.3f} ms by {bd['decode_by']}, {bd['decode_bytes'] / 1e9:.3f} GB "
               f"per step; {100 * bd['decode_ms'] / decode_ms:.1f}% of it)")
@@ -1378,7 +1475,7 @@ def lm_serving(card: str) -> None:
               f"{LM_NEW} tokens: {tps:.1f} tokens/s (bound {bd['tokens_per_s']:.1f}; "
               f"{100 * tps / bd['tokens_per_s']:.1f}% of it); peak memory "
               f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
-              f"{load_peak / 1e9:.3f} GB while loading")
+              f"{run['load_peak'] / 1e9:.3f} GB while loading")
         print(f"step 22 {arch} (b) bf16, full depth, each block's decode at {LM_PROMPT} vs its "
               f"prefill over {LM_PROMPT + 1} on the same input: RMS ratio max "
               f"{max(layer_errs[:-1]):.3e} over {len(layer_errs) - 1} blocks "
@@ -1395,7 +1492,7 @@ def lm_serving(card: str) -> None:
             failures.append("(c) repeated generate calls differ")
         if not finite:
             failures.append("(d) non-finite logits")
-        del srv, model, batch, logits0, logits, dec_logits, ext, toks
+        del srv, model, batch, logits0, dec_logits, ext, run
         gc.collect()
         torch.cuda.empty_cache()
         check(not failures, f"{arch}: {'; '.join(failures)}")
@@ -1590,14 +1687,7 @@ def lm_moe_serving(card: str) -> None:
         experts_per_step = sum(distinct) / LM_NEW
         del cache, log
         # (c) two generate calls, each from a fresh cache
-        walls, digests = [], []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            toks = srv.generate(batch, LM_NEW, seq_cap=LM_CAP)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            digests.append(sha256_of(toks))
+        walls, digests = lm_generate_twice(srv, batch)
         peak = torch.cuda.max_memory_allocated()
         profiled = decode_profile(model, batch)
         # (b) each block's decode step against its prefill, MoE blocks
@@ -1674,10 +1764,191 @@ def lm_moe_serving(card: str) -> None:
             failures.append("(c) repeated generate calls differ")
         if not finite:
             failures.append("(d) non-finite logits")
-        del srv, model, batch, logits0, logits, dec_logits, ext, toks
+        del srv, model, batch, logits0, logits, dec_logits, ext
         gc.collect()
         torch.cuda.empty_cache()
         check(not failures, f"{arch}: {'; '.join(failures)}")
+
+
+def cache_bytes(caches: list[dict]) -> int:
+    return sum(t.numel() * t.element_size() for c in caches for t in c.values())
+
+
+def lm_ssm_serving(card: str) -> None:
+    """Step 24: the LM serving path of the ssm and hybrid families (the
+    Mamba-2 block; zamba2's shared attention block) for each of
+    ``LM_SSM_ARCHS`` at full width and depth, with step 22's traffic, gates
+    (a)-(d), the times beside their bounds and a profile of four decode
+    steps; then mamba2-130m's long prompt.  Every number of an
+    architecture is printed before its gates are checked."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"step 24: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
+          f"on {card}")
+    for arch, check_over in LM_SSM_ARCHS:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        v = full.vocab_size
+        # (a) the card against the CPU: full width, cut depth, f32 compute
+        cfg_a = full.with_overrides(compute_dtype="float32", **check_over)
+        a = lm_card_vs_cpu(cfg_a, dev)
+        failures = a["failures"]
+        print(f"step 24 {arch} (a) card vs CPU, {cfg_a.n_layers} layers "
+              f"({check_over}) at full width, f32 (TF32 off), prefill + {LM_CHECK_STEPS} "
+              f"decode steps: max |diff| {a['err']:.3e} against {a['tol']:.3e} ({LM_F32_REL} of "
+              f"the largest |logit|, {a['scale']:.3f}); largest RMS ratio {a['rms']:.2e}; greedy "
+              f"tokens equal in {a['agree']}/{a['decided']} rows whose top-2 gap exceeds it; "
+              f"the CPU run {a['cpu_s']:.1f} s")
+
+        run = lm_served(full, dev)
+        srv, model, batch = run["srv"], run["model"], run["batch"]
+        logits0, first_tok, dec_logits = run["logits0"], run["first_tok"], run["dec_logits"]
+        walls, digests = lm_generate_twice(srv, batch)                 # (c)
+        peak = torch.cuda.max_memory_allocated()
+        _, cache = model.prefill(batch, LM_CAP)
+        n_cache = cache_bytes(cache)
+        del cache
+        profiled = decode_profile(model, batch)
+        # (b) each block's decode step (each invocation of the shared block's
+        # too) against its prefill in bf16 as served; the free-running logits
+        # and two prefills' shared position beside them, not gated
+        layer_errs = lm_layerwise(model, batch["tokens"], first_tok)
+        ext = model.forward({"tokens": torch.cat([batch["tokens"], first_tok], 1)})
+        free = rel_rms(dec_logits[0][:, :v], ext[:, -1, :v])
+        floor = rel_rms(logits0[:, :v], ext[:, -2, :v])
+        same_b = int((torch.argmax(dec_logits[0][:, :v], -1)
+                      == torch.argmax(ext[:, -1, :v], -1)).sum())
+        # (d) no NaN or Inf in any logits of the step
+        finite = all(bool(torch.isfinite(x[..., :v]).all())
+                     for x in [logits0, ext] + dec_logits)
+        bd = lm_bounds(full)
+        tps = LM_BATCH * LM_NEW / min(walls)
+        prefill_ms, decode_ms = run["prefill_ms"], run["decode_ms"]
+        n_shared = sum(m is model.shared_attn for m in model.plan)
+        print(f"step 24 {arch}: {sum(p.numel() for p in srv.model.parameters()):,} parameters "
+              f"stored in {full.param_dtype}, served in {full.compute_dtype}; "
+              f"{full.n_layers} Mamba-2 blocks, the shared block run {n_shared} times; loaded "
+              f"in {run['t_load']:.2f} s; batch {LM_BATCH} x {LM_PROMPT}-token prompts, "
+              f"{LM_NEW} new tokens, cache {LM_CAP} ({n_cache / 1e9:.4f} GB after the prefill)")
+        print(f"step 24 {arch}: prefill {prefill_ms:.3f} ms (runs "
+              f"{[round(x, 3) for x in run['pre_ms']]}; bound {bd['prefill_ms']:.3f} ms by "
+              f"{bd['prefill_by']}, {bd['prefill_flops'] / 1e12:.3f} TFLOP; "
+              f"{100 * bd['prefill_ms'] / prefill_ms:.1f}% of it)")
+        print(f"step 24 {arch}: decode {decode_ms:.3f} ms per step over {LM_NEW} steps (bound "
+              f"{bd['decode_ms']:.3f} ms by {bd['decode_by']}, {bd['decode_bytes'] / 1e9:.3f} GB "
+              f"per step; {100 * bd['decode_ms'] / decode_ms:.1f}% of it)")
+        print(f"step 24 {arch}: generate {[round(w, 4) for w in walls]} s for {LM_BATCH} x "
+              f"{LM_NEW} tokens: {tps:.1f} tokens/s (bound {bd['tokens_per_s']:.1f}; "
+              f"{100 * tps / bd['tokens_per_s']:.1f}% of it); peak memory "
+              f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
+              f"{run['load_peak'] / 1e9:.3f} GB while loading")
+        print(f"step 24 {arch}: {LM_PROMPT}-{LM_PROMPT + 3} decode steps profiled: {profiled}")
+        print(f"step 24 {arch} (b) bf16, full depth, each block's decode at {LM_PROMPT} vs its "
+              f"prefill over {LM_PROMPT + 1} on the same input: RMS ratio max "
+              f"{max(layer_errs[:-1]):.3e} over {len(layer_errs) - 1} blocks in run order "
+              f"({[float(f'{e:.2e}') for e in layer_errs[:-1]]}), logits {layer_errs[-1]:.3e} "
+              f"(gate {LM_BF16_LAYER_RMS}); free-running logits {free:.4f}, argmax equal in "
+              f"{same_b}/{LM_BATCH} (not gated: two prefills of {LM_PROMPT} and "
+              f"{LM_PROMPT + 1} tokens at position {LM_PROMPT - 1}: {floor:.4f})")
+        print(f"step 24 {arch} (c) generate sha256 {digests[0][:16]} {digests[1][:16]} "
+              f"{'equal' if digests[0] == digests[1] else 'DIFFER'}; (d) finite {finite}; "
+              f"{time.perf_counter() - t_arch:.1f} s")
+        if max(layer_errs) > LM_BF16_LAYER_RMS:
+            failures.append(f"(b) decode vs prefill per block {layer_errs}")
+        if digests[0] != digests[1]:
+            failures.append("(c) repeated generate calls differ")
+        if not finite:
+            failures.append("(d) non-finite logits")
+        if arch == LM_LONG_ARCH:
+            failures += lm_long_prompt(model, decode_ms, dev)
+        del srv, model, batch, logits0, dec_logits, ext, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(not failures, f"{arch}: {'; '.join(failures)}")
+
+
+def lm_long_prompt(model, decode_ms_512: float, dev) -> list[str]:
+    """Step 24's long prompt on ``model`` (mamba2-130m as served): one
+    request of ``LM_LONG_PROMPT`` tokens and ``LM_NEW`` greedy tokens, its
+    prefill and decode steps timed beside a 512-token request's, the cache's
+    bytes of both (equal: the state does not grow with the sequence), the
+    peak; then its gate at 2 layers in f32.  Returns the failures."""
+    import gc
+
+    import torch
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models.model import Model
+    cfg, s = model.cfg, LM_LONG_PROMPT
+    v = cfg.vocab_size
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def serve(prompt: int) -> dict:
+        batch = concrete_batch(cfg, 1, prompt, train=False, device=dev)
+        model.prefill(batch, prompt + LM_NEW)          # warm-up: this shape's cuBLAS calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        logits, cache = model.prefill(batch, prompt + LM_NEW)
+        end.record()
+        torch.cuda.synchronize()
+        prefill_ms = start.elapsed_time(end)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        finite = bool(torch.isfinite(logits[:, :v]).all())
+        start.record()
+        for i in range(LM_NEW):
+            logits, cache = model.decode_step(cache, tok, prompt + i)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            finite = finite and bool(torch.isfinite(logits[:, :v]).all())
+        end.record()
+        torch.cuda.synchronize()
+        return dict(prefill_ms=prefill_ms, decode_ms=start.elapsed_time(end) / LM_NEW,
+                    bytes=cache_bytes(cache), peak=torch.cuda.max_memory_allocated(),
+                    finite=finite)
+
+    short, long = serve(LM_PROMPT), serve(s)
+    bd = lm_bounds(cfg, batch=1, prompt=s)
+    # the gate: 2 layers in f32, the decode step at position s against the
+    # last logits of a prefill over s + 1 tokens
+    cfg2 = cfg.with_overrides(n_layers=LM_CHECK_LAYERS, compute_dtype="float32")
+    m2 = Model(cfg2, device=dev, seed=0)
+    toks = concrete_batch(cfg2, 1, s + 1, train=False, device=dev)["tokens"]
+    _, cache = m2.prefill({"tokens": toks[:, :s]}, s + 1)
+    dec, _ = m2.decode_step(cache, toks[:, s:], s)
+    ext, _ = m2.prefill({"tokens": toks}, s + 1)
+    dec, ext = dec[:, :v].cpu(), ext[:, :v].cpu()
+    err, tol = float((dec - ext).abs().max()), LM_F32_REL * float(ext.abs().max())
+    print(f"step 24 {cfg.name} long prompt, batch 1: prefill of {s} tokens {long['prefill_ms']:.3f} "
+          f"ms (bound {bd['prefill_ms']:.3f} ms by {bd['prefill_by']}, "
+          f"{100 * bd['prefill_ms'] / long['prefill_ms']:.1f}% of it; {LM_PROMPT} tokens "
+          f"{short['prefill_ms']:.3f} ms); decode {long['decode_ms']:.3f} ms per step over "
+          f"{LM_NEW} steps (bound {bd['decode_ms']:.4f} ms by {bd['decode_by']}; at "
+          f"{LM_PROMPT} tokens {short['decode_ms']:.3f} ms at batch 1, {decode_ms_512:.3f} at "
+          f"batch {LM_BATCH}); cache {long['bytes']:,} bytes ({LM_PROMPT} tokens: "
+          f"{short['bytes']:,}); peak memory torch.cuda.max_memory_allocated "
+          f"{long['peak'] / 1e9:.3f} GB ({LM_PROMPT} tokens: {short['peak'] / 1e9:.3f} GB); "
+          f"finite {long['finite'] and short['finite']}")
+    print(f"step 24 {cfg.name} long prompt gate, {LM_CHECK_LAYERS} layers in f32 (TF32 off): "
+          f"decode at {s} vs the last logits of a prefill over {s + 1}: max |diff| {err:.3e} "
+          f"against {tol:.3e} ({LM_F32_REL} of the largest |logit|); RMS ratio "
+          f"{rel_rms(dec, ext):.2e}")
+    failures = []
+    if long["bytes"] != short["bytes"]:
+        failures.append(f"long prompt: cache {long['bytes']} bytes, {short['bytes']} at "
+                        f"{LM_PROMPT} tokens")
+    if not (long["finite"] and short["finite"]):
+        failures.append("long prompt: non-finite logits")
+    if err > tol:
+        failures.append(f"long prompt: decode vs prefill {err:.3e} > {tol:.3e}")
+    del m2, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures
 
 
 def main() -> None:
@@ -3166,6 +3437,11 @@ def main() -> None:
     t23 = time.perf_counter()
     lm_moe_serving(card)
     print(f"step 23 {time.perf_counter() - t23:.1f} s; on {card}")
+
+    # -- 24. the LM serving path of the ssm and hybrid families (Mamba-2) --------
+    t24 = time.perf_counter()
+    lm_ssm_serving(card)
+    print(f"step 24 {time.perf_counter() - t24:.1f} s; on {card}")
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)

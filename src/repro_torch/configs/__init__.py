@@ -2,10 +2,9 @@
 
 The modules are copies of the reference's data, built on the port's
 :class:`~repro_torch.models.config.ModelConfig`.  ``get_config(name)``
-returns the full published configuration of every name; the serving path
-of this port runs the dense family (dense, encoder, vlm) and the moe
-family (MLA and MoE), and ``repro_torch.models.model.Model`` refuses the
-others.  ``reduced(cfg)``
+returns the full published configuration of every name, each of which
+``repro_torch.models.model.Model`` builds and serves (an encoder has no
+decode step).  ``reduced(cfg)``
 shrinks a configuration to a CPU-testable size *of the same family* (same
 attention type and routing, only widths, depth and vocab shrink).
 """

@@ -1,9 +1,10 @@
 """Serving: batched prefill and decode (port of ``repro.launch.serve``).
 
 ``python -m repro_torch.launch.serve --arch stablelm-3b`` generates on the
-card at full width from the port's seeded weights (any dense or MoE
-configuration: ``--arch deepseek-v2-lite-16b``); ``--reduced --device
-cpu`` runs a small generation on the CPU.  Without a GPU and without
+card at full width from the port's seeded weights (any decoder
+configuration: dense, MoE ``--arch deepseek-v2-lite-16b``, SSM ``--arch
+mamba2-130m``, hybrid ``--arch zamba2-7b``); ``--reduced --device cpu``
+runs a small generation on the CPU.  Without a GPU and without
 ``--device cpu`` it exits with an error.
 """
 

@@ -1,5 +1,6 @@
-"""The LM stack's serving path (port of ``repro.models``), dense and MoE
-families.
+"""The LM stack's serving path (port of ``repro.models``), every decoder
+family: dense, MoE, SSM (Mamba-2) and hybrid (Mamba-2 with a shared
+attention block).
 
 * ``config`` — :class:`ModelConfig`, :class:`PSpec` parameter declarations,
   seeded initialisation from a ``torch.Generator``, ``count_params``.
@@ -11,10 +12,14 @@ families.
   the absorbed decode step and its latent cache.
 * ``moe`` — the MoE feed-forward: the f32 router, capacity dispatch, three
   batched expert products, the combine in a fixed order, shared experts.
+* ``ssm`` — the Mamba-2 mixer: the causal convolution, the chunked SSD
+  scan for the prefill, the O(1) recurrent decode step and its cache.
 * ``blocks`` — the dense block (:class:`DenseBlock`: GQA or MLA, the gated
-  MLP or MoE) and its forward / prefill / decode functions.
+  MLP or MoE) and the Mamba-2 block (:class:`SSMBlock`), each with its
+  forward / prefill / decode functions.
 * ``model`` — :class:`Model`, an ``nn.Module`` over a ``ModuleList`` of
-  blocks in the reference's stages: ``forward`` logits, ``prefill`` and
+  blocks in the reference's stages (the hybrid's shared block held once
+  and run from a plan): ``forward`` logits, ``prefill`` and
   ``decode_step``.
 * ``convert`` — ``params_from_reference``: the reference's parameter tree
   (numpy arrays) loaded into a :class:`Model`.

@@ -1,6 +1,7 @@
-"""The dense decoder block (port of the dense part of
-``repro.models.blocks``): GQA or MLA attention, and a gated MLP or the MoE
-feed-forward, each behind an rmsnorm and a residual add.
+"""The decoder blocks (port of ``repro.models.blocks``): the dense block
+(GQA or MLA attention, and a gated MLP or the MoE feed-forward, each behind
+an rmsnorm and a residual add) and the Mamba-2 block (one rmsnorm, the
+:mod:`~repro_torch.models.ssm` mixer, a residual add).
 
 ``dense_block`` (forward), ``dense_block_prefill`` (forward plus the
 layer's cache) and ``dense_block_decode`` (one token against the cache)
@@ -9,7 +10,12 @@ are plain functions of a parameter dict ``p`` with the reference's keys
 feed-forward (the ``moe`` stage of the DeepSeek configurations), and
 ``cfg.attn_type == "mla"`` picks MLA, whose cache is ``{"c_kv",
 "k_rope"}`` where GQA's is ``{"k", "v"}``.  :class:`DenseBlock` holds one
-layer's parameters as an ``nn.Module`` and calls them.
+layer's parameters as an ``nn.Module`` and calls them.  ``ssm_block``,
+``ssm_block_prefill`` and ``ssm_block_decode`` do the same for a Mamba-2
+layer (keys ``ln``, ``mixer``), whose cache is the SSM cache of
+:func:`ssm.ssm_cache_defs`; they accept the attention's ``positions``,
+``seq_cap`` and ``pos`` and ignore them, as the reference does, and
+:class:`SSMBlock` holds one such layer.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import decode as dec
-from repro_torch.models import layers, mla, moe
+from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 
@@ -83,6 +89,33 @@ def dense_cache_defs(cfg: ModelConfig, batch: int, seq: int) -> dict:
     return dec.gqa_cache_defs(cfg, batch, seq)
 
 
+def ssm_block_defs(cfg: ModelConfig) -> dict:
+    return {"ln": layers.rmsnorm_defs(cfg.d_model), "mixer": ssm.ssm_defs(cfg)}
+
+
+def ssm_block(x, p, cfg: ModelConfig, positions=None):
+    h, _ = ssm.mamba2_forward(layers.rmsnorm(x, p["ln"], cfg.norm_eps), p["mixer"], cfg)
+    return x + h
+
+
+def ssm_block_prefill(x, p, cfg: ModelConfig, positions=None, seq_cap=None):
+    """Returns (x, the layer's SSM cache)."""
+    h, cache = ssm.mamba2_forward(layers.rmsnorm(x, p["ln"], cfg.norm_eps), p["mixer"],
+                                  cfg)
+    return x + h, cache
+
+
+def ssm_block_decode(x, p, cfg: ModelConfig, cache: dict, pos=None):
+    """Returns (x, cache), the cache updated in place."""
+    h, cache = ssm.mamba2_decode(layers.rmsnorm(x, p["ln"], cfg.norm_eps), p["mixer"], cfg,
+                                 cache)
+    return x + h, cache
+
+
+def ssm_cache_defs(cfg: ModelConfig, batch: int) -> dict:
+    return ssm.ssm_cache_defs(cfg, batch)
+
+
 class ParamTree(nn.Module):
     """A tree node that holds both leaves and subtrees (the MoE ``ffn``:
     ``router``, ``wg``, ``wu``, ``wd`` beside ``shared``), indexed by key."""
@@ -129,3 +162,21 @@ class DenseBlock(nn.ModuleDict):
 
     def decode(self, x, cache: dict, pos: int):
         return dense_block_decode(x, self, self.cfg, cache, pos, self.use_moe)
+
+
+class SSMBlock(nn.ModuleDict):
+    """One Mamba-2 layer's parameters, keyed as the reference's layer tree
+    (``ln``, ``mixer``), with :class:`DenseBlock`'s methods."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__({k: param_module(tree[k]) for k in ("ln", "mixer")})
+        self.cfg = cfg
+
+    def forward(self, x, positions):
+        return ssm_block(x, self, self.cfg)
+
+    def prefill(self, x, positions, seq_cap: int):
+        return ssm_block_prefill(x, self, self.cfg)
+
+    def decode(self, x, cache: dict, pos: int):
+        return ssm_block_decode(x, self, self.cfg, cache)

@@ -1,9 +1,8 @@
 """Model configuration and parameter declarations (port of
 ``repro.models.config``).
 
-One :class:`ModelConfig` describes every architecture of the pool; the
-port serves the dense family (dense, encoder, vlm) and the moe family.
-Parameters are declared
+One :class:`ModelConfig` describes every architecture of the pool, and
+the port serves every family.  Parameters are declared
 as trees (nested dicts) of :class:`PSpec`; :func:`init_params` turns one
 into tensors, :func:`count_params` counts it without allocating.
 

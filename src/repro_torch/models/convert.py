@@ -5,9 +5,11 @@ nested dict of ``Model.init``, its leaves as numpy arrays:
 ``jax.tree.map(np.asarray, params)``) into a port :class:`Model`.  The two
 packages keep the same weight layouts, so each leaf is a copy; the stacked
 ``stages/<stage>`` leaves (a leading ``layers`` axis) are split along axis 0
-into the blocks, stage after stage (``layers``; or ``dense_layers`` then
-``moe_layers``), and the other subtrees (``embed``, ``final_norm``,
-``head``, the multi-token-prediction ``mtp``) are copied as they are.
+into the blocks, stage after stage (``layers``; ``dense_layers`` then
+``moe_layers``; the hybrid's ``groups`` then ``tail``), and the other
+subtrees (``embed``, the hybrid's one ``shared_attn`` block,
+``final_norm``, ``head``, the multi-token-prediction ``mtp``) are copied
+as they are.
 """
 
 from __future__ import annotations

@@ -1,22 +1,36 @@
-"""Model assembly for serving (port of ``repro.models.model``), the dense
-and MoE families.
+"""Model assembly for serving (port of ``repro.models.model``), every
+decoder family.
 
 The reference stacks each stage's layers and runs them under ``lax.scan``;
 here :class:`Model` is an ``nn.Module`` holding an ``nn.ModuleList`` of
-:class:`~repro_torch.models.blocks.DenseBlock` and loops over it.  The
-dense, encoder and vlm families are one stage of dense blocks; the moe
-family (DeepSeek) is a stage of ``first_dense_layers`` dense blocks and a
-stage of MoE blocks, both with MLA attention, and declares the
-reference's multi-token-prediction subtree (``mtp``) where ``mtp_depth``
-asks for it, which serving does not read.  The ssm and hybrid families
-wait for a later slice of the port, and ``Model`` refuses them by name
-(:data:`LATER_FAMILIES`).
+blocks and loops over them.  The stages are the reference's:
+
+  dense / encoder / vlm : [dense x L]
+  moe (deepseek)        : [dense x first_dense_layers, moe x rest]
+  ssm (mamba2)          : [ssm x L]
+  hybrid (zamba2)       : [groups: (ssm x E, then the shared block) x G,
+                           tail: ssm x (L - G E)]
+
+with MLA attention in the moe family and the reference's
+multi-token-prediction subtree (``mtp``) where ``mtp_depth`` asks for it,
+which serving does not read.  The hybrid family's shared attention block
+(a dense GQA block with a gated MLP) has one set of weights,
+``Model.shared_attn``, held once: :attr:`Model.plan` lists the modules in
+the order they run, the shared block after every E Mamba-2 blocks of the
+``groups`` stage, and each of its G invocations keeps a KV cache of its own.
 
 Entries: ``forward`` (logits over the whole sequence), ``prefill``
 (last-position logits and the caches, padded to ``seq_cap``) and
-``decode_step`` (one token; the caches are updated in place).  A cache is a
-list with one dict per block: ``{"k", "v"}`` (GQA) or ``{"c_kv",
-"k_rope"}`` (MLA).  The training loss waits for the training slice;
+``decode_step`` (one token; the caches are updated in place).  The caches
+are a list with one dict per entry of ``plan``, in run order: ``{"k",
+"v"}`` (GQA: a dense block or an invocation of the shared block),
+``{"c_kv", "k_rope"}`` (MLA) or ``{"conv_x", "conv_B", "conv_C",
+"state"}`` (Mamba-2).  For every family but the hybrid that is one dict
+per block.  :attr:`Model.cache_slots` says where each sits in the
+reference's cache tree (``stages/<stage>`` stacked by layer, and the
+hybrid's ``shared_attn`` stacked by invocation), :meth:`Model.init_cache`
+builds zero caches in that layout and :meth:`Model.reference_cache` maps a
+list back onto the tree.  The training loss waits for the training slice;
 ``remat`` has no meaning in serving.
 """
 
@@ -33,21 +47,15 @@ from repro_torch.models import blocks, layers
 from repro_torch.models.config import (ModelConfig, PSpec, init_params, stack_defs,
                                        tree_map)
 
-# Families whose blocks the port does not have yet, and the part of ROADMAP
-# queue 1's LM stack item that ports them.
-LATER_FAMILIES = {
-    "ssm": "the SSM blocks (mamba2-130m) come with ROADMAP queue 1, the LM "
-           "stack's 'SSM and hybrid' part",
-    "hybrid": "the SSM and shared-attention blocks (zamba2-7b) come with ROADMAP "
-              "queue 1, the LM stack's 'SSM and hybrid' part",
-}
+SHARED = "shared_attn"   # the hybrid's shared block: its parameters' and caches' key
 
 
 @dataclasses.dataclass(frozen=True)
 class StageDesc:
     name: str
-    kind: str        # dense | moe
-    n_layers: int
+    kind: str        # dense | moe | ssm | hybrid
+    n_layers: int    # layers in the stage (G * E for the hybrid's groups)
+    group: int = 0   # hybrid: Mamba-2 blocks per group
 
 
 def _stages_for(cfg: ModelConfig) -> list[StageDesc]:
@@ -59,20 +67,32 @@ def _stages_for(cfg: ModelConfig) -> list[StageDesc]:
             out.append(StageDesc("dense_layers", "dense", cfg.first_dense_layers))
         out.append(StageDesc("moe_layers", "moe", cfg.n_layers - cfg.first_dense_layers))
         return out
-    if cfg.family in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            f"{LATER_FAMILIES[cfg.family]}")
+    if cfg.family == "ssm":
+        return [StageDesc("layers", "ssm", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        e = cfg.shared_attn_every
+        g = cfg.n_layers // e
+        out = [StageDesc("groups", "hybrid", g * e, group=e)]
+        if cfg.n_layers - g * e:
+            out.append(StageDesc("tail", "ssm", cfg.n_layers - g * e))
+        return out
     raise ValueError(cfg.family)
+
+
+def _block_defs(cfg: ModelConfig, kind: str) -> dict:
+    if kind in ("ssm", "hybrid"):
+        return blocks.ssm_block_defs(cfg)
+    return blocks.dense_block_defs(cfg, kind == "moe")
 
 
 def param_defs(cfg: ModelConfig) -> dict:
     """The reference's PSpec tree for ``cfg`` (each stage's layers stacked
     under ``stages/<stage>``); ``count_params`` of it equals the reference's."""
     defs: dict[str, Any] = {"embed": layers.embed_defs(cfg)}
-    defs["stages"] = {s.name: stack_defs(blocks.dense_block_defs(cfg, s.kind == "moe"),
-                                         s.n_layers)
+    defs["stages"] = {s.name: stack_defs(_block_defs(cfg, s.kind), s.n_layers)
                       for s in _stages_for(cfg)}
+    if cfg.family == "hybrid":
+        defs[SHARED] = blocks.dense_block_defs(cfg)
     defs["final_norm"] = layers.rmsnorm_defs(cfg.d_model)
     if layers.head_defs(cfg):
         defs["head"] = layers.head_defs(cfg)
@@ -91,7 +111,7 @@ def _layer(stacked: dict, i: int) -> dict:
 
 
 class Model(nn.Module):
-    """A dense- or MoE-family LM with its parameters.
+    """A decoder LM of any family, with its parameters.
 
     ``device`` defaults to the card and raises without one
     (:func:`repro_torch.device.resolve_device`); ``"meta"`` builds the
@@ -117,12 +137,33 @@ class Model(nn.Module):
             tree = init_params(defs, gen, dtype, dev)
         self.embed = blocks.param_module(tree["embed"])
         self.blocks = nn.ModuleList(
-            blocks.DenseBlock(cfg, _layer(tree["stages"][s.name], i), s.kind == "moe")
+            self._block(s.kind, _layer(tree["stages"][s.name], i))
             for s in self.stages for i in range(s.n_layers))
+        # the hybrid's shared block: registered once, run after every E blocks
+        self.shared_attn = blocks.DenseBlock(cfg, tree[SHARED]) if SHARED in tree else None
         self.final_norm = blocks.param_module(tree["final_norm"])
         self.head = blocks.param_module(tree["head"]) if "head" in tree else None
         # the multi-token-prediction module: carried, counted, not served
         self.mtp = blocks.param_module(tree["mtp"]) if "mtp" in tree else None
+        plan, slots, first = [], [], 0
+        for s in self.stages:
+            for i in range(s.n_layers):
+                plan.append(self.blocks[first + i])
+                slots.append((s.name, i))
+                if s.kind == "hybrid" and (i + 1) % s.group == 0:
+                    plan.append(self.shared_attn)
+                    slots.append((SHARED, i // s.group))
+            first += s.n_layers
+        # a tuple, not a ModuleList: the shared block is not registered again
+        self.plan: tuple[nn.Module, ...] = tuple(plan)
+        # for each entry of the plan, where its cache sits in the reference's
+        # tree: (a stage's name, the layer) or ("shared_attn", the invocation)
+        self.cache_slots: tuple[tuple[str, int], ...] = tuple(slots)
+
+    def _block(self, kind: str, tree: dict) -> nn.Module:
+        if kind in ("ssm", "hybrid"):
+            return blocks.SSMBlock(self.cfg, tree)
+        return blocks.DenseBlock(self.cfg, tree, kind == "moe")
 
     @property
     def device(self) -> torch.device:
@@ -171,24 +212,46 @@ class Model(nn.Module):
     def forward(self, batch: dict):
         """Logits (B, S, vocab_padded) over the whole sequence."""
         x, positions = self.embed_input(batch)
-        for block in self.blocks:
+        for block in self.plan:
             x = block(x, positions)
         return self.logits(x)
 
     # -- serving -------------------------------------------------------------------
     def cache_defs(self, batch: int, seq_cap: int) -> dict:
-        """The reference's cache tree (layers stacked under ``stages``)."""
-        return {"stages": {s.name: stack_defs(
-            blocks.dense_cache_defs(self.cfg, batch, seq_cap), s.n_layers)
+        """The reference's cache tree: each stage's layers stacked under
+        ``stages``, the hybrid's G shared-block caches under ``shared_attn``."""
+        cfg = self.cfg
+        out = {"stages": {s.name: stack_defs(
+            blocks.ssm_cache_defs(cfg, batch) if s.kind in ("ssm", "hybrid")
+            else blocks.dense_cache_defs(cfg, batch, seq_cap), s.n_layers)
             for s in self.stages}}
+        n_shared = sum(key == SHARED for key, _ in self.cache_slots)
+        if n_shared:
+            out[SHARED] = stack_defs(blocks.dense_cache_defs(cfg, batch, seq_cap), n_shared)
+        return out
 
     def init_cache(self, batch: int, seq_cap: int) -> list[dict]:
-        """Zero caches in the compute dtype, one dict per block."""
+        """Zero caches in the compute dtype, one dict per entry of ``plan``."""
         cd, dev = self.cfg.dtype("compute"), self.device
         stacked = tree_map(lambda p: torch.zeros(p.shape, dtype=cd, device=dev),
                            self.cache_defs(batch, seq_cap))
-        return [_layer(stacked["stages"][s.name], i)
-                for s in self.stages for i in range(s.n_layers)]
+        return [_layer(stacked[SHARED] if key == SHARED else stacked["stages"][key], i)
+                for key, i in self.cache_slots]
+
+    def reference_cache(self, caches: list[dict]) -> dict:
+        """``caches`` as the reference's tree (each leaf stacked along a
+        leading layer or invocation axis, as :meth:`cache_defs` lays out)."""
+        if len(caches) != len(self.cache_slots):
+            raise ValueError(f"{len(caches)} caches for a plan of {len(self.cache_slots)}")
+        by_key: dict[str, list[dict]] = {}
+        for (key, _), cache in zip(self.cache_slots, caches):
+            by_key.setdefault(key, []).append(cache)
+        stacked = {key: {name: torch.stack([c[name] for c in group])
+                         for name in group[0]} for key, group in by_key.items()}
+        out: dict[str, Any] = {"stages": {s.name: stacked[s.name] for s in self.stages}}
+        if SHARED in stacked:
+            out[SHARED] = stacked[SHARED]
+        return out
 
     def prefill(self, batch: dict, seq_cap: int):
         """Full-sequence forward building the caches.
@@ -196,7 +259,7 @@ class Model(nn.Module):
         Returns (last-position logits (B, vocab_padded), caches)."""
         x, positions = self.embed_input(batch)
         caches = []
-        for block in self.blocks:
+        for block in self.plan:
             x, cache = block.prefill(x, positions, seq_cap)
             caches.append(cache)
         return self.logits(x[:, -1:])[:, 0], caches
@@ -206,6 +269,6 @@ class Model(nn.Module):
 
         Returns (logits (B, vocab_padded), caches), updated in place."""
         x = layers.embed(tokens, self.embed, self.cfg)
-        for block, cache in zip(self.blocks, caches):
+        for block, cache in zip(self.plan, caches, strict=True):
             x, _ = block.decode(x, cache, pos)
         return self.logits(x)[:, 0], caches

@@ -40,7 +40,8 @@ def test_files_found():
                                   "core/reduction.py", "core/tree_search.py",
                                   "core/normal.py", "kernels/moments",
                                   "models", "configs", "launch/serve.py",
-                                  "launch/specs.py", "models/mla.py", "models/moe.py"])
+                                  "launch/specs.py", "models/mla.py", "models/moe.py",
+                                  "models/ssm.py"])
 def test_scan_covers_service_slice(part):
     """The service slice's subpackages, the adaptive and stratified
     slice's modules, the invariant checker's and the LM serving slices'

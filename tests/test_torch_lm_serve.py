@@ -77,7 +77,8 @@ def test_input_specs_and_axes_equal_reference(shape):
             jspecs.batch_logical_axes(jcfg, jshapes.SHAPES[shape])
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "chatglm3_6b", "deepseek_v2_lite_16b"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "chatglm3_6b", "deepseek_v2_lite_16b",
+                                  "mamba2_130m", "zamba2_7b"])
 def test_greedy_tokens_equal_reference(arch):
     jcfg = jconfigs.reduced(jconfigs.get_config(arch))
     cfg = configs.reduced(configs.get_config(arch))
@@ -138,6 +139,15 @@ def test_cli_reduced_on_cpu():
                           "--device", "cpu", "--arch", "hubert-xlarge"],
                          capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
     assert enc.returncode != 0 and "encoder-only" in enc.stderr
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_cli_serves_ssm_configs_on_cpu(arch, capsys):
+    """The launcher's entry, in process, on the reduced ssm and hybrid
+    configurations."""
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "generated (2, 4)" in out and "on cpu" in out
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-v3-671b"])

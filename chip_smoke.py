@@ -17,9 +17,10 @@ on the Fig.-1 spec served as requests (MC and Sobol) and on a full-width
 parameter sweep (MC and Sobol), VEGAS-adapted families through
 ``evaluate`` and adaptive requests through the service, and stratified
 sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``), the
-multi-device path (a mesh of one NCCL rank, then four gloo ranks), and
-the LM stack's serving path at full width, dense, MoE (MLA), SSM
-(Mamba-2) and hybrid models:
+multi-device path (a mesh of one NCCL rank, then four gloo ranks), the
+LM stack's serving path at full width, dense, MoE (MLA), SSM (Mamba-2)
+and hybrid models, and its training path at full width and depth
+(stablelm-3b, mamba2-130m):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -215,7 +216,33 @@ the LM stack's serving path at full width, dense, MoE (MLA), SSM
    prefill and decode times beside a 512-token request's, the cache's
    bytes of both (they must be equal) and the peak, and its gate at 2
    layers in f32: the decode step at 32,768 against the last logits of a
-   prefill over 32,769 within 5e-3 of the largest |logit|; then prints
+   prefill over 32,769 within 5e-3 of the largest |logit|;
+25. the LM training path (``repro_torch.launch.train``: ``Model.loss``,
+   the train step, AdamW, ``TokenStream``, the checkpoint; no kernel of
+   its own either; steps 22-24 run under ``torch.no_grad()``, the
+   parameters being trainable): stablelm-3b at full width and depth
+   (2.796e9 parameters, gradients and AdamW moments in f32, bf16 compute,
+   remat "full"), batch 8 x 512 from ``TokenStream`` in 2 microbatches,
+   one warm-up step and 3 timed with CUDA events: forward and backward,
+   clip, optimizer and step ms, tokens/s and
+   ``torch.cuda.max_memory_allocated``, each beside its bound
+   (``train_bounds``: 8 N T matmul operations and the score rectangles
+   at 989 TFLOP/s, the clip's 12 and the optimizer's 28 bytes a parameter
+   at 3.35 TB/s), and one step profiled; gate (a) at full width and 2
+   layers in f32 (TF32 off), one step of 2 x 64 in 2 microbatches on the
+   card against the same weights on the CPU: the loss within 1e-4, the
+   gradient norm within 1e-3, each leaf's gradient within 1e-2 relative
+   RMS, the parameters within 1e-3; then mamba2-130m at full width and
+   depth with ``examples/train_lm.py``'s settings (batch 8 x 256, 2
+   microbatches): its step timed beside its bound and profiled; gate (b)
+   10 uninterrupted steps against a run that checkpoints every 5 steps,
+   fails at step 7 and resumes: the losses of steps 5-9 equal and the
+   final parameters, moments and step sha256-equal (the train step runs
+   under ``torch.use_deterministic_algorithms(True)``, with cuBLAS's
+   workspace set at the script's start), the checkpoint's save and
+   restore timed with its bytes; gate (c) 10 steps on one fixed batch
+   (lr 1e-3, warmup 2), the last loss below the first, the trajectory
+   printed; gate (d) every loss and gradient norm finite; then prints
    the ``{"kernels": [...]}`` line,
    one entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
@@ -242,6 +269,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# step 25's train step runs in deterministic mode, which asks for cuBLAS's
+# fixed workspace configuration before the first cuBLAS call (steps 7-24
+# make cuBLAS calls); on Hopper this is PyTorch's default size, 32 MiB
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 N_CHECK = 65536          # samples per function for the first kernel-vs-plain check
 N_MAIN = 10**6           # the paper's protocol: 10^6 samples x 10 trials
@@ -390,6 +421,29 @@ LM_LONG_ARCH, LM_LONG_PROMPT = "mamba2-130m", 32768
 # NVIDIA's H100 SXM data sheet: the dense bf16 tensor-core peak and the HBM3
 # rate, both at the 700 W limit
 H100_BF16_FLOPS, H100_HBM_BYTES_S = 989e12, 3.35e12
+# step 25: the LM training path (repro_torch.launch.train) at full width and
+# depth.  stablelm-3b: AdamW with f32 parameters, gradients and moments,
+# remat "full", batch 8 x 512 from TokenStream in 2 microbatches; one
+# warm-up step, then TRAIN_TIMED steps timed phase by phase (CUDA events)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_TIMED = "stablelm-3b", 8, 512, 2, 3
+# gate (a): full width, 2 layers, f32 compute with TF32 off, one step of
+# batch 2 x 64 in 2 microbatches at the peak rate (warmup 0) on the card
+# against the same weights on the CPU.  f32 sums in another order differ by
+# ~1e-7 of each; the seeded model multiplies a difference 2-7 times a layer
+# (step 22's gate (a)), and backward through near one-hot attention more:
+# the loss within TRAIN_LOSS_RTOL, the gradient norm within
+# TRAIN_GNORM_RTOL, each leaf's gradient within TRAIN_GRAD_RMS relative RMS,
+# the updated parameters within TRAIN_PARAM_RMS (Adam's first step is
+# ~sign(g) lr: an element whose gradient is ~0 may move by 2 lr on one side
+# only).  A fault in the path (a mask, a shift, a missed microbatch, a
+# dropped clip) moves these by their own size
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RMS, TRAIN_PARAM_RMS = 1e-4, 1e-3, 1e-2, 1e-3
+# mamba2-130m at examples/train_lm.py's settings: batch 8 x 256, 2
+# microbatches, 10 steps (warmup 1); gate (b) checkpoints every 5 steps and
+# fails at step 7; gate (c): 10 steps on one fixed batch at lr 1e-3, warmup 2
+SSM_TRAIN_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = "mamba2-130m", 8, 256, 10
+SSM_CKPT_EVERY, SSM_FAIL_AT = 5, 7
 
 
 def fail(msg: str) -> None:
@@ -1547,15 +1601,29 @@ def decode_profile(model, batch: dict, steps: int = 4) -> str:
     ``torch.profiler``: wall and device-busy ms per step, the device's
     operations per step and the five that take the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     logits, cache = model.prefill(batch, LM_CAP)
     tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+
+    def run(i):
+        nonlocal logits, cache, tok
+        logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+
+    return profile_steps(run, steps)
+
+
+def profile_steps(run, steps: int, top_n: int = 5, by_op: bool = False) -> str:
+    """``run(i)`` for i < ``steps`` under ``torch.profiler``: wall and
+    device-busy ms per step, the device's operations per step and the
+    ``top_n`` that take the most device time; ``by_op`` adds the ``top_n``
+    PyTorch operators whose own launches take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
-            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            run(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
@@ -1563,12 +1631,18 @@ def decode_profile(model, batch: dict, steps: int = 4) -> str:
     busy = sum(dev(e) for e in on_device) / 1e3 / steps
     if busy == 0:
         return f"{wall:.3f} ms wall per step; device time not measured (no CUDA events)"
-    top = sorted(on_device, key=dev, reverse=True)[:5]
-    return (f"{wall:.3f} ms wall per step, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%, "
-            f"idle {100 - 100 * busy / wall:.1f}%), {sum(e.count for e in on_device) / steps:.0f} "
-            f"device operations per step; most device time: "
-            + "; ".join(f"{e.key[:60]} {dev(e) / 1e3 / steps:.3f} ms x{e.count // steps}"
-                        for e in top))
+    top = sorted(on_device, key=dev, reverse=True)[:top_n]
+    out = (f"{wall:.3f} ms wall per step, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%, "
+           f"idle {100 - 100 * busy / wall:.1f}%), {sum(e.count for e in on_device) / steps:.0f} "
+           f"device operations per step; most device time: "
+           + "; ".join(f"{e.key[:60]} {dev(e) / 1e3 / steps:.3f} ms x{e.count // steps}"
+                       for e in top))
+    if by_op:   # an operator's own launches: each kernel counted once, under its launcher
+        ops = sorted((e for e in prof.key_averages() if dev(e) > 0 and e.self_cpu_time_total > 0),
+                     key=dev, reverse=True)[:top_n]
+        out += "; by operator: " + "; ".join(
+            f"{e.key} {dev(e) / 1e3 / steps:.3f} ms x{e.count // steps}" for e in ops)
+    return out
 
 
 def lm_moe_serving(card: str) -> None:
@@ -1949,6 +2023,339 @@ def lm_long_prompt(model, decode_ms_512: float, dev) -> list[str]:
     gc.collect()
     torch.cuda.empty_cache()
     return failures
+
+
+def train_bounds(cfg, batch: int, seq: int) -> dict:
+    """The least time the card could take for one train step of ``batch``
+    sequences of ``seq`` tokens under full remat with AdamW in f32:
+    forward and backward at the bf16 peak, 8 N T matmul operations (N the
+    weights a token meets: the layers and the head, not the embedding table
+    unless the head is tied to it; 2 forward, 2 the recompute, 4 backward)
+    plus the attention rectangles the port computes whole (4 B h S^2 (dqk +
+    dv) a layer forward, 4 times) and the Mamba-2 SSD's per-token terms
+    (``lm_bounds``'s, 4 times); the clip's 12 bytes a parameter (the f32
+    gradients read for the norm, read and written for the scale) and the
+    optimizer's 28 (parameter, gradient and both moments read; parameter and
+    moments written) at the HBM rate.  The least memory is the parameters,
+    gradients and moments: 16 bytes a parameter."""
+    from repro_torch.models.config import count_params
+    from repro_torch.models.model import param_defs
+    defs = param_defs(cfg)
+    n_params = count_params(defs)
+    d, vp = cfg.d_model, cfg.vocab_padded
+    matmul = n_params - count_params(defs["embed"]) + (d * vp if cfg.tie_embeddings else 0)
+    tokens = batch * seq
+    flops = 8 * matmul * tokens
+    if cfg.family in ("dense", "encoder", "vlm"):
+        flops += 4 * 4 * batch * cfg.n_heads * seq * seq * 2 * cfg.head_dim * cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        di, n, q = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_chunk
+        s_pad = -(-seq // q) * q
+        flops += 4 * cfg.n_layers * batch * s_pad * (2 * q * n + 2 * q * di + 4 * n * di)
+    fb = flops / H100_BF16_FLOPS
+    clip = 12 * n_params / H100_HBM_BYTES_S
+    opt = 28 * n_params / H100_HBM_BYTES_S
+    step = fb + clip + opt
+    return dict(params=n_params, matmul_params=matmul, tokens=tokens, flops=flops,
+                fb_ms=1e3 * fb, clip_ms=1e3 * clip, opt_ms=1e3 * opt, step_ms=1e3 * step,
+                tokens_per_s=tokens / step, state_bytes=16 * n_params)
+
+
+def state_digest(state) -> str:
+    """sha256 over a train state's leaves (names and bytes, stage leaves
+    stacked), in the reference's order."""
+    import torch
+    from repro_torch.distributed.checkpoint import leaf_paths
+    from repro_torch.models.convert import stack_tree
+    h = hashlib.sha256()
+    for name, t in leaf_paths(stack_tree(state)):
+        t = t.cpu()
+        h.update(name.encode())
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_timed(model, hp, stream, n: int) -> dict:
+    """One warm-up step, then ``n`` steps timed phase by phase with CUDA
+    events: forward and backward (``TrainStep.grads``), the clip and the
+    optimizer (``apply``); then one more step under ``torch.profiler``.
+    Returns the medians, each step's losses and gradient norms, the peak
+    memory (reset by the caller before the model is built) and the
+    profile's summary."""
+    import torch
+    from repro_torch.launch import train
+    dev = model.device
+    state = train.make_train_state(model, hp)
+    step = train.make_train_step(model, hp)
+    state, m = step(state, stream.next_batch())
+    losses, gnorms = [float(m["loss"])], [float(m["grad_norm"])]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    fb, clip, opt, total = [], [], [], []
+    for _ in range(n):
+        batch = stream.next_batch()
+        torch.cuda.synchronize()
+        with train.deterministic(dev):
+            ev[0].record()
+            metrics = step.grads(state, batch)
+            ev[1].record()
+            gnorm = step.clip(state)
+            ev[2].record()
+            step.apply(state)
+            ev[3].record()
+        torch.cuda.synchronize()
+        fb.append(ev[0].elapsed_time(ev[1]))
+        clip.append(ev[1].elapsed_time(ev[2]))
+        opt.append(ev[2].elapsed_time(ev[3]))
+        total.append(ev[0].elapsed_time(ev[3]))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(gnorm))
+    peak = torch.cuda.max_memory_allocated()
+    profiled = profile_steps(lambda i: step(state, stream.next_batch()), 1, top_n=6,
+                             by_op=True)
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    return dict(state=state, fb_ms=med(fb), clip_ms=med(clip), opt_ms=med(opt),
+                step_ms=med(total), steps_ms=total, losses=losses, gnorms=gnorms,
+                peak=peak, profiled=profiled)
+
+
+def train_card_vs_cpu(cfg_a, dev) -> dict:
+    """Gate (a): ``cfg_a`` (full width, cut depth, f32 compute) drawn on the
+    card, the same weights copied to the CPU, one train step of the same
+    TokenStream batch on each (2 microbatches, warmup 0).  Returns the
+    metrics of both, the largest per-leaf relative RMS of the (clipped)
+    gradients and of the updated parameters, the CPU step's seconds and
+    the gate's failures."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    hp = train.TrainHParams(warmup_steps=0, total_steps=10, grad_accum=TRAIN_ACCUM)
+    card = Model(cfg_a, device=dev, seed=0)
+    cpu = Model(cfg_a, device="meta")
+    cpu.load_state_dict({k: v.to("cpu", copy=True) for k, v in card.state_dict().items()},
+                        assign=True)
+    batch = TokenStream(cfg_a, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, seed=0,
+                        device="cpu").next_batch()
+    out = {}
+    for name, model, b in (("card", card, {k: v.to(dev) for k, v in batch.items()}),
+                           ("cpu", cpu, batch)):
+        t0 = time.perf_counter()
+        state = train.make_train_state(model, hp)
+        _, m = train.make_train_step(model, hp)(state, b)
+        out[name] = {k: float(v) for k, v in m.items()}
+        out[name + "_s"] = time.perf_counter() - t0
+    grad_rms = param_rms = 0.0
+    worst = ""
+    for (n, pc), (_, ph) in zip(card.named_parameters(), cpu.named_parameters(), strict=True):
+        g = rel_rms(pc.grad.cpu(), ph.grad)
+        if g > grad_rms:
+            grad_rms, worst = g, n
+        param_rms = max(param_rms, rel_rms(pc.detach().cpu(), ph.detach()))
+    c, h = out["card"], out["cpu"]
+    loss_err = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+    gnorm_err = abs(c["grad_norm"] - h["grad_norm"]) / abs(h["grad_norm"])
+    failures = []
+    if not all(math.isfinite(x) for x in list(c.values()) + list(h.values())):
+        failures.append("(a) non-finite metrics")
+    if loss_err > TRAIN_LOSS_RTOL:
+        failures.append(f"(a) loss {c['loss']} vs {h['loss']}")
+    if gnorm_err > TRAIN_GNORM_RTOL:
+        failures.append(f"(a) grad_norm {c['grad_norm']} vs {h['grad_norm']}")
+    if grad_rms > TRAIN_GRAD_RMS:
+        failures.append(f"(a) gradient {worst} relative RMS {grad_rms:.3e}")
+    if param_rms > TRAIN_PARAM_RMS:
+        failures.append(f"(a) parameters relative RMS {param_rms:.3e}")
+    del card, cpu, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=c, cpu=h, loss_err=loss_err, gnorm_err=gnorm_err, grad_rms=grad_rms,
+                worst=worst, param_rms=param_rms, cpu_s=out["cpu_s"], failures=failures)
+
+
+def lm_training(card: str) -> None:
+    """Step 25: the LM training path at full width and depth, stablelm-3b
+    (gate (a) at cut depth, the timed steps beside their bounds, gate (d))
+    then mamba2-130m (gates (b), (c), (d); step ms beside its bound; the
+    checkpoint's save and restore).  Every number of an architecture is
+    printed before its gates are checked."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    finite = lambda xs: all(math.isfinite(x) for x in xs)
+    print(f"step 25: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
+          f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}; on {card}")
+
+    # -- stablelm-3b ------------------------------------------------------------
+    t_arch = time.perf_counter()
+    full = get_config(TRAIN_ARCH)
+    a = train_card_vs_cpu(full.with_overrides(n_layers=TRAIN_CHECK_LAYERS,
+                                              compute_dtype="float32"), dev)
+    failures = a["failures"]
+    print(f"step 25 {TRAIN_ARCH} (a) card vs CPU, {TRAIN_CHECK_LAYERS} layers at full width, "
+          f"f32 (TF32 off), one step of {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ} in "
+          f"{TRAIN_ACCUM} microbatches: loss {a['card']['loss']:.7f} vs {a['cpu']['loss']:.7f} "
+          f"(rel {a['loss_err']:.2e}, gate {TRAIN_LOSS_RTOL}); grad_norm "
+          f"{a['card']['grad_norm']:.5f} vs {a['cpu']['grad_norm']:.5f} (rel "
+          f"{a['gnorm_err']:.2e}, gate {TRAIN_GNORM_RTOL}); largest per-leaf gradient "
+          f"relative RMS {a['grad_rms']:.3e} ({a['worst']}, gate {TRAIN_GRAD_RMS}); "
+          f"parameters {a['param_rms']:.3e} (gate {TRAIN_PARAM_RMS}); the CPU step "
+          f"{a['cpu_s']:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    hp = train.TrainHParams(grad_accum=TRAIN_ACCUM, warmup_steps=1, total_steps=10)
+    model = Model(full, device=dev, seed=0)
+    stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+    run = train_timed(model, hp, stream, TRAIN_TIMED)
+    bd = train_bounds(full, TRAIN_BATCH, TRAIN_SEQ)
+    tps = bd["tokens"] / (run["step_ms"] / 1e3)
+    print(f"step 25 {TRAIN_ARCH}: {bd['params']:,} parameters in f32, compute "
+          f"{full.compute_dtype}, AdamW f32 moments, remat {full.remat}; batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} in {TRAIN_ACCUM} microbatches ({bd['tokens']} tokens a step)")
+    print(f"step 25 {TRAIN_ARCH}: forward+backward {run['fb_ms']:.3f} ms (bound "
+          f"{bd['fb_ms']:.3f} ms by operations, 8 N T with N = {bd['matmul_params']:.4g} "
+          f"and the attention rectangles, {bd['flops'] / 1e12:.2f} TFLOP; "
+          f"{100 * bd['fb_ms'] / run['fb_ms']:.1f}% of it); clip {run['clip_ms']:.3f} ms "
+          f"(bound {bd['clip_ms']:.3f} ms by bytes, 12 B a parameter; "
+          f"{100 * bd['clip_ms'] / run['clip_ms']:.1f}%); optimizer {run['opt_ms']:.3f} ms "
+          f"(bound {bd['opt_ms']:.3f} ms by bytes, 28 B a parameter; "
+          f"{100 * bd['opt_ms'] / run['opt_ms']:.1f}%)")
+    print(f"step 25 {TRAIN_ARCH}: step {run['step_ms']:.3f} ms (runs "
+          f"{[round(x, 3) for x in run['steps_ms']]}; bound {bd['step_ms']:.3f} ms; "
+          f"{100 * bd['step_ms'] / run['step_ms']:.1f}% of it); {tps:.1f} tokens/s (bound "
+          f"{bd['tokens_per_s']:.1f}); peak memory torch.cuda.max_memory_allocated "
+          f"{run['peak'] / 1e9:.3f} GB (parameters, gradients and moments "
+          f"{bd['state_bytes'] / 1e9:.3f} GB)")
+    print(f"step 25 {TRAIN_ARCH}: one step profiled: {run['profiled']}")
+    print(f"step 25 {TRAIN_ARCH} (d) losses {[round(x, 5) for x in run['losses']]}, "
+          f"grad_norm {[round(x, 4) for x in run['gnorms']]}; "
+          f"{time.perf_counter() - t_arch:.1f} s")
+    if not finite(run["losses"] + run["gnorms"]):
+        failures.append("(d) non-finite loss or grad_norm")
+    del model, stream, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not failures, f"{TRAIN_ARCH} training: {'; '.join(failures)}")
+
+    # -- mamba2-130m ----------------------------------------------------------------
+    t_arch = time.perf_counter()
+    cfg = get_config(SSM_TRAIN_ARCH)
+    hp = dataclasses.replace(
+        train.default_hparams_for(cfg, global_batch=SSM_TRAIN_BATCH, data_shards=1),
+        total_steps=SSM_TRAIN_STEPS, warmup_steps=max(1, SSM_TRAIN_STEPS // 10),
+        grad_accum=TRAIN_ACCUM)
+    kw = dict(batch=SSM_TRAIN_BATCH, seq=SSM_TRAIN_SEQ, steps=SSM_TRAIN_STEPS, log_every=100,
+              device=dev)
+    failures = []
+    torch.cuda.reset_peak_memory_stats()
+    run = train_timed(Model(cfg, device=dev, seed=0), hp,
+                      TokenStream(cfg, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, seed=0, device=dev),
+                      TRAIN_TIMED)
+    bd = train_bounds(cfg, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
+    print(f"step 25 {SSM_TRAIN_ARCH}: {bd['params']:,} parameters in f32, compute "
+          f"{cfg.compute_dtype}, remat {cfg.remat}, {hp.optimizer}; batch {SSM_TRAIN_BATCH} x "
+          f"{SSM_TRAIN_SEQ} in {TRAIN_ACCUM} microbatches: forward+backward "
+          f"{run['fb_ms']:.3f} ms (bound {bd['fb_ms']:.3f}), clip {run['clip_ms']:.3f} ms "
+          f"(bound {bd['clip_ms']:.3f}), optimizer {run['opt_ms']:.3f} ms (bound "
+          f"{bd['opt_ms']:.3f}); step {run['step_ms']:.3f} ms (bound {bd['step_ms']:.3f} ms; "
+          f"{100 * bd['step_ms'] / run['step_ms']:.1f}% of it), "
+          f"{bd['tokens'] / (run['step_ms'] / 1e3):.1f} tokens/s; peak "
+          f"{run['peak'] / 1e9:.3f} GB; one step profiled: {run['profiled']}")
+    del run
+    gc.collect()
+    # (b) uninterrupted, then crash at SSM_FAIL_AT and resume from the last checkpoint
+    ckpt_dir = tempfile.mkdtemp(prefix="zmc_train_ckpt_")
+    t0 = time.perf_counter()
+    state_ref, losses_ref, _ = train.train_loop(cfg, hp, **kw)
+    t_ref = time.perf_counter() - t0
+    digest_ref = state_digest(state_ref)
+    t0 = time.perf_counter()
+    crashed = False
+    try:
+        train.train_loop(cfg, hp, ckpt_dir=ckpt_dir, ckpt_every=SSM_CKPT_EVERY,
+                         fail_at_step=SSM_FAIL_AT, **kw)
+    except RuntimeError as e:
+        crashed = "injected failure" in str(e)
+    t_crash = time.perf_counter() - t0
+    latest = ckpt.latest_step(ckpt_dir)
+    t0 = time.perf_counter()
+    state_res, losses_res, _ = train.train_loop(cfg, hp, ckpt_dir=ckpt_dir, ckpt_every=100,
+                                                **kw)
+    t_res = time.perf_counter() - t0
+    digest_res = state_digest(state_res)
+    same_losses = losses_res == losses_ref[latest:] if latest is not None else False
+    # the checkpoint's save and restore, timed alone on the uninterrupted state
+    t0 = time.perf_counter()
+    ckpt.save(ckpt_dir, 99, state_ref, extra={"data_step": SSM_TRAIN_STEPS})
+    save_s = time.perf_counter() - t0
+    step_dir = os.path.join(ckpt_dir, "step_99")
+    n_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    t0 = time.perf_counter()
+    restored, _ = ckpt.restore(ckpt_dir, 99, state_res, device="cpu")
+    train.load_train_state(state_res, restored)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_after_restore = state_digest(state_res) == digest_ref
+    del state_ref, state_res, restored
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"step 25 {SSM_TRAIN_ARCH} (b) {SSM_TRAIN_STEPS} uninterrupted steps {t_ref:.2f} s, "
+          f"losses {[round(x, 6) for x in losses_ref]}; checkpoints every {SSM_CKPT_EVERY}, "
+          f"failure injected at step {SSM_FAIL_AT}: {'raised' if crashed else 'NOT RAISED'} "
+          f"after {t_crash:.2f} s, latest checkpoint step {latest}; resumed "
+          f"{len(losses_res)} steps in {t_res:.2f} s: losses "
+          f"{'equal' if same_losses else 'DIFFER'} to the uninterrupted run's steps "
+          f"{latest}-{SSM_TRAIN_STEPS - 1}, final state sha256 {digest_ref[:16]} "
+          f"{digest_res[:16]} {'equal' if digest_ref == digest_res else 'DIFFER'} "
+          f"(parameters, AdamW moments, step); deterministic mode outside the step: "
+          f"{torch.are_deterministic_algorithms_enabled()}")
+    print(f"step 25 {SSM_TRAIN_ARCH}: checkpoint save {save_s:.3f} s, restore and load "
+          f"{restore_s:.3f} s, {n_bytes / 1e9:.3f} GB on disk "
+          f"({'equal' if same_after_restore else 'DIFFERENT'} state after the load)")
+    if not crashed:
+        failures.append("(b) the injected failure did not raise")
+    if not (same_losses and digest_ref == digest_res and latest == SSM_CKPT_EVERY):
+        failures.append("(b) the resumed run differs from the uninterrupted one")
+    if not same_after_restore:
+        failures.append("(b) a saved and restored state differs")
+    # (c) memorisation of one fixed batch
+    hp_c = dataclasses.replace(hp, lr=1e-3, warmup_steps=2)
+    model = Model(cfg, device=dev, seed=0)
+    state = train.make_train_state(model, hp_c)
+    step = train.make_train_step(model, hp_c)
+    batch = TokenStream(cfg, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, seed=1, device=dev).next_batch()
+    fixed, gn = [], []
+    for _ in range(SSM_TRAIN_STEPS):
+        state, m = step(state, batch)
+        fixed.append(float(m["loss"]))
+        gn.append(float(m["grad_norm"]))
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"step 25 {SSM_TRAIN_ARCH} (c) {SSM_TRAIN_STEPS} steps on one fixed batch, lr "
+          f"{hp_c.lr}, warmup {hp_c.warmup_steps}: losses {[round(x, 5) for x in fixed]} "
+          f"(last {'below' if fixed[-1] < fixed[0] else 'NOT below'} the first); "
+          f"{time.perf_counter() - t_arch:.1f} s")
+    if not fixed[-1] < fixed[0]:
+        failures.append("(c) the fixed-batch loss did not fall")
+    if not finite(losses_ref + losses_res + fixed + gn):
+        failures.append("(d) non-finite loss or grad_norm")
+    check(not failures, f"{SSM_TRAIN_ARCH} training: {'; '.join(failures)}")
 
 
 def main() -> None:
@@ -3429,19 +3836,28 @@ def main() -> None:
     print(f"step 21 {time.perf_counter() - t21:.1f} s; on {card}")
 
     # -- 22. the LM serving path at full width and depth ---------------------------
+    # (steps 22-24 serve: the parameters are trainable, and no graph is recorded)
     t22 = time.perf_counter()
-    lm_serving(card)
+    with torch.no_grad():
+        lm_serving(card)
     print(f"step 22 {time.perf_counter() - t22:.1f} s; on {card}")
 
     # -- 23. the LM serving path of the moe family (MLA and MoE) ------------------
     t23 = time.perf_counter()
-    lm_moe_serving(card)
+    with torch.no_grad():
+        lm_moe_serving(card)
     print(f"step 23 {time.perf_counter() - t23:.1f} s; on {card}")
 
     # -- 24. the LM serving path of the ssm and hybrid families (Mamba-2) --------
     t24 = time.perf_counter()
-    lm_ssm_serving(card)
+    with torch.no_grad():
+        lm_ssm_serving(card)
     print(f"step 24 {time.perf_counter() - t24:.1f} s; on {card}")
+
+    # -- 25. the LM training path at full width and depth -------------------------
+    t25 = time.perf_counter()
+    lm_training(card)
+    print(f"step 25 {time.perf_counter() - t25:.1f} s; on {card}")
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)

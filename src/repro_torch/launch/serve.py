@@ -29,7 +29,9 @@ class Server:
     (stablelm-3b stores f32 and computes in bf16), the server keeps one copy
     cast to the compute dtype at load time, ``compute``, and serves from it:
     the same bits as the reference's cast of each weight at every use, without
-    reading the f32 weights and casting them again at every step.
+    reading the f32 weights and casting them again at every step.  The
+    parameters are trainable; ``generate`` runs under ``torch.no_grad()``
+    and records no graph.
     """
 
     def __init__(self, cfg: ModelConfig, model: Model | None = None, *, device=None,
@@ -45,6 +47,7 @@ class Server:
         same = all(p.dtype == cd for p in model.parameters())
         self.compute = model if same else model.cast(cd)
 
+    @torch.no_grad()
     def generate(self, batch: dict, max_new_tokens: int, seq_cap: int,
                  temperature: float = 0.0, seed: int = 0) -> torch.Tensor:
         """Greedy (``argmax``) or temperature generation from a fresh cache.

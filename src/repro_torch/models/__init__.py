@@ -1,6 +1,6 @@
-"""The LM stack's serving path (port of ``repro.models``), every decoder
-family: dense, MoE, SSM (Mamba-2) and hybrid (Mamba-2 with a shared
-attention block).
+"""The LM stack (port of ``repro.models``), every family: dense, MoE, SSM
+(Mamba-2) and hybrid (Mamba-2 with a shared attention block), for serving
+and for training.
 
 * ``config`` — :class:`ModelConfig`, :class:`PSpec` parameter declarations,
   seeded initialisation from a ``torch.Generator``, ``count_params``.
@@ -19,8 +19,10 @@ attention block).
   forward / prefill / decode functions.
 * ``model`` — :class:`Model`, an ``nn.Module`` over a ``ModuleList`` of
   blocks in the reference's stages (the hybrid's shared block held once
-  and run from a plan): ``forward`` logits, ``prefill`` and
-  ``decode_step``.
+  and run from a plan): ``forward`` logits (per-layer remat when
+  training), ``loss`` (chunked cross-entropy, the MTP loss),
+  ``prefill`` and ``decode_step``, ``param_tree``.
 * ``convert`` — ``params_from_reference``: the reference's parameter tree
-  (numpy arrays) loaded into a :class:`Model`.
+  (numpy arrays) loaded into a :class:`Model`; ``stack_tree`` and
+  ``reference_params``: the way back.
 """

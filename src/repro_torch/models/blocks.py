@@ -124,7 +124,7 @@ class ParamTree(nn.Module):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, torch.Tensor):
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
             else:
                 self.add_module(k, param_module(v))
 
@@ -134,11 +134,11 @@ class ParamTree(nn.Module):
 
 def param_module(tree: dict) -> nn.Module:
     """A tree of tensors as nested ``nn.ModuleDict`` / ``nn.ParameterDict``
-    (a :class:`ParamTree` where a node mixes the two; frozen parameters:
-    the serving path computes no gradients)."""
+    (a :class:`ParamTree` where a node mixes the two) of trainable
+    parameters; the serving entries (``prefill``, ``decode``) run under
+    ``torch.no_grad()`` and record no graph."""
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                                 for k, v in tree.items()})
+        return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
     if any(isinstance(v, torch.Tensor) for v in tree.values()):
         return ParamTree(tree)
     return nn.ModuleDict({k: param_module(v) for k, v in tree.items()})
@@ -157,9 +157,11 @@ class DenseBlock(nn.ModuleDict):
     def forward(self, x, positions):
         return dense_block(x, self, self.cfg, positions, self.use_moe)
 
+    @torch.no_grad()
     def prefill(self, x, positions, seq_cap: int):
         return dense_block_prefill(x, self, self.cfg, positions, seq_cap, self.use_moe)
 
+    @torch.no_grad()
     def decode(self, x, cache: dict, pos: int):
         return dense_block_decode(x, self, self.cfg, cache, pos, self.use_moe)
 
@@ -175,8 +177,10 @@ class SSMBlock(nn.ModuleDict):
     def forward(self, x, positions):
         return ssm_block(x, self, self.cfg)
 
+    @torch.no_grad()
     def prefill(self, x, positions, seq_cap: int):
         return ssm_block_prefill(x, self, self.cfg)
 
+    @torch.no_grad()
     def decode(self, x, cache: dict, pos: int):
         return ssm_block_decode(x, self, self.cfg, cache)

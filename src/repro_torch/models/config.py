@@ -137,6 +137,18 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """``{"dotted.path": leaf}`` of a tree of nested dicts, in insertion
+    order (the names ``nn.Module.state_dict`` gives the same tree)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 def stack_defs(defs: Any, n: int) -> Any:
     """Prepend a ('layers', n) axis to every PSpec (the reference's scanned
     stacks; the port counts with it and splits the reference's stacked

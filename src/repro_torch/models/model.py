@@ -1,5 +1,5 @@
-"""Model assembly for serving (port of ``repro.models.model``), every
-decoder family.
+"""Model assembly for training and serving (port of
+``repro.models.model``), every family.
 
 The reference stacks each stage's layers and runs them under ``lax.scan``;
 here :class:`Model` is an ``nn.Module`` holding an ``nn.ModuleList`` of
@@ -13,16 +13,28 @@ blocks and loops over them.  The stages are the reference's:
 
 with MLA attention in the moe family and the reference's
 multi-token-prediction subtree (``mtp``) where ``mtp_depth`` asks for it,
-which serving does not read.  The hybrid family's shared attention block
-(a dense GQA block with a gated MLP) has one set of weights,
+which the loss reads and serving does not.  The hybrid family's shared
+attention block (a dense GQA block with a gated MLP) has one set of weights,
 ``Model.shared_attn``, held once: :attr:`Model.plan` lists the modules in
 the order they run, the shared block after every E Mamba-2 blocks of the
 ``groups`` stage, and each of its G invocations keeps a KV cache of its own.
 
-Entries: ``forward`` (logits over the whole sequence), ``prefill``
-(last-position logits and the caches, padded to ``seq_cap``) and
-``decode_step`` (one token; the caches are updated in place).  The caches
-are a list with one dict per entry of ``plan``, in run order: ``{"k",
+Entries: ``forward`` (logits over the whole sequence, or the final-norm
+hidden states), ``loss`` (the training loss: chunked cross-entropy, and
+DeepSeek-V3's multi-token-prediction loss at weight 0.3 through the
+carried ``mtp`` subtree), ``prefill`` (last-position logits and the
+caches, padded to ``seq_cap``) and ``decode_step`` (one token; the caches
+are updated in place).  The parameters are trainable; ``prefill`` and
+``decode_step`` run under ``torch.no_grad()`` and record no graph.  With
+``cfg.remat == "full"`` and grad enabled, every entry of ``plan`` runs
+under ``torch.utils.checkpoint`` (backward recomputes it from its saved
+input: the reference's per-layer ``jax.checkpoint``), and so does each
+cross-entropy chunk, whose (B, chunk, vocab) f32 logits are never saved.
+The hybrid's shared block sums its gradient over its G invocations.
+:meth:`Model.param_tree` lays the parameters out as the reference's tree
+(each stage leaf a list of the per-layer tensors).
+
+The caches are a list with one dict per entry of ``plan``, in run order: ``{"k",
 "v"}`` (GQA: a dense block or an invocation of the shared block),
 ``{"c_kv", "k_rope"}`` (MLA) or ``{"conv_x", "conv_B", "conv_C",
 "state"}`` (Mamba-2).  For every family but the hybrid that is one dict
@@ -30,8 +42,7 @@ per block.  :attr:`Model.cache_slots` says where each sits in the
 reference's cache tree (``stages/<stage>`` stacked by layer, and the
 hybrid's ``shared_attn`` stacked by invocation), :meth:`Model.init_cache`
 builds zero caches in that layout and :meth:`Model.reference_cache` maps a
-list back onto the tree.  The training loss waits for the training slice;
-``remat`` has no meaning in serving.
+list back onto the tree.
 """
 
 from __future__ import annotations
@@ -41,13 +52,16 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
-from repro_torch.models.config import (ModelConfig, PSpec, init_params, stack_defs,
-                                       tree_map)
+from repro_torch.models.config import (ModelConfig, PSpec, flatten, init_params,
+                                       stack_defs, tree_map)
 
 SHARED = "shared_attn"   # the hybrid's shared block: its parameters' and caches' key
+CE_CHUNK = 1024          # sequence positions per cross-entropy chunk
+MTP_WEIGHT = 0.3         # DeepSeek-V3's multi-token-prediction loss weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +122,24 @@ def param_defs(cfg: ModelConfig) -> dict:
 
 def _layer(stacked: dict, i: int) -> dict:
     return tree_map(lambda a: a[i], stacked)
+
+
+def _nest(flat: dict[str, Any]) -> dict:
+    """``{"a.b": v}`` -> ``{"a": {"b": v}}``."""
+    out: dict[str, Any] = {}
+    for name, v in flat.items():
+        *parents, leaf = name.split(".")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, recomputed in backward instead of saving its
+    intermediates (the model draws no random numbers: no RNG state kept)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class Model(nn.Module):
@@ -208,13 +240,80 @@ class Model(nn.Module):
         x = layers.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return layers.lm_head(x, self.head, self.embed, self.cfg)
 
-    # -- forward -------------------------------------------------------------------
-    def forward(self, batch: dict):
-        """Logits (B, S, vocab_padded) over the whole sequence."""
+    # -- forward and loss -------------------------------------------------------
+    def forward(self, batch: dict, return_hidden: bool = False):
+        """Logits (B, S, vocab_padded) over the whole sequence, or with
+        ``return_hidden`` the final norm's output (B, S, d)."""
         x, positions = self.embed_input(batch)
+        remat = self.cfg.remat == "full" and torch.is_grad_enabled()
         for block in self.plan:
-            x = block(x, positions)
+            x = _remat(block, x, positions) if remat else block(x, positions)
+        if return_hidden:
+            return layers.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return self.logits(x)
+
+    def _chunk_ce(self, hs, labels):
+        """Summed cross-entropy of one chunk: f32 logsumexp of the compute
+        dtype's logits less the gold logit."""
+        logits = layers.lm_head(hs, self.head, self.embed, self.cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+        return torch.sum(lse - gold)
+
+    def _ce_chunked(self, hidden, labels, shift: int):
+        """Mean cross-entropy over the predicted positions, in sequence
+        chunks of ``CE_CHUNK`` and a shorter tail.  shift=1: next-token LM;
+        shift=0: same-position (encoder) prediction."""
+        b = hidden.shape[0]
+        if shift:
+            hidden = hidden[:, :-shift]
+            labels = labels[:, shift:]
+        t = hidden.shape[1]
+        chunk = min(CE_CHUNK, t)
+        remat = torch.is_grad_enabled()
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for lo in range(0, t, chunk):              # the last chunk is the tail
+            hs, ls = hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+            total = total + (_remat(self._chunk_ce, hs, ls) if remat
+                             else self._chunk_ce(hs, ls))
+        return total / (b * t)
+
+    def loss(self, batch: dict):
+        """The training loss and its metrics ``{"ce", ["mtp",] "loss"}``."""
+        cfg = self.cfg
+        hidden = self.forward(batch, return_hidden=True)
+        shift = 0 if cfg.is_encoder else 1
+        loss = self._ce_chunked(hidden, batch["labels"], shift)
+        metrics = {"ce": loss}
+        if cfg.mtp_depth and "tokens" in batch:
+            mp = self.mtp
+            cd = cfg.dtype("compute")
+            h = layers.rmsnorm(hidden[:, :-1], mp["ln_h"], cfg.norm_eps)
+            e = layers.embed(batch["tokens"][:, 1:], self.embed, cfg)
+            e = layers.rmsnorm(e, mp["ln_e"], cfg.norm_eps)
+            x = torch.matmul(torch.cat([h, e], dim=-1), mp["proj"].to(cd))
+            x = blocks.dense_block(x, mp["block"], cfg, self._positions(x))
+            mtp_loss = self._ce_chunked(x, batch["labels"][:, 1:], 1)
+            metrics["mtp"] = mtp_loss
+            loss = loss + MTP_WEIGHT * mtp_loss
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def param_tree(self) -> dict:
+        """The parameters as the reference's tree (``embed``, ``stages/<stage>``,
+        ``shared_attn``, ``final_norm``, ``head``, ``mtp``): the module's own
+        tensors, no copies, each stage leaf a list of its layers' tensors
+        (the reference stacks them along a leading ``layers`` axis)."""
+        named = dict(self.named_parameters())
+        flat: dict[str, Any] = {}
+        first = 0
+        for s in self.stages:
+            for path in flatten(_block_defs(self.cfg, s.kind)):
+                flat[f"stages.{s.name}.{path}"] = [named[f"blocks.{first + i}.{path}"]
+                                                   for i in range(s.n_layers)]
+            first += s.n_layers
+        flat.update({k: p for k, p in named.items() if not k.startswith("blocks.")})
+        return _nest(flat)
 
     # -- serving -------------------------------------------------------------------
     def cache_defs(self, batch: int, seq_cap: int) -> dict:
@@ -253,6 +352,7 @@ class Model(nn.Module):
             out[SHARED] = stacked[SHARED]
         return out
 
+    @torch.no_grad()
     def prefill(self, batch: dict, seq_cap: int):
         """Full-sequence forward building the caches.
 
@@ -264,6 +364,7 @@ class Model(nn.Module):
             caches.append(cache)
         return self.logits(x[:, -1:])[:, 0], caches
 
+    @torch.no_grad()
     def decode_step(self, caches: list[dict], tokens, pos: int):
         """One decode step. tokens: (B, 1) integers; pos: their position.
 

@@ -59,7 +59,7 @@ def _batch(cfg, seed=1, seq=S):
 
 
 def _logits(t, cfg):
-    return t.float().numpy()[..., :cfg.vocab_size]
+    return t.detach().float().numpy()[..., :cfg.vocab_size]
 
 
 def _ref_logits(a, cfg):
@@ -141,7 +141,7 @@ def test_decode_matches_extended_prefill(arch):
         full, _ = model.prefill({"tokens": torch.cat([tb["tokens"], extra[:, :i + 1]], 1)}, CAP)
         np.testing.assert_allclose(dec.numpy(), full.numpy(), atol=ATOL)
     logits = model.forward({"tokens": torch.cat([tb["tokens"], extra], 1)})
-    np.testing.assert_allclose(dec.numpy(), logits[:, -1].numpy(), atol=ATOL)
+    np.testing.assert_allclose(dec.numpy(), logits[:, -1].detach().numpy(), atol=ATOL)
 
 
 BF16_ATOL = 2 * 2.0 ** -8     # two bf16 ulps of a logit in [0.5, 1)
@@ -227,7 +227,8 @@ def test_seeded_init_follows_the_rule():
     assert abs(float(a.embed["tok"].std()) - 0.02) < 0.002
     assert abs(float(blk["ffn"]["wd"].std()) - cfg.d_ff ** -0.5) < 0.1 * cfg.d_ff ** -0.5
     assert abs(float(blk["attn"]["wq"].std()) - cfg.n_heads ** -0.5) < 0.1 * cfg.n_heads ** -0.5
-    assert not any(p.requires_grad for p in a.parameters())
+    # trainable (the training slice); serving records no graph
+    assert all(p.requires_grad for p in a.parameters())
 
 
 def test_hybrid_holds_the_shared_block_once():
@@ -249,8 +250,8 @@ def test_hybrid_holds_the_shared_block_once():
                                    ("tail", 0))
     tree = jax.tree.map(np.asarray, params)
     want = tree["shared_attn"]["attn"]["wq"]
-    assert np.array_equal(model.shared_attn["attn"]["wq"].numpy(), want)
-    assert np.array_equal(model.blocks[4]["mixer"]["wx"].numpy(),
+    assert np.array_equal(model.shared_attn["attn"]["wq"].detach().numpy(), want)
+    assert np.array_equal(model.blocks[4]["mixer"]["wx"].detach().numpy(),
                           tree["stages"]["tail"]["mixer"]["wx"][0])
     del tree["shared_attn"]["ln2"]
     with pytest.raises(RuntimeError, match="shared_attn.ln2.scale"):
@@ -293,7 +294,7 @@ def test_bf16_tree_carried_bit_for_bit():
     got = model.blocks[1]["attn"]["wq"]
     assert got.dtype == torch.bfloat16
     want = tree["stages"]["layers"]["attn"]["wq"][1].astype(np.float32)
-    assert np.array_equal(got.float().numpy(), want)
+    assert np.array_equal(got.detach().float().numpy(), want)
     del tree["final_norm"]
     with pytest.raises(RuntimeError, match="final_norm.scale"):
         params_from_reference(tree, Model(cfg, device="cpu"))

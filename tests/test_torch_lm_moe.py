@@ -238,7 +238,7 @@ def test_deepseek_trees_carried_bit_for_bit():
              (model.mtp["block"]["attn"]["wkv_a"], tree["mtp"]["block"]["attn"]["wkv_a"])]
     for got, want in pairs:
         assert got.dtype == torch.bfloat16
-        assert np.array_equal(got.float().numpy(), want.astype(np.float32))
+        assert np.array_equal(got.detach().float().numpy(), want.astype(np.float32))
     del tree["mtp"]
     with pytest.raises(RuntimeError, match="mtp.proj"):
         params_from_reference(tree, Model(cfg, device="cpu"))

@@ -19,8 +19,9 @@ parameter sweep (MC and Sobol), VEGAS-adapted families through
 sampling (``eval_strata(use_kernel=True)`` and ``ZMCNormal``), the
 multi-device path (a mesh of one NCCL rank, then four gloo ranks), the
 LM stack's serving path at full width, dense, MoE (MLA), SSM (Mamba-2)
-and hybrid models, and its training path at full width and depth
-(stablelm-3b, mamba2-130m):
+and hybrid models, its training path at full width and depth
+(stablelm-3b, mamba2-130m), and its multi-device path (training, expert-
+parallel serving and a pipeline on four gloo ranks sharing the card):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -204,7 +205,8 @@ and hybrid models, and its training path at full width and depth
    mamba2-130m (129.06e6 parameters, 24 Mamba-2 blocks) and zamba2-7b
    (6.751e9 parameters in bf16: 78 Mamba-2 blocks in 13 groups of 6, each
    followed by one shared attention block with a KV cache per invocation,
-   then 3 more) at full width and depth.  Gates: (a) as step 22's, at 2
+   then 3 more) at full width, mamba2-130m at full depth and zamba2-7b
+   cut to 39 layers (6 groups and 3 more).  Gates: (a) as step 22's, at 2
    layers for mamba2-130m and at 3 for zamba2-7b with the shared block
    after 2; (b) in bf16 as served, every Mamba-2 block and every
    invocation of the shared block; (c) and (d) as step 22's.  Prints the
@@ -232,8 +234,8 @@ and hybrid models, and its training path at full width and depth
    layers in f32 (TF32 off), one step of 2 x 64 in 2 microbatches on the
    card against the same weights on the CPU: the loss within 1e-4, the
    gradient norm within 1e-3, each leaf's gradient within 1e-2 relative
-   RMS, the parameters within 1e-3; then mamba2-130m at full width and
-   depth with ``examples/train_lm.py``'s settings (batch 8 x 256, 2
+   RMS, the parameters within 1e-3; then mamba2-130m at full width, cut
+   to 8 of its 24 layers, with ``examples/train_lm.py``'s settings (batch 8 x 256, 2
    microbatches): its step timed beside its bound and profiled; gate (b)
    10 uninterrupted steps against a run that checkpoints every 5 steps,
    fails at step 7 and resumes: the losses of steps 5-9 equal and the
@@ -242,8 +244,37 @@ and hybrid models, and its training path at full width and depth
    workspace set at the script's start), the checkpoint's save and
    restore timed with its bytes; gate (c) 10 steps on one fixed batch
    (lr 1e-3, warmup 2), the last loss below the first, the trajectory
-   printed; gate (d) every loss and gradient norm finite; then prints
-   the ``{"kernels": [...]}`` line,
+   printed; gate (d) every loss and gradient norm finite;
+26. the LM multi-device path (``repro_torch.distributed.{sharding, fsdp,
+   elastic, pipeline}``, ``train_loop(mesh=)``, the MoE island,
+   ``Server(mesh=)``; no kernel of its own): one ``multihost.spawn`` of
+   four gloo ranks sharing the card, the one-device references run first.
+   (a) stablelm-3b at full width, 4 of 32 layers, in f32 (TF32 off),
+   step 25's AdamW, batch and microbatches, on (data, model) = (2, 2): 4
+   uninterrupted steps, 3 timed (step ms, the collectives' ms inside it,
+   tokens/s, each rank's peak); gate (a1) its first 3 steps against 3 on
+   one device in the mesh's pieces of rows (4 microbatches of 2 rows)
+   with step 25's gate (a) tolerances (every loss and grad_norm, each
+   leaf's gradient after step 3, the parameters), one device in step
+   25's 2 microbatches printed beside it; gate (a3) each rank's resident
+   state bytes and one step's collectives (kind, count, bytes) equal to
+   ``launch.dryrun``'s derivation; gate (a2) the run checkpointing at
+   step 2 and failing in step 3, resumed on (2, 2): its losses and final
+   state sha256-equal to the uninterrupted run's, and the checkpoint
+   restored on (4, 1) and on one device sha256-equal to its files.
+   (b) deepseek-v2-lite-16b at full width and depth on (1, 4), 16 of 64
+   experts a rank, step 23's request: gate (b1) at depth 3, dropless and
+   in f32, prefill and 8 decode steps within 5e-3 of the largest |logit|
+   of one device's; gate (b2) at the served capacity in bf16, two
+   generates sha256-equal on every rank, the dropped pairs per MoE layer
+   printed beside one device's; gate (b3) the all-to-all bytes per MoE
+   layer of a prefill and a decode step equal to the derivation; prefill
+   and decode ms, the all-to-all ms of a decode step, tokens/s and each
+   rank's peak.  (c) four stablelm-3b blocks at full width along a pod
+   axis, 8 microbatches of 1 x 512, f32: within 1e-5 of the largest
+   |output| of the blocks run in sequence on one rank (the bits compared),
+   each rank's wall and idle share beside the schedule's bubble
+   (P-1)/(M+P-1); then prints the ``{"kernels": [...]}`` line,
    one entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
    ``fused_mc_sobol_adapted``, a rank's shard on the (2, 2) mesh as
@@ -444,6 +475,37 @@ TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RMS, TRAIN_PARAM_RMS = 1e-4, 1e-3,
 # fails at step 7; gate (c): 10 steps on one fixed batch at lr 1e-3, warmup 2
 SSM_TRAIN_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = "mamba2-130m", 8, 256, 10
 SSM_CKPT_EVERY, SSM_FAIL_AT = 5, 7
+# step 26: the LM multi-device path on four gloo ranks sharing the card.
+# (a) stablelm-3b at full width with MESH_TRAIN_LAYERS of its 32 layers (the
+# one cut: every gathered byte crosses host memory through gloo, and more
+# layers add only identical ones), in f32, step 25's AdamW, batch and
+# microbatches, on (data, model) = (2, 2): MESH_RESUME_STEPS uninterrupted
+# steps (one warm-up, the rest timed), gate (a1) on the first
+# MESH_TRAIN_STEPS against one device with step 25's gate (a) tolerances;
+# the run writes its step-MESH_CKPT_EVERY checkpoint as train_loop does, and
+# train_loop resumes from it, fails in step MESH_FAIL_AT + 1 and resumes
+# again (gate (a2)).  (b) deepseek-v2-lite-16b at full width and depth on (1, 4),
+# step 23's request; gate (b1) at depth MESH_B1_DEPTH.  (c) four stablelm-3b
+# blocks at full width along a pod axis, PIPE_M microbatches of 1 x PIPE_SEQ,
+# within PIPE_TOL of the largest |output| of the blocks run in sequence
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 3
+MESH_RESUME_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 4, 2, 2
+# gate (a1)'s one device runs the mesh's rows as its microbatches: 2
+# microbatches of 4 rows split over data = 2 ranks are 4 pieces of 2 rows.
+# In step 25's 2 microbatches of 4 rows the seeded 4-layer model's
+# gradients move by ~7% relative RMS (one device against one device), past
+# the gate, and Adam turns that into 8e-3 of the parameters by step 3.  The
+# witness that this is f32 rounding, not a fault: step 1's gradients in f64
+# (every f32 upcast of the model kept at f64) in both microbatchings agree
+# within MESH_F64_RMS relative RMS (f64 rounds 2^29 times finer than f32),
+# and each f32 gradient, one device's in both microbatchings and the
+# mesh's, lies about as far from them: the mesh's within MESH_F32_SPREAD
+# times the farther one device's
+MESH_ROW_ACCUM = 4
+MESH_F64_RMS, MESH_F32_SPREAD = 1e-8, 2.0
+MESH_TIMED_DECODE = 8
+MESH_SERVE_ARCH, MESH_B1_DEPTH = "deepseek-v2-lite-16b", 3
+PIPE_M, PIPE_SEQ, PIPE_TOL, PIPE_SEED = 8, 512, 1e-5, 100
 
 
 def fail(msg: str) -> None:
@@ -1284,6 +1346,33 @@ def rel_rms(a, b) -> float:
     """RMS of a - b over the RMS of b, in f32."""
     d = a.float() - b.float()
     return float(d.pow(2).mean().sqrt() / b.float().pow(2).mean().sqrt())
+
+
+def worst_rms(got: dict, want: dict, device) -> tuple[float, str]:
+    """The largest relative RMS (in f64, on ``device``) over the leaves of
+    two name -> tensor dicts, and its leaf."""
+    import torch
+    errs = {}
+    for n, w in want.items():
+        w = w.to(device, torch.float64)
+        d = got[n].to(device, torch.float64) - w
+        errs[n] = float(d.pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+@contextlib.contextmanager
+def f64_upcasts():
+    """Inside, ``Tensor.float()`` leaves an f64 tensor as it is: the model's
+    f32 upcasts (the norms' statistics, attention scores, the logits) keep
+    an f64 run in f64 throughout.  Step 26's witness of gate (a1)."""
+    import torch
+    plain = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else plain(t, *a, **k)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = plain
 
 
 def lm_layerwise(model, tokens, tok) -> list[float]:
@@ -2356,6 +2445,557 @@ def lm_training(card: str) -> None:
     if not finite(losses_ref + losses_res + fixed + gn):
         failures.append("(d) non-finite loss or grad_norm")
     check(not failures, f"{SSM_TRAIN_ARCH} training: {'; '.join(failures)}")
+
+
+def mesh_hp(accum: int = TRAIN_ACCUM):
+    """Step 26's (a) hyperparameters: step 25's stablelm-3b run (``accum``
+    microbatches)."""
+    from repro_torch.launch import train
+    return train.TrainHParams(grad_accum=accum, warmup_steps=1, total_steps=10)
+
+
+def mesh_train_cfg():
+    """Step 26's (a) configuration: stablelm-3b at full width, cut to
+    MESH_TRAIN_LAYERS layers, in f32 compute."""
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).with_overrides(n_layers=MESH_TRAIN_LAYERS,
+                                                 compute_dtype="float32")
+
+
+def tree_sha(named) -> str:
+    """sha256 over (name, bytes) pairs, bf16 as its bits."""
+    import torch
+    h = hashlib.sha256()
+    for name, t in sorted(named, key=lambda nt: nt[0]):
+        t = torch.stack(list(t)) if isinstance(t, (list, tuple)) else t
+        t = t.detach().cpu().contiguous()
+        h.update(name.encode())
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+    return h.hexdigest()
+
+
+def ckpt_sha(directory: str, step: int) -> str:
+    """sha256 of a checkpoint's leaves as written (the files' arrays)."""
+    import numpy as np
+    h = hashlib.sha256()
+    with open(os.path.join(directory, f"step_{step}", "manifest.json")) as f:
+        man = json.load(f)
+    for e in sorted(man["leaves"], key=lambda e: e["name"]):
+        a = np.load(os.path.join(directory, f"step_{step}", e["file"]))
+        h.update(e["name"].encode())
+        h.update(np.ascontiguousarray(a).view(np.int16).tobytes() if a.dtype.kind == "V"
+                 else np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def lm_mesh_rank(work: str) -> dict:
+    """One of step 26's four gloo ranks on the card of the parent: (a) the
+    training phases, (b) the serving phases, (c) the pipeline; returns the
+    numbers and digests, rank 0's comparisons against the parent's
+    one-device references in ``work``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import collectives, elastic, fsdp
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import blocks, moe
+    from repro_torch.models.config import init_params
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import is_stacked, map_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = torch.device("cuda", 0)
+    out: dict = {"rank": rank}
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    m22 = make_mesh_for(model_parallel=2, device="cuda")
+    full = mesh_train_cfg()
+    hp = mesh_hp()
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=100, device=dev)
+
+    # (a) f32 compute, TF32 off: MESH_RESUME_STEPS uninterrupted steps, the
+    # first a warm-up and the rest timed; gate (a1) after step
+    # MESH_TRAIN_STEPS against the parent's one-device steps, gate (a3) on
+    # one step's collectives and the resident state
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = fsdp.shard_model(Model(full, device="meta"), m22, device=dev)
+    state = train.make_mesh_train_state(model, hp, m22)
+    step = train.make_train_step(model, hp, m22)
+    stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+    out["resident"] = fsdp.resident_bytes(state)
+    out["resident_derived"] = dryrun.cell_bytes(
+        full, ShapeSpec("mesh", "train", TRAIN_SEQ, TRAIN_BATCH), m22, hp)["state_bytes"]
+    crash = os.path.join(work, "crash")
+    writer = ckpt.AsyncCheckpointer(crash)
+    steps_ms, coll_ms, metrics = [], [], []
+    for i in range(MESH_RESUME_STEPS):
+        batch = stream.next_batch()
+        sync()
+        collectives.reset_counters()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        sync()
+        steps_ms.append((time.perf_counter() - t1) * 1e3)
+        counted = collectives.counters()
+        coll_ms.append(counted["seconds"] * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 1:
+            out["counted"] = {k: counted[k] for k in dryrun._empty()}
+        if i + 1 == MESH_CKPT_EVERY:
+            writer.save(i + 1, state, extra={"data_step": stream.snapshot()["step"]},
+                        shardings=step.shardings)
+            writer.wait()       # written before the next step is timed
+        if i == 0:
+            # the witness: step 1's gradients against the parent's f64 ones
+            grads = map_leaves(lambda p: [t.grad for t in p] if is_stacked(p) else p.grad,
+                               state["params"])
+            g_whole = ckpt.gather_tree(grads, step.shardings["params"])
+            if rank == 0:
+                ref = torch.load(os.path.join(work, "g1_f64.pt"))
+                out["a1_g1_f64"] = worst_rms({n: t for n, t in ckpt.leaf_paths(g_whole)},
+                                             ref, dev)
+                del ref
+            del grads, g_whole
+        if i + 1 == MESH_TRAIN_STEPS:
+            grads = map_leaves(lambda p: [t.grad for t in p] if is_stacked(p) else p.grad,
+                               state["params"])
+            g_whole = ckpt.gather_tree(grads, step.shardings["params"])
+            p_whole = ckpt.gather_tree(state["params"], step.shardings["params"])
+            if rank == 0:
+                ref = torch.load(os.path.join(work, "a1_ref.pt"))
+                g_rms = {n: rel_rms(t, ref["grads"][n]) for n, t in ckpt.leaf_paths(g_whole)}
+                p_rms = {n: rel_rms(t, ref["params"][n]) for n, t in ckpt.leaf_paths(p_whole)}
+                out["a1_grad_rms"] = max(g_rms.values())
+                out["a1_grad_worst"] = max(g_rms, key=g_rms.get)
+                out["a1_param_rms"] = max(p_rms.values())
+                del ref
+            del grads, g_whole, p_whole
+    out["derived"] = {k: v for k, v in dryrun.train_collectives(
+        full, hp, m22, TRAIN_BATCH, TRAIN_SEQ).items() if k != "total_bytes"}
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["steps_ms"], out["coll_ms"], out["metrics"] = steps_ms, coll_ms, metrics
+    out["losses"] = [x["loss"] for x in metrics]
+    writer.close()
+    # each rank's blocks: equal on every rank is the whole state equal
+    out["local_sha"] = tree_sha(ckpt.leaf_paths(state))
+    del model, state, step
+    free()
+    out["a1_s"] = time.perf_counter() - t0
+
+    # (a2) train_loop resumes (a)'s run from its checkpoint, fails in step
+    # MESH_FAIL_AT + 1 and resumes again; the checkpoint restored on (4, 1)
+    t0 = time.perf_counter()
+    try:
+        train.train_loop(full, hp, steps=MESH_RESUME_STEPS, mesh=m22, ckpt_dir=crash,
+                         ckpt_every=MESH_CKPT_EVERY, fail_at_step=MESH_FAIL_AT, **kw)
+    except RuntimeError as exc:
+        out["crashed"] = str(exc)
+    free()
+    t1 = time.perf_counter()
+    state, resumed, _ = train.train_loop(full, hp, steps=MESH_RESUME_STEPS, mesh=m22,
+                                         ckpt_dir=crash, ckpt_every=100, **kw)
+    out["resume_s"] = time.perf_counter() - t1
+    out["resumed"] = resumed
+    out["resumed_sha"] = tree_sha(ckpt.leaf_paths(state))
+    model = Model(full, device="meta")
+    del state
+    free()
+    m41 = make_mesh_for(model_parallel=1, device="cuda")
+    t1 = time.perf_counter()
+    tree, _ = elastic.elastic_restore(crash, MESH_CKPT_EVERY, train.abstract_train_state(model, hp),
+                                      train.train_state_specs(model, hp), m41)
+    out["restore41_s"] = time.perf_counter() - t1
+    whole = ckpt.gather_tree(tree, train.train_shardings(model, hp, m41))
+    if rank == 0:
+        out["restored41_sha"] = tree_sha(ckpt.leaf_paths(whole))
+        out["ckpt_sha"] = ckpt_sha(crash, MESH_CKPT_EVERY)
+    del tree, whole
+    free()
+    out["a2_s"] = time.perf_counter() - t0
+
+    # (b) deepseek-v2-lite-16b on (1, 4): 16 of 64 experts per rank
+    t0 = time.perf_counter()
+    m14 = make_mesh_for(model_parallel=4, device="cuda")
+    ds = get_config(MESH_SERVE_ARCH)
+    v = ds.vocab_size
+    # (b1) dropless (E/k), f32 compute, depth 3: prefill and 8 decode steps
+    # fed the one-device run's tokens
+    cfg_b1 = ds.with_overrides(n_layers=MESH_B1_DEPTH, compute_dtype="float32",
+                               capacity_factor=ds.n_experts / ds.top_k)
+    srv = Server(cfg_b1, mesh=m14, device=dev)
+    batch = concrete_batch(cfg_b1, LM_BATCH, LM_PROMPT, train=False, device=dev)
+    ref = torch.load(os.path.join(work, "b1_ref.pt"))
+    local, _ = srv.local(batch)
+    with srv.context(local["tokens"].shape[0]):
+        logits, _ = lm_run(srv.compute, local, LM_CHECK_STEPS, tokens=ref["fed"].to(dev))
+    scale = max(float(x.abs().max()) for x in ref["logits"])
+    out["b1_err"] = max(float((a[:, :v].cpu() - b).abs().max())
+                        for a, b in zip(logits, ref["logits"]))
+    out["b1_scale"] = scale
+    del srv, logits
+    free()
+    # (b2) the served capacity (1.25), bf16, full depth: two generates,
+    # the dropped pairs of the first per layer; prefill and decode timed
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    srv = Server(ds, mesh=m14, device=dev)
+    out["b_build_s"] = time.perf_counter() - t1
+    batch = concrete_batch(ds, LM_BATCH, LM_PROMPT, train=False, device=dev)
+    moe.DROPS = []
+    toks = [srv.generate(batch, LM_NEW, seq_cap=LM_CAP)]
+    out["drops"], moe.DROPS = moe.DROPS, None
+    toks.append(srv.generate(batch, LM_NEW, seq_cap=LM_CAP))
+    out["tok_sha"] = [sha256_of(t) for t in toks]
+    n_moe = ds.n_layers - ds.first_dense_layers
+    local, _ = srv.local(batch)
+    rows = local["tokens"].shape[0]
+    with srv.context(rows):
+        sync()
+        t1 = time.perf_counter()
+        logits, cache = srv.compute.prefill(local, LM_CAP)
+        sync()
+        out["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        dec, a2a = [], []
+        for i in range(MESH_TIMED_DECODE):
+            collectives.reset_counters()
+            t1 = time.perf_counter()
+            logits, cache = srv.compute.decode_step(cache, tok, LM_PROMPT + i)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            sync()
+            dec.append((time.perf_counter() - t1) * 1e3)
+            c = collectives.counters()
+            a2a.append(c["seconds_by_kind"]["all-to-all"] * 1e3)
+            if i == 0:
+                out["b3_decode"] = c["all-to-all"]
+        collectives.reset_counters()
+        srv.compute.prefill(local, LM_CAP)
+        out["b3_prefill"] = collectives.counters()["all-to-all"]
+    out["b3_derived_decode"] = dryrun.moe_layer_collectives(ds, m14, rows)["all-to-all"]
+    out["b3_derived_prefill"] = dryrun.moe_layer_collectives(
+        ds, m14, rows * LM_PROMPT)["all-to-all"]
+    out["n_moe"] = n_moe
+    out["decode_ms"], out["a2a_ms"] = dec, a2a
+    out["serve_peak"] = torch.cuda.max_memory_allocated()
+    out["serve_resident"] = fsdp.resident_bytes(srv.model.param_tree())
+    del srv, logits, cache
+    free()
+    out["b_s"] = time.perf_counter() - t0
+
+    # (c) four stablelm-3b blocks, one a rank, along a pod axis
+    t0 = time.perf_counter()
+    mpod = make_mesh_for(model_parallel=1, pods=4, device="cuda")
+    cfg_c = get_config(TRAIN_ARCH).with_overrides(compute_dtype="float32")
+
+    def block(p):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(PIPE_SEED + p)
+        tree = init_params(blocks.dense_block_defs(cfg_c), gen, torch.float32, dev)
+        return blocks.DenseBlock(cfg_c, tree)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(PIPE_SEED)
+    x = torch.randn((PIPE_M, 1, PIPE_SEQ, cfg_c.d_model), generator=gen, device=dev)
+    positions = torch.arange(PIPE_SEQ, device=dev, dtype=torch.int32)[None]
+    with torch.no_grad():
+        mine = block(collectives.axis_index(mpod, ("pod",)))
+        params = {n: t.detach()[None] for n, t in mine.named_parameters()}
+        stage = lambda p, xb: torch.func.functional_call(mine, p, (xb, positions))
+        pipeline_apply(stage, params, x, mpod, axis="pod")          # warm
+        sync()
+        timings: dict = {}
+        y = pipeline_apply(stage, params, x, mpod, axis="pod", timings=timings)
+        sync()
+        out["pipe_timings"] = timings
+        if rank == 0:
+            seq = [block(p) for p in range(4)]
+            ref = []
+            for xb in x:
+                for b in seq:
+                    xb = b(xb, positions)
+                ref.append(xb)
+            ref = torch.stack(ref)
+            out["pipe_err"] = float((y - ref).abs().max())
+            out["pipe_bits_equal"] = bool(torch.equal(y, ref))
+            out["pipe_scale"] = float(ref.abs().max())
+    del mine, params, x, y
+    free()
+    out["c_s"] = time.perf_counter() - t0
+    return out
+
+
+def lm_mesh(card: str) -> None:
+    """Step 26: the LM multi-device path on four gloo ranks sharing the card
+    (one ``multihost.spawn``): (a) stablelm-3b training on (2, 2), (b)
+    deepseek-v2-lite-16b serving on (1, 4) with expert parallelism, (c) a
+    4-stage pipeline.  The one-device references are run here first (their
+    memory freed before the ranks start); every number is printed before
+    the gates are checked."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.launch import multihost, train
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import map_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    work = tempfile.mkdtemp(prefix="lm_mesh_")
+    hp = mesh_hp()
+    full = mesh_train_cfg()
+    print(f"step 26: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
+          f"on {card}")
+
+    # one-device references: (a1) MESH_TRAIN_STEPS f32 steps, in the mesh's
+    # microbatches of rows (gated) and in step 25's (printed); step 1's
+    # gradients of both in f32 and in f64 (the witness); (b1) depth 3 in
+    # f32, dropless; (b2) the served configuration's dropped pairs
+    t0 = time.perf_counter()
+    stacked = lambda leaf: (torch.stack(leaf) if isinstance(leaf, list) else leaf).detach().cpu()
+    dev_grads = lambda state: {n: (torch.stack(t) if isinstance(t, list) else t).detach().clone()
+                               for n, t in ckpt.leaf_paths(map_leaves(
+        lambda p: [t.grad for t in p] if isinstance(p, list) else p.grad, state["params"]))}
+    a1_ref, g1 = {}, {}
+    full64 = full.with_overrides(param_dtype="float64", compute_dtype="float64")
+    for accum in (MESH_ROW_ACCUM, TRAIN_ACCUM):
+        for cfg_w in (full, full64):
+            with f64_upcasts() if cfg_w is full64 else contextlib.nullcontext():
+                model = Model(cfg_w, device=dev, seed=0)
+                state = train.make_train_state(model, mesh_hp(accum))
+                step = train.make_train_step(model, mesh_hp(accum))
+                stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+                metrics = []
+                for i in range(MESH_TRAIN_STEPS if cfg_w is full else 1):
+                    state, m = step(state, stream.next_batch())
+                    metrics.append({k: float(v) for k, v in m.items()})
+                    if i == 0:
+                        g1[cfg_w.compute_dtype, accum] = dev_grads(state)
+            if cfg_w is full:
+                a1_ref[accum] = metrics
+            if cfg_w is full and accum == MESH_ROW_ACCUM:
+                torch.save({"grads": {n: t.cpu() for n, t in dev_grads(state).items()},
+                            "params": {n: stacked(t) for n, t in ckpt.leaf_paths(state["params"])}},
+                           os.path.join(work, "a1_ref.pt"))
+            del model, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    f64_ref = g1["float64", TRAIN_ACCUM]
+    witness = {"f64": worst_rms(g1["float64", MESH_ROW_ACCUM], f64_ref, dev),
+               "f32": worst_rms(g1["float32", MESH_ROW_ACCUM], g1["float32", TRAIN_ACCUM], dev)}
+    for accum in (MESH_ROW_ACCUM, TRAIN_ACCUM):
+        witness[accum] = worst_rms(g1["float32", accum], f64_ref, dev)
+    torch.save({n: t.float().cpu() for n, t in f64_ref.items()}, os.path.join(work, "g1_f64.pt"))
+    del g1, f64_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = get_config(MESH_SERVE_ARCH)
+    v = ds.vocab_size
+    cfg_b1 = ds.with_overrides(n_layers=MESH_B1_DEPTH, compute_dtype="float32",
+                               capacity_factor=ds.n_experts / ds.top_k)
+    srv = Server(cfg_b1, device=dev, seed=0)
+    batch = concrete_batch(cfg_b1, LM_BATCH, LM_PROMPT, train=False, device=dev)
+    with torch.no_grad():
+        logits, fed = lm_run(srv.compute, batch, LM_CHECK_STEPS)
+    torch.save({"logits": [x[:, :v].cpu() for x in logits], "fed": fed.cpu()},
+               os.path.join(work, "b1_ref.pt"))
+    del srv, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = Server(ds, device=dev, seed=0)
+    batch = concrete_batch(ds, LM_BATCH, LM_PROMPT, train=False, device=dev)
+    moe.DROPS = []
+    one_tokens = srv.generate(batch, LM_NEW, seq_cap=LM_CAP)
+    one_drops, moe.DROPS = moe.DROPS, None
+    del srv, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    print(f"step 26 one-device references (a1, b1, b2) {ref_s:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB left allocated; on {card}")
+
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(lm_mesh_rank, MESH_RANKS, work, device="cuda", backend="gloo",
+                            timeout=900)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    failures = []
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+
+    # (a1)
+    a1 = r0["metrics"][:MESH_TRAIN_STEPS]
+    rel = lambda key, ref: max(abs(x[key] - y[key]) / abs(y[key]) for x, y in zip(a1, ref))
+    loss_err, gnorm_err = rel("loss", a1_ref[MESH_ROW_ACCUM]), rel("grad_norm", a1_ref[MESH_ROW_ACCUM])
+    print(f"step 26 (a1) {TRAIN_ARCH} at full width, {MESH_TRAIN_LAYERS} of 32 layers, f32 "
+          f"(TF32 off), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {MESH_TRAIN_STEPS} steps on (data, "
+          f"model) = (2, 2) ({TRAIN_ACCUM} microbatches, each rank 2 rows of each) vs one "
+          f"device in the same {MESH_ROW_ACCUM} microbatches of 2 rows: losses "
+          f"{[round(x['loss'], 7) for x in a1]} vs "
+          f"{[round(y['loss'], 7) for y in a1_ref[MESH_ROW_ACCUM]]} (rel {loss_err:.2e}, gate "
+          f"{TRAIN_LOSS_RTOL}); grad_norm rel {gnorm_err:.2e} (gate {TRAIN_GNORM_RTOL}); "
+          f"step-{MESH_TRAIN_STEPS} gradients' largest per-leaf relative RMS "
+          f"{r0['a1_grad_rms']:.3e} ({r0['a1_grad_worst']}, gate {TRAIN_GRAD_RMS}); parameters "
+          f"{r0['a1_param_rms']:.3e} (gate {TRAIN_PARAM_RMS}); on {card}")
+    print(f"step 26 (a1) not gated, one device in {TRAIN_ACCUM} microbatches of 4 rows (the "
+          f"same function in another association order; the seeded model amplifies it): "
+          f"loss rel {rel('loss', a1_ref[TRAIN_ACCUM]):.2e} from the mesh's, "
+          f"{max(abs(x['loss'] - y['loss']) / abs(y['loss']) for x, y in zip(a1_ref[MESH_ROW_ACCUM], a1_ref[TRAIN_ACCUM])):.2e} "
+          f"from one device's {MESH_ROW_ACCUM} microbatches; grad_norm rel "
+          f"{rel('grad_norm', a1_ref[TRAIN_ACCUM]):.2e}; on {card}")
+    spread = max(witness[MESH_ROW_ACCUM][0], witness[TRAIN_ACCUM][0])
+    show = lambda w: f"{w[0]:.3e} ({w[1]})"
+    print(f"step 26 (a1) witness, step 1's gradients, largest per-leaf relative RMS: one "
+          f"device in f64 (f32 upcasts kept at f64), {MESH_ROW_ACCUM} vs {TRAIN_ACCUM} "
+          f"microbatches {show(witness['f64'])} (gate {MESH_F64_RMS}); in f32 "
+          f"{show(witness['f32'])}; from f64 in {TRAIN_ACCUM} microbatches: one device f32 "
+          f"in {MESH_ROW_ACCUM} {show(witness[MESH_ROW_ACCUM])}, in {TRAIN_ACCUM} "
+          f"{show(witness[TRAIN_ACCUM])}, the mesh {show(r0['a1_g1_f64'])} (gate "
+          f"{MESH_F32_SPREAD} x {spread:.3e}); on {card}")
+    if witness["f64"][0] > MESH_F64_RMS:
+        failures.append(f"(a1) f64 gradients differ across microbatchings {witness['f64']}")
+    if r0["a1_g1_f64"][0] > MESH_F32_SPREAD * spread:
+        failures.append(f"(a1) the mesh's step-1 gradients {r0['a1_g1_f64']} from f64")
+    if loss_err > TRAIN_LOSS_RTOL or gnorm_err > TRAIN_GNORM_RTOL:
+        failures.append(f"(a1) loss {loss_err:.2e} or grad_norm {gnorm_err:.2e}")
+    if r0["a1_grad_rms"] > TRAIN_GRAD_RMS or r0["a1_param_rms"] > TRAIN_PARAM_RMS:
+        failures.append(f"(a1) gradients {r0['a1_grad_rms']:.2e} or parameters "
+                        f"{r0['a1_param_rms']:.2e}")
+    # (a2), (a3) and the times
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    timed = r0["steps_ms"][1:]
+    step_ms, coll_ms = med(timed), med(r0["coll_ms"][1:])
+    print(f"step 26 (a) {TRAIN_ARCH} {MESH_TRAIN_LAYERS} layers, compute "
+          f"{full.compute_dtype}, AdamW f32, remat {full.remat}, on (2, 2): step "
+          f"{step_ms:.1f} ms (median of {len(timed)} after one warm-up; steps "
+          f"{[round(x, 1) for x in r0['steps_ms']]}), collectives {coll_ms:.1f} ms inside it "
+          f"(staged through host memory: gloo ranks sharing the card), {tokens / step_ms * 1e3:.0f} "
+          f"tokens/s; peak per rank {[round(r['peak'] / 1e9, 3) for r in ranks]} GB; resident "
+          f"state per rank {[r['resident'] for r in ranks]} bytes, derived "
+          f"{r0['resident_derived']}; on {card}")
+    print(f"step 26 (a3) one step's collectives per rank (count, bytes): counted "
+          f"{ {k: (v['count'], v['bytes']) for k, v in r0['counted'].items()} }; derived "
+          f"{ {k: (v['count'], v['bytes']) for k, v in r0['derived'].items()} }; on {card}")
+    for r in ranks:
+        if r["resident"] != r["resident_derived"]:
+            failures.append(f"(a3) rank {r['rank']} resident {r['resident']} != "
+                            f"{r['resident_derived']}")
+        if r["counted"] != r["derived"]:
+            failures.append(f"(a3) rank {r['rank']} collectives {r['counted']} != "
+                            f"{r['derived']}")
+    # one device restores the crashed run's checkpoint whole
+    model = Model(full, device=dev, seed=1)
+    state = train.make_train_state(model, hp)
+    t1 = time.perf_counter()
+    restored, _ = ckpt.restore(os.path.join(work, "crash"), MESH_CKPT_EVERY, state,
+                               device="cpu")
+    train.load_train_state(state, restored)
+    one_restore_s = time.perf_counter() - t1
+    from repro_torch.models.convert import stack_tree
+    one_sha = tree_sha(ckpt.leaf_paths(stack_tree(state)))
+    del model, state, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = all(r["resumed_sha"] == r["local_sha"] for r in ranks)
+    print(f"step 26 (a2) (a)'s checkpoint at step {MESH_CKPT_EVERY}, crash in step "
+          f"{MESH_FAIL_AT + 1} ({r0.get('crashed')!r}), resume from step {MESH_CKPT_EVERY} on "
+          f"(2, 2): losses {[round(x, 6) for x in r0['resumed']]} vs the uninterrupted "
+          f"{[round(x, 6) for x in r0['losses'][MESH_CKPT_EVERY:]]}, final state sha256 per "
+          f"rank {[r['resumed_sha'][:16] for r in ranks]} vs "
+          f"{[r['local_sha'][:16] for r in ranks]} ({'equal' if same else 'DIFFERENT'}; "
+          f"resume {r0['resume_s']:.1f} s); the "
+          f"checkpoint {r0['ckpt_sha'][:16]}, restored on (4, 1) {r0['restored41_sha'][:16]} "
+          f"({r0['restore41_s']:.1f} s), on one device {one_sha[:16]} ({one_restore_s:.1f} s); "
+          f"on {card}")
+    if not same or r0["resumed"] != r0["losses"][MESH_CKPT_EVERY:]:
+        failures.append("(a2) the resumed run differs from the uninterrupted one")
+    if not r0["ckpt_sha"] == r0["restored41_sha"] == one_sha:
+        failures.append("(a2) a restored state differs from the checkpoint")
+
+    # (b)
+    n_moe = r0["n_moe"]
+    print(f"step 26 (b1) {MESH_SERVE_ARCH} depth {MESH_B1_DEPTH}, dropless (capacity "
+          f"{ds.n_experts / ds.top_k:.4g}), f32 compute, on (data, model) = (1, 4) with 16 of "
+          f"64 experts a rank: prefill and {LM_CHECK_STEPS} decode steps' logits vs one "
+          f"device's: max |diff| {r0['b1_err']:.3e} (gate {LM_F32_REL} x {r0['b1_scale']:.3f}); "
+          f"on {card}")
+    if not r0["b1_err"] <= LM_F32_REL * r0["b1_scale"]:
+        failures.append(f"(b1) logits {r0['b1_err']:.3e}")
+    per_layer = lambda drops, calls: [sum(drops[c * n_moe + j] for c in range(calls))
+                                      for j in range(n_moe)]
+    calls = 1 + LM_NEW
+    mesh_drops = [sum(x) for x in zip(*(per_layer(r["drops"], calls) for r in ranks))]
+    one_layer = per_layer(one_drops, calls)
+    shas = {s for r in ranks for s in r["tok_sha"]}
+    dec = med(r0["decode_ms"])
+    gen_ms = r0["prefill_ms"] + LM_NEW * dec
+    print(f"step 26 (b2) full depth, capacity {ds.capacity_factor}, bf16: generate sha256 "
+          f"{sorted(shas)} over 2 repeats x {MESH_RANKS} ranks; dropped (token, expert) pairs "
+          f"per MoE layer over the prefill and {LM_NEW} decode steps, the mesh (capacity per "
+          f"EP token slice) {mesh_drops} vs one device {one_layer}; one device's tokens "
+          f"sha256 {sha256_of(one_tokens)[:16]}; on {card}")
+    print(f"step 26 (b) serving on (1, 4): server built in {r0['b_build_s']:.1f} s; prefill "
+          f"{r0['prefill_ms']:.1f} ms, decode {dec:.1f} ms a step (median of {MESH_TIMED_DECODE}), "
+          f"all-to-all {med(r0['a2a_ms']):.1f} ms a decode step, "
+          f"{LM_BATCH * LM_NEW / gen_ms * 1e3:.1f} tokens/s; peak per rank "
+          f"{[round(r['serve_peak'] / 1e9, 3) for r in ranks]} GB, resident parameters "
+          f"{[round(r['serve_resident'] / 1e9, 3) for r in ranks]} GB; on {card}")
+    print(f"step 26 (b3) all-to-all bytes per MoE layer: decode {r0['b3_decode']['bytes'] / n_moe:.0f} "
+          f"(derived {r0['b3_derived_decode']['bytes']}), prefill "
+          f"{r0['b3_prefill']['bytes'] / n_moe:.0f} (derived {r0['b3_derived_prefill']['bytes']}); "
+          f"on {card}")
+    if len(shas) != 1:
+        failures.append(f"(b2) generate digests {shas}")
+    for r in ranks:
+        for k in ("decode", "prefill"):
+            got, want = r[f"b3_{k}"], r[f"b3_derived_{k}"]
+            if got["bytes"] != n_moe * want["bytes"] or got["count"] != n_moe * want["count"]:
+                failures.append(f"(b3) rank {r['rank']} {k} all-to-all {got} vs {n_moe} x {want}")
+
+    # (c)
+    tm = [r["pipe_timings"] for r in ranks]
+    idle = [1 - t["busy"] / t["wall"] for t in tm]
+    bubble = (MESH_RANKS - 1) / (PIPE_M + MESH_RANKS - 1)
+    print(f"step 26 (c) pipeline: 4 {TRAIN_ARCH} blocks at full width, one a rank along pod, "
+          f"{PIPE_M} microbatches of 1 x {PIPE_SEQ}, f32: max |diff| vs the blocks in sequence "
+          f"{r0['pipe_err']:.3e} (gate {PIPE_TOL} x {r0['pipe_scale']:.3f}), bits "
+          f"{'equal' if r0['pipe_bits_equal'] else 'not equal'}; wall "
+          f"{[round(t['wall'] * 1e3, 1) for t in tm]} ms per rank, idle share "
+          f"{[round(x, 3) for x in idle]} against the schedule's bubble {bubble:.3f}; on {card}")
+    if not r0["pipe_err"] <= PIPE_TOL * max(1.0, r0["pipe_scale"]):
+        failures.append(f"(c) pipeline {r0['pipe_err']:.3e}")
+    print(f"step 26 phases (rank 0): a {r0['a1_s']:.1f} s, a2 {r0['a2_s']:.1f} s, "
+          f"b {r0['b_s']:.1f} s, c {r0['c_s']:.1f} s; spawn {spawn_s:.1f} s; on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    for f in failures:
+        print(f"FAIL: step 26 {f}", file=sys.stderr, flush=True)
+    check(not failures, "step 26")
 
 
 def main() -> None:
@@ -3858,6 +4498,11 @@ def main() -> None:
     t25 = time.perf_counter()
     lm_training(card)
     print(f"step 25 {time.perf_counter() - t25:.1f} s; on {card}")
+
+    # -- 26. the LM multi-device path: four gloo ranks on the card ---------------
+    t26 = time.perf_counter()
+    lm_mesh(card)
+    print(f"step 26 {time.perf_counter() - t26:.1f} s; on {card}")
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)

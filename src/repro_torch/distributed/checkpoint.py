@@ -17,6 +17,15 @@ the other's checkpoints.
 
 Restore is device-independent: leaves are read whole and placed where the
 ``like`` tree's leaves are (or on ``device``).
+
+On a mesh (``shardings=``, a tree of
+:class:`~repro_torch.distributed.sharding.NamedSharding` matching the
+tree), each rank holds its blocks: ``save`` gathers each leaf's blocks to
+rank 0 (:func:`repro_torch.distributed.collectives.gather_to_rank0`),
+which writes the whole array as above, then every rank waits at a
+barrier; ``restore`` reads each rank's block alone from a memory-mapped
+file.  The files do not depend on the mesh, so a run resumes on any mesh
+(:mod:`repro_torch.distributed.elastic`).
 """
 
 from __future__ import annotations
@@ -31,6 +40,10 @@ import threading
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as sh
 from repro_torch.optim.optimizers import is_stacked
 
 BF16_DESCR = "<V2"     # how numpy writes an ml_dtypes bfloat16 array's records
@@ -84,9 +97,45 @@ def _load_npy(path: str, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save(directory: str, step: int, tree, *, extra: dict | None = None) -> str:
-    """Atomically write ``tree`` under <directory>/step_<step>."""
+def gather_tree(tree, shardings):
+    """Each leaf of a tree of this rank's blocks gathered whole on rank 0,
+    as host tensors: the tree there, ``None`` on the other ranks."""
+    out = {}
+    first = True
+    for (name, leaf), (_, s) in zip(leaf_paths(tree), leaf_paths(shardings), strict=True):
+        if first:
+            order = s.mesh.mesh.reshape(-1).tolist()
+            first = False
+        parts = collectives.gather_to_rank0(_host(leaf, copy=False))
+        if parts is not None:
+            out[name] = sh.from_shards([parts[r] for r in order], s.spec, s.mesh)
+    if dist.get_rank() != 0:
+        return None
+    return _nest_names(out)
+
+
+def _nest_names(flat: dict) -> dict:
+    tree: dict = {}
+    for name, v in flat.items():
+        *parents, leaf = name.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def save(directory: str, step: int, tree, *, extra: dict | None = None,
+         shardings=None) -> str:
+    """Atomically write ``tree`` under <directory>/step_<step>; with
+    ``shardings`` every rank calls it with its blocks, rank 0 writes."""
     final = os.path.join(directory, f"step_{step}")
+    if shardings is not None:
+        whole = gather_tree(tree, shardings)
+        if whole is not None:
+            save(directory, step, whole, extra=extra)
+        dist.barrier()
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -124,24 +173,43 @@ def _like_meta(like) -> tuple[tuple[int, ...], torch.dtype, torch.device]:
     return tuple(like.shape), like.dtype, like.device
 
 
-def restore(directory: str, step: int, like_tree, *, device=None):
+def _load_block(path: str, dtype_name: str, where) -> torch.Tensor:
+    """One block of a saved array, read from a memory map."""
+    arr = np.load(path, mmap_mode="r")
+    block = np.array(arr[where], order="C")     # a writable copy, 0-d kept
+    if block.dtype.kind == "V":
+        if dtype_name != "bfloat16":
+            raise ValueError(f"{path}: raw records of {dtype_name!r}, only bfloat16 is read")
+        return torch.from_numpy(block.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(block)
+
+
+def restore(directory: str, step: int, like_tree, *, device=None, shardings=None):
     """Read <directory>/step_<step> into the structure of ``like_tree``.
 
     Each leaf takes its ``like`` leaf's dtype and device (``device``
     overrides the device; a ``meta`` like leaf gives the CPU); a list leaf
-    comes back as a list of its rows.  Returns (tree, manifest)."""
+    comes back as a list of its rows.  With ``shardings`` (a tree matching
+    ``like_tree``) each rank reads the block its mesh position owns, and
+    ``like_tree``'s leaves are blocks.  Returns (tree, manifest)."""
     final = os.path.join(directory, f"step_{step}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
     by_name = {leaf["name"]: leaf for leaf in manifest["leaves"]}
 
-    def read(name, like):
+    def read(name, like, s):
         if name not in by_name:
             raise KeyError(f"checkpoint missing leaf {name!r}")
         entry = by_name[name]
-        t = _load_npy(os.path.join(final, entry["file"]), entry["dtype"])
+        path = os.path.join(final, entry["file"])
+        if s is None:
+            t = _load_npy(path, entry["dtype"])
+        else:
+            coord = collectives._coord(s.mesh)
+            t = _load_block(path, entry["dtype"], s.slices(entry["shape"], coord))
         shape, dtype, dev = _like_meta(like)
-        if tuple(t.shape) != shape:
+        if tuple(t.shape) != shape and not (s is not None and shape == tuple(entry["shape"])):
+            # a block's like leaf is the block, or (an abstract tree) the whole leaf
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
         dev = torch.device(device) if device is not None else dev
         if dev.type == "meta":
@@ -149,12 +217,13 @@ def restore(directory: str, step: int, like_tree, *, device=None):
         t = t.to(device=dev, dtype=dtype)
         return list(t.unbind(0)) if is_stacked(like) else t
 
-    def walk(tree, prefix):
+    def walk(tree, s, prefix):
         if isinstance(tree, dict):
-            return {k: walk(v, f"{prefix}{k}/") for k, v in tree.items()}
-        return read(prefix[:-1], tree)
+            return {k: walk(v, None if s is None else s[k], f"{prefix}{k}/")
+                    for k, v in tree.items()}
+        return read(prefix[:-1], tree, s)
 
-    return walk(like_tree, ""), manifest
+    return walk(like_tree, shardings, ""), manifest
 
 
 class AsyncCheckpointer:
@@ -167,6 +236,7 @@ class AsyncCheckpointer:
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
+        self.mesh_save = False
         self.keep = keep
         self._q: queue.Queue = queue.Queue()
         self._err: list[Exception] = []
@@ -194,12 +264,23 @@ class AsyncCheckpointer:
         for s in steps[:-self.keep]:
             shutil.rmtree(os.path.join(self.directory, f"step_{s}"), ignore_errors=True)
 
-    def save(self, step: int, tree, extra: dict | None = None):
-        host_tree = _host_tree(tree)
+    def save(self, step: int, tree, extra: dict | None = None, shardings=None):
+        """Enqueue a write of ``tree``; with ``shardings`` (every rank calls
+        it with its blocks) the blocks are gathered to rank 0 now and rank 0
+        alone enqueues, and ``wait`` ends at a barrier."""
+        if shardings is not None:
+            self.mesh_save = True
+            host_tree = gather_tree(tree, shardings)
+            if host_tree is None:
+                return
+        else:
+            host_tree = _host_tree(tree)
         self._q.put((step, host_tree, extra))
 
     def wait(self):
         self._q.join()
+        if self.mesh_save:
+            dist.barrier()
         if self._err:
             raise self._err[0]
 

@@ -16,6 +16,22 @@ small (two f32 per function), so the gather costs little.
 The gathers run on the default process group, which the mesh must span.
 Under gloo a CUDA tensor goes to the host for the collective and comes
 back, a branch on the backend (never an exception handler).
+
+The LM multi-device path adds collectives over the subgroup of ranks along
+some mesh axes (:func:`axis_group`: one ``new_group`` per coset, made on
+every rank at first use, in the same program order): :func:`all_gather_axes`,
+the deterministic reduce-scatter :func:`reduce_scatter_fixed` (an
+``all_to_all`` of the pieces each rank owns, folded in rank order: no float
+``all_reduce``), :func:`fold_axes`, :func:`all_to_all` and the token
+slice/gather pair with their autograd backwards, :func:`gather_to_rank0`,
+:func:`broadcast_axes` and point-to-point :func:`send` / :func:`recv`.  Each
+adds one to its kind's count and the bytes of its result to its kind's
+bytes in :data:`COUNTERS` (HLO's convention, which the dry run's
+``parse_collectives`` reads), and its wall time to ``COUNTERS["seconds"]``
+and ``COUNTERS["seconds_by_kind"]``;
+a collective over a group of one rank moves nothing and counts nothing.
+Under gloo, CUDA tensors are staged through pinned host buffers (gloo's
+collectives here take host tensors): the computation stays on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +39,7 @@ from __future__ import annotations
 import functools
 import math
 import os
+import time
 from typing import Sequence
 
 import torch
@@ -164,3 +181,243 @@ def barrier(mesh) -> None:
     if mesh.size() != dist.get_world_size():
         raise ValueError("the mesh must span the process group")
     dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# Subgroup collectives of the LM multi-device path, with counters
+# ---------------------------------------------------------------------------
+
+KINDS = ("all-gather", "reduce-scatter", "all-to-all", "collective-permute", "gather",
+         "broadcast")
+COUNTERS: dict = {}
+
+
+def reset_counters() -> None:
+    """Zero every kind's count and bytes, and the seconds."""
+    COUNTERS.clear()
+    COUNTERS.update({k: {"count": 0, "bytes": 0} for k in KINDS})
+    COUNTERS["seconds"] = 0.0
+    COUNTERS["seconds_by_kind"] = dict.fromkeys(KINDS, 0.0)
+
+
+def counters() -> dict:
+    """A copy of :data:`COUNTERS`: ``{kind: {"count", "bytes"}, "seconds",
+    "seconds_by_kind"}``."""
+    return {k: dict(v) if isinstance(v, dict) else v for k, v in COUNTERS.items()}
+
+
+reset_counters()
+
+
+def _count(kind: str, nbytes: int, t0: float) -> None:
+    COUNTERS[kind]["count"] += 1
+    COUNTERS[kind]["bytes"] += int(nbytes)
+    dt = time.perf_counter() - t0
+    COUNTERS["seconds"] += dt
+    COUNTERS["seconds_by_kind"][kind] += dt
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+_GROUPS: dict = {}
+
+
+def axis_group(mesh, axes: Sequence[str]):
+    """(process group, its global ranks in row-major order over ``axes``)
+    of the ranks along ``axes`` at this rank's coordinates on the other
+    axes; ``(None, (rank,))`` where that is one rank.  The first call for
+    an ``axes`` makes the groups of every coset, on every rank."""
+    axes = tuple(a for a in mesh.mesh_dim_names if a in axes)
+    ranks = _ranks_over(mesh, axes)
+    if len(ranks) == 1:
+        return None, ranks
+    key = (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.reshape(-1).tolist()),
+           tuple(mesh.mesh.shape), axes)
+    if key not in _GROUPS:
+        names = list(mesh.mesh_dim_names)
+        grid = mesh.mesh.permute([names.index(a) for a in names if a not in axes]
+                                 + [names.index(a) for a in axes])
+        cosets = grid.reshape(-1, len(ranks))
+        made = {}
+        for row in cosets.tolist():
+            made[tuple(row)] = dist.new_group(row)
+        _GROUPS[key] = made
+    return _GROUPS[key][ranks], ranks
+
+
+def _wire(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the backend takes it: a pinned host copy of a CUDA tensor
+    under gloo, else ``x`` itself (contiguous)."""
+    x = x.contiguous()
+    if x.device.type == "cuda" and dist.get_backend(group) != "nccl":
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        return host
+    return x
+
+
+def _empty_wire(like: torch.Tensor, group, shape=None) -> torch.Tensor:
+    shape = like.shape if shape is None else shape
+    if like.device.type == "cuda" and dist.get_backend(group) != "nccl":
+        return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def all_gather_axes(x: torch.Tensor, mesh, axes: Sequence[str]) -> list[torch.Tensor]:
+    """Every rank's ``x`` along ``axes`` (row-major over them), on ``x``'s
+    device; counted as one all-gather of the parts' bytes."""
+    group, ranks = axis_group(mesh, axes)
+    if group is None:
+        return [x]
+    t0 = time.perf_counter()
+    wire = _wire(x, group)
+    out = _empty_wire(x, group, (len(ranks) * x.numel(),))
+    dist.all_gather_into_tensor(out, wire.reshape(-1), group=group)
+    parts = list(out.to(x.device).view((len(ranks),) + tuple(x.shape)).unbind(0))
+    _count("all-gather", _nbytes(x) * len(ranks), t0)
+    return parts
+
+
+def fold_axes(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """``psum`` over ``axes`` as a gather folded in row-major rank order:
+    the same bits on every rank."""
+    return _fold(all_gather_axes(x, mesh, axes))
+
+
+def all_to_all_raw(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """``x`` (leading dim = the group's size): ``out[i]`` is member i's
+    ``x[me]``.  One all-to-all of ``x``'s bytes."""
+    group, ranks = axis_group(mesh, axes)
+    if group is None:
+        return x
+    if x.shape[0] != len(ranks):
+        raise ValueError(f"all_to_all: leading dim {x.shape[0]} != group size {len(ranks)}")
+    t0 = time.perf_counter()
+    wire = _wire(x, group)
+    out = _empty_wire(x, group)
+    dist.all_to_all_single(out, wire, group=group)
+    out = out.to(x.device)
+    _count("all-to-all", _nbytes(x), t0)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_to_all_raw(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the exchange is its own inverse: member i's piece for me came
+        # from its x[me], so my gradient piece for i goes back to i
+        return all_to_all_raw(g, ctx.mesh, ctx.axes), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """:func:`all_to_all_raw` with an autograd backward (the same exchange
+    of the gradient)."""
+    return _AllToAll.apply(x, mesh, tuple(axes))
+
+
+def _member_index(mesh, axes) -> int:
+    return axis_index(mesh, tuple(a for a in mesh.mesh_dim_names if a in axes))
+
+
+class _SliceRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, rows):
+        ctx.mesh, ctx.axes = mesh, axes
+        i = _member_index(mesh, axes)
+        return x[i * rows:(i + 1) * rows].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(all_gather_axes(g, ctx.mesh, ctx.axes)), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes, ctx.rows = mesh, axes, x.shape[0]
+        return torch.cat(all_gather_axes(x, mesh, axes))
+
+    @staticmethod
+    def backward(ctx, g):
+        i = _member_index(ctx.mesh, ctx.axes)
+        return g[i * ctx.rows:(i + 1) * ctx.rows].clone(), None, None
+
+
+def slice_rows(x: torch.Tensor, mesh, axes: Sequence[str], rows: int) -> torch.Tensor:
+    """This rank's ``rows`` rows of ``x`` (replicated along ``axes``), block
+    = its index along ``axes``; backward all-gathers the blocks' gradients
+    (the replicated input's gradient is every block's)."""
+    return _SliceRows.apply(x, mesh, tuple(axes), rows)
+
+
+def gather_rows_tiled(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """Every rank's ``x`` along ``axes`` concatenated on dim 0 (replicated
+    after); backward takes this rank's block of the gradient."""
+    return _GatherRows.apply(x, mesh, tuple(axes))
+
+
+def reduce_scatter_fixed(g: torch.Tensor, mesh, sum_axes: Sequence[str],
+                         pieces: list[tuple[slice, ...]]) -> torch.Tensor:
+    """Deterministic reduce-scatter: ``pieces[j]`` is the block of ``g``
+    that member j (row-major over ``sum_axes``) keeps; every member sends
+    each its block (one all-to-all) and folds what it receives in member
+    order.  Returns this rank's block of the sum; counted as one
+    reduce-scatter of that block's bytes."""
+    group, ranks = axis_group(mesh, sum_axes)
+    if group is None:
+        return g[pieces[0]].clone()
+    t0 = time.perf_counter()
+    send = torch.stack([g[p] for p in pieces])
+    wire = _wire(send, group)
+    recv = _empty_wire(send, group)
+    dist.all_to_all_single(recv, wire, group=group)
+    recv = recv.to(g.device)
+    out = _fold(list(recv.unbind(0)))
+    _count("reduce-scatter", _nbytes(out), t0)
+    return out
+
+
+def gather_to_rank0(x: torch.Tensor) -> list[torch.Tensor] | None:
+    """Every rank's ``x`` on global rank 0 (in rank order), ``None``
+    elsewhere; counted as one gather of the parts' bytes on every rank."""
+    world = dist.get_world_size()
+    t0 = time.perf_counter()
+    wire = _wire(x, None)
+    parts = [_empty_wire(x, None) for _ in range(world)] if dist.get_rank() == 0 else None
+    dist.gather(wire, parts, dst=0)
+    _count("gather", _nbytes(x) * world, t0)
+    return parts
+
+
+def broadcast_axes(x: torch.Tensor, mesh, axes: Sequence[str], src_index: int) -> torch.Tensor:
+    """Member ``src_index``'s ``x`` (row-major over ``axes``) on every member."""
+    group, ranks = axis_group(mesh, axes)
+    if group is None:
+        return x
+    t0 = time.perf_counter()
+    wire = _wire(x, group)
+    dist.broadcast(wire, src=ranks[src_index], group=group)
+    out = wire.to(x.device)
+    _count("broadcast", _nbytes(x), t0)
+    return out
+
+
+def send(x: torch.Tensor, dst: int) -> None:
+    """Point-to-point send to global rank ``dst`` (one collective-permute)."""
+    t0 = time.perf_counter()
+    dist.send(_wire(x, None), dst)
+    _count("collective-permute", _nbytes(x), t0)
+
+
+def recv(like: torch.Tensor, src: int) -> torch.Tensor:
+    """Receive a tensor shaped as ``like`` from global rank ``src``."""
+    buf = _empty_wire(like, None)
+    dist.recv(buf, src)
+    return buf.to(like.device)

@@ -21,9 +21,12 @@ from repro_torch.core.tree import tree_map
 from repro_torch.distributed import collectives
 
 
-def quantize(x: torch.Tensor, *, bits: int = 8):
-    """Per-tensor symmetric quantisation: (q int8, scale f32 scalar)."""
-    amax = torch.max(torch.abs(x)).to(torch.float32)
+def quantize(x: torch.Tensor, *, bits: int = 8, amax: torch.Tensor | None = None):
+    """Per-tensor symmetric quantisation: (q int8, scale f32 scalar).
+    ``amax`` is the tensor's largest magnitude where ``x`` is one block of
+    it (a sharded leaf: the blocks' maxima's maximum, which is exact)."""
+    if amax is None:
+        amax = torch.max(torch.abs(x)).to(torch.float32)
     qmax = float(2 ** (bits - 1) - 1)
     scale = torch.clamp(amax / qmax, min=1e-12)
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -qmax, qmax)
@@ -34,10 +37,11 @@ def dequantize(q: torch.Tensor, scale, dtype=torch.float32) -> torch.Tensor:
     return (q.to(torch.float32) * scale).to(dtype)
 
 
-def ef_compress(g: torch.Tensor, err: torch.Tensor):
-    """Error-feedback step: (g + err) -> (quantised ghat, new residual)."""
+def ef_compress(g: torch.Tensor, err: torch.Tensor, amax: torch.Tensor | None = None):
+    """Error-feedback step: (g + err) -> (quantised ghat, new residual);
+    ``amax`` as :func:`quantize` takes it."""
     target = g.to(torch.float32) + err
-    q, scale = quantize(target)
+    q, scale = quantize(target, amax=amax)
     ghat = dequantize(q, scale)
     return ghat.to(g.dtype), target - ghat
 

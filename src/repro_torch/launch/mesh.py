@@ -70,9 +70,9 @@ def make_mesh_for(n_devices: int | None = None, model_parallel: int = 1,
 
 
 def launcher_mesh(device=None):
-    """The launchers' ``--mesh``: every rank, functions over 2 ``model``
-    shards when the world is even and larger than 1, samples over
-    ``data``."""
+    """The integrators' and the trainer's ``--mesh``: every rank, 2
+    ``model`` shards when the world is even and larger than 1 (the
+    functions, or the parameters' model dims), the rest over ``data``."""
     _, world = _world(device)
     return make_mesh_for(model_parallel=2 if world % 2 == 0 and world > 1 else 1,
                          device=device)

@@ -6,16 +6,33 @@ configuration: dense, MoE ``--arch deepseek-v2-lite-16b``, SSM ``--arch
 mamba2-130m``, hybrid ``--arch zamba2-7b``); ``--reduced --device cpu``
 runs a small generation on the CPU.  Without a GPU and without
 ``--device cpu`` it exits with an error.
+
+``Server(cfg, mesh=)`` (every rank builds one; ``--mesh --ranks N`` on the
+CLI) serves on a mesh: each rank draws its parameter blocks
+(:func:`repro_torch.distributed.fsdp.shard_model`, one device's values) and
+gathers them whole once, when the server is built, but for the routed
+experts, which stay sharded over ``model`` (expert parallelism: the MoE
+island of :mod:`repro_torch.models.moe` runs at every step).  The global
+batch is split over the batch axes (each rank prefills and decodes its
+rows, its caches those rows'), and ``generate`` gathers every rank's
+tokens, so every rank returns the whole batch's.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import math
+import sys
 import time
 
 import torch
+from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives, fsdp
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import multihost
 from repro_torch.launch.specs import concrete_batch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
@@ -35,17 +52,56 @@ class Server:
     """
 
     def __init__(self, cfg: ModelConfig, model: Model | None = None, *, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.rules = sh.rules_for(cfg)
+        cd = cfg.dtype("compute")
+        if mesh is not None:
+            if model is not None:
+                raise ValueError("a mesh server draws its own blocks: pass no model")
+            self.device = collectives.mesh_device(mesh, device)
+            model = fsdp.shard_model(Model(cfg, device="meta"), mesh, seed=seed,
+                                     device=self.device)
+            fsdp.full_params(model)
+            for name, p in list(model.named_parameters()):
+                prefix, _, key = name.rpartition(".")
+                model.get_submodule(prefix)._parameters[key] = nn.Parameter(
+                    p.detach().to(cd), requires_grad=False)
+            self.model = self.compute = model
+            return
         self.device = resolve_device(device)
         if model is None:
             model = Model(cfg, device=self.device, seed=seed)
         elif model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the server on {self.device}")
         self.model = model
-        cd = cfg.dtype("compute")
         same = all(p.dtype == cd for p in model.parameters())
         self.compute = model if same else model.cast(cd)
+
+    def local(self, batch: dict) -> tuple[dict, tuple]:
+        """(this rank's rows of a global batch, the batch axes): on one
+        device the whole batch and ``()``."""
+        if self.mesh is None:
+            return batch, ()
+        key = "tokens" if "tokens" in batch else "frames"
+        rows, seq = batch[key].shape[:2]
+        axes = fsdp.batch_axes(self.mesh, self.rules, rows, seq)
+        n = math.prod(sh.mesh_axes(self.mesh)[a] for a in axes)
+        i = collectives.axis_index(self.mesh, axes) if axes else 0
+        per = rows // n
+        return ({k: v[:, i * per:(i + 1) * per] if k == "positions" else v[i * per:(i + 1) * per]
+                 for k, v in batch.items()}, axes)
+
+    @contextlib.contextmanager
+    def context(self, rows: int):
+        """The mesh and rules model code sees (its MoE island, the batch
+        check of ``constrain`` against ``rows``); nothing on one device."""
+        if self.mesh is None:
+            yield
+            return
+        with sh.logical_sharding(self.mesh, self.rules), sh.local_batch(rows):
+            yield
 
     @torch.no_grad()
     def generate(self, batch: dict, max_new_tokens: int, seq_cap: int,
@@ -58,7 +114,7 @@ class Server:
         ``jax.random.categorical``.
         """
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
-        logits, cache = self.compute.prefill(batch, seq_cap)
+        batch, axes = self.local(batch)
         prompt_len = (batch["tokens"].shape[1] if "tokens" in batch
                       else batch["frames"].shape[1])
         gen = None
@@ -66,12 +122,17 @@ class Server:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
         out = []
-        tok = self._sample(logits, temperature, gen)
-        for i in range(max_new_tokens):
-            out.append(tok)
-            logits, cache = self.compute.decode_step(cache, tok, prompt_len + i)
+        with self.context(batch["tokens" if "tokens" in batch else "frames"].shape[0]):
+            logits, cache = self.compute.prefill(batch, seq_cap)
             tok = self._sample(logits, temperature, gen)
-        return torch.cat(out, dim=1)
+            for i in range(max_new_tokens):
+                out.append(tok)
+                logits, cache = self.compute.decode_step(cache, tok, prompt_len + i)
+                tok = self._sample(logits, temperature, gen)
+        toks = torch.cat(out, dim=1)
+        if axes:
+            toks = torch.cat(collectives.all_gather_axes(toks, self.mesh, axes))
+        return toks
 
     @staticmethod
     def _sample(logits, temperature: float, gen):
@@ -91,7 +152,17 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to serve (default: the card; raises without one)")
+    multihost.add_mesh_args(ap)
     args = ap.parse_args(argv)
+
+    if args.mesh and not multihost.initialize_if_needed(
+            verbose=False, device=args.device, backend=args.backend):
+        return multihost.spawn_launcher(main, args, sys.argv[1:] if argv is None else argv)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_mesh_for
+        world = collectives.dist.get_world_size()
+        mesh = make_mesh_for(model_parallel=world, device=args.device)
 
     from repro_torch.configs import get_config, reduced as reduce_cfg
     cfg = get_config(args.arch)
@@ -100,17 +171,20 @@ def main(argv=None):
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode step")
 
-    server = Server(cfg, device=args.device)
+    server = Server(cfg, device=args.device, mesh=mesh)
     batch = concrete_batch(cfg, args.batch, args.prompt_len, train=False,
-                           device=args.device)
+                           device=server.device)
     t0 = time.perf_counter()
     toks = server.generate(batch, args.new_tokens,
                            seq_cap=args.prompt_len + args.new_tokens,
                            temperature=args.temperature).cpu()
     dt = time.perf_counter() - t0
-    print(f"generated {tuple(toks.shape)} in {dt:.1f}s "
-          f"({args.batch * args.new_tokens / dt:.1f} tok/s) on {server.device}")
-    print(toks[:, :12].numpy())
+    if mesh is None or collectives.dist.get_rank() == 0:
+        where = server.device if mesh is None else f"mesh {sh.mesh_axes(mesh)}"
+        print(f"generated {tuple(toks.shape)} in {dt:.1f}s "
+              f"({args.batch * args.new_tokens / dt:.1f} tok/s) on {where}")
+        print(toks[:, :12].numpy())
+    return toks.numpy().tolist()
 
 
 if __name__ == "__main__":

@@ -16,8 +16,22 @@ The driver (``python -m repro_torch.launch.train --arch ... --steps N``)
 wires in the deterministic data pipeline, async checkpointing in the
 reference's format, the step watchdog and resume from the latest
 checkpoint.  It runs on the card unless ``--device cpu`` asks for the CPU,
-and raises without one.  A sharded train state (``mesh=``) waits for the
-LM multi-device path (ROADMAP queue 1).
+and raises without one.
+
+On a mesh (``train_loop(mesh=)``, ``TrainStep(..., mesh=)``, the CLI's
+``--mesh --ranks N``) every leaf of the state rests as this rank's block
+under the reference's specs (:func:`train_state_specs`,
+:mod:`repro_torch.distributed.sharding`), and the step follows the
+schedule of :mod:`repro_torch.distributed.fsdp`: the global batch is split
+into microbatches first, each microbatch's rows over the batch axes
+second; each rank runs its rows with every plan entry's weights gathered
+whole, and the gradient's deterministic reduce-scatter leaves each rank the
+sum of its block.  The clip's sum of squares, the metrics, the int8
+compression's scales and Adafactor's factored statistics are gathers folded
+in rank order (no float ``all_reduce``), so a run repeats and resumes bit
+for bit on the same mesh; the loss and the gradients equal one device's up
+to association order.  Checkpoints gather each leaf to rank 0, which writes
+the reference's format, and restore reads each rank's block alone.
 """
 
 from __future__ import annotations
@@ -25,7 +39,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import math
 import os
+import sys
 import time
 
 import torch
@@ -34,15 +50,15 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.distributed import compression
+from repro_torch.distributed import collectives, compression, fsdp
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.fault_tolerance import StepWatchdog
+from repro_torch.launch import multihost
+from repro_torch.launch.mesh import launcher_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
-from repro_torch.optim import make_optimizer, warmup_cosine
+from repro_torch.optim import make_optimizer, opt_state_specs, warmup_cosine
 from repro_torch.optim.optimizers import is_stacked, leaf_shape, map_leaves, weak_scalar
-
-MESH_LATER = ("a sharded train state (mesh=) comes with ROADMAP queue 1, the LM "
-              "stack's 'LM multi-device path' part")
 # cuBLAS's fixed workspace configuration, which deterministic mode asks for
 # on the card; it must be in the environment before the first cuBLAS call
 CUBLAS_CONFIG = ":4096:8"
@@ -120,6 +136,52 @@ def make_train_state(model: Model, hp: TrainHParams) -> dict:
         state["ef_err"] = map_leaves(
             lambda p: torch.zeros(leaf_shape(p), dtype=torch.float32, device=model.device),
             params)
+    return state
+
+
+def abstract_train_state(model: Model, hp: TrainHParams) -> dict:
+    """The reference's train-state tree as ``meta`` tensors (stacked stage
+    leaves): shapes and dtypes, no storage."""
+    params = model.abstract()
+    state = {"params": params, "opt": _make_opt(model.cfg, hp).init(params),
+             "step": torch.empty((), dtype=torch.int32, device="meta")}
+    if hp.grad_compression:
+        state["ef_err"] = map_leaves(
+            lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"), params)
+    return state
+
+
+def train_state_specs(model: Model, hp: TrainHParams) -> dict:
+    """Logical-axes tree matching :func:`abstract_train_state`."""
+    p_specs = model.specs()
+    specs: dict = {"params": p_specs,
+                   "opt": opt_state_specs(hp.optimizer, model.abstract(), p_specs),
+                   "step": ()}
+    if hp.grad_compression:
+        specs["ef_err"] = p_specs
+    return specs
+
+
+def train_shardings(model: Model, hp: TrainHParams, mesh, rules=None) -> dict:
+    """Every train-state leaf's :class:`~repro_torch.distributed.sharding.NamedSharding`
+    on ``mesh`` (the reference's ``tree_shardings`` of the two trees above)."""
+    rules = sh.rules_for(model.cfg) if rules is None else rules
+    return sh.tree_shardings(abstract_train_state(model, hp), train_state_specs(model, hp),
+                             mesh, rules)
+
+
+def make_mesh_train_state(model: Model, hp: TrainHParams, mesh) -> dict:
+    """The train state of a sharded model (:func:`fsdp.shard_model`): its
+    parameter blocks, and zero blocks of the optimizer state (and
+    ``ef_err``) under their own specs."""
+    abstract = abstract_train_state(model, hp)
+    shard = train_shardings(model, hp, mesh, model.param_source.rules)
+    dev = collectives.mesh_device(mesh)
+    state = {"params": model.param_tree(),
+             "opt": fsdp.zeros_like_tree(abstract["opt"], shard["opt"], dev),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if hp.grad_compression:
+        state["ef_err"] = fsdp.zeros_like_tree(abstract["ef_err"], shard["ef_err"], dev)
     return state
 
 
@@ -227,9 +289,169 @@ class TrainStep:
         return state, metrics
 
 
-def make_train_step(model: Model, hp: TrainHParams) -> TrainStep:
-    """Returns ``step(state, batch) -> (state, metrics)``."""
-    return TrainStep(model, hp)
+def mesh_rows(rows: int, accum: int, mesh, rules, seq: int) -> tuple[list[int], tuple, int]:
+    """(this rank's rows of a global batch of ``rows``, the batch axes, the
+    number of ranks along them): microbatches of contiguous rows first, then
+    each microbatch's rows split over the batch axes."""
+    mb = rows // accum
+    axes = fsdp.batch_axes(mesh, rules, mb, seq)
+    sizes = sh.mesh_axes(mesh)
+    n = math.prod(sizes[a] for a in axes)
+    i = collectives.axis_index(mesh, axes) if axes else 0
+    per = mb // n
+    return [j * mb + i * per + r for j in range(accum) for r in range(per)], axes, n
+
+
+class MeshTrainStep(TrainStep):
+    """:class:`TrainStep` of a sharded model (:func:`fsdp.shard_model`) on
+    ``mesh``: ``step(state, batch)`` takes the global batch and runs this
+    rank's rows (:func:`mesh_rows`); the state's leaves are this rank's
+    blocks (:func:`make_mesh_train_state`)."""
+
+    def __init__(self, model: Model, hp: TrainHParams, mesh):
+        super().__init__(model, hp)
+        if model.param_source is None:
+            raise ValueError("a mesh step needs a sharded model (fsdp.shard_model)")
+        self.mesh = mesh
+        self.gather = model.param_source
+        self.rules = self.gather.rules
+        self.abstract = abstract_train_state(model, hp)
+        self.shardings = train_shardings(model, hp, mesh, self.rules)
+        coords = sh.mesh_coords(mesh)
+        self._names = [n for n, _ in model.named_parameters()]
+        # per parameter: the mesh positions (row-major) holding distinct blocks
+        self._owners = []
+        for n in self._names:
+            used = set(sh.sharded_axes(self.gather.layout[n][1]))
+            self._owners.append([k for k, c in enumerate(coords)
+                                 if all(c[a] == 0 for a in c if a not in used)])
+
+    def grads(self, state: dict, batch: dict) -> dict:
+        params = list(self.model.parameters())
+        for p in params:
+            p.grad = None
+        accum = self.hp.grad_accum
+        key = "frames" if "frames" in batch else "tokens"
+        rows_total, seq = batch[key].shape[:2]
+        rows, axes, n_b = mesh_rows(rows_total, accum, self.mesh, self.rules, seq)
+        self.gather.set_batch(rows_total // accum, seq)
+        idx = torch.as_tensor(rows, device=batch[key].device)
+        local = {k: (v.index_select(1, idx) if k == "positions" else v.index_select(0, idx))
+                 for k, v in batch.items()}
+        sums: dict[str, torch.Tensor] = {}
+        per = len(rows) // accum
+        with sh.logical_sharding(self.mesh, self.rules), sh.local_batch(per):
+            for mb in _split_microbatches(local, accum) if accum > 1 else [local]:
+                with self.gather.top():
+                    loss, metrics = self.model.loss(mb)
+                    (loss * (1.0 / n_b) if n_b > 1 else loss).backward()
+                for k, v in metrics.items():
+                    sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+        with torch.no_grad():
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                elif accum > 1:
+                    p.grad.mul_(weak_scalar(1.0 / accum, p.grad.dtype))
+            names = sorted(sums)
+            vec = torch.stack([sums[k] for k in names])
+            if n_b > 1:
+                vec = collectives.fold_axes(vec * (1.0 / n_b), self.mesh, axes)
+            if accum > 1:
+                vec = vec * (1.0 / accum)
+        return dict(zip(names, vec.unbind(0)))
+
+    @torch.no_grad()
+    def clip(self, state: dict) -> torch.Tensor:
+        params = list(self.model.parameters())
+        partial = torch.stack([torch.sum(torch.square(p.grad.float())) for p in params])
+        world = collectives.all_gather_axes(partial, self.mesh, tuple(sh.mesh_axes(self.mesh)))
+        total = None
+        for j, owners in enumerate(self._owners):
+            leaf = world[owners[0]][j]
+            for k in owners[1:]:
+                leaf = leaf + world[k][j]
+            total = leaf if total is None else total + leaf
+        gnorm = torch.sqrt(total)
+        scale = torch.clamp(self.hp.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+        for p in params:
+            g = p.grad
+            if g.dtype == torch.float32:
+                g.mul_(scale)
+            else:
+                g.copy_((g.float() * scale).to(g.dtype))
+        return gnorm
+
+    def _axes(self, sharding) -> tuple[str, ...]:
+        sizes = sh.mesh_axes(self.mesh)
+        return tuple(a for a in sh.sharded_axes(sharding.spec) if sizes[a] > 1)
+
+    def _whole(self, t: torch.Tensor, shape, sharding) -> torch.Tensor:
+        axes = self._axes(sharding)
+        if not axes:
+            return t
+        plan = fsdp.leaf_plan(shape, sharding.spec, self.mesh, axes, (), self.gather.coord)
+        return fsdp.gather_leaf(t, self.mesh, plan)
+
+    @torch.no_grad()
+    def apply(self, state: dict) -> dict:
+        params = state["params"]
+        grads = map_leaves(lambda p: [t.grad for t in p] if is_stacked(p) else p.grad, params)
+        shard_p = self.shardings["params"]
+        if self.hp.grad_compression:
+            def compress(g, err, s):
+                stacked = torch.stack(g) if is_stacked(g) else g
+                target = stacked.float() + err
+                amax = torch.max(torch.abs(target)).float()
+                axes = self._axes(s)
+                if axes:
+                    amax = torch.stack(collectives.all_gather_axes(amax, self.mesh, axes)).amax()
+                ghat, new_err = compression.ef_compress(stacked, err, amax=amax)
+                err.copy_(new_err)
+                if is_stacked(g):
+                    for a, b in zip(g, ghat.unbind(0)):
+                        a.copy_(b)
+                else:
+                    g.copy_(ghat)
+            map_leaves(compress, grads, state["ef_err"], shard_p)
+        if self.optimizer.kind == "adamw":
+            # elementwise: each rank updates its blocks
+            self.optimizer.update(grads, state["opt"], params, state["step"])
+        else:
+            self._apply_whole(grads, state, shard_p)
+        state["step"].add_(1)
+        return state
+
+    def _apply_whole(self, grads, state, shard_p):
+        """A non-elementwise optimizer (Adafactor: factored row and column
+        statistics, the update's RMS): each leaf's gradient, parameter and
+        state gathered whole, updated as on one device, and cut back."""
+        abstract, shard_o = self.abstract, self.shardings["opt"]
+        coord = self.gather.coord
+
+        def one(g, p, s_opt, sp, so, ap, ao):
+            stacked = is_stacked(p)
+            shape = tuple(ap.shape)
+            per = shape[1:] if stacked else shape
+            per_s = sh.NamedSharding(self.mesh, tuple(sp.spec[1:]) if stacked else sp.spec)
+            gw = [self._whole(t, per, per_s) for t in g] if stacked else self._whole(g, per, per_s)
+            pw = [self._whole(t, per, per_s) for t in p] if stacked else self._whole(p, per, per_s)
+            sw = map_leaves(lambda t, s, a: self._whole(t, a.shape, s), s_opt, so, ao)
+            self.optimizer.update({"x": gw}, {"x": sw}, {"x": pw}, state["step"])
+            for live, whole in zip(p if stacked else [p], pw if stacked else [pw]):
+                if whole is not live:
+                    live.copy_(whole[per_s.slices(per, coord)])
+            map_leaves(lambda t, w, s, a: t.copy_(w[s.slices(a.shape, coord)]) if w is not t
+                       else None, s_opt, sw, so, ao)
+
+        map_leaves(one, grads, state["params"], state["opt"], shard_p, shard_o,
+                   abstract["params"], abstract["opt"])
+
+
+def make_train_step(model: Model, hp: TrainHParams, mesh=None) -> TrainStep:
+    """Returns ``step(state, batch) -> (state, metrics)``; on ``mesh`` a
+    :class:`MeshTrainStep` of a sharded model."""
+    return TrainStep(model, hp) if mesh is None else MeshTrainStep(model, hp, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -245,23 +467,31 @@ def train_loop(cfg: ModelConfig, hp: TrainHParams, *, batch: int, seq: int,
     ``device`` defaults to the card and raises without one.  The model is
     drawn from ``seed``; with ``ckpt_dir`` the run resumes from the latest
     checkpoint there (state and data step) and saves every ``ckpt_every``
-    steps; ``fail_at_step`` raises after that step (crash injection)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_LATER)
-    dev = resolve_device(device)
+    steps; ``fail_at_step`` raises after that step (crash injection).  On
+    ``mesh`` (a ``DeviceMesh``; every rank calls this) the state is this
+    rank's blocks, the model the same one device would draw, and a
+    checkpoint from any mesh or one device resumes here."""
+    dev = resolve_device(device) if mesh is None else collectives.mesh_device(mesh, device)
     if dev.type == "cuda":
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_CONFIG)
-    model = Model(cfg, device=dev, seed=seed)
-    step_fn = make_train_step(model, hp)
+    if mesh is None:
+        model = Model(cfg, device=dev, seed=seed)
+        state = make_train_state(model, hp)
+    else:
+        model = fsdp.shard_model(Model(cfg, device="meta"), mesh, seed=seed, device=dev)
+        state = make_mesh_train_state(model, hp, mesh)
+    step_fn = make_train_step(model, hp, mesh)
+    shardings = step_fn.shardings if mesh is not None else None
     stream = TokenStream(cfg, batch, seq, seed=seed, device=dev)
-    state = make_train_state(model, hp)
+    talk = mesh is None or collectives.dist.get_rank() == 0
 
     start = 0
     writer = ckpt.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     if ckpt_dir is not None:
         latest = ckpt.latest_step(ckpt_dir)
         if latest is not None:
-            restored, manifest = ckpt.restore(ckpt_dir, latest, state, device="cpu")
+            restored, manifest = ckpt.restore(ckpt_dir, latest, state, device="cpu",
+                                              shardings=shardings)
             load_train_state(state, restored)
             start = latest
             stream.restore({"step": manifest["extra"]["data_step"]})
@@ -277,11 +507,12 @@ def train_loop(cfg: ModelConfig, hp: TrainHParams, *, batch: int, seq: int,
                 raise RuntimeError(f"injected failure at step {i}")
             loss = float(metrics["loss"])
             losses.append(loss)
-            if i % log_every == 0:
+            if i % log_every == 0 and talk:
                 print(f"step {i:5d} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f}")
             if writer and (i + 1) % ckpt_every == 0:
-                writer.save(i + 1, state, extra={"data_step": stream.snapshot()["step"]})
+                writer.save(i + 1, state, extra={"data_step": stream.snapshot()["step"]},
+                            shardings=shardings)
     except BaseException:
         # Crash path: drain the async queue so every checkpoint enqueued
         # before the failure is durable when the exception propagates (an
@@ -312,7 +543,13 @@ def main(argv=None):
     ap.add_argument("--grad-accum", type=int, default=None)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to train (default: the card; raises without one)")
+    multihost.add_mesh_args(ap)
     args = ap.parse_args(argv)
+
+    if args.mesh and not multihost.initialize_if_needed(
+            verbose=False, device=args.device, backend=args.backend):
+        return multihost.spawn_launcher(main, args, sys.argv[1:] if argv is None else argv)
+    mesh = launcher_mesh(args.device) if args.mesh else None
 
     from repro_torch.configs import get_config, reduced as reduce_cfg
     cfg = get_config(args.arch)
@@ -329,11 +566,14 @@ def main(argv=None):
     t0 = time.time()
     state, losses, wd = train_loop(cfg, hp, batch=args.batch, seq=args.seq,
                                    steps=args.steps, ckpt_dir=args.ckpt_dir,
-                                   device=args.device)
+                                   device=args.device, mesh=mesh)
     dt = time.time() - t0
-    print(f"done: {args.steps} steps in {dt:.1f}s on {state['step'].device}; "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"stragglers: {wd.straggler_count}")
+    if mesh is None or collectives.dist.get_rank() == 0:
+        where = state["step"].device if mesh is None else f"mesh {sh.mesh_axes(mesh)}"
+        print(f"done: {args.steps} steps in {dt:.1f}s on {where}; "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"stragglers: {wd.straggler_count}")
+    return losses
 
 
 if __name__ == "__main__":

@@ -65,8 +65,9 @@ class ModelConfig:
     is_encoder: bool = False
     frontend_dim: int = 0          # stub modality frontend embedding width
     mtp_depth: int = 0             # DeepSeek-V3 multi-token prediction
-    # numerics / memory (the sharding fields are the reference's; the
-    # port's serving path runs on one device and does not read them)
+    # numerics / memory (sharding_profile picks the rule table of
+    # repro_torch.distributed.sharding; sp_activations is the reference's
+    # and read by nothing here)
     sp_activations: bool = False
     sharding_profile: str = "default"
     attn_q_chunk_threshold: int = 8192  # q-chunk attention above this seq len
@@ -176,6 +177,17 @@ def init_params(defs: Any, gen: torch.Generator, dtype: torch.dtype,
     """Materialise a PSpec tree into tensors on ``device``, drawing the
     normal leaves in tree order from ``gen`` (a generator on ``device``)."""
     return tree_map(lambda p: _init_leaf(p, gen, dtype, device), defs)
+
+
+def abstract_params(defs: Any, dtype: torch.dtype) -> Any:
+    """The tree's leaves as ``meta`` tensors (shape and dtype, no storage):
+    what the dry run reasons about."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=dtype, device="meta"), defs)
+
+
+def logical_specs(defs: Any) -> Any:
+    """Tree of logical-axis tuples, mirroring the params tree."""
+    return tree_map(lambda p: p.axes, defs)
 
 
 def count_params(defs: Any) -> int:

@@ -14,7 +14,10 @@ Attention computes the full (q_len, kv_len) score rectangle and masks it
 with -1e30, as the reference does (no ``scaled_dot_product_attention``,
 whose arithmetic differs); above ``Q_CHUNK_THRESHOLD`` it walks query
 blocks of ``Q_CHUNK`` against all keys.  The reference's sharding
-constraints have no counterpart: the serving path runs on one device.
+constraints are kept at its call sites
+(:func:`repro_torch.distributed.sharding.constrain`): on a mesh, weights
+are gathered whole before use, so they check that an activation's batch
+dim is this rank's block and return it.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, current_mesh, mesh_axes
 from repro_torch.models.config import ModelConfig, PSpec
 
 # q-chunking kicks in above this sequence length
@@ -153,7 +157,7 @@ def lm_head(x, params, embed_params, cfg: ModelConfig):
     if cfg.vocab_padded != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    return logits
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +193,27 @@ def qkv_proj(x, params, cfg: ModelConfig, positions):
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
+    k = constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = constrain(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
+
+
+def _score_axes(n_kv_heads: int, group: int):
+    """The reference's logical axes of the (B, KV, G, Sq, Sk) scores on the
+    current mesh: KV heads over ``model`` where they divide it, else the
+    GQA group (q-head parallelism), else the q sequence (context
+    parallelism)."""
+    mesh = current_mesh()
+    sizes = mesh_axes(mesh) if mesh is not None else {}
+    if "model" not in sizes:
+        return ("batch", "kv_heads", "qgroup", None, None)
+    m = sizes["model"]
+    if n_kv_heads % m == 0:
+        return ("batch", "kv_heads", "qgroup", None, None)
+    if group % m == 0:
+        return ("batch", None, "heads", None, None)
+    return ("batch", None, "qgroup", "attn_q_seq", None)
 
 
 def _sdpa_full(q, k, v, *, causal: bool, q_offset: int = 0):
@@ -201,13 +225,15 @@ def _sdpa_full(q, k, v, *, causal: bool, q_offset: int = 0):
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
+    scores = constrain(scores, _score_axes(k.shape[2], q.shape[3]))
     if causal:
         qi = torch.arange(sq, device=q.device) + q_offset
         ki = torch.arange(sk, device=q.device)
         mask = qi[:, None] >= ki[None, :]
         scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return constrain(out, ("batch", None, None, "heads", None))
 
 
 def sdpa(q, k, v, cfg: ModelConfig, *, causal: bool):
@@ -232,7 +258,9 @@ def sdpa(q, k, v, cfg: ModelConfig, *, causal: bool):
 
 
 def attn_out(o, params, cfg: ModelConfig):
-    return torch.einsum("bshk,hkd->bsd", o, params["wo"].to(cfg.dtype("compute")))
+    o = constrain(o, ("batch", "seq", "heads", "head_dim"))
+    out = torch.einsum("bshk,hkd->bsd", o, params["wo"].to(cfg.dtype("compute")))
+    return constrain(out, ("batch", "seq", "embed"))
 
 
 def attention(x, params, cfg: ModelConfig, positions):
@@ -272,4 +300,5 @@ def mlp(x, params, cfg: ModelConfig, act: str = "silu"):
     cd = cfg.dtype("compute")
     g = torch.matmul(x, params["wg"].to(cd))
     u = torch.matmul(x, params["wu"].to(cd))
-    return torch.matmul(_act(act)(g) * u, params["wd"].to(cd))
+    h = constrain(_act(act)(g) * u, ("batch", "seq", "mlp"))
+    return constrain(torch.matmul(h, params["wd"].to(cd)), ("batch", "seq", "embed"))

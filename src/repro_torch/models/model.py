@@ -55,9 +55,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import blocks, layers
-from repro_torch.models.config import (ModelConfig, PSpec, flatten, init_params,
-                                       stack_defs, tree_map)
+from repro_torch.models.config import (ModelConfig, PSpec, abstract_params, flatten,
+                                       init_params, logical_specs, stack_defs, tree_map)
 
 SHARED = "shared_attn"   # the hybrid's shared block: its parameters' and caches' key
 CE_CHUNK = 1024          # sequence positions per cross-entropy chunk
@@ -136,10 +137,13 @@ def _nest(flat: dict[str, Any]) -> dict:
     return out
 
 
-def _remat(fn, *args):
+def _remat(fn, *args, early_stop: bool = True):
     """``fn(*args)``, recomputed in backward instead of saving its
-    intermediates (the model draws no random numbers: no RNG state kept)."""
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    intermediates (the model draws no random numbers: no RNG state kept).
+    ``early_stop=False`` recomputes all of ``fn`` (a sharded model's entry:
+    every collective of it runs again, so the count is the schedule's)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      early_stop=early_stop)
 
 
 class Model(nn.Module):
@@ -191,6 +195,8 @@ class Model(nn.Module):
         # for each entry of the plan, where its cache sits in the reference's
         # tree: (a stage's name, the layer) or ("shared_attn", the invocation)
         self.cache_slots: tuple[tuple[str, int], ...] = tuple(slots)
+        # a sharded model's parameter gatherer (repro_torch.distributed.fsdp)
+        self.param_source = None
 
     def _block(self, kind: str, tree: dict) -> nn.Module:
         if kind in ("ssm", "hybrid"):
@@ -228,7 +234,7 @@ class Model(nn.Module):
         else:
             x = layers.embed(batch["tokens"], self.embed, cfg)
             positions = self._positions(x)
-        return x.to(cd), positions
+        return constrain(x.to(cd), ("batch", "seq", "embed")), positions
 
     @staticmethod
     def _positions(x):
@@ -246,11 +252,22 @@ class Model(nn.Module):
         ``return_hidden`` the final norm's output (B, S, d)."""
         x, positions = self.embed_input(batch)
         remat = self.cfg.remat == "full" and torch.is_grad_enabled()
-        for block in self.plan:
-            x = _remat(block, x, positions) if remat else block(x, positions)
+        for i in range(len(self.plan)):
+            x = (_remat(self._entry, i, x, positions, early_stop=self.param_source is None)
+                 if remat else self._entry(i, x, positions))
         if return_hidden:
             return layers.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return self.logits(x)
+
+    def _entry(self, i: int, x, positions):
+        """Plan entry ``i`` on ``x``; with a ``param_source`` (a sharded
+        model, :mod:`repro_torch.distributed.fsdp`) its parameters are
+        gathered whole around the call, again in the recompute under remat."""
+        block = self.plan[i]
+        if self.param_source is None:
+            return block(x, positions)
+        with self.param_source.entry(block):
+            return block(x, positions)
 
     def _chunk_ce(self, hs, labels):
         """Summed cross-entropy of one chunk: f32 logsumexp of the compute
@@ -298,6 +315,25 @@ class Model(nn.Module):
             loss = loss + MTP_WEIGHT * mtp_loss
         metrics["loss"] = loss
         return loss, metrics
+
+    def param_defs(self) -> dict:
+        return param_defs(self.cfg)
+
+    def abstract(self, dtype: torch.dtype | None = None) -> dict:
+        """The reference's parameter tree as ``meta`` tensors (stacked stage
+        leaves), in ``dtype`` (the config's ``param_dtype`` by default)."""
+        return abstract_params(param_defs(self.cfg),
+                               dtype if dtype is not None else self.cfg.dtype("param"))
+
+    def specs(self) -> dict:
+        """The logical axes of every leaf of :meth:`abstract`."""
+        return logical_specs(param_defs(self.cfg))
+
+    def abstract_cache(self, batch: int, seq_cap: int) -> dict:
+        return abstract_params(self.cache_defs(batch, seq_cap), self.cfg.dtype("compute"))
+
+    def cache_specs(self, batch: int, seq_cap: int) -> dict:
+        return logical_specs(self.cache_defs(batch, seq_cap))
 
     def param_tree(self) -> dict:
         """The parameters as the reference's tree (``embed``, ``stages/<stage>``,

@@ -1,5 +1,5 @@
 """Mixture-of-Experts feed-forward, DeepSeek-style (port of
-``repro.models.moe``), on one device.
+``repro.models.moe``), with expert parallelism.
 
 Routing is an f32 softmax, top-k and renormalisation; shared experts are a
 dense gated MLP added beside the routed ones.  Dispatch is the reference's
@@ -15,9 +15,17 @@ the order of the reference's ``segment_sum``, one add after another in the
 compute dtype: no scatter-add, whose float atomics on CUDA would make two
 runs differ in their bits.
 
-The expert-parallel path (the ``all_to_all`` dispatch inside a
-``shard_map`` island) waits for ROADMAP queue 1, the LM stack's 'LM
-multi-device path' part; :func:`moe_ffn` raises if handed an expert axis.
+Expert parallelism is the reference's ``shard_map`` island, written out:
+under a mesh (:func:`repro_torch.distributed.sharding.logical_sharding`, or
+``mesh=``) whose ``model`` axis has more than one rank and divides the
+experts, each rank holds E/ep experts; the tokens, replicated over
+``model``, are cut into ep slices and each rank routes its own (capacity
+from the slice's token count), one all-to-all moves the (E, C, d) buffer to
+(E/ep, ep*C, d) rows of its experts from every slice, the experts run, the
+reverse all-to-all brings the rows back, and after the combine a gather
+over ``model`` restores every token (:mod:`repro_torch.distributed.collectives`,
+with autograd backwards).  Each rank's combine keeps the ascending-expert
+order.  :data:`DROPS`, when a list, collects each dispatch's dropped pairs.
 """
 
 from __future__ import annotations
@@ -26,13 +34,15 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig, PSpec
 
 MOE_CHUNK = 4096   # tokens per dispatch chunk
 
-EXPERT_PARALLEL_LATER = ("expert parallelism (the all_to_all dispatch) comes with "
-                         "ROADMAP queue 1, the LM stack's 'LM multi-device path' part")
+# a list to collect each dispatch's dropped (token, expert) pairs, or None
+DROPS: list | None = None
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -88,21 +98,35 @@ def dispatch_plan(idx, cfg: ModelConfig):
     return cap, order, slot, keep
 
 
-def _dispatch_compute_combine(x_flat, weights, idx, wg, wu, wd, cfg: ModelConfig):
-    """Capacity dispatch -> expert FFN -> combine. x_flat: (T, d). Returns (T, d)."""
+def _dispatch_compute_combine(x_flat, weights, idx, wg, wu, wd, cfg: ModelConfig,
+                              mesh=None, ep: int = 1):
+    """Capacity dispatch -> (all-to-all over ``model``) -> expert FFN ->
+    (the reverse all-to-all) -> combine. x_flat: (T, d) local tokens;
+    wg/wu/wd: the local experts (E/ep of them). Returns (T, d)."""
     t, d = x_flat.shape
     e, k = cfg.n_experts, cfg.top_k
     cd = cfg.dtype("compute")
     cap, order, slot, keep = dispatch_plan(idx, cfg)
+    if DROPS is not None:
+        DROPS.append(int((~keep).sum()))
     tok_sort = order // k                                   # tok_flat = repeat(arange(t), k)
 
     buf = torch.zeros((e * cap + 1, d), dtype=x_flat.dtype, device=x_flat.device)
     buf[slot] = x_flat[tok_sort]        # distinct rows but the overflow one, dropped next
     buf = buf[:-1].reshape(e, cap, d)
+    if ep > 1:
+        # (E, C, d) -> (E/ep, ep*C, d): my experts' rows from every slice
+        buf = collectives.all_to_all(buf.reshape(ep, e // ep, cap, d), mesh, ("model",))
+        buf = buf.transpose(0, 1).reshape(e // ep, ep * cap, d)
 
     g = torch.bmm(buf, wg.to(cd))
     u = torch.bmm(buf, wu.to(cd))
-    y = torch.bmm(layers._silu(g) * u, wd.to(cd)).reshape(e * cap, d)
+    y = torch.bmm(layers._silu(g) * u, wd.to(cd))
+    if ep > 1:
+        # reverse: (E/ep, ep*C, d) -> (E, C, d)
+        y = y.reshape(e // ep, ep, cap, d).transpose(0, 1).contiguous()
+        y = collectives.all_to_all(y, mesh, ("model",))
+    y = y.reshape(e * cap, d)
 
     # each pair's row, back in (token, choice) order, then each token's
     # choices in ascending expert order
@@ -119,40 +143,87 @@ def _dispatch_compute_combine(x_flat, weights, idx, wg, wu, wd, cfg: ModelConfig
     return out.to(x_flat.dtype)
 
 
-def _moe_tokens(x_flat, router_w, wg, wu, wd, cfg: ModelConfig):
+def _moe_tokens(x_flat, router_w, wg, wu, wd, cfg: ModelConfig, mesh=None, ep: int = 1):
     """Routed experts over a flat (T, d) token slice, in chunks of MOE_CHUNK."""
     t, d = x_flat.shape
     if t <= MOE_CHUNK:
         w, idx = _route(x_flat, router_w, cfg)
-        return _dispatch_compute_combine(x_flat, w, idx, wg, wu, wd, cfg)
+        return _dispatch_compute_combine(x_flat, w, idx, wg, wu, wd, cfg, mesh, ep)
     n_chunks = -(-t // MOE_CHUNK)
     xp = torch.nn.functional.pad(x_flat, (0, 0, 0, n_chunks * MOE_CHUNK - t))
     out = []
     for xi in xp.reshape(n_chunks, MOE_CHUNK, d):
         w, idx = _route(xi, router_w, cfg)
-        out.append(_dispatch_compute_combine(xi, w, idx, wg, wu, wd, cfg))
+        out.append(_dispatch_compute_combine(xi, w, idx, wg, wu, wd, cfg, mesh, ep))
     return torch.cat(out)[:t]
 
 
-def _moe_local(x, router_w, wg, wu, wd, cfg: ModelConfig):
-    """Routed experts of a (B, S, d) activation on one device."""
+def _moe_local(x, router_w, wg, wu, wd, cfg: ModelConfig, mesh=None, ep: int = 1):
+    """Routed experts of a (B, S, d) activation.  Under expert parallelism
+    (``ep`` > 1) ``x`` is replicated over ``model``: each rank takes a
+    disjoint 1/ep slice of the tokens (zero-padded to a multiple of ep),
+    and a gather over ``model`` restores the replicated layout."""
     b, s, d = x.shape
-    return _moe_tokens(x.reshape(b * s, d), router_w, wg, wu, wd, cfg).reshape(b, s, d)
+    t = b * s
+    x_flat = x.reshape(t, d)
+    if ep == 1:
+        return _moe_tokens(x_flat, router_w, wg, wu, wd, cfg).reshape(b, s, d)
+    t_pad = -(-t // ep) * ep
+    if t_pad != t:
+        x_flat = torch.nn.functional.pad(x_flat, (0, 0, 0, t_pad - t))
+    x_m = collectives.slice_rows(x_flat, mesh, ("model",), t_pad // ep)
+    y_m = _moe_tokens(x_m, router_w, wg, wu, wd, cfg, mesh, ep)
+    y = collectives.gather_rows_tiled(y_m, mesh, ("model",))
+    return y[:t].reshape(b, s, d)
+
+
+def expert_parallel_degree(cfg: ModelConfig, mesh) -> int:
+    """The reference's rule: a ``model`` axis of more than one rank that
+    divides the experts shards them; 1 where there is none."""
+    if mesh is None or not cfg.n_experts:
+        return 1
+    m = sharding.mesh_axes(mesh).get("model", 1)
+    return m if m > 1 and cfg.n_experts % m == 0 else 1
+
+
+def is_moe_layer(cfg: ModelConfig, i: int) -> bool:
+    """Whether layer ``i`` of the model holds a MoE feed-forward (the moe
+    family's layers after its first dense ones)."""
+    return cfg.family == "moe" and i >= cfg.first_dense_layers
+
+
+def ep_role(cfg: ModelConfig, mesh, name: str) -> str | None:
+    """Expert parallelism's placement rule for the parameter leaf ``name``
+    (dotted, as ``Model.named_parameters`` gives it).  ``"local"`` for a
+    routed expert's weight (``blocks.<i>.ffn.wg|wu|wd``): each rank keeps
+    its E/ep experts and never gathers them over ``model``.  ``"router"``
+    for the router: each ``model`` rank routes its own token slice, so its
+    gradient also sums over ``model``.  None for every other leaf, and for
+    every leaf without expert parallelism."""
+    parts = name.split(".")
+    if (len(parts) != 4 or parts[0] != "blocks" or parts[2] != "ffn"
+            or not is_moe_layer(cfg, int(parts[1]))
+            or expert_parallel_degree(cfg, mesh) == 1):
+        return None
+    return {"wg": "local", "wu": "local", "wd": "local", "router": "router"}.get(parts[3])
 
 
 def moe_ffn(x, params, cfg: ModelConfig, mesh=None):
     """Routed experts (+ shared experts) for a (B, S, d) activation.
 
-    ``mesh`` (a ``DeviceMesh``) with a ``model`` axis of more than one rank
-    that divides the experts is the reference's expert-parallel case, which
-    raises here."""
-    if mesh is not None:
-        names = tuple(mesh.mesh_dim_names or ())
-        if "model" in names:
-            m = mesh.size(names.index("model"))
-            if m > 1 and cfg.n_experts % m == 0:
-                raise NotImplementedError(EXPERT_PARALLEL_LATER)
-    out = _moe_local(x, params["router"], params["wg"], params["wu"], params["wd"], cfg)
+    ``mesh`` (a ``DeviceMesh``; the :func:`~repro_torch.distributed.sharding.logical_sharding`
+    mesh by default) with a ``model`` axis of more than one rank that
+    divides the experts takes the expert-parallel island.  There the routed
+    experts are this rank's E/ep (or all E, of which it takes its own)."""
+    mesh = mesh if mesh is not None else sharding.current_mesh()
+    ep = expert_parallel_degree(cfg, mesh)
+    wg, wu, wd = params["wg"], params["wu"], params["wd"]
+    if ep > 1 and wg.shape[0] == cfg.n_experts:
+        m = collectives.axis_index(mesh, ("model",))
+        per = cfg.n_experts // ep
+        wg, wu, wd = (w[m * per:(m + 1) * per] for w in (wg, wu, wd))
+    with sharding.no_constraints():
+        out = _moe_local(x, params["router"], wg, wu, wd, cfg, mesh, ep)
     if cfg.n_shared_experts:
         out = out + layers.mlp(x, params["shared"], cfg)
-    return out
+    return sharding.constrain(out, ("batch", "seq", "embed"))

@@ -203,6 +203,26 @@ def adafactor(lr, *, decay: float = 0.8, eps: float = 1e-30,
     return Optimizer(kind="adafactor", init=init, update=update)
 
 
+def opt_state_specs(kind: str, abstract_params, param_specs,
+                    min_dim_size_to_factor: int = 128):
+    """Logical-axes tree for the optimizer state of ``kind``.
+
+    Needs the abstract params (leaves with a ``shape``) because Adafactor's
+    factorisation depends on leaf shapes, not just axes."""
+    if kind == "adamw":
+        return {"mu": map_leaves(lambda p, a: tuple(a), abstract_params, param_specs),
+                "nu": map_leaves(lambda p, a: tuple(a), abstract_params, param_specs)}
+    if kind == "adafactor":
+        def one(p, axes):
+            shape = leaf_shape(p)
+            if (len(shape) >= 2 and shape[-1] >= min_dim_size_to_factor
+                    and shape[-2] >= min_dim_size_to_factor):
+                return {"vr": tuple(axes[:-1]), "vc": tuple(axes[:-2]) + (axes[-1],)}
+            return {"v": tuple(axes)}
+        return map_leaves(one, abstract_params, param_specs)
+    raise ValueError(kind)
+
+
 def make_optimizer(kind: str, lr, **kw) -> Optimizer:
     if kind == "adamw":
         return adamw(lr, **kw)

@@ -43,11 +43,15 @@ def test_files_found():
                                   "launch/specs.py", "models/mla.py", "models/moe.py",
                                   "models/ssm.py", "optim", "optim/optimizers.py",
                                   "optim/schedule.py", "data", "data/pipeline.py",
-                                  "distributed/checkpoint.py", "launch/train.py"])
+                                  "distributed/checkpoint.py", "launch/train.py",
+                                  "distributed/sharding.py", "distributed/fsdp.py",
+                                  "distributed/elastic.py", "distributed/pipeline.py",
+                                  "distributed/collectives.py", "launch/dryrun.py"])
 def test_scan_covers_service_slice(part):
     """The service slice's subpackages, the adaptive and stratified
-    slice's modules, the invariant checker's, the LM serving slices' and
-    the LM training slice's are among the scanned files."""
+    slice's modules, the invariant checker's, the LM serving slices', the
+    LM training slice's and the LM multi-device path's are among the
+    scanned files."""
     root = ROOT / "src" / "repro_torch" / part
     assert any(p == root or root in p.parents for p in FILES), part
 

@@ -4,7 +4,7 @@ weights within 1e-6; moe_ffn within the reference's atol=2e-5
 (tests/models/test_moe.py) at a dropless capacity and at two that drop,
 with the same (token, expert) pairs kept; a call above MOE_CHUNK tokens
 routed chunk by chunk; the shared experts; the expert MLP's bf16 silu
-steps; two calls bit-equal; the expert-parallel case refused by name; the
+steps; two calls bit-equal; the expert-parallel island on two ranks; the
 DeepSeek trees (the moe stage, the mtp subtree) carried bit for bit."""
 
 from types import SimpleNamespace
@@ -21,6 +21,7 @@ from repro.models import moe as jmoe
 from repro.models.config import ModelConfig as JConfig
 from repro.models.model import Model as JModel
 from repro_torch.configs import get_config, reduced
+from repro_torch.launch import multihost
 from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_reference
@@ -208,16 +209,53 @@ def test_two_calls_bit_equal():
     assert torch.equal(moe.moe_ffn(tx, tp32, cfg32), moe.moe_ffn(tx, tp32, cfg32))
 
 
+def _ep_ranks(x, params, kw):
+    from repro_torch.launch.mesh import make_mesh_for
+    cfg = _cfgs(**kw)[1]
+    mesh = make_mesh_for(model_parallel=2, device="cpu")
+    return moe.moe_ffn(x, params, cfg, mesh=mesh).numpy()
+
+
 def test_expert_parallel_axis_refused_by_name():
+    """The expert-parallel axis runs: on a (1, 2) mesh of two gloo ranks
+    each rank routes half the tokens to its 4 of 8 experts through the
+    all-to-alls, and at a dropless capacity every rank's output equals one
+    device's within ATOL.  A model axis of one rank, or one that does not
+    divide the experts, is the reference's single-device path."""
     _, cfg, _, tp, _, tx = _setup(seed=6)
-    mesh = lambda shape: SimpleNamespace(mesh_dim_names=("data", "model"),
-                                         size=lambda i: shape[i])
-    with pytest.raises(NotImplementedError, match="LM multi-device path"):
-        moe.moe_ffn(tx, tp, cfg, mesh=mesh((1, 4)))
-    # a model axis of one rank, or one that does not divide the experts,
-    # is the reference's single-device path
+    want = moe.moe_ffn(tx, tp, cfg)
+    for got in multihost.spawn(_ep_ranks, 2, tx, tp, {}, device="cpu", timeout=120):
+        _close(torch.from_numpy(got), want.numpy())
+    mesh = lambda shape: SimpleNamespace(mesh_dim_names=("data", "model"), shape=shape)
     for shape in ((4, 1), (1, 3)):
-        assert torch.equal(moe.moe_ffn(tx, tp, cfg, mesh=mesh(shape)), moe.moe_ffn(tx, tp, cfg))
+        assert torch.equal(moe.moe_ffn(tx, tp, cfg, mesh=mesh(shape)), want)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-v3-671b",
+                                  "stablelm-3b", "zamba2-7b"])
+def test_ep_role_marks_the_moe_layers_leaves(arch):
+    """``ep_role`` names the routed experts' weights ``local`` and the
+    router ``router`` in exactly the model's MoE layers, and only under a
+    ``model`` axis that divides the experts; every other leaf has no role."""
+    cfg = reduced(get_config(arch))
+    model = Model(cfg, device="meta")
+    mesh = lambda shape: SimpleNamespace(mesh_dim_names=("data", "model"), shape=shape)
+    names = [n for n, _ in model.named_parameters()]
+    for i, b in enumerate(model.blocks):
+        assert moe.is_moe_layer(cfg, i) == getattr(b, "use_moe", False)
+    for n in names:
+        assert moe.ep_role(cfg, mesh((4, 1)), n) is None
+        parts = n.split(".")
+        in_moe = parts[0] == "blocks" and getattr(model.blocks[int(parts[1])], "use_moe", False)
+        want = None
+        if in_moe and parts[2:] in (["ffn", "wg"], ["ffn", "wu"], ["ffn", "wd"]):
+            want = "local"
+        elif in_moe and parts[2:] == ["ffn", "router"]:
+            want = "router"
+        assert moe.ep_role(cfg, mesh((2, 2)), n) == want, n
+    roles = [moe.ep_role(cfg, mesh((2, 2)), n) for n in names]
+    n_moe = sum(moe.is_moe_layer(cfg, i) for i in range(cfg.n_layers))
+    assert roles.count("local") == 3 * n_moe and roles.count("router") == n_moe
 
 
 def test_deepseek_trees_carried_bit_for_bit():

@@ -159,6 +159,17 @@ def test_cli_serves_moe_configs_on_cpu(arch, capsys):
     assert "generated (2, 4)" in out and "on cpu" in out
 
 
+def test_cli_serves_on_a_mesh_of_two_ranks():
+    """``--mesh --ranks 2`` serves the MoE configuration on (data, model) =
+    (1, 2), its routed experts sharded over both ranks; the greedy tokens
+    are one device's."""
+    argv = ["--arch", "deepseek-v2-lite-16b", "--reduced", "--device", "cpu",
+            "--new-tokens", "4"]
+    want = serve.main(argv)
+    got = serve.main(argv + ["--mesh", "--ranks", "2"])
+    assert np.array_equal(np.asarray(got), np.asarray(want))
+
+
 def test_generate_prompt_length_from_vlm_batch():
     jcfg = jconfigs.reduced(jconfigs.get_config("qwen2_vl_7b"))
     cfg = configs.reduced(configs.get_config("qwen2_vl_7b"))

@@ -4,7 +4,8 @@ against the reference's (loss, grad_norm, parameters by relative RMS),
 remat on and off bit-equal, grad_accum=2 against one whole batch, the
 crash-and-resume trajectory bit-equal (tests/test_system.py's protocol),
 fixed-batch memorisation (its protocol and threshold), the microbatch
-split, the CLI on the CPU, and the entry points' refusals."""
+split, the CLI on the CPU, train_loop(mesh=) on a one-rank mesh, and the
+entry points' refusals without a card."""
 
 import dataclasses
 
@@ -216,10 +217,33 @@ def test_cli_runs_on_the_cpu(capsys):
     assert "done: 2 steps" in out and "on cpu" in out
 
 
-def test_entry_points_refuse():
+def test_cli_trains_on_a_mesh_of_two_ranks(capsys):
+    """``--mesh --ranks 2`` starts two gloo ranks on the launcher's mesh,
+    (data, model) = (1, 2); the losses are one device's up to association
+    order."""
+    argv = ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16"]
+    want = train.main(argv)
+    got = train.main(argv + ["--mesh", "--ranks", "2"])
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_entry_points_refuse(tmp_path):
+    """train_loop(mesh=) runs (a (1, 1) mesh of one gloo rank in this
+    process: the mesh path, its losses those of one device); without a
+    GPU the card's entry points raise."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
     cfg = reduced(get_config("stablelm_3b"))
-    with pytest.raises(NotImplementedError, match="LM multi-device path"):
-        train.train_loop(cfg, _hp(2), batch=2, seq=8, steps=1, mesh=object(), device="cpu")
+    _, want, _ = train.train_loop(cfg, _hp(2), batch=2, seq=8, steps=2, device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv", rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for(device="cpu")
+        state, got, _ = train.train_loop(cfg, _hp(2), batch=2, seq=8, steps=2, mesh=mesh,
+                                         device="cpu")
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert int(state["step"]) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--reduced", "--steps", "1"])

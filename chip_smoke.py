@@ -21,7 +21,8 @@ multi-device path (a mesh of one NCCL rank, then four gloo ranks), the
 LM stack's serving path at full width, dense, MoE (MLA), SSM (Mamba-2)
 and hybrid models, its training path at full width and depth
 (stablelm-3b, mamba2-130m), and its multi-device path (training, expert-
-parallel serving and a pipeline on four gloo ranks sharing the card):
+parallel serving and a pipeline on four gloo ranks sharing the card, and
+qwen2.5-32b served tensor parallel on four ranks):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -252,21 +253,25 @@ parallel serving and a pipeline on four gloo ranks sharing the card):
    (a) stablelm-3b at full width, 4 of 32 layers, in f32 (TF32 off),
    step 25's AdamW, batch and microbatches, on (data, model) = (2, 2): 4
    uninterrupted steps, 3 timed (step ms, the collectives' ms inside it,
-   tokens/s, each rank's peak); gate (a1) its first 3 steps against 3 on
-   one device in the mesh's pieces of rows (4 microbatches of 2 rows)
+   tokens/s, each rank's peak); gate (a1) the mesh's first 3 steps in
+   f64 (every f32 upcast of the model kept at f64) against 3 on one
+   device in f64 in the mesh's pieces of rows (4 microbatches of 2 rows)
    with step 25's gate (a) tolerances (every loss and grad_norm, each
-   leaf's gradient after step 3, the parameters), one device in step
-   25's 2 microbatches printed beside it; gate (a3) each rank's resident
+   leaf's gradient after step 3, the parameters); the f32 run's 3 steps
+   against one device's in f32, in the mesh's rows and in step 25's 2
+   microbatches, printed beside it (tensor parallelism sums the row-split
+   products in another order, which the seeded model amplifies as another
+   microbatching does), and the f32 step-1 witness; gate (a3) each rank's resident
    state bytes and one step's collectives (kind, count, bytes) equal to
    ``launch.dryrun``'s derivation; gate (a2) the run checkpointing at
    step 2 and failing in step 3, resumed on (2, 2): its losses and final
    state sha256-equal to the uninterrupted run's, and the checkpoint
    restored on (4, 1) and on one device sha256-equal to its files.
    (b) deepseek-v2-lite-16b at full width and depth on (1, 4), 16 of 64
-   experts a rank, step 23's request: gate (b1) at depth 3, dropless and
-   in f32, prefill and 8 decode steps within 5e-3 of the largest |logit|
-   of one device's; gate (b2) at the served capacity in bf16, two
-   generates sha256-equal on every rank, the dropped pairs per MoE layer
+   experts a rank, step 23's prompts and cache: gate (b1) at depth 3,
+   dropless and in f32, prefill and 8 decode steps within 5e-3 of the
+   largest |logit| of one device's; gate (b2) at the served capacity in
+   bf16, two generates of 16 tokens sha256-equal on every rank, the dropped pairs per MoE layer
    printed beside one device's; gate (b3) the all-to-all bytes per MoE
    layer of a prefill and a decode step equal to the derivation; prefill
    and decode ms, the all-to-all ms of a decode step, tokens/s and each
@@ -274,7 +279,25 @@ parallel serving and a pipeline on four gloo ranks sharing the card):
    axis, 8 microbatches of 1 x 512, f32: within 1e-5 of the largest
    |output| of the blocks run in sequence on one rank (the bits compared),
    each rank's wall and idle share beside the schedule's bubble
-   (P-1)/(M+P-1); then prints the ``{"kernels": [...]}`` line,
+   (P-1)/(M+P-1).  Every phase runs tensor parallel over ``model`` (heads,
+   MLP width, vocab; the decode caches split along the sequence);
+27. qwen2.5-32b served at full width and depth (64 layers, 32.8e9
+   parameters, 65.5 GB in bf16) on (data, model) = (1, 4): four gloo
+   ranks sharing the card, each holding its quarter of the heads, MLP
+   width and vocab (16.4 GB) and its quarter of the cache's positions
+   (flash-decoding over ``model``), step 22's request (4 x 512-token
+   prompts, cache 576): gate (d1) at depth 4, prefill and 8 decode steps
+   fed one device's tokens, computed in f64 within 5e-3 of the largest
+   |logit| of one device's in f64 (run first), and in f32 (TF32 off) as
+   far from one device's f64 as one device's own f32 is, within 2x: the
+   seeded model amplifies f32 rounding, which tensor parallelism
+   reorders; gate (d2) 16 greedy tokens from ``Server.generate`` and from
+   its prefill and decode steps written out (each timed) sha256-equal on
+   every rank; gate (d3) each rank's resident parameter and cache bytes
+   equal to ``dryrun.cell_bytes``' argument bytes and a decode step's
+   collectives (kind, count, bytes) equal to ``serve_collectives``;
+   prefill and decode ms, tokens/s, each rank's peak and the init's peak;
+   then prints the ``{"kernels": [...]}`` line,
    one entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
    ``fused_mc_sobol_adapted``, a rank's shard on the (2, 2) mesh as
@@ -492,6 +515,10 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 3
 MESH_RESUME_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 4, 2, 2
 # gate (a1)'s one device runs the mesh's rows as its microbatches: 2
 # microbatches of 4 rows split over data = 2 ranks are 4 pieces of 2 rows.
+# Since tensor parallelism the mesh also sums each row-split product (wo,
+# wd, the vocab) over model in another order than one device's, so gate
+# (a1) compares the two in f64, where that order moves the step-3 state by
+# about 2^-29 of what it moves f32's; the f32 comparison is printed.
 # In step 25's 2 microbatches of 4 rows the seeded 4-layer model's
 # gradients move by ~7% relative RMS (one device against one device), past
 # the gate, and Adam turns that into 8e-3 of the parameters by step 3.  The
@@ -503,9 +530,19 @@ MESH_RESUME_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 4, 2, 2
 # times the farther one device's
 MESH_ROW_ACCUM = 4
 MESH_F64_RMS, MESH_F32_SPREAD = 1e-8, 2.0
-MESH_TIMED_DECODE = 8
+MESH_TIMED_DECODE = 4
+# (b2)'s generates: 16 greedy tokens (every decode step's ~270 collectives
+# cross gloo at ~6 ms each under tensor parallelism)
+MESH_B2_NEW = 16
 MESH_SERVE_ARCH, MESH_B1_DEPTH = "deepseek-v2-lite-16b", 3
 PIPE_M, PIPE_SEQ, PIPE_TOL, PIPE_SEED = 8, 512, 1e-5, 100
+# step 26 (a) on the same request under the whole-gather schedule that
+# tensor parallelism replaced: the median step on this card and the
+# all-gather bytes a rank a step (PERF.md §6)
+MESH_WHOLE_STEP_MS, MESH_WHOLE_GATHERED = 9595.0, 7_141_151_360
+# step 27: qwen2.5-32b tensor parallel on (1, 4), step 22's prompts and
+# cache; gate (d1) at depth TP_D1_DEPTH; TP_NEW greedy tokens a generate
+TP_ARCH, TP_D1_DEPTH, TP_NEW = "qwen2.5-32b", 4, 16
 
 
 def fail(msg: str) -> None:
@@ -1243,7 +1280,7 @@ def lm_run(model, batch: dict, steps: int, tokens=None):
         tok = (tokens[:, i:i + 1] if tokens is not None
                else torch.argmax(logits, dim=-1)[:, None].to(torch.int32))
         fed.append(tok)
-        logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
+        logits, cache = model.decode_step(cache, tok, LM_PROMPT + i, LM_CAP)
         out.append(logits)
     return out, torch.cat(fed, dim=1)
 
@@ -2601,6 +2638,39 @@ def lm_mesh_rank(work: str) -> dict:
     free()
     out["a1_s"] = time.perf_counter() - t0
 
+    # (a1) the mesh's first MESH_TRAIN_STEPS steps in f64 against the
+    # parent's one device in f64 in the same rows
+    t0 = time.perf_counter()
+    full64 = full.with_overrides(param_dtype="float64", compute_dtype="float64")
+    with f64_upcasts():
+        model = fsdp.shard_model(Model(full64, device="meta"), m22, device=dev)
+        state = train.make_mesh_train_state(model, hp, m22)
+        step = train.make_train_step(model, hp, m22)
+        stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+        metrics64 = []
+        for _ in range(MESH_TRAIN_STEPS):
+            state, m = step(state, stream.next_batch())
+            metrics64.append({k: float(v) for k, v in m.items()})
+    grads = map_leaves(lambda p: [t.grad for t in p] if is_stacked(p) else p.grad,
+                       state["params"])
+    g_whole = ckpt.gather_tree(grads, step.shardings["params"])
+    p_whole = ckpt.gather_tree(state["params"], step.shardings["params"])
+    if rank == 0:
+        ref = torch.load(os.path.join(work, "a1_ref64.pt"))
+        rel = lambda key: max(abs(x[key] - y[key]) / abs(y[key])
+                              for x, y in zip(metrics64, ref["metrics"]))
+        g_rms = {n: rel_rms(t, ref["grads"][n]) for n, t in ckpt.leaf_paths(g_whole)}
+        p_rms = {n: rel_rms(t, ref["params"][n]) for n, t in ckpt.leaf_paths(p_whole)}
+        out["a1_64"] = {"loss": rel("loss"), "grad_norm": rel("grad_norm"),
+                        "grads": max(g_rms.values()), "grads_worst": max(g_rms, key=g_rms.get),
+                        "params": max(p_rms.values()),
+                        "losses": [x["loss"] for x in metrics64],
+                        "ref_losses": [y["loss"] for y in ref["metrics"]]}
+        del ref
+    del model, state, step, grads, g_whole, p_whole
+    free()
+    out["a1_64_s"] = time.perf_counter() - t0
+
     # (a2) train_loop resumes (a)'s run from its checkpoint, fails in step
     # MESH_FAIL_AT + 1 and resumes again; the checkpoint restored on (4, 1)
     t0 = time.perf_counter()
@@ -2647,8 +2717,10 @@ def lm_mesh_rank(work: str) -> dict:
     local, _ = srv.local(batch)
     with srv.context(local["tokens"].shape[0]):
         logits, _ = lm_run(srv.compute, local, LM_CHECK_STEPS, tokens=ref["fed"].to(dev))
+    # each rank's vocab columns, gathered whole
+    whole = lambda x: torch.cat(collectives.all_gather_axes(x, m14, ("model",)), dim=-1)
     scale = max(float(x.abs().max()) for x in ref["logits"])
-    out["b1_err"] = max(float((a[:, :v].cpu() - b).abs().max())
+    out["b1_err"] = max(float((whole(a)[:, :v].cpu() - b).abs().max())
                         for a, b in zip(logits, ref["logits"]))
     out["b1_scale"] = scale
     del srv, logits
@@ -2661,9 +2733,9 @@ def lm_mesh_rank(work: str) -> dict:
     out["b_build_s"] = time.perf_counter() - t1
     batch = concrete_batch(ds, LM_BATCH, LM_PROMPT, train=False, device=dev)
     moe.DROPS = []
-    toks = [srv.generate(batch, LM_NEW, seq_cap=LM_CAP)]
+    toks = [srv.generate(batch, MESH_B2_NEW, seq_cap=LM_CAP)]
     out["drops"], moe.DROPS = moe.DROPS, None
-    toks.append(srv.generate(batch, LM_NEW, seq_cap=LM_CAP))
+    toks.append(srv.generate(batch, MESH_B2_NEW, seq_cap=LM_CAP))
     out["tok_sha"] = [sha256_of(t) for t in toks]
     n_moe = ds.n_layers - ds.first_dense_layers
     local, _ = srv.local(batch)
@@ -2674,13 +2746,13 @@ def lm_mesh_rank(work: str) -> dict:
         logits, cache = srv.compute.prefill(local, LM_CAP)
         sync()
         out["prefill_ms"] = (time.perf_counter() - t1) * 1e3
-        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        tok = srv.argmax_over_vocab(logits)
         dec, a2a = [], []
         for i in range(MESH_TIMED_DECODE):
             collectives.reset_counters()
             t1 = time.perf_counter()
-            logits, cache = srv.compute.decode_step(cache, tok, LM_PROMPT + i)
-            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            logits, cache = srv.compute.decode_step(cache, tok, LM_PROMPT + i, LM_CAP)
+            tok = srv.argmax_over_vocab(logits)
             sync()
             dec.append((time.perf_counter() - t1) * 1e3)
             c = collectives.counters()
@@ -2793,11 +2865,19 @@ def lm_mesh(card: str) -> None:
                 step = train.make_train_step(model, mesh_hp(accum))
                 stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
                 metrics = []
-                for i in range(MESH_TRAIN_STEPS if cfg_w is full else 1):
+                for i in range(MESH_TRAIN_STEPS if cfg_w is full or accum == MESH_ROW_ACCUM
+                               else 1):
                     state, m = step(state, stream.next_batch())
                     metrics.append({k: float(v) for k, v in m.items()})
                     if i == 0:
                         g1[cfg_w.compute_dtype, accum] = dev_grads(state)
+                if cfg_w is full64 and accum == MESH_ROW_ACCUM:
+                    # gate (a1): step 3 in f64, kept in f32 (far finer than its tolerances)
+                    torch.save({"metrics": metrics,
+                                "grads": {n: t.float().cpu() for n, t in dev_grads(state).items()},
+                                "params": {n: stacked(t).float() for n, t in
+                                           ckpt.leaf_paths(state["params"])}},
+                               os.path.join(work, "a1_ref64.pt"))
             if cfg_w is full:
                 a1_ref[accum] = metrics
             if cfg_w is full and accum == MESH_ROW_ACCUM:
@@ -2832,7 +2912,7 @@ def lm_mesh(card: str) -> None:
     srv = Server(ds, device=dev, seed=0)
     batch = concrete_batch(ds, LM_BATCH, LM_PROMPT, train=False, device=dev)
     moe.DROPS = []
-    one_tokens = srv.generate(batch, LM_NEW, seq_cap=LM_CAP)
+    one_tokens = srv.generate(batch, MESH_B2_NEW, seq_cap=LM_CAP)
     one_drops, moe.DROPS = moe.DROPS, None
     del srv, batch
     gc.collect()
@@ -2853,8 +2933,8 @@ def lm_mesh(card: str) -> None:
     a1 = r0["metrics"][:MESH_TRAIN_STEPS]
     rel = lambda key, ref: max(abs(x[key] - y[key]) / abs(y[key]) for x, y in zip(a1, ref))
     loss_err, gnorm_err = rel("loss", a1_ref[MESH_ROW_ACCUM]), rel("grad_norm", a1_ref[MESH_ROW_ACCUM])
-    print(f"step 26 (a1) {TRAIN_ARCH} at full width, {MESH_TRAIN_LAYERS} of 32 layers, f32 "
-          f"(TF32 off), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {MESH_TRAIN_STEPS} steps on (data, "
+    print(f"step 26 (a1) not gated, {TRAIN_ARCH} at full width, {MESH_TRAIN_LAYERS} of 32 "
+          f"layers, f32 (TF32 off), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {MESH_TRAIN_STEPS} steps on (data, "
           f"model) = (2, 2) ({TRAIN_ACCUM} microbatches, each rank 2 rows of each) vs one "
           f"device in the same {MESH_ROW_ACCUM} microbatches of 2 rows: losses "
           f"{[round(x['loss'], 7) for x in a1]} vs "
@@ -2878,15 +2958,23 @@ def lm_mesh(card: str) -> None:
           f"in {MESH_ROW_ACCUM} {show(witness[MESH_ROW_ACCUM])}, in {TRAIN_ACCUM} "
           f"{show(witness[TRAIN_ACCUM])}, the mesh {show(r0['a1_g1_f64'])} (gate "
           f"{MESH_F32_SPREAD} x {spread:.3e}); on {card}")
+    a64 = r0["a1_64"]
+    print(f"step 26 (a1) gated, in f64 (f32 upcasts kept at f64): {MESH_TRAIN_STEPS} steps on "
+          f"(2, 2) vs one device in the same {MESH_ROW_ACCUM} microbatches of 2 rows: losses "
+          f"{a64['losses']} vs {a64['ref_losses']} (rel {a64['loss']:.2e}, gate "
+          f"{TRAIN_LOSS_RTOL}); grad_norm rel {a64['grad_norm']:.2e} (gate {TRAIN_GNORM_RTOL}); "
+          f"step-{MESH_TRAIN_STEPS} gradients' largest per-leaf relative RMS "
+          f"{a64['grads']:.3e} ({a64['grads_worst']}, gate {TRAIN_GRAD_RMS}); parameters "
+          f"{a64['params']:.3e} (gate {TRAIN_PARAM_RMS}); {r0['a1_64_s']:.1f} s; on {card}")
     if witness["f64"][0] > MESH_F64_RMS:
         failures.append(f"(a1) f64 gradients differ across microbatchings {witness['f64']}")
     if r0["a1_g1_f64"][0] > MESH_F32_SPREAD * spread:
         failures.append(f"(a1) the mesh's step-1 gradients {r0['a1_g1_f64']} from f64")
-    if loss_err > TRAIN_LOSS_RTOL or gnorm_err > TRAIN_GNORM_RTOL:
-        failures.append(f"(a1) loss {loss_err:.2e} or grad_norm {gnorm_err:.2e}")
-    if r0["a1_grad_rms"] > TRAIN_GRAD_RMS or r0["a1_param_rms"] > TRAIN_PARAM_RMS:
-        failures.append(f"(a1) gradients {r0['a1_grad_rms']:.2e} or parameters "
-                        f"{r0['a1_param_rms']:.2e}")
+    if a64["loss"] > TRAIN_LOSS_RTOL or a64["grad_norm"] > TRAIN_GNORM_RTOL:
+        failures.append(f"(a1) f64 loss {a64['loss']:.2e} or grad_norm {a64['grad_norm']:.2e}")
+    if a64["grads"] > TRAIN_GRAD_RMS or a64["params"] > TRAIN_PARAM_RMS:
+        failures.append(f"(a1) f64 gradients {a64['grads']:.2e} or parameters "
+                        f"{a64['params']:.2e}")
     # (a2), (a3) and the times
     tokens = TRAIN_BATCH * TRAIN_SEQ
     timed = r0["steps_ms"][1:]
@@ -2899,6 +2987,13 @@ def lm_mesh(card: str) -> None:
           f"tokens/s; peak per rank {[round(r['peak'] / 1e9, 3) for r in ranks]} GB; resident "
           f"state per rank {[r['resident'] for r in ranks]} bytes, derived "
           f"{r0['resident_derived']}; on {card}")
+    gathered = r0["counted"]["all-gather"]["bytes"]
+    print(f"step 26 (a) tensor parallel over model: step {step_ms:.1f} ms, collectives "
+          f"{coll_ms:.1f} ms, {gathered:,} all-gather bytes a rank a step "
+          f"({gathered / MESH_WHOLE_GATHERED:.3f} of the whole-gather schedule's "
+          f"{MESH_WHOLE_GATHERED:,}) and {r0['counted']['all-reduce']['bytes']:,} all-reduce "
+          f"bytes in {r0['counted']['all-reduce']['count']} all-reduces, beside the "
+          f"whole-gather schedule's {MESH_WHOLE_STEP_MS} ms; on {card}")
     print(f"step 26 (a3) one step's collectives per rank (count, bytes): counted "
           f"{ {k: (v['count'], v['bytes']) for k, v in r0['counted'].items()} }; derived "
           f"{ {k: (v['count'], v['bytes']) for k, v in r0['derived'].items()} }; on {card}")
@@ -2949,21 +3044,21 @@ def lm_mesh(card: str) -> None:
         failures.append(f"(b1) logits {r0['b1_err']:.3e}")
     per_layer = lambda drops, calls: [sum(drops[c * n_moe + j] for c in range(calls))
                                       for j in range(n_moe)]
-    calls = 1 + LM_NEW
+    calls = 1 + MESH_B2_NEW
     mesh_drops = [sum(x) for x in zip(*(per_layer(r["drops"], calls) for r in ranks))]
     one_layer = per_layer(one_drops, calls)
     shas = {s for r in ranks for s in r["tok_sha"]}
     dec = med(r0["decode_ms"])
-    gen_ms = r0["prefill_ms"] + LM_NEW * dec
+    gen_ms = r0["prefill_ms"] + MESH_B2_NEW * dec
     print(f"step 26 (b2) full depth, capacity {ds.capacity_factor}, bf16: generate sha256 "
           f"{sorted(shas)} over 2 repeats x {MESH_RANKS} ranks; dropped (token, expert) pairs "
-          f"per MoE layer over the prefill and {LM_NEW} decode steps, the mesh (capacity per "
+          f"per MoE layer over the prefill and {MESH_B2_NEW} decode steps, the mesh (capacity per "
           f"EP token slice) {mesh_drops} vs one device {one_layer}; one device's tokens "
           f"sha256 {sha256_of(one_tokens)[:16]}; on {card}")
     print(f"step 26 (b) serving on (1, 4): server built in {r0['b_build_s']:.1f} s; prefill "
           f"{r0['prefill_ms']:.1f} ms, decode {dec:.1f} ms a step (median of {MESH_TIMED_DECODE}), "
           f"all-to-all {med(r0['a2a_ms']):.1f} ms a decode step, "
-          f"{LM_BATCH * LM_NEW / gen_ms * 1e3:.1f} tokens/s; peak per rank "
+          f"{LM_BATCH * MESH_B2_NEW / gen_ms * 1e3:.1f} tokens/s; peak per rank "
           f"{[round(r['serve_peak'] / 1e9, 3) for r in ranks]} GB, resident parameters "
           f"{[round(r['serve_resident'] / 1e9, 3) for r in ranks]} GB; on {card}")
     print(f"step 26 (b3) all-to-all bytes per MoE layer: decode {r0['b3_decode']['bytes'] / n_moe:.0f} "
@@ -2990,12 +3085,229 @@ def lm_mesh(card: str) -> None:
           f"{[round(x, 3) for x in idle]} against the schedule's bubble {bubble:.3f}; on {card}")
     if not r0["pipe_err"] <= PIPE_TOL * max(1.0, r0["pipe_scale"]):
         failures.append(f"(c) pipeline {r0['pipe_err']:.3e}")
-    print(f"step 26 phases (rank 0): a {r0['a1_s']:.1f} s, a2 {r0['a2_s']:.1f} s, "
+    print(f"step 26 phases (rank 0): a {r0['a1_s']:.1f} s, a1 in f64 {r0['a1_64_s']:.1f} s, "
+          f"a2 {r0['a2_s']:.1f} s, "
           f"b {r0['b_s']:.1f} s, c {r0['c_s']:.1f} s; spawn {spawn_s:.1f} s; on {card}")
     shutil.rmtree(work, ignore_errors=True)
     for f in failures:
         print(f"FAIL: step 26 {f}", file=sys.stderr, flush=True)
     check(not failures, "step 26")
+
+
+def lm_tp_rank(work: str) -> dict:
+    """One of step 27's four gloo ranks on the card of the parent: gate
+    (d1) against the parent's one-device run, then the full model."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import collectives, fsdp
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out: dict = {"rank": dist.get_rank()}
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    m14 = make_mesh_for(model_parallel=4, device="cuda")
+    cfg = get_config(TP_ARCH)
+    v = cfg.vocab_size
+    whole = lambda x: torch.cat(collectives.all_gather_axes(x, m14, ("model",)), dim=-1)
+
+    # (d1) depth TP_D1_DEPTH in f32 and in f64 (the bf16 weights computed
+    # in f64, f32 upcasts kept at f64): prefill and decode steps fed the
+    # one-device run's tokens
+    t0 = time.perf_counter()
+    ref = torch.load(os.path.join(work, "d1_ref.pt"))
+    for dt in ("float32", "float64"):
+        cfg_d1 = cfg.with_overrides(n_layers=TP_D1_DEPTH, compute_dtype=dt)
+        with f64_upcasts() if dt == "float64" else contextlib.nullcontext():
+            srv = Server(cfg_d1, mesh=m14, device=dev)
+            batch = concrete_batch(cfg_d1, LM_BATCH, LM_PROMPT, train=False, device=dev)
+            local, _ = srv.local(batch)
+            with srv.context(local["tokens"].shape[0], LM_BATCH):
+                logits, _ = lm_run(srv.compute, local, LM_CHECK_STEPS,
+                                   tokens=ref["fed"].to(dev))
+        mine = [whole(a)[:, :v].cpu().double() for a in logits]
+        out[f"d1_{dt}"] = [float((a - b).abs().max()) for a, b in zip(mine, ref[dt])]
+        out[f"d1_{dt}_vs64"] = [float((a - b).abs().max()) for a, b in zip(mine, ref["float64"])]
+        del srv, logits, mine
+        free()
+    out["d1_scale"] = max(float(x.abs().max()) for x in ref["float64"])
+    out["d1_one32_vs64"] = [float((a - b).abs().max())
+                            for a, b in zip(ref["float32"], ref["float64"])]
+    del ref
+    out["d1_s"] = time.perf_counter() - t0
+
+    # (d2) full depth in bf16: the server (each rank draws its blocks in
+    # turn), one generate
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    srv = Server(cfg, mesh=m14, device=dev)
+    sync()
+    out["build_s"] = time.perf_counter() - t0
+    out["init_peak"] = torch.cuda.max_memory_allocated()
+    free_b, total_b = torch.cuda.mem_get_info()
+    out["card_used_after_init"] = total_b - free_b
+    batch = concrete_batch(cfg, LM_BATCH, LM_PROMPT, train=False, device=dev)
+    t1 = time.perf_counter()
+    toks = [srv.generate(batch, TP_NEW, seq_cap=LM_CAP)]
+    out["generate_s"] = time.perf_counter() - t1
+
+    # the second generate written out, each phase timed; (d3) its first
+    # decode step's collectives, the resident bytes
+    local, _ = srv.local(batch)
+    rows = local["tokens"].shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    with srv.context(rows, LM_BATCH):
+        sync()
+        t1 = time.perf_counter()
+        logits, cache = srv.compute.prefill(local, LM_CAP)
+        tok = srv.argmax_over_vocab(logits)
+        sync()
+        out["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+        dec, coll, fed = [], [], []
+        for i in range(TP_NEW):
+            fed.append(tok)
+            collectives.reset_counters()
+            t1 = time.perf_counter()
+            logits, cache = srv.compute.decode_step(cache, tok, LM_PROMPT + i, LM_CAP)
+            tok = srv.argmax_over_vocab(logits)
+            sync()
+            dec.append((time.perf_counter() - t1) * 1e3)
+            c = collectives.counters()
+            coll.append(c["seconds"] * 1e3)
+            if i == 0:
+                out["d3_counted"] = {k: c[k] for k in dryrun._empty()}
+    toks.append(torch.cat(fed, dim=1))
+    out["tok_sha"] = [sha256_of(t) for t in toks]
+    out["tokens"] = toks[0][:, :8].cpu().tolist()
+    out["decode_ms"], out["coll_ms"] = dec, coll
+    out["d3_derived"] = {k: v for k, v in dryrun.serve_collectives(
+        cfg, m14, LM_BATCH, 1, LM_CAP).items() if k != "total_bytes"}
+    out["resident"] = [fsdp.resident_bytes(srv.model.param_tree()), fsdp.resident_bytes(cache)]
+    cell = dryrun.cell_bytes(cfg, ShapeSpec("tp", "decode", LM_CAP, LM_BATCH), m14)
+    out["cell"] = [cell["params_bytes"], cell["cache_bytes"]]
+    out["serve_peak"] = torch.cuda.max_memory_allocated()
+    del srv, logits, cache
+    free()
+    out["d2_s"] = time.perf_counter() - t0
+    return out
+
+
+def lm_tp(card: str) -> None:
+    """Step 27: qwen2.5-32b served tensor parallel on (1, 4), four gloo
+    ranks sharing the card (one ``multihost.spawn``); gate (d1)'s one
+    device runs here first, its memory freed before the ranks start."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import multihost
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    work = tempfile.mkdtemp(prefix="lm_tp_")
+    cfg = get_config(TP_ARCH)
+    v = cfg.vocab_size
+    print(f"step 27: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
+          f"{TP_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads on "
+          f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; the init's "
+          f"largest f32 draw {fsdp.init_transient_bytes(cfg):,} bytes; on {card}")
+
+    # (d1)'s one device, f32 first (its greedy tokens feed every other run)
+    t0 = time.perf_counter()
+    d1 = {}
+    for dt in ("float32", "float64"):
+        cfg_d1 = cfg.with_overrides(n_layers=TP_D1_DEPTH, compute_dtype=dt)
+        with f64_upcasts() if dt == "float64" else contextlib.nullcontext():
+            srv = Server(cfg_d1, device=dev, seed=0)
+            batch = concrete_batch(cfg_d1, LM_BATCH, LM_PROMPT, train=False, device=dev)
+            with torch.no_grad():
+                logits, fed = lm_run(srv.compute, batch, LM_CHECK_STEPS,
+                                     tokens=d1.get("fed"))
+        d1[dt] = [x[:, :v].cpu().double() for x in logits]
+        d1.setdefault("fed", fed)
+        del srv, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    d1["fed"] = d1["fed"].cpu()
+    torch.save(d1, os.path.join(work, "d1_ref.pt"))
+    del d1
+    ref_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(lm_tp_rank, MESH_RANKS, work, device="cuda", backend="gloo",
+                            timeout=900)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    failures = []
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    show = lambda xs: [f"{x:.2e}" for x in xs]
+    scale = r0["d1_scale"]
+    print(f"step 27 (d1) {TP_ARCH} depth {TP_D1_DEPTH}, its bf16 weights, on (data, model) = "
+          f"(1, 4), prefill and {LM_CHECK_STEPS} decode steps fed one device's tokens: max "
+          f"|diff| per step from one device, in f64 (gated: {LM_F32_REL} x {scale:.3f}) "
+          f"{show(r0['d1_float64'])}; in f32, TF32 off {show(r0['d1_float32'])}; the witness, "
+          f"from one device's f64: one device in f32 {show(r0['d1_one32_vs64'])}, the mesh in "
+          f"f32 {show(r0['d1_float32_vs64'])} (gate {MESH_F32_SPREAD} x the one device's); "
+          f"one device {ref_s:.1f} s; on {card}")
+    if not max(r0["d1_float64"]) <= LM_F32_REL * scale:
+        failures.append(f"(d1) f64 logits {max(r0['d1_float64']):.3e}")
+    if not max(r0["d1_float32_vs64"]) <= MESH_F32_SPREAD * max(r0["d1_one32_vs64"]):
+        failures.append(f"(d1) f32 logits from f64 {max(r0['d1_float32_vs64']):.3e}")
+    shas = {x for r in ranks for x in r["tok_sha"]}
+    print(f"step 27 (d2) full depth, bf16: {TP_NEW} greedy tokens from Server.generate and "
+          f"from its steps written out and timed, sha256 "
+          f"{sorted(shas)} over 2 repeats x {MESH_RANKS} ranks; the first tokens "
+          f"{r0['tokens'][0]}; on {card}")
+    if len(shas) != 1:
+        failures.append(f"(d2) generate digests {shas}")
+    dec = med(r0["decode_ms"])
+    gen_ms = r0["prefill_ms"] + TP_NEW * dec
+    print(f"step 27 serving on (1, 4): server built in {r0['build_s']:.1f} s (each rank's "
+          f"init peak {[round(r['init_peak'] / 1e9, 3) for r in ranks]} GB, the card "
+          f"{r0['card_used_after_init'] / 1e9:.2f} GB used by all after it); prefill "
+          f"{r0['prefill_ms']:.1f} ms, decode {dec:.1f} ms a step (median of {TP_NEW}; "
+          f"collectives {med(r0['coll_ms']):.1f} ms of it), {LM_BATCH * TP_NEW / gen_ms * 1e3:.2f} "
+          f"tokens/s, a generate {r0['generate_s']:.1f} s; peak per rank serving "
+          f"{[round(r['serve_peak'] / 1e9, 3) for r in ranks]} GB; on {card}")
+    print(f"step 27 (d3) resident (parameter, cache) bytes per rank "
+          f"{[r['resident'] for r in ranks]}, derived {r0['cell']}; a decode step's "
+          f"collectives (count, bytes): counted "
+          f"{ {k: (x['count'], x['bytes']) for k, x in r0['d3_counted'].items()} }, derived "
+          f"{ {k: (x['count'], x['bytes']) for k, x in r0['d3_derived'].items()} }; on {card}")
+    for r in ranks:
+        if r["resident"] != r["cell"]:
+            failures.append(f"(d3) rank {r['rank']} resident {r['resident']} != {r['cell']}")
+        if r["d3_counted"] != r["d3_derived"]:
+            failures.append(f"(d3) rank {r['rank']} collectives {r['d3_counted']} != "
+                            f"{r['d3_derived']}")
+    print(f"step 27 phases (rank 0): d1 {r0['d1_s']:.1f} s, d2 {r0['d2_s']:.1f} s; spawn "
+          f"{spawn_s:.1f} s; on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    for f in failures:
+        print(f"FAIL: step 27 {f}", file=sys.stderr, flush=True)
+    check(not failures, "step 27")
 
 
 def main() -> None:
@@ -4503,6 +4815,11 @@ def main() -> None:
     t26 = time.perf_counter()
     lm_mesh(card)
     print(f"step 26 {time.perf_counter() - t26:.1f} s; on {card}")
+
+    # -- 27. qwen2.5-32b served tensor parallel on four gloo ranks ----------------
+    t27 = time.perf_counter()
+    lm_tp(card)
+    print(f"step 27 {time.perf_counter() - t27:.1f} s; on {card}")
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)

@@ -20,6 +20,10 @@ back, a branch on the backend (never an exception handler).
 The LM multi-device path adds collectives over the subgroup of ranks along
 some mesh axes (:func:`axis_group`: one ``new_group`` per coset, made on
 every rank at first use, in the same program order): :func:`all_gather_axes`,
+:func:`all_reduce` (a gather folded in rank order, counted as an
+all-reduce) with tensor parallelism's operators on it (:func:`tp_copy`,
+Megatron's f; :func:`tp_reduce`, its g; :func:`tp_sum`), the head
+:func:`relayout` and flash-decoding's :func:`merge_partials`,
 the deterministic reduce-scatter :func:`reduce_scatter_fixed` (an
 ``all_to_all`` of the pieces each rank owns, folded in rank order: no float
 ``all_reduce``), :func:`fold_axes`, :func:`all_to_all` and the token
@@ -187,8 +191,8 @@ def barrier(mesh) -> None:
 # Subgroup collectives of the LM multi-device path, with counters
 # ---------------------------------------------------------------------------
 
-KINDS = ("all-gather", "reduce-scatter", "all-to-all", "collective-permute", "gather",
-         "broadcast")
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute",
+         "gather", "broadcast")
 COUNTERS: dict = {}
 
 
@@ -265,6 +269,13 @@ def _empty_wire(like: torch.Tensor, group, shape=None) -> torch.Tensor:
     return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
+def _gather_parts(x: torch.Tensor, group, ranks) -> list[torch.Tensor]:
+    wire = _wire(x, group)
+    out = _empty_wire(x, group, (len(ranks) * x.numel(),))
+    dist.all_gather_into_tensor(out, wire.reshape(-1), group=group)
+    return list(out.to(x.device).view((len(ranks),) + tuple(x.shape)).unbind(0))
+
+
 def all_gather_axes(x: torch.Tensor, mesh, axes: Sequence[str]) -> list[torch.Tensor]:
     """Every rank's ``x`` along ``axes`` (row-major over them), on ``x``'s
     device; counted as one all-gather of the parts' bytes."""
@@ -272,10 +283,7 @@ def all_gather_axes(x: torch.Tensor, mesh, axes: Sequence[str]) -> list[torch.Te
     if group is None:
         return [x]
     t0 = time.perf_counter()
-    wire = _wire(x, group)
-    out = _empty_wire(x, group, (len(ranks) * x.numel(),))
-    dist.all_gather_into_tensor(out, wire.reshape(-1), group=group)
-    parts = list(out.to(x.device).view((len(ranks),) + tuple(x.shape)).unbind(0))
+    parts = _gather_parts(x, group, ranks)
     _count("all-gather", _nbytes(x) * len(ranks), t0)
     return parts
 
@@ -284,6 +292,119 @@ def fold_axes(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """``psum`` over ``axes`` as a gather folded in row-major rank order:
     the same bits on every rank."""
     return _fold(all_gather_axes(x, mesh, axes))
+
+
+def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """:func:`fold_axes` counted as what it stands for: one all-reduce of
+    ``x``'s bytes (HLO's result bytes)."""
+    group, ranks = axis_group(mesh, axes)
+    if group is None:
+        return x
+    t0 = time.perf_counter()
+    out = _fold(_gather_parts(x, group, ranks))
+    _count("all-reduce", _nbytes(x), t0)
+    return out
+
+
+# -- Megatron's f and g over ``model`` (tensor parallelism) ----------------
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ("model",)), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x, mesh, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(x, mesh, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ("model",)), None
+
+
+def tp_copy(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's f at the entry of a tensor-parallel region: ``x`` (the
+    same on every ``model`` rank) unchanged; backward folds the ranks'
+    partial gradients over ``model`` in rank order."""
+    return _Copy.apply(x, mesh)
+
+
+def tp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's g at its exit: the ranks' partial sums folded over
+    ``model`` in rank order (the same bits on every rank); backward passes
+    the gradient, the same on every rank, through."""
+    return _Reduce.apply(x, mesh)
+
+
+def tp_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A sum over ``model`` whose result each rank reads with its own block
+    (a norm's sum of squares over a split width): folded both ways."""
+    return _Sum.apply(x, mesh)
+
+
+class _Relayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, src, dst):
+        ctx.mesh, ctx.dim, ctx.src, ctx.dst = mesh, dim, src, dst
+        return _relayout(x, mesh, dim, src, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _relayout(g, ctx.mesh, ctx.dim, ctx.dst, ctx.src), None, None, None, None
+
+
+def _relayout(x, mesh, dim, src, dst):
+    parts = all_gather_axes(x, mesh, ("model",))
+    whole = torch.cat(parts, dim=dim)
+    order = torch.tensor([i for block in src for i in block], device=x.device)
+    full = torch.empty_like(whole).index_copy_(dim, order, whole)
+    me = axis_index(mesh, ("model",))
+    return full.index_select(dim, torch.tensor(dst[me], device=x.device))
+
+
+def relayout(x: torch.Tensor, mesh, dim: int, src: tuple, dst: tuple) -> torch.Tensor:
+    """This rank's block of a dim split over ``model`` in another layout:
+    ``src[r]`` / ``dst[r]`` are the indices along ``dim`` that rank r holds
+    before / after (each index held once in each).  One all-gather over
+    ``model``; backward is the inverse relayout of the gradient."""
+    return _Relayout.apply(x, mesh, dim, src, dst)
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, mesh,
+                   axes: Sequence[str]) -> torch.Tensor:
+    """Flash-decoding's merge: each rank's softmax partials over its block
+    of the keys, the row maximum ``m`` (..., 1), the sum of exponentials
+    ``l`` (..., 1) and the unnormalised output ``o`` (..., D), all f32,
+    gathered over ``axes`` (one all-gather) and merged in rank order:
+    ``sum_r e^(m_r - M) o_r / sum_r e^(m_r - M) l_r`` with M the maximum."""
+    parts = all_gather_axes(torch.cat([m, l, o], dim=-1), mesh, axes)
+    top = parts[0][..., :1]
+    for p in parts[1:]:
+        top = torch.maximum(top, p[..., :1])
+    num = den = None
+    for p in parts:
+        w = torch.exp(p[..., :1] - top)
+        num = w * p[..., 2:] if num is None else num + w * p[..., 2:]
+        den = w * p[..., 1:2] if den is None else den + w * p[..., 1:2]
+    return num / den
 
 
 def all_to_all_raw(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:

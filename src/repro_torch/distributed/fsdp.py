@@ -1,28 +1,41 @@
-"""A model whose parameters rest as this rank's shards, gathered whole
-before use (the LM multi-device path's schedule where the reference leaves
-collectives to XLA's partitioner).
+"""A model whose parameters rest as this rank's shards: tensor parallel
+over ``model`` where the reference's rules shard a head, width or vocab
+dim there, gathered over every other axis of their spec before use (the
+LM multi-device path's schedule where the reference leaves collectives to
+XLA's partitioner).
 
 :func:`shard_model` replaces every parameter of a :class:`Model` by the
 block of it that this rank's mesh position owns under the reference's
 spec (``logical_to_spec(stacked shape, ("layers",) + axes, mesh, rules,
 param_retry=True)``; the rules never shard ``layers``, so a stage leaf's
 per-layer tensor takes that spec without its first entry).  The values
-are one device's: each leaf is drawn whole in :func:`init_params`' order
-from the same seeded generator and cut, one leaf at a time (ranks that
-share a card take turns, so one leaf's draw is the only transient).
+are one device's: each leaf is drawn in :func:`init_params`' order from
+the same seeded generator and cut, a stage leaf one layer at a time (ranks
+that share a card take turns, so one layer's f32 draw is the only
+transient).
+
+:func:`leaf_role` is the one placement rule that this module, the train
+step and the dry run read.  ``"local"``: the leaf keeps its ``model``
+block, and the layer computes on it (the heads of q/k/v/o, the MLP's and
+shared experts' width, the vocab of the embedding and head, the SSM's
+heads and inner width, the routed experts under expert parallelism).
+``"partial"``: the leaf is gathered whole, but each ``model`` rank uses it
+for its own block (K/V weights where the q group is split, MLA's latents,
+the SSM's B/C, the router of the expert-parallel island), so its gradient
+sums over ``model`` too.  ``None``: gathered whole, used alike on every
+``model`` rank.  Where the heads split neither by KV head nor by q group
+(the reference's q-sequence case, ``attn_q_seq``), the attention block
+keeps this whole-gather schedule (context parallelism is not ported).
 
 :class:`Gatherer` is the model's ``param_source``: ``entry(block)``
-swaps each parameter of one plan entry for the whole tensor, gathered
-over its spec's axes (:func:`gather_leaf`), for the entry's forward, and
-for its recompute in backward under remat; ``top()`` does the same for the
-embedding, final norm, head and ``mtp`` around a microbatch's forward and
-backward.  The gather's backward is the gradient's deterministic
-reduce-scatter over the ranks whose contributions differ (the batch axes;
-for the MoE router under expert parallelism, ``model`` too): each rank
-keeps the sum of its block, folded in rank order.  Under expert
-parallelism the routed experts are gathered over every axis but
-``model``: the MoE island computes with this rank's experts
-(:mod:`repro_torch.models.moe`).
+swaps each parameter of one plan entry for its gathered tensor
+(:func:`gather_leaf`) for the entry's forward, and for its recompute in
+backward under remat; ``top()`` does the same for the embedding, final
+norm, head and ``mtp`` around a microbatch's forward and backward.  The
+gather's backward is the gradient's deterministic reduce-scatter over the
+ranks whose contributions differ (the batch axes, and ``model`` for a
+``"partial"`` leaf): each rank keeps the sum of its block, folded in rank
+order.  Serving keeps the same blocks and gathers at every step.
 """
 
 from __future__ import annotations
@@ -37,7 +50,7 @@ from torch import nn
 
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as sh
-from repro_torch.models import moe
+from repro_torch.models import layers, moe
 from repro_torch.models.config import _init_leaf, flatten
 
 
@@ -155,10 +168,51 @@ def param_layout(model, mesh, rules) -> dict[str, tuple]:
     return out
 
 
+_ATTN_Q = frozenset({"wq", "bq", "wo"})
+_MLA_HEADS = frozenset({"wq", "wq_b", "wk_b", "wv_b", "wo"})
+_SSM_SHARED = frozenset({"wB", "wC", "conv_B", "conv_C"})
+
+
+def leaf_role(cfg, mesh, rules, name: str) -> str | None:
+    """The placement of the parameter leaf ``name`` (dotted, as
+    ``Model.named_parameters`` or :func:`param_layout` names it):
+    ``"local"``, ``"partial"`` or None (see the module docstring)."""
+    ep = moe.ep_role(cfg, mesh, name)
+    if ep is not None:
+        return "partial" if ep == "router" else ep
+    parts = name.split(".")
+    key, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
+    tp = lambda logical, dim: sh.tp_ways(mesh, rules, logical, dim) > 1
+    if (parts[0], key) in (("embed", "tok"), ("head", "out")):
+        return "local" if tp("vocab", cfg.vocab_padded) else None
+    if parent == "attn":
+        if cfg.attn_type == "mla":
+            if layers.attn_mode(mesh, rules, cfg.n_heads, cfg.n_heads) != "kv":
+                return None
+            return "local" if key in _MLA_HEADS else "partial"
+        mode = layers.attn_mode(mesh, rules, cfg.n_heads, cfg.n_kv_heads)
+        if mode == "kv":
+            return "local"
+        if mode == "qgroup":
+            return "local" if key in _ATTN_Q else "partial"
+        return None
+    if parent == "shared" and parts[-3] == "ffn":
+        return "local" if tp("shared_mlp", cfg.n_shared_experts * cfg.moe_d_ff) else None
+    if parent == "ffn" and key in ("wg", "wu", "wd"):
+        if parts[0] == "blocks" and moe.is_moe_layer(cfg, int(parts[1])):
+            return None      # routed experts without expert parallelism
+        return "local" if tp("mlp", cfg.d_ff) else None
+    if parent == "mixer":
+        if not (tp("mlp", cfg.ssm_d_inner) and tp("ssm_heads", cfg.ssm_heads)):
+            return None
+        return "partial" if key in _SSM_SHARED else "local"
+    return None
+
+
 def init_shards(model, mesh, rules, *, seed: int, device, dtype) -> dict[str, torch.Tensor]:
     """This rank's block of every parameter, drawn as :func:`init_params`
     draws the whole model from ``seed`` (so one device's values), one leaf
-    at a time."""
+    at a time and a stage leaf one layer at a time."""
     from repro_torch.models.model import param_defs
     coord = collectives._coord(mesh)
     gen = torch.Generator(device=device)
@@ -168,22 +222,38 @@ def init_shards(model, mesh, rules, *, seed: int, device, dtype) -> dict[str, to
     for name, p in flatten(param_defs(model.cfg)).items():
         spec = _stacked_spec(p.shape, p.axes, mesh, rules)
         where = sh.shard_slices(p.shape, spec, mesh, coord)
+        stacked = name.startswith("stages.")
         if p.init == "normal":
             fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
             std = p.scale if p.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-            draw = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=device)
-            block = draw[where].mul(std).to(dtype)
-            del draw
+            if stacked:
+                block = [torch.randn(p.shape[1:], generator=gen, dtype=torch.float32,
+                                     device=device)[where[1:]].mul(std).to(dtype)
+                         for _ in range(p.shape[0])]
+            else:
+                draw = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=device)
+                block = draw[where].mul(std).to(dtype)
+                del draw
         else:
             local = dataclasses.replace(p, shape=sh.shard_shape(p.shape, spec, mesh))
             block = _init_leaf(local, gen, dtype, device)
-        if name.startswith("stages."):
+            block = list(block.unbind(0)) if stacked else block
+        if stacked:
             _, stage, rest = name.split(".", 2)
-            for i, t in enumerate(block.unbind(0)):
-                out[f"blocks.{first[stage] + i}.{rest}"] = t.clone()
+            for i, t in enumerate(block):
+                out[f"blocks.{first[stage] + i}.{rest}"] = t.contiguous().clone()
         else:
             out[name] = block.contiguous()
     return out
+
+
+def init_transient_bytes(cfg) -> int:
+    """The largest f32 draw of :func:`init_shards` (and of one device's
+    ``Model(cfg, seed)``): one layer of a stage leaf, or a whole top-level
+    leaf."""
+    from repro_torch.models.model import param_defs
+    return max(4 * math.prod(p.shape[1:] if n.startswith("stages.") else p.shape)
+               for n, p in flatten(param_defs(cfg)).items() if p.init == "normal")
 
 
 def _owner(model, name: str) -> tuple[nn.Module, str]:
@@ -242,10 +312,13 @@ class Gatherer:
             shape, spec = self.layout[name]
             gather = sh.sharded_axes(spec)
             sums = self.batch_axes
-            role = moe.ep_role(self.cfg, self.mesh, name)
+            role = leaf_role(self.cfg, self.mesh, self.rules, name)
             if role == "local":
+                if "model" not in gather:
+                    raise ValueError(f"{name}: a tensor-parallel leaf whose spec {spec} "
+                                     f"does not shard 'model'")
                 gather = tuple(a for a in gather if a != "model")
-            elif role == "router":
+            elif role == "partial":
                 sums = tuple(sums) + ("model",)
             plan = leaf_plan(shape, spec, self.mesh, gather, sums, self.coord)
             plan.module, plan.key = _owner(self.model, name)
@@ -254,7 +327,9 @@ class Gatherer:
 
     @contextlib.contextmanager
     def _swap(self, names):
-        plans = [self.plan(n) for n in names]
+        # a leaf neither gathered nor (under grad) summed is used as it rests
+        grad = torch.is_grad_enabled()
+        plans = [p for p in map(self.plan, names) if p.gather_axes or (grad and p.sum_axes)]
         kept = [p.module._parameters[p.key] for p in plans]
         try:
             for p, shard in zip(plans, kept):
@@ -271,8 +346,11 @@ class Gatherer:
             self._names[key] = [f"{prefix}.{n}" for n, _ in block.named_parameters()]
         return self._swap(self._names[key])
 
-    def top(self):
-        return self._swap([n for n in self.layout if not n.startswith(("blocks.", "shared_attn."))])
+    def top(self, serving: bool = False):
+        """The embedding, final norm and head (and ``mtp``, which serving
+        does not read) gathered around the caller's use."""
+        skip = ("blocks.", "shared_attn.") + (("mtp.",) if serving else ())
+        return self._swap([n for n in self.layout if not n.startswith(skip)])
 
     def _prefix(self, block) -> str:
         if block is self.model.shared_attn:
@@ -281,22 +359,6 @@ class Gatherer:
             if b is block:
                 return f"blocks.{i}"
         raise ValueError("not a block of this model")
-
-
-def full_params(model) -> None:
-    """Gather every parameter shard of a sharded ``model`` to the whole
-    tensor, in place (serving: once, when the server is built); under
-    expert parallelism the routed experts stay sharded over ``model``.
-    The model drops its ``param_source`` after."""
-    g: Gatherer = model.param_source
-    with torch.no_grad():
-        for name in g.layout:
-            plan = g.plan(name)
-            shard = plan.module._parameters[plan.key]
-            if plan.gather_axes:
-                full = gather_leaf(shard.detach(), g.mesh, plan)
-                plan.module._parameters[plan.key] = nn.Parameter(full)
-    model.param_source = None
 
 
 def resident_bytes(tree) -> int:

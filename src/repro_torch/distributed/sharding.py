@@ -21,10 +21,17 @@ owns under the leaf's spec (:func:`shard_slices`, :func:`local_shard`;
 :func:`from_shards` puts the blocks back together): jax's
 ``devices_indices_map`` for the same mesh and spec.
 
-:func:`constrain` returns its input: the port's schedule gathers weights
-whole before use (:mod:`repro_torch.distributed.fsdp`), so an activation's
-only sharded dim is its batch, and under a mesh :func:`constrain` checks
-that the batch dim holds this rank's block of the global batch.
+:func:`constrain` returns its input.  Under a mesh the port's model code
+computes on this rank's block (tensor parallelism over ``model``, the batch
+over its axes: :mod:`repro_torch.distributed.fsdp`), and :func:`constrain`
+checks that the tensor is the block that :func:`logical_to_spec` gives the
+whole array under the rules: every dim the rules shard (``batch``,
+``heads``, ``kv_heads``, ``mlp``, ``shared_mlp``, ``vocab``,
+``ssm_heads``, ``cache_seq``, ...), from the whole sizes the call site
+names.  A wrong layout raises.  :func:`tp_ways` says how many ways a
+logical axis splits over ``model``, from which model code and the
+parameter roles of :mod:`~repro_torch.distributed.fsdp` take their local
+head, width and vocab counts.
 """
 
 from __future__ import annotations
@@ -126,6 +133,7 @@ class _Ctx(threading.local):
         self.rules: dict[str, Any] = dict(DEFAULT_RULES)
         self.enabled: bool = True
         self.local_batch: int | None = None
+        self.global_batch: int | None = None
 
 
 _CTX = _Ctx()
@@ -158,6 +166,23 @@ def no_constraints():
 
 def current_mesh():
     return _CTX.mesh
+
+
+def carried():
+    """A context manager that re-enters the mesh, rules and batch the
+    caller sees now, on whatever thread enters it (autograd runs a
+    recompute under remat on its own thread on the card)."""
+    state = (_CTX.mesh, _CTX.rules, _CTX.enabled, _CTX.local_batch, _CTX.global_batch)
+
+    @contextlib.contextmanager
+    def enter():
+        prev = (_CTX.mesh, _CTX.rules, _CTX.enabled, _CTX.local_batch, _CTX.global_batch)
+        (_CTX.mesh, _CTX.rules, _CTX.enabled, _CTX.local_batch, _CTX.global_batch) = state
+        try:
+            yield
+        finally:
+            (_CTX.mesh, _CTX.rules, _CTX.enabled, _CTX.local_batch, _CTX.global_batch) = prev
+    return enter()
 
 
 def _candidates(logical: str | None, mesh, rules) -> list[tuple[str, ...]]:
@@ -323,27 +348,83 @@ def named_sharding(shape, axes, mesh=None, rules=None) -> NamedSharding:
     return NamedSharding(mesh, logical_to_spec(shape, axes, mesh, rules, param_retry=True))
 
 
-def constrain(x, axes: Sequence[str | None]):
-    """Returns ``x``.  Under a mesh (:func:`logical_sharding`), checks that a
-    leading ``batch`` dim is this rank's block: the global batch divided
-    over the batch's mesh axes, as :func:`logical_to_spec` places it."""
-    if not _CTX.enabled or _CTX.mesh is None or not axes or axes[0] != "batch":
+# every constrain check made, by its axes: {axes: count}
+CHECKS: dict = {}
+
+
+def constrain(x, axes: Sequence[str | None], sizes: dict[str, int] | None = None):
+    """Returns ``x``.  Under a mesh (:func:`logical_sharding`), checks that
+    ``x`` is this rank's block of the whole array the reference constrains
+    to ``axes``: its spec is :func:`logical_to_spec` of the whole shape
+    (``sizes`` gives the whole size of each named logical axis; a ``batch``
+    dim is the global batch of :func:`local_batch`; every other dim is taken
+    as whole), and every dim must be that spec's block.  Raises
+    ``ValueError`` where it is not."""
+    if not _CTX.enabled or _CTX.mesh is None or not axes:
         return x
-    want = _CTX.local_batch
-    if want is not None and x.shape[0] != want:
-        raise ValueError(f"activation batch {x.shape[0]} is not this rank's block {want}")
+    mesh, rules = _CTX.mesh, _CTX.rules
+    sizes = sizes or {}
+    whole = []
+    for n, name in zip(x.shape, axes):
+        if name == "batch":
+            if _CTX.local_batch is not None and n != _CTX.local_batch:
+                raise ValueError(f"activation batch {n} is not this rank's block "
+                                 f"{_CTX.local_batch}")
+            whole.append(global_rows(n, mesh, rules))
+        else:
+            whole.append(sizes.get(name, n) if name is not None else n)
+    whole += list(x.shape[len(whole):])
+    spec = logical_to_spec(whole, tuple(axes) + (None,) * (len(whole) - len(axes)), mesh,
+                           rules)
+    want = shard_shape(whole, spec, mesh)
+    if tuple(x.shape) != want:
+        raise ValueError(f"{tuple(axes)}: {tuple(x.shape)} is not this rank's block {want} "
+                         f"of {tuple(whole)} under spec {spec}")
+    key = tuple(axes)
+    CHECKS[key] = CHECKS.get(key, 0) + 1
     return x
 
 
+def global_rows(rows: int, mesh, rules) -> int:
+    """The global batch of which ``rows`` is this rank's block: the one
+    :func:`local_batch` names, else ``rows`` times the batch rule's first
+    mapping."""
+    if _CTX.global_batch is not None:
+        return _CTX.global_batch
+    cands = _candidates("batch", mesh, rules)
+    sizes = mesh_axes(mesh)
+    return rows * (math.prod(sizes[a] for a in cands[0]) if cands else 1)
+
+
 @contextlib.contextmanager
-def local_batch(rows: int | None):
-    """:func:`constrain` checks ``batch`` dims against ``rows`` inside."""
-    prev = _CTX.local_batch
-    _CTX.local_batch = rows
+def local_batch(rows: int | None, total: int | None = None):
+    """:func:`constrain` checks ``batch`` dims against ``rows`` inside, this
+    rank's block of a global batch of ``total`` rows (by default ``rows``
+    times the batch rule's first mapping)."""
+    prev = (_CTX.local_batch, _CTX.global_batch)
+    _CTX.local_batch, _CTX.global_batch = rows, total
     try:
         yield
     finally:
-        _CTX.local_batch = prev
+        _CTX.local_batch, _CTX.global_batch = prev
+
+
+def tp_ways(mesh, rules, logical: str, dim: int) -> int:
+    """How many ways a dim of ``dim`` along ``logical`` splits over
+    ``model``: the model axis's size where the rules map ``logical`` onto
+    ``model`` alone, the axis has more than one rank and divides ``dim``;
+    else 1 (the dim is whole on every rank)."""
+    if mesh is None:
+        return 1
+    m = mesh_axes(mesh).get("model", 1)
+    cands = _candidates(logical, mesh, rules)
+    if m == 1 or not cands or cands[0] != ("model",):
+        return 1
+    return m if dim % m == 0 else 1
+
+
+def current_rules() -> dict[str, Any]:
+    return _CTX.rules
 
 
 def is_axes_leaf(x) -> bool:

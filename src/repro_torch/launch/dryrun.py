@@ -9,13 +9,19 @@ For each runnable cell (``cell_status``) on 16 x 16 ``(data, model)`` and
      (:mod:`repro_torch.distributed.sharding` on an ``AbstractMesh``);
   2. ``model_flops_estimate``, the reference's;
   3. the collectives of one step by kind (count, bytes: the result's bytes,
-     HLO's convention), derived from the port's own schedule: the FSDP
-     gathers of every plan entry (again in the backward's recompute under
-     remat) and of the top-level leaves, the gradient's reduce-scatter, the
-     expert-parallel all-to-alls and token gathers, the metrics' and the
-     clip's scalar gathers, and the optimizer's whole-leaf gathers where it
-     is Adafactor; serving steps run on weights gathered when the server is
-     built, so theirs are the MoE island's alone.
+     HLO's convention), derived from the port's own schedule: each leaf's
+     gather over the axes of its spec but the ``model`` axis of a
+     tensor-parallel leaf (:func:`repro_torch.distributed.fsdp.leaf_role`),
+     at every plan entry's forward (again in the backward's recompute under
+     remat) and around the top-level leaves, the gradient's reduce-scatter,
+     tensor parallelism's all-reduces (g forward, f backward, both again in
+     the recompute), the q-group case's head relayouts, the vocab-parallel
+     cross-entropy's reductions, the expert-parallel all-to-alls and token
+     gathers, the metrics' and the clip's scalar gathers, and the
+     optimizer's whole-leaf gathers where it is Adafactor.  A serving step
+     gathers its leaves at their use too, and adds the prefill's K/V
+     reshard, the decode step's head gathers and flash-decoding merges, and
+     the greedy pick over the vocab shards.
 
 The paper's workload rides along as the pseudo-arch ``zmc_multifunctions``
 (10k integrands x 1M samples, functions over ``model``).  A record carries
@@ -48,7 +54,8 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.launch.specs import batch_logical_axes, input_specs
 from repro_torch.launch.train import (TrainHParams, abstract_train_state,
                                       default_hparams_for, train_state_specs)
-from repro_torch.models import moe
+from repro_torch.models import decode as dec
+from repro_torch.models import layers, moe
 from repro_torch.models.config import count_params
 from repro_torch.models.model import Model, _stages_for, param_defs
 
@@ -187,12 +194,114 @@ def _n_batch(mesh, rules, rows, seq) -> int:
 
 def _empty() -> dict:
     return {k: {"count": 0, "bytes": 0} for k in
-            ("all-gather", "reduce-scatter", "all-to-all", "collective-permute")}
+            ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")}
 
 
 def _add(out: dict, kind: str, nbytes: int, times: int = 1) -> None:
     out[kind]["count"] += times
     out[kind]["bytes"] += nbytes * times
+
+
+def _add_all(out: dict, parts, times: int = 1) -> None:
+    for kind, nbytes in parts:
+        _add(out, kind, nbytes, times)
+
+
+def _tp(mesh, rules, logical: str, dim: int) -> bool:
+    return sh.tp_ways(mesh, rules, logical, dim) > 1
+
+
+def _attn_mode(cfg, mesh, rules) -> str | None:
+    kv = cfg.n_heads if cfg.attn_type == "mla" else cfg.n_kv_heads
+    return layers.attn_mode(mesh, rules, cfg.n_heads, kv)
+
+
+def entry_parts(cfg, mesh, kind: str, tokens: int, decode: bool = False) -> tuple[list, list]:
+    """(forward, backward) collectives of tensor parallelism in one plan
+    entry of ``kind`` (dense, moe, ssm, hybrid; the MoE island apart) over
+    ``tokens`` local tokens: (kind, bytes) pairs.  A ``decode`` step's
+    attention has no head relayouts (:func:`decode_attn_parts`)."""
+    rules = sh.rules_for(cfg)
+    c = _itemsize(cfg.dtype("compute"))
+    x = tokens * cfg.d_model * c
+    fwd, bwd = [], []
+    if kind in ("ssm", "hybrid"):
+        if _tp(mesh, rules, "mlp", cfg.ssm_d_inner) and _tp(mesh, rules, "ssm_heads",
+                                                              cfg.ssm_heads):
+            fwd += [("all-reduce", tokens * 4), ("all-reduce", x)]
+            bwd += [("all-reduce", x), ("all-reduce", tokens * 4)]
+        return fwd, bwd
+    mode = _attn_mode(cfg, mesh, rules)
+    if mode in ("kv", "qgroup"):
+        fwd.append(("all-reduce", x))
+        bwd.append(("all-reduce", x))
+    if mode == "qgroup" and not decode:
+        q = tokens * cfg.n_heads * cfg.head_dim * c
+        fwd += [("all-gather", q)] * 2
+        bwd += [("all-gather", q)] * 2
+    if kind == "moe":
+        width, logical = cfg.n_shared_experts * cfg.moe_d_ff, "shared_mlp"
+    else:
+        width, logical = cfg.d_ff, "mlp"
+    if width and _tp(mesh, rules, logical, width):
+        fwd.append(("all-reduce", x))
+        bwd.append(("all-reduce", x))
+    return fwd, bwd
+
+
+def ce_parts(cfg, mesh, rows: int, t: int) -> tuple[list, list]:
+    """(forward, backward) collectives of the vocab-parallel cross-entropy
+    over ``rows`` x ``t`` predicted positions in chunks of ``CE_CHUNK``:
+    the row maximum's gather and two sums forward, f's all-reduce of the
+    hidden states backward."""
+    from repro_torch.models.model import CE_CHUNK
+    rules = sh.rules_for(cfg)
+    if not _tp(mesh, rules, "vocab", cfg.vocab_padded):
+        return [], []
+    m = sh.mesh_axes(mesh)["model"]
+    c = _itemsize(cfg.dtype("compute"))
+    chunk = min(CE_CHUNK, t)
+    fwd, bwd = [], []
+    for lo in range(0, t, chunk):
+        n = rows * min(chunk, t - lo)
+        fwd += [("all-gather", n * 4 * m), ("all-reduce", n * 4), ("all-reduce", n * 4)]
+        bwd.append(("all-reduce", n * cfg.d_model * c))
+    return fwd, bwd
+
+
+def embed_parts(cfg, mesh, tokens: int) -> list:
+    """The vocab-split embedding's g over ``tokens`` local tokens (none for
+    an audio frontend, which embeds no tokens)."""
+    if (cfg.is_encoder and cfg.frontend_dim) or not _tp(mesh, sh.rules_for(cfg), "vocab",
+                                                        cfg.vocab_padded):
+        return []
+    return [("all-reduce", tokens * cfg.d_model * _itemsize(cfg.dtype("compute")))]
+
+
+def _entries(stages) -> list[tuple[str, str]]:
+    """(parameter prefix, kind) of every plan entry in run order."""
+    out, first = [], 0
+    for s in stages:
+        for i in range(s.n_layers):
+            out.append((f"blocks.{first + i}.", s.kind))
+            if s.kind == "hybrid" and (i + 1) % s.group == 0:
+                out.append(("shared_attn.", "dense"))
+        first += s.n_layers
+    return out
+
+
+def leaf_axes(cfg, mesh, rules, layout, name, b_axes) -> tuple[list, list]:
+    """(gather axes, sum axes) of one parameter leaf (of more than one rank)."""
+    sizes = sh.mesh_axes(mesh)
+    shape, spec = layout[name]
+    gather = [a for a in sh.sharded_axes(spec) if sizes[a] > 1]
+    sums = list(b_axes)
+    role = fsdp.leaf_role(cfg, mesh, rules, name)
+    if role == "local":
+        gather = [a for a in gather if a != "model"]
+    elif role == "partial" and sizes.get("model", 1) > 1:
+        sums = sums + ["model"]
+    return gather, sums
 
 
 def moe_layer_collectives(cfg, mesh, tokens: int) -> dict:
@@ -232,53 +341,52 @@ def train_collectives(cfg, hp: TrainHParams, mesh, rows: int, seq: int) -> dict:
     b_axes = tuple(a for a in fsdp.batch_axes(mesh, rules, mb, seq) if sizes[a] > 1)
     n_b = math.prod(sizes[a] for a in b_axes)
 
-    def leaf(name):
-        shape, spec = layout[name]
-        spec_axes = [a for a in sh.sharded_axes(spec) if sizes[a] > 1]
-        gather = list(spec_axes)
-        sums = list(b_axes)
-        role = moe.ep_role(cfg, mesh, name)
-        if role == "local":
-            gather = [a for a in gather if a != "model"]
-        elif role == "router":
-            sums = sums + ["model"]
-        full = math.prod(shape) * isz
-        shard = full // math.prod(sizes[a] for a in spec_axes)
-        gathered = shard * math.prod(sizes[a] for a in gather)
-        return gather, sums, gathered, shard
-
     remat = cfg.remat == "full"
     out = _empty()
 
     def use(name, regather: bool):
-        gather, sums, gathered, shard = leaf(name)
+        shape, spec = layout[name]
+        gather, sums = leaf_axes(cfg, mesh, rules, layout, name, b_axes)
+        shard = math.prod(shape) * isz // math.prod(
+            sizes[a] for a in sh.sharded_axes(spec) if sizes[a] > 1)
         if gather:
-            _add(out, "all-gather", gathered, 2 if regather else 1)
+            _add(out, "all-gather", shard * math.prod(sizes[a] for a in gather),
+                 2 if regather else 1)
         if sums:
             _add(out, "reduce-scatter", shard)
 
-    entries = []
-    first = 0
-    for s in stages:
-        for i in range(s.n_layers):
-            entries.append(f"blocks.{first + i}.")
-            if s.kind == "hybrid" and (i + 1) % s.group == 0:
-                entries.append("shared_attn.")
-        first += s.n_layers
     top = [n for n in layout if not n.startswith(("blocks.", "shared_attn."))]
-    tokens = (mb // n_b) * seq
+    b = mb // n_b
+    tokens = b * seq
     island = moe_layer_collectives(cfg, mesh, tokens)
+    shift = 0 if cfg.is_encoder else 1
     for _ in range(hp.grad_accum):
         for n in top:
             use(n, False)
-        for prefix in entries:
+        _add_all(out, embed_parts(cfg, mesh, tokens))
+        for prefix, kind in _entries(stages):
             for n in layout:
                 if n.startswith(prefix):
                     use(n, remat)
-            if prefix.startswith("blocks.") and moe.is_moe_layer(cfg, int(prefix.split(".")[1])):
+            fwd, bwd = entry_parts(cfg, mesh, kind, tokens)
+            _add_all(out, fwd, 2 if remat else 1)
+            _add_all(out, bwd)
+            if kind == "moe":
                 # forward, recompute under remat, backward (the reverse
                 # all-to-alls and the token slice's gather)
                 _merge(out, island, 3 if remat else 2)
+        # the loss's chunks, each recomputed in backward
+        fwd, bwd = ce_parts(cfg, mesh, b, seq - shift)
+        _add_all(out, fwd, 2)
+        _add_all(out, bwd)
+        if cfg.mtp_depth and cfg.family != "encoder":
+            _add_all(out, embed_parts(cfg, mesh, b * (seq - 1)))
+            fwd, bwd = entry_parts(cfg, mesh, "dense", b * (seq - 1))
+            _add_all(out, fwd)
+            _add_all(out, bwd)
+            fwd, bwd = ce_parts(cfg, mesh, b, seq - 2)
+            _add_all(out, fwd, 2)
+            _add_all(out, bwd)
     if n_b > 1:
         _add(out, "all-gather", 4 * (3 if cfg.mtp_depth else 2) * n_b)
     if world > 1:
@@ -314,14 +422,83 @@ def _flat(tree) -> list:
     return [tree]
 
 
-def serve_collectives(cfg, mesh, rows: int, seq: int) -> dict:
-    """One prefill (``seq`` > 1) or decode step (``seq`` == 1) of the
-    server on a global batch of ``rows``: the MoE island of every MoE layer."""
+def decode_attn_parts(cfg, mesh, rows: int, total: int, seq_cap: int) -> list:
+    """One decode step's attention collectives over ``rows`` local rows of a
+    global batch of ``total`` (g apart): the head gathers and the
+    flash-decoding merge."""
     rules = sh.rules_for(cfg)
+    mode = _attn_mode(cfg, mesh, rules)
+    c = _itemsize(cfg.dtype("compute"))
+    h = cfg.n_heads
+    if cfg.attn_type == "mla":
+        split = _seq_split(mesh, rules, total, seq_cap, (cfg.kv_lora_rank,),
+                           ("batch", "cache_seq", "kv_lora"))
+        per_head, width = cfg.kv_lora_rank + cfg.qk_rope_dim, cfg.kv_lora_rank
+    else:
+        split = _seq_split(mesh, rules, total, seq_cap, (cfg.n_kv_heads, cfg.head_dim),
+                           dec.CACHE_AXES)
+        per_head, width = cfg.head_dim, cfg.head_dim
+    out = []
+    if mode == "kv" and split and cfg.attn_type != "mla":
+        out.append(("all-gather", rows * (h + 2 * cfg.n_kv_heads) * cfg.head_dim * c))
+    elif (mode == "kv" and split) or mode == "qgroup":
+        out.append(("all-gather", rows * h * per_head * c))
+    if split:
+        m = sh.mesh_axes(mesh)["model"]
+        out.append(("all-gather", rows * h * (width + 2) * 4 * m))
+    return out
+
+
+def _seq_split(mesh, rules, total, seq_cap, rest, axes) -> bool:
+    """Whether a cache of a global batch of ``total`` rests split along its
+    sequence over ``model``."""
+    spec = sh.logical_to_spec((total, seq_cap) + tuple(rest), axes, mesh, rules)
+    return len(spec) > 1 and "model" in sh.spec_axes(spec[1])
+
+
+def serve_collectives(cfg, mesh, rows: int, seq: int, seq_cap: int | None = None) -> dict:
+    """One prefill (``seq`` > 1) or decode step (``seq`` == 1) of the
+    server on a global batch of ``rows`` with caches of ``seq_cap``
+    positions (``seq`` by default), and its greedy pick: every leaf's gather
+    at its use, tensor parallelism's all-reduces, the prefill's K/V
+    reshard or the decode step's head gathers and merges, the MoE island
+    of every MoE layer, and the argmax over the vocab shards."""
+    rules = sh.rules_for(cfg)
+    sizes = sh.mesh_axes(mesh)
+    seq_cap = seq if seq_cap is None else seq_cap
     n_b = _n_batch(mesh, rules, rows, seq)
+    b = rows // n_b
+    tokens = b * seq
+    c = _itemsize(cfg.dtype("compute"))
+    stages = _stages_for(cfg)
+    layout = fsdp.param_layout(SimpleNamespace(cfg=cfg, stages=stages), mesh, rules)
     out = _empty()
-    n_moe = sum(s.n_layers for s in _stages_for(cfg) if s.kind == "moe")
-    _merge(out, moe_layer_collectives(cfg, mesh, (rows // n_b) * seq), n_moe)
+    for name, (shape, spec) in layout.items():
+        if name.startswith("mtp."):
+            continue
+        gather, _ = leaf_axes(cfg, mesh, rules, layout, name, ())
+        if gather:
+            kept = [a for a in sh.sharded_axes(spec) if sizes[a] > 1 and a not in gather]
+            gathered = math.prod(shape) * c // math.prod(sizes[a] for a in kept)
+            times = sum(1 for p, _ in _entries(stages) if name.startswith(p)) or 1
+            _add(out, "all-gather", gathered, times)
+    _add_all(out, embed_parts(cfg, mesh, tokens))
+    mode = _attn_mode(cfg, mesh, rules)
+    for _, kind in _entries(stages):
+        _add_all(out, entry_parts(cfg, mesh, kind, tokens, decode=seq == 1)[0])
+        if kind in ("ssm", "hybrid"):
+            continue
+        if seq == 1:
+            _add_all(out, decode_attn_parts(cfg, mesh, b, rows, seq_cap))
+        elif mode == "kv" and cfg.attn_type != "mla":
+            if _seq_split(mesh, rules, rows, seq_cap, (cfg.n_kv_heads, cfg.head_dim),
+                          dec.CACHE_AXES):
+                kv_l = cfg.n_kv_heads // sizes["model"]
+                _add(out, "all-to-all", 2 * b * seq_cap * kv_l * cfg.head_dim * c)
+    n_moe = sum(s.n_layers for s in stages if s.kind == "moe")
+    _merge(out, moe_layer_collectives(cfg, mesh, tokens), n_moe)
+    if _tp(mesh, rules, "vocab", cfg.vocab_padded):
+        _add(out, "all-gather", b * 2 * 4 * sizes["model"])
     out["total_bytes"] = sum(v["bytes"] for v in out.values() if isinstance(v, dict))
     return out
 
@@ -381,7 +558,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
                                                           shape.seq_len)
             else:
                 seq = shape.seq_len if shape.kind == "prefill" else 1
-                record["collectives"] = serve_collectives(cfg, mesh, shape.global_batch, seq)
+                record["collectives"] = serve_collectives(cfg, mesh, shape.global_batch, seq,
+                                                          shape.seq_len)
             record["model"] = model_flops_estimate(cfg, shape)
     except Exception as e:
         record["status"] = "error"

@@ -9,13 +9,19 @@ runs a small generation on the CPU.  Without a GPU and without
 
 ``Server(cfg, mesh=)`` (every rank builds one; ``--mesh --ranks N`` on the
 CLI) serves on a mesh: each rank draws its parameter blocks
-(:func:`repro_torch.distributed.fsdp.shard_model`, one device's values) and
-gathers them whole once, when the server is built, but for the routed
-experts, which stay sharded over ``model`` (expert parallelism: the MoE
-island of :mod:`repro_torch.models.moe` runs at every step).  The global
-batch is split over the batch axes (each rank prefills and decodes its
-rows, its caches those rows'), and ``generate`` gathers every rank's
-tokens, so every rank returns the whole batch's.
+(:func:`repro_torch.distributed.fsdp.shard_model`, one device's values;
+or takes a model so sharded as ``model``) and keeps them, cast to the
+compute dtype.  Every step computes on them as the training step does:
+tensor parallel over ``model`` (heads, MLP width, vocab, SSM heads; the
+routed experts as the MoE island), each leaf gathered over its other axes
+at its use.  The caches rest as their specs
+give each rank: the sequence split over ``model`` where it divides
+``seq_cap`` (flash-decoding, :mod:`repro_torch.models.decode`).  The
+global batch is split over the batch axes (each rank prefills and decodes
+its rows).  Greedy decoding takes the argmax over the vocab shards (the
+first index at the global maximum, as ``torch.argmax`` picks); sampling
+gathers the logits first.  ``generate`` gathers every rank's tokens, so
+every rank returns the whole batch's.
 """
 
 from __future__ import annotations
@@ -58,12 +64,13 @@ class Server:
         self.rules = sh.rules_for(cfg)
         cd = cfg.dtype("compute")
         if mesh is not None:
-            if model is not None:
-                raise ValueError("a mesh server draws its own blocks: pass no model")
+            if model is not None and model.param_source is None:
+                raise ValueError("a mesh server takes a model of this rank's blocks "
+                                 "(fsdp.shard_model) or draws its own: pass no model")
             self.device = collectives.mesh_device(mesh, device)
-            model = fsdp.shard_model(Model(cfg, device="meta"), mesh, seed=seed,
-                                     device=self.device)
-            fsdp.full_params(model)
+            if model is None:
+                model = fsdp.shard_model(Model(cfg, device="meta"), mesh, seed=seed,
+                                         device=self.device)
             for name, p in list(model.named_parameters()):
                 prefix, _, key = name.rpartition(".")
                 model.get_submodule(prefix)._parameters[key] = nn.Parameter(
@@ -94,13 +101,14 @@ class Server:
                  for k, v in batch.items()}, axes)
 
     @contextlib.contextmanager
-    def context(self, rows: int):
-        """The mesh and rules model code sees (its MoE island, the batch
-        check of ``constrain`` against ``rows``); nothing on one device."""
+    def context(self, rows: int, total: int | None = None):
+        """The mesh and rules model code sees (tensor parallelism, the MoE
+        island, ``constrain``'s checks of this rank's ``rows`` of a global
+        batch of ``total``); nothing on one device."""
         if self.mesh is None:
             yield
             return
-        with sh.logical_sharding(self.mesh, self.rules), sh.local_batch(rows):
+        with sh.logical_sharding(self.mesh, self.rules), sh.local_batch(rows, total):
             yield
 
     @torch.no_grad()
@@ -114,32 +122,56 @@ class Server:
         ``jax.random.categorical``.
         """
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        key = "tokens" if "tokens" in batch else "frames"
+        total = batch[key].shape[0]
         batch, axes = self.local(batch)
-        prompt_len = (batch["tokens"].shape[1] if "tokens" in batch
-                      else batch["frames"].shape[1])
+        prompt_len = batch[key].shape[1]
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
         out = []
-        with self.context(batch["tokens" if "tokens" in batch else "frames"].shape[0]):
+        with self.context(batch[key].shape[0], total):
             logits, cache = self.compute.prefill(batch, seq_cap)
             tok = self._sample(logits, temperature, gen)
             for i in range(max_new_tokens):
                 out.append(tok)
-                logits, cache = self.compute.decode_step(cache, tok, prompt_len + i)
+                logits, cache = self.compute.decode_step(cache, tok, prompt_len + i, seq_cap)
                 tok = self._sample(logits, temperature, gen)
         toks = torch.cat(out, dim=1)
         if axes:
             toks = torch.cat(collectives.all_gather_axes(toks, self.mesh, axes))
         return toks
 
-    @staticmethod
-    def _sample(logits, temperature: float, gen):
+    def _sample(self, logits, temperature: float, gen):
+        """The next tokens (B, 1) int32 from this rank's logits: on a mesh
+        with a vocab-split head, greedy is the first index at the maximum
+        over every rank's columns, and sampling gathers the columns first."""
+        n = logits.shape[-1]
+        if n != self.cfg.vocab_padded:
+            if temperature > 0.0:
+                logits = torch.cat(collectives.all_gather_axes(logits, self.mesh, ("model",)),
+                                   dim=-1)
+            else:
+                return self.argmax_over_vocab(logits)
         if temperature <= 0.0:
             return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         probs = torch.softmax(logits.float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+
+    def argmax_over_vocab(self, logits):
+        """``torch.argmax`` of the whole rows of vocab-split ``logits``: each
+        rank's maximum and its (global) index, gathered over ``model``; the
+        first rank with the largest value wins ties, as its index is lower."""
+        n = logits.shape[-1]
+        r = collectives.axis_index(self.mesh, ("model",))
+        idx = torch.argmax(logits, dim=-1)
+        val = torch.take_along_dim(logits, idx[:, None], dim=-1)[:, 0].float()
+        best = None
+        for part in collectives.all_gather_axes(torch.stack([val, (idx + r * n).float()], -1),
+                                                self.mesh, ("model",)):
+            best = part if best is None else torch.where(part[:, :1] > best[:, :1], part, best)
+        return best[:, 1:].to(torch.int32)
 
 
 def main(argv=None):

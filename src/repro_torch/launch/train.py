@@ -24,9 +24,13 @@ under the reference's specs (:func:`train_state_specs`,
 :mod:`repro_torch.distributed.sharding`), and the step follows the
 schedule of :mod:`repro_torch.distributed.fsdp`: the global batch is split
 into microbatches first, each microbatch's rows over the batch axes
-second; each rank runs its rows with every plan entry's weights gathered
-whole, and the gradient's deterministic reduce-scatter leaves each rank the
-sum of its block.  The clip's sum of squares, the metrics, the int8
+second; each rank runs its rows tensor parallel over ``model`` (its heads,
+widths and vocab columns, the residual stream the same on every ``model``
+rank between Megatron's f and g), every other weight gathered over the
+axes of its spec, and the gradient's deterministic reduce-scatter leaves
+each rank the sum of its block (over ``model`` too for a leaf each
+``model`` rank uses for its own block: :func:`fsdp.leaf_role`).  The
+clip counts each block once.  The clip's sum of squares, the metrics, the int8
 compression's scales and Adafactor's factored statistics are gathers folded
 in rank order (no float ``all_reduce``), so a run repeats and resumes bit
 for bit on the same mesh; the loss and the gradients equal one device's up
@@ -340,7 +344,8 @@ class MeshTrainStep(TrainStep):
                  for k, v in batch.items()}
         sums: dict[str, torch.Tensor] = {}
         per = len(rows) // accum
-        with sh.logical_sharding(self.mesh, self.rules), sh.local_batch(per):
+        with sh.logical_sharding(self.mesh, self.rules), \
+                sh.local_batch(per, rows_total // accum):
             for mb in _split_microbatches(local, accum) if accum > 1 else [local]:
                 with self.gather.top():
                     loss, metrics = self.model.loss(mb)

@@ -39,16 +39,19 @@ def dense_block_defs(cfg: ModelConfig, use_moe: bool = False) -> dict:
 
 def _ffn(x, p, cfg: ModelConfig, use_moe: bool):
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return moe.moe_ffn(h, p["ffn"], cfg) if use_moe else layers.mlp(h, p["ffn"], cfg)
+    if use_moe:
+        return moe.moe_ffn(h, p["ffn"], cfg)
+    return layers.mlp(h, p["ffn"], cfg, d_ff=cfg.d_ff)
 
 
 def _attn_with_kv(x, p, cfg: ModelConfig, positions):
     """(attention output, what the layer's cache holds of this sequence)."""
     if cfg.attn_type == "mla":
         return mla.mla_attention(x, p, cfg, positions)
-    q, k, v = layers.qkv_proj(x, p, cfg, positions)
-    o = layers.sdpa(q, k, v, cfg, causal=cfg.causal and not cfg.is_encoder)
-    return layers.attn_out(o, p, cfg), (k, v)
+    with layers.context_parallel(cfg, cfg.n_heads, cfg.n_kv_heads):
+        q, k, v = layers.qkv_proj(x, p, cfg, positions)
+        o = layers.sdpa(q, k, v, cfg, causal=cfg.causal and not cfg.is_encoder)
+        return layers.attn_out(o, p, cfg), (k, v)
 
 
 def dense_block(x, p, cfg: ModelConfig, positions, use_moe: bool = False):
@@ -66,19 +69,19 @@ def dense_block_prefill(x, p, cfg: ModelConfig, positions, seq_cap: int,
     x = x + a
     x = x + _ffn(x, p, cfg, use_moe)
     if cfg.attn_type == "mla":
-        c_kv, k_rope = kv
-        return x, {"c_kv": dec.pad_seq(c_kv, seq_cap), "k_rope": dec.pad_seq(k_rope, seq_cap)}
-    return x, dec.prefill_kv(*kv, seq_cap)
+        return x, mla.prefill_cache(*kv, cfg, seq_cap)
+    return x, dec.prefill_kv(*kv, seq_cap, cfg.n_kv_heads)
 
 
 def dense_block_decode(x, p, cfg: ModelConfig, cache: dict, pos: int,
-                       use_moe: bool = False):
-    """Returns (x, cache), the cache updated in place at ``pos``."""
+                       use_moe: bool = False, seq_cap: int | None = None):
+    """Returns (x, cache), the cache updated in place at ``pos``
+    (``seq_cap``: the whole cache's length, the cache's own by default)."""
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
-        a, cache = mla.mla_decode(h, p["attn"], cfg, cache, pos)
+        a, cache = mla.mla_decode(h, p["attn"], cfg, cache, pos, seq_cap)
     else:
-        a, cache = dec.gqa_decode(h, p["attn"], cfg, cache, pos)
+        a, cache = dec.gqa_decode(h, p["attn"], cfg, cache, pos, seq_cap)
     x = x + a
     return x + _ffn(x, p, cfg, use_moe), cache
 
@@ -105,7 +108,7 @@ def ssm_block_prefill(x, p, cfg: ModelConfig, positions=None, seq_cap=None):
     return x + h, cache
 
 
-def ssm_block_decode(x, p, cfg: ModelConfig, cache: dict, pos=None):
+def ssm_block_decode(x, p, cfg: ModelConfig, cache: dict, pos=None, seq_cap=None):
     """Returns (x, cache), the cache updated in place."""
     h, cache = ssm.mamba2_decode(layers.rmsnorm(x, p["ln"], cfg.norm_eps), p["mixer"], cfg,
                                  cache)
@@ -162,8 +165,8 @@ class DenseBlock(nn.ModuleDict):
         return dense_block_prefill(x, self, self.cfg, positions, seq_cap, self.use_moe)
 
     @torch.no_grad()
-    def decode(self, x, cache: dict, pos: int):
-        return dense_block_decode(x, self, self.cfg, cache, pos, self.use_moe)
+    def decode(self, x, cache: dict, pos: int, seq_cap: int | None = None):
+        return dense_block_decode(x, self, self.cfg, cache, pos, self.use_moe, seq_cap)
 
 
 class SSMBlock(nn.ModuleDict):
@@ -182,5 +185,5 @@ class SSMBlock(nn.ModuleDict):
         return ssm_block_prefill(x, self, self.cfg)
 
     @torch.no_grad()
-    def decode(self, x, cache: dict, pos: int):
+    def decode(self, x, cache: dict, pos: int, seq_cap: int | None = None):
         return ssm_block_decode(x, self, self.cfg, cache)

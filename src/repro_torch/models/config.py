@@ -9,7 +9,9 @@ into tensors, :func:`count_params` counts it without allocating.
 Initialisation follows the reference's rule (normal with standard
 deviation ``scale``, or 1/sqrt(fan-in) with fan-in ``shape[-2]``; zeros;
 ones) but draws from a ``torch.Generator``, so its values are not the
-``jax.random`` values of the same seed.  Tests that compare the two
+``jax.random`` values of the same seed.  A stacked leaf (leading
+``layers`` axis) is drawn one layer at a time, so the f32 transient of the
+largest stage leaf is one layer's.  Tests that compare the two
 packages carry the reference's weights across
 (:func:`repro_torch.models.convert.params_from_reference`).
 """
@@ -167,6 +169,13 @@ def _init_leaf(p: PSpec, gen: torch.Generator, dtype: torch.dtype,
     if p.init == "normal":
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         std = p.scale if p.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        if p.axes[:1] == ("layers",):
+            # a stacked leaf layer by layer: its f32 draw is one layer's
+            out = torch.empty(p.shape, dtype=dtype, device=device)
+            for i in range(p.shape[0]):
+                out[i] = torch.randn(p.shape[1:], generator=gen, dtype=torch.float32,
+                                     device=device).mul_(std)
+            return out
         draw = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=device)
         return draw.mul_(std).to(dtype)
     raise ValueError(f"unknown init {p.init!r}")

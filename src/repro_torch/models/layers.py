@@ -13,28 +13,91 @@ reference does; a cast to the dtype a tensor already has is free.
 Attention computes the full (q_len, kv_len) score rectangle and masks it
 with -1e30, as the reference does (no ``scaled_dot_product_attention``,
 whose arithmetic differs); above ``Q_CHUNK_THRESHOLD`` it walks query
-blocks of ``Q_CHUNK`` against all keys.  The reference's sharding
-constraints are kept at its call sites
-(:func:`repro_torch.distributed.sharding.constrain`): on a mesh, weights
-are gathered whole before use, so they check that an activation's batch
-dim is this rank's block and return it.
+blocks of ``Q_CHUNK`` against all keys.
+
+On a mesh each layer computes on the blocks it is given
+(:mod:`repro_torch.distributed.fsdp`): Megatron's tensor parallelism over
+``model``, as the reference's rules shard it.  q/k/v are column-split by
+heads and ``wo`` row-split, the MLP's ``wg``/``wu`` column-split and
+``wd`` row-split, the embedding and head split by vocab.  Each region
+starts with :func:`~repro_torch.distributed.collectives.tp_copy` (f) and
+ends in :func:`~repro_torch.distributed.collectives.tp_reduce` (g), a sum
+over ``model`` folded in rank order.  A layer knows its split from its
+weights' shapes against the config's whole counts.  Attention follows
+:func:`_score_axes`' first two cases (:func:`attn_mode`): KV heads split,
+or K/V whole with the q group split (the heads relaid out to the
+reference's (KV, group) block and back).  In its third, the q-sequence
+case, the block runs on whole weights with its constraints off: context
+parallelism is not ported.  The reference's sharding constraints are kept
+at its call sites (:func:`repro_torch.distributed.sharding.constrain`),
+where they check each activation's block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import logging
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain, current_mesh, mesh_axes
 from repro_torch.models.config import ModelConfig, PSpec
 
 # q-chunking kicks in above this sequence length
 Q_CHUNK_THRESHOLD = 8192
 Q_CHUNK = 1024
+
+_LOG = logging.getLogger(__name__)
+_SAID: set = set()
+
+
+def model_axis():
+    """(mesh, size, this rank's index) of the current mesh's ``model`` axis
+    for a layer given split weights; raises without one."""
+    mesh = current_mesh()
+    m = mesh_axes(mesh).get("model", 1) if mesh is not None else 1
+    if m == 1:
+        raise ValueError("a layer got tensor-parallel weights outside a mesh with a "
+                         "'model' axis")
+    return mesh, m, collectives.axis_index(mesh, ("model",))
+
+
+def attn_mode(mesh, rules, n_heads: int, n_kv: int) -> str | None:
+    """How attention splits over ``model`` (:func:`_score_axes`' cases):
+    ``"kv"`` (KV heads, and so q heads), ``"qgroup"`` (q heads by their
+    group, K/V whole), ``"qseq"`` (the q sequence: context parallelism,
+    which the port runs whole), or None (no ``model`` axis, or rules that
+    do not split heads)."""
+    m = mesh_axes(mesh).get("model", 1) if mesh is not None else 1
+    if sh.tp_ways(mesh, rules, "heads", m) == 1:
+        return None
+    if sh.tp_ways(mesh, rules, "kv_heads", n_kv) > 1:
+        return "kv"
+    if (n_heads // n_kv) % m == 0:
+        return "qgroup"
+    return "qseq" if sh.tp_ways(mesh, rules, "attn_q_seq", m) > 1 else None
+
+
+def context_parallel(cfg: ModelConfig, n_heads: int, n_kv: int):
+    """A context that turns the constraints off for an attention block in
+    the q-sequence case (whole weights, see the module docstring), and says
+    so once in the log; a null context otherwise."""
+    mesh = current_mesh()
+    if mesh is None or attn_mode(mesh, sh.current_rules(), n_heads, n_kv) != "qseq":
+        return contextlib.nullcontext()
+    key = (cfg.name, n_heads, n_kv, mesh_axes(mesh)["model"])
+    if key not in _SAID:
+        _SAID.add(key)
+        _LOG.warning("%s: %d heads / %d KV heads split over neither on model = %d "
+                     "(the reference's q-sequence case); attention runs on whole "
+                     "weights", cfg.name, n_heads, n_kv, mesh_axes(mesh)["model"])
+    return sh.no_constraints()
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +203,21 @@ def embed_defs(cfg: ModelConfig) -> dict:
 
 
 def embed(tokens, params, cfg: ModelConfig):
-    return params["tok"][tokens].to(cfg.dtype("compute"))
+    """Token embeddings in the compute dtype.  A vocab-split table (this
+    rank's rows) looks up the tokens it holds, zeros elsewhere, and the
+    ranks' rows are summed over ``model`` (g: each token is one rank's)."""
+    tok = params["tok"]
+    cd = cfg.dtype("compute")
+    if tok.shape[0] == cfg.vocab_padded:
+        out = tok[tokens].to(cd)
+    else:
+        mesh, _, r = model_axis()
+        n = tok.shape[0]
+        local = tokens - r * n
+        hit = (local >= 0) & (local < n)
+        out = tok[local.clamp(0, n - 1)].to(cd).masked_fill(~hit[..., None], 0.0)
+        out = collectives.tp_reduce(out, mesh)
+    return constrain(out, ("batch", "seq", "embed"))
 
 
 def head_defs(cfg: ModelConfig) -> dict:
@@ -150,14 +227,20 @@ def head_defs(cfg: ModelConfig) -> dict:
 
 
 def lm_head(x, params, embed_params, cfg: ModelConfig):
-    """Logits over the padded vocab; padding columns masked to -1e30."""
+    """Logits over the padded vocab; padding columns masked to -1e30.  With
+    a vocab-split head, this rank's columns (``x`` enters through f)."""
     cd = cfg.dtype("compute")
     w = embed_params["tok"].to(cd).T if cfg.tie_embeddings else params["out"].to(cd)
+    lo = 0
+    if w.shape[-1] != cfg.vocab_padded:
+        mesh, _, r = model_axis()
+        x = collectives.tp_copy(x, mesh)
+        lo = r * w.shape[-1]
     logits = torch.matmul(x, w)
     if cfg.vocab_padded != cfg.vocab_size:
-        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab_size
+        pad = torch.arange(lo, lo + w.shape[-1], device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    return constrain(logits, ("batch", "seq", "vocab"))
+    return constrain(logits, ("batch", "seq", "vocab"), {"vocab": cfg.vocab_padded})
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +263,11 @@ def attn_defs(cfg: ModelConfig) -> dict:
 
 
 def qkv_proj(x, params, cfg: ModelConfig, positions):
-    """Project and rotate. Returns q (B,S,H,D), k/v (B,S,KV,D)."""
+    """Project and rotate. Returns q (B,S,H,D), k/v (B,S,KV,D): this rank's
+    heads where the weights are split (``x`` enters through f)."""
     cd = cfg.dtype("compute")
+    if params["wq"].shape[1] != cfg.n_heads:
+        x = collectives.tp_copy(x, model_axis()[0])
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(cd))
@@ -193,9 +279,10 @@ def qkv_proj(x, params, cfg: ModelConfig, positions):
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
-    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
-    k = constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
-    v = constrain(v, ("batch", "seq", "kv_heads", "head_dim"))
+    heads = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads}
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"), heads)
+    k = constrain(k, ("batch", "seq", "kv_heads", "head_dim"), heads)
+    v = constrain(v, ("batch", "seq", "kv_heads", "head_dim"), heads)
     return q, k, v
 
 
@@ -216,16 +303,22 @@ def _score_axes(n_kv_heads: int, group: int):
     return ("batch", None, "qgroup", "attn_q_seq", None)
 
 
-def _sdpa_full(q, k, v, *, causal: bool, q_offset: int = 0):
+def _sdpa_full(q, k, v, *, causal: bool, q_offset: int = 0, n_kv: int | None = None,
+               group: int | None = None):
     """Grouped scores over the whole (q_len, kv_len) rectangle.
 
     q: (B, Sq, KV, G, D); k/v: (B, Sk, KV, D). Returns (B, Sq, KV, G, D).
+    ``n_kv`` and ``group`` are the whole counts (the block's own by
+    default): on a mesh the constraints check the blocks against them.
     """
     sq, d = q.shape[1], q.shape[-1]
     sk = k.shape[1]
+    n_kv = k.shape[2] if n_kv is None else n_kv
+    group = q.shape[3] if group is None else group
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
-    scores = constrain(scores, _score_axes(k.shape[2], q.shape[3]))
+    sizes = {"kv_heads": n_kv, "qgroup": group, "heads": group, "attn_q_seq": sq}
+    scores = constrain(scores, _score_axes(n_kv, group), sizes)
     if causal:
         qi = torch.arange(sq, device=q.device) + q_offset
         ki = torch.arange(sk, device=q.device)
@@ -233,41 +326,79 @@ def _sdpa_full(q, k, v, *, causal: bool, q_offset: int = 0):
         scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-    return constrain(out, ("batch", None, None, "heads", None))
+    if k.shape[2] == n_kv:
+        # with the KV heads split the reference's constraint here gathers
+        # the group's heads whole, for attention's next one to cut them
+        # again; the port keeps its block
+        out = constrain(out, ("batch", None, None, "heads", None), {"heads": group})
+    return out
 
 
-def sdpa(q, k, v, cfg: ModelConfig, *, causal: bool):
+def _group_layout(n_heads: int, n_kv: int, m: int):
+    """Per rank, the q heads it holds split by heads (contiguous blocks) and
+    by the q group (every KV head's r-th block of its group)."""
+    g, per = n_heads // n_kv, n_heads // m
+    heads = tuple(tuple(range(r * per, (r + 1) * per)) for r in range(m))
+    groups = tuple(tuple(j * g + r * (g // m) + i for j in range(n_kv) for i in range(g // m))
+                   for r in range(m))
+    return heads, groups
+
+
+def sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, n_kv: int | None = None):
     """Full or q-chunked attention; GQA grouping handled here.
 
     q: (B, S, H, D) -> out (B, S, H, DV).  Query head h reads KV head
-    h // (H // KV).
+    h // (H // KV).  ``n_kv`` is the whole KV head count (the config's
+    by default; MLA's expanded heads pass H).  Split q and K/V heads (the
+    KV case) are this rank's groups as they stand; split q heads against
+    whole K/V (the q-group case) are relaid out to every KV head's block of
+    the group for the scores, and back after.
     """
+    n_heads = cfg.n_heads
+    n_kv = cfg.n_kv_heads if n_kv is None else n_kv
     b, s, h, d = q.shape
-    kv = k.shape[2]
     dv = v.shape[-1]
-    g = h // kv
-    qg = q.reshape(b, s, kv, g, d)
+    group = n_heads // n_kv
+    regroup = h != n_heads and k.shape[2] == n_kv
+    if regroup:
+        mesh, m, _ = model_axis()
+        heads, groups = _group_layout(n_heads, n_kv, m)
+        q = collectives.relayout(q, mesh, 2, heads, groups)
+        qg = q.reshape(b, s, n_kv, group // m, d)
+    else:
+        kv = k.shape[2]
+        qg = q.reshape(b, s, kv, h // kv, d)
+    full = functools.partial(_sdpa_full, n_kv=n_kv, group=group)
     threshold = min(Q_CHUNK_THRESHOLD, cfg.attn_q_chunk_threshold)
     if s <= threshold:
-        return _sdpa_full(qg, k, v, causal=causal).reshape(b, s, h, dv)
-    # q-chunked: a ragged last block is cut, as the reference's zero
-    # padding of the query axis and slice after give the same rows
-    blocks = [_sdpa_full(qg[:, i:i + Q_CHUNK], k, v, causal=causal, q_offset=i)
-              for i in range(0, s, Q_CHUNK)]
-    return torch.cat(blocks, dim=1).reshape(b, s, h, dv)
+        out = full(qg, k, v, causal=causal)
+    else:
+        # q-chunked: a ragged last block is cut, as the reference's zero
+        # padding of the query axis and slice after give the same rows
+        out = torch.cat([full(qg[:, i:i + Q_CHUNK], k, v, causal=causal, q_offset=i)
+                         for i in range(0, s, Q_CHUNK)], dim=1)
+    out = out.reshape(b, s, h, dv)
+    if regroup:
+        out = collectives.relayout(out, mesh, 2, groups, heads)
+    return out
 
 
 def attn_out(o, params, cfg: ModelConfig):
-    o = constrain(o, ("batch", "seq", "heads", "head_dim"))
+    """The output projection; a row-split ``wo`` (this rank's heads) ends in
+    g, the heads' partial sums folded over ``model``."""
+    o = constrain(o, ("batch", "seq", "heads", "head_dim"), {"heads": cfg.n_heads})
     out = torch.einsum("bshk,hkd->bsd", o, params["wo"].to(cfg.dtype("compute")))
+    if params["wo"].shape[0] != cfg.n_heads:
+        out = collectives.tp_reduce(out, model_axis()[0])
     return constrain(out, ("batch", "seq", "embed"))
 
 
 def attention(x, params, cfg: ModelConfig, positions):
     """Prefill and forward attention (causal unless encoder)."""
-    q, k, v = qkv_proj(x, params, cfg, positions)
-    o = sdpa(q, k, v, cfg, causal=cfg.causal and not cfg.is_encoder)
-    return attn_out(o, params, cfg)
+    with context_parallel(cfg, cfg.n_heads, cfg.n_kv_heads):
+        q, k, v = qkv_proj(x, params, cfg, positions)
+        o = sdpa(q, k, v, cfg, causal=cfg.causal and not cfg.is_encoder)
+        return attn_out(o, params, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -296,9 +427,20 @@ def _act(name: str):
     return {"silu": _silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 
 
-def mlp(x, params, cfg: ModelConfig, act: str = "silu"):
+def mlp(x, params, cfg: ModelConfig, act: str = "silu", d_ff: int | None = None):
+    """The gated MLP; ``d_ff`` is its whole width (the weights' own by
+    default).  Column-split ``wg``/``wu`` and a row-split ``wd`` (this
+    rank's width) run between f and g."""
     cd = cfg.dtype("compute")
+    d_ff = params["wg"].shape[1] if d_ff is None else d_ff
+    split = params["wg"].shape[1] != d_ff
+    if split:
+        mesh = model_axis()[0]
+        x = collectives.tp_copy(x, mesh)
     g = torch.matmul(x, params["wg"].to(cd))
     u = torch.matmul(x, params["wu"].to(cd))
-    h = constrain(_act(act)(g) * u, ("batch", "seq", "mlp"))
-    return constrain(torch.matmul(h, params["wd"].to(cd)), ("batch", "seq", "embed"))
+    h = constrain(_act(act)(g) * u, ("batch", "seq", "mlp"), {"mlp": d_ff})
+    out = torch.matmul(h, params["wd"].to(cd))
+    if split:
+        out = collectives.tp_reduce(out, mesh)
+    return constrain(out, ("batch", "seq", "embed"))

@@ -11,8 +11,12 @@ shared roped key (``qk_rope`` wide), ``{"c_kv", "k_rope"}``.  Two paths:
   the query and ``wv_b`` into the output, so the scores are taken in the
   latent space against the compressed cache, which it updates in place.
 
-Every cast is the reference's; its sharding constraints have no
-counterpart on one device.
+Every cast is the reference's.  On a mesh the heads split over ``model``
+(``wq``/``wq_b``, ``wk_b``, ``wv_b`` and a row-split ``wo``, between f and
+g) while the latents are computed whole on every rank; the latent cache
+rests split along its sequence where ``model`` divides it, and the
+absorbed step merges its softmax partials over ``model`` as GQA's
+(:mod:`repro_torch.models.decode`).
 """
 
 from __future__ import annotations
@@ -21,8 +25,14 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as sh
+from repro_torch.models import decode as dec
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig, PSpec
+
+C_AXES = ("batch", "cache_seq", "kv_lora")
+R_AXES = ("batch", "cache_seq", None)
 
 
 def mla_defs(cfg: ModelConfig) -> dict:
@@ -48,10 +58,8 @@ def mla_defs(cfg: ModelConfig) -> dict:
 def mla_cache_defs(cfg: ModelConfig, batch: int, seq: int) -> dict:
     """One layer's cache: the normalised latent and the roped shared key."""
     return {
-        "c_kv": PSpec((batch, seq, cfg.kv_lora_rank), ("batch", "cache_seq", "kv_lora"),
-                      init="zeros"),
-        "k_rope": PSpec((batch, seq, cfg.qk_rope_dim), ("batch", "cache_seq", None),
-                        init="zeros"),
+        "c_kv": PSpec((batch, seq, cfg.kv_lora_rank), C_AXES, init="zeros"),
+        "k_rope": PSpec((batch, seq, cfg.qk_rope_dim), R_AXES, init="zeros"),
     }
 
 
@@ -73,7 +81,7 @@ def _kv_latent(x, p, cfg: ModelConfig, positions):
     c_kv = layers.rmsnorm(c_kv, {"scale": p["kv_norm"]}, cfg.norm_eps)
     angles = layers.rope_angles(positions, cfg.qk_rope_dim, cfg.rope_theta)
     k_rope = layers.apply_rope(k_rope[:, :, None, :], angles)[:, :, 0, :]
-    return c_kv, k_rope
+    return sh.constrain(c_kv, ("batch", "seq", "kv_lora")), k_rope
 
 
 def _roped_q(x, p, cfg: ModelConfig, positions):
@@ -84,48 +92,97 @@ def _roped_q(x, p, cfg: ModelConfig, positions):
     return q[..., :nope], layers.apply_rope(q[..., nope:], angles)
 
 
+def _split(p, cfg: ModelConfig):
+    """The mesh where this rank holds a block of the heads, else None."""
+    return layers.model_axis()[0] if p["wk_b"].shape[1] != cfg.n_heads else None
+
+
 def mla_attention(x, p, cfg: ModelConfig, positions):
     """Prefill and forward attention (expanded heads).
 
     Returns (out (B, S, d), (c_kv, k_rope)) for the cache."""
     cd = cfg.dtype("compute")
-    q_nope, q_rope = _roped_q(x, p, cfg, positions)
-    c_kv, k_rope = _kv_latent(x, p, cfg, positions)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(cd))
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(cd))
-    qf = torch.cat([q_nope, q_rope], dim=-1)
-    kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        k_nope.shape[:-1] + (cfg.qk_rope_dim,))], dim=-1)
-    o = layers.sdpa(qf, kf, v, cfg, causal=cfg.causal)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cd)), (c_kv, k_rope)
+    h = cfg.n_heads
+    with layers.context_parallel(cfg, h, h):
+        mesh = _split(p, cfg)
+        if mesh is not None:
+            x = collectives.tp_copy(x, mesh)
+        q_nope, q_rope = _roped_q(x, p, cfg, positions)
+        c_kv, k_rope = _kv_latent(x, p, cfg, positions)
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(cd))
+        v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(cd))
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            k_nope.shape[:-1] + (cfg.qk_rope_dim,))], dim=-1)
+        heads = {"heads": h}
+        qf = sh.constrain(qf, ("batch", "seq", "heads", "head_dim"), heads)
+        kf = sh.constrain(kf, ("batch", "seq", "heads", "head_dim"), heads)
+        o = layers.sdpa(qf, kf, v, cfg, causal=cfg.causal, n_kv=h)
+        o = sh.constrain(o, ("batch", "seq", "heads", "head_dim"), heads)
+        out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cd))
+        if mesh is not None:
+            out = collectives.tp_reduce(out, mesh)
+        return sh.constrain(out, ("batch", "seq", "embed")), (c_kv, k_rope)
 
 
-def mla_decode(x, p, cfg: ModelConfig, cache: dict, pos: int):
+def prefill_cache(c_kv, k_rope, cfg: ModelConfig, seq_cap: int) -> dict:
+    """A layer's cache of capacity ``seq_cap`` from the prefill's latents:
+    on a mesh this rank's block of positions."""
+    return {"c_kv": dec.seq_block(c_kv, seq_cap, C_AXES, {}),
+            "k_rope": dec.seq_block(k_rope, seq_cap, R_AXES, {})}
+
+
+def mla_decode(x, p, cfg: ModelConfig, cache: dict, pos: int, seq_cap: int | None = None):
     """The absorbed one-token step against the cache, which it updates in
     place at ``pos``.
 
-    x: (B, 1, d); cache: {"c_kv": (B, S, kv_lora), "k_rope": (B, S, rope)}.
-    Returns (out (B, 1, d), cache)."""
+    x: (B, 1, d); cache: {"c_kv": (B, S, kv_lora), "k_rope": (B, S, rope)},
+    this rank's block on a mesh (``seq_cap`` the whole length, the cache's
+    own by default).  Returns (out (B, 1, d), cache)."""
     cd = cfg.dtype("compute")
-    b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _roped_q(x, p, cfg, positions)           # (B,1,H,nope), (B,1,H,rope)
-
-    c_new, kr_new = _kv_latent(x, p, cfg, positions)
+    b, h = x.shape[0], cfg.n_heads
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    c_kv[:, pos:pos + 1] = c_new.to(c_kv.dtype)
-    k_rope[:, pos:pos + 1] = kr_new.to(k_rope.dtype)
+    seq_cap = c_kv.shape[1] if seq_cap is None else seq_cap
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    with layers.context_parallel(cfg, h, h):
+        mesh = _split(p, cfg)
+        if mesh is not None:
+            x = collectives.tp_copy(x, mesh)
+        q_nope, q_rope = _roped_q(x, p, cfg, positions)       # (B,1,H,nope), (B,1,H,rope)
 
-    # wk_b absorbed into the query: scores in the latent space
-    q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, p["wk_b"].to(cd))
-    s_latent = torch.einsum("bqhr,bsr->bhqs", q_c, c_kv.to(cd))
-    s_rope = torch.einsum("bqhn,bsn->bhqs", q_rope, k_rope.to(cd))
-    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
-    scores = (s_latent + s_rope).float() * scale
-    mask = torch.arange(c_kv.shape[1], device=x.device) <= pos
-    scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(cd)
-    ctx_c = torch.einsum("bhqs,bsr->bqhr", probs, c_kv.to(cd))
-    # wv_b absorbed on the way out
-    ctx_v = torch.einsum("bqhr,rhk->bqhk", ctx_c, p["wv_b"].to(cd))
-    return torch.einsum("bqhk,hkd->bqd", ctx_v, p["wo"].to(cd)), cache
+        c_new, kr_new = _kv_latent(x, p, cfg, positions)
+        split = dec.seq_split(b, seq_cap, (cfg.kv_lora_rank,), C_AXES)
+        lo = split[2] * c_kv.shape[1] if split else 0
+        if lo <= pos < lo + c_kv.shape[1]:
+            c_kv[:, pos - lo:pos - lo + 1] = c_new.to(c_kv.dtype)
+            k_rope[:, pos - lo:pos - lo + 1] = kr_new.to(k_rope.dtype)
+        c_kv = sh.constrain(c_kv, C_AXES, {"cache_seq": seq_cap})
+        k_rope = sh.constrain(k_rope, R_AXES, {"cache_seq": seq_cap})
+
+        # wk_b absorbed into the query: scores in the latent space
+        q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, p["wk_b"].to(cd))
+        if split and mesh is not None:
+            q_c, q_rope = dec.gather_heads([q_c, q_rope], mesh)
+        s_latent = torch.einsum("bqhr,bsr->bhqs", q_c, c_kv.to(cd))
+        s_rope = torch.einsum("bqhn,bsn->bhqs", q_rope, k_rope.to(cd))
+        scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+        scores = (s_latent + s_rope).float() * scale
+        mask = torch.arange(lo, lo + c_kv.shape[1], device=x.device) <= pos
+        scores = torch.where(mask, scores, -1e30)
+        if split:
+            m, l, e, cf = dec.softmax_partials(scores, c_kv)
+            ctx_c = torch.einsum("bhqs,bsr->bhqr", e, cf)
+            ctx_c = collectives.merge_partials(m, l, ctx_c, split[0], ("model",))
+            ctx_c = ctx_c.to(cd).transpose(1, 2)
+            if mesh is not None:
+                per = p["wk_b"].shape[1]
+                ctx_c = ctx_c[:, :, split[2] * per:(split[2] + 1) * per]
+        else:
+            probs = torch.softmax(scores, dim=-1).to(cd)
+            ctx_c = torch.einsum("bhqs,bsr->bqhr", probs, c_kv.to(cd))
+        # wv_b absorbed on the way out
+        ctx_v = torch.einsum("bqhr,rhk->bqhk", ctx_c, p["wv_b"].to(cd))
+        out = torch.einsum("bqhk,hkd->bqd", ctx_v, p["wo"].to(cd))
+        if mesh is not None:
+            out = collectives.tp_reduce(out, mesh)
+        return sh.constrain(out, ("batch", "seq", "embed")), cache

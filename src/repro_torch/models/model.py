@@ -43,10 +43,19 @@ reference's cache tree (``stages/<stage>`` stacked by layer, and the
 hybrid's ``shared_attn`` stacked by invocation), :meth:`Model.init_cache`
 builds zero caches in that layout and :meth:`Model.reference_cache` maps a
 list back onto the tree.
+
+On a mesh (a model sharded by :mod:`repro_torch.distributed.fsdp`, run
+inside :func:`~repro_torch.distributed.sharding.logical_sharding`) every
+entry computes tensor parallel over ``model`` on this rank's blocks:
+``forward`` and the serving entries return this rank's vocab columns of
+the logits, ``loss`` takes the vocab-split cross-entropy, and the caches
+are this rank's blocks (a GQA or MLA cache split along the sequence where
+``model`` divides ``seq_cap``, which ``decode_step`` then needs).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -55,6 +64,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import blocks, layers
 from repro_torch.models.config import (ModelConfig, PSpec, abstract_params, flatten,
@@ -139,11 +150,13 @@ def _nest(flat: dict[str, Any]) -> dict:
 
 def _remat(fn, *args, early_stop: bool = True):
     """``fn(*args)``, recomputed in backward instead of saving its
-    intermediates (the model draws no random numbers: no RNG state kept).
+    intermediates (the model draws no random numbers: no RNG state kept),
+    under the mesh and rules of the forward (:func:`sharding.carried`).
     ``early_stop=False`` recomputes all of ``fn`` (a sharded model's entry:
     every collective of it runs again, so the count is the schedule's)."""
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
-                      early_stop=early_stop)
+                      early_stop=early_stop,
+                      context_fn=lambda: (contextlib.nullcontext(), sh.carried()))
 
 
 class Model(nn.Module):
@@ -262,7 +275,9 @@ class Model(nn.Module):
     def _entry(self, i: int, x, positions):
         """Plan entry ``i`` on ``x``; with a ``param_source`` (a sharded
         model, :mod:`repro_torch.distributed.fsdp`) its parameters are
-        gathered whole around the call, again in the recompute under remat."""
+        gathered around the call (over every axis of their spec but a
+        tensor-parallel leaf's ``model``), again in the recompute under
+        remat."""
         block = self.plan[i]
         if self.param_source is None:
             return block(x, positions)
@@ -271,10 +286,26 @@ class Model(nn.Module):
 
     def _chunk_ce(self, hs, labels):
         """Summed cross-entropy of one chunk: f32 logsumexp of the compute
-        dtype's logits less the gold logit."""
+        dtype's logits less the gold logit.  With a vocab-split head each
+        rank holds its columns: the row maximum is exact over ``model``, the
+        sums of exponentials fold in rank order, and the gold logit is the
+        owning rank's."""
         logits = layers.lm_head(hs, self.head, self.embed, self.cfg).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+        n = logits.shape[-1]
+        if n == self.cfg.vocab_padded:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+            return torch.sum(lse - gold)
+        mesh, _, r = layers.model_axis()
+        top = logits.detach().amax(dim=-1)
+        for part in collectives.all_gather_axes(top, mesh, ("model",)):
+            top = torch.maximum(top, part)
+        se = torch.sum(torch.exp(logits - top[..., None]), dim=-1)
+        lse = top + torch.log(collectives.tp_reduce(se, mesh))
+        local = labels.long() - r * n
+        hit = (local >= 0) & (local < n)
+        gold = torch.take_along_dim(logits, local.clamp(0, n - 1)[..., None], dim=-1)[..., 0]
+        gold = collectives.tp_reduce(gold.masked_fill(~hit, 0.0), mesh)
         return torch.sum(lse - gold)
 
     def _ce_chunked(self, hidden, labels, shift: int):
@@ -288,10 +319,11 @@ class Model(nn.Module):
         t = hidden.shape[1]
         chunk = min(CE_CHUNK, t)
         remat = torch.is_grad_enabled()
+        whole = self.param_source is None
         total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for lo in range(0, t, chunk):              # the last chunk is the tail
             hs, ls = hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk]
-            total = total + (_remat(self._chunk_ce, hs, ls) if remat
+            total = total + (_remat(self._chunk_ce, hs, ls, early_stop=whole) if remat
                              else self._chunk_ce(hs, ls))
         return total / (b * t)
 
@@ -366,10 +398,19 @@ class Model(nn.Module):
         return out
 
     def init_cache(self, batch: int, seq_cap: int) -> list[dict]:
-        """Zero caches in the compute dtype, one dict per entry of ``plan``."""
+        """Zero caches in the compute dtype, one dict per entry of ``plan``;
+        under a mesh (:func:`~repro_torch.distributed.sharding.logical_sharding`)
+        this rank's blocks of the caches of a global ``batch``."""
         cd, dev = self.cfg.dtype("compute"), self.device
-        stacked = tree_map(lambda p: torch.zeros(p.shape, dtype=cd, device=dev),
-                           self.cache_defs(batch, seq_cap))
+        mesh = sh.current_mesh()
+
+        def zeros(p):
+            shape = p.shape
+            if mesh is not None:
+                spec = sh.logical_to_spec(shape, p.axes, mesh, sh.current_rules())
+                shape = sh.shard_shape(shape, spec, mesh)
+            return torch.zeros(shape, dtype=cd, device=dev)
+        stacked = tree_map(zeros, self.cache_defs(batch, seq_cap))
         return [_layer(stacked[SHARED] if key == SHARED else stacked["stages"][key], i)
                 for key, i in self.cache_slots]
 
@@ -388,24 +429,45 @@ class Model(nn.Module):
             out[SHARED] = stacked[SHARED]
         return out
 
+    def _top(self):
+        """The serving entries' embedding, final norm and head, gathered
+        around their use on a sharded model (:mod:`repro_torch.distributed.fsdp`)."""
+        if self.param_source is None:
+            return contextlib.nullcontext()
+        return self.param_source.top(serving=True)
+
+    def _params_of(self, block):
+        if self.param_source is None:
+            return contextlib.nullcontext()
+        return self.param_source.entry(block)
+
     @torch.no_grad()
     def prefill(self, batch: dict, seq_cap: int):
         """Full-sequence forward building the caches.
 
-        Returns (last-position logits (B, vocab_padded), caches)."""
-        x, positions = self.embed_input(batch)
-        caches = []
-        for block in self.plan:
-            x, cache = block.prefill(x, positions, seq_cap)
-            caches.append(cache)
-        return self.logits(x[:, -1:])[:, 0], caches
+        Returns (last-position logits (B, vocab_padded), caches); under a
+        mesh this rank's rows, vocab columns and cache blocks."""
+        with self._top():
+            x, positions = self.embed_input(batch)
+            caches = []
+            for block in self.plan:
+                with self._params_of(block):
+                    x, cache = block.prefill(x, positions, seq_cap)
+                caches.append(cache)
+            return self.logits(x[:, -1:])[:, 0], caches
 
     @torch.no_grad()
-    def decode_step(self, caches: list[dict], tokens, pos: int):
-        """One decode step. tokens: (B, 1) integers; pos: their position.
+    def decode_step(self, caches: list[dict], tokens, pos: int, seq_cap: int | None = None):
+        """One decode step. tokens: (B, 1) integers; pos: their position;
+        ``seq_cap``: the caches' whole length (their own on one device; a
+        mesh, where a cache may rest split along it, needs it).
 
         Returns (logits (B, vocab_padded), caches), updated in place."""
-        x = layers.embed(tokens, self.embed, self.cfg)
-        for block, cache in zip(self.plan, caches, strict=True):
-            x, _ = block.decode(x, cache, pos)
-        return self.logits(x)[:, 0], caches
+        if seq_cap is None and sh.current_mesh() is not None:
+            raise ValueError("decode_step on a mesh needs the caches' seq_cap")
+        with self._top():
+            x = layers.embed(tokens, self.embed, self.cfg)
+            for block, cache in zip(self.plan, caches, strict=True):
+                with self._params_of(block):
+                    x, _ = block.decode(x, cache, pos, seq_cap)
+            return self.logits(x)[:, 0], caches

@@ -24,7 +24,9 @@ from the slice's token count), one all-to-all moves the (E, C, d) buffer to
 (E/ep, ep*C, d) rows of its experts from every slice, the experts run, the
 reverse all-to-all brings the rows back, and after the combine a gather
 over ``model`` restores every token (:mod:`repro_torch.distributed.collectives`,
-with autograd backwards).  Each rank's combine keeps the ascending-expert
+with autograd backwards).  The island's input is the same on every
+``model`` rank (the residual stream after g); the shared experts are a
+tensor-parallel MLP over ``shared_mlp`` beside it.  Each rank's combine keeps the ascending-expert
 order.  :data:`DROPS`, when a list, collects each dispatch's dropped pairs.
 """
 
@@ -214,7 +216,9 @@ def moe_ffn(x, params, cfg: ModelConfig, mesh=None):
     ``mesh`` (a ``DeviceMesh``; the :func:`~repro_torch.distributed.sharding.logical_sharding`
     mesh by default) with a ``model`` axis of more than one rank that
     divides the experts takes the expert-parallel island.  There the routed
-    experts are this rank's E/ep (or all E, of which it takes its own)."""
+    experts are this rank's E/ep (or all E, of which it takes its own), and
+    the shared experts this rank's block of their width (or all of it, of
+    which it takes its own) where ``shared_mlp`` splits over ``model``."""
     mesh = mesh if mesh is not None else sharding.current_mesh()
     ep = expert_parallel_degree(cfg, mesh)
     wg, wu, wd = params["wg"], params["wu"], params["wd"]
@@ -225,5 +229,14 @@ def moe_ffn(x, params, cfg: ModelConfig, mesh=None):
     with sharding.no_constraints():
         out = _moe_local(x, params["router"], wg, wu, wd, cfg, mesh, ep)
     if cfg.n_shared_experts:
-        out = out + layers.mlp(x, params["shared"], cfg)
+        width = cfg.n_shared_experts * cfg.moe_d_ff
+        shared = params["shared"]
+        ways = sharding.tp_ways(mesh, sharding.current_rules(), "shared_mlp", width)
+        if ways > 1 and mesh is sharding.current_mesh() and shared["wg"].shape[1] == width:
+            # whole weights under the mesh: this rank's block of the width
+            r, per = collectives.axis_index(mesh, ("model",)), width // ways
+            cols = slice(r * per, (r + 1) * per)
+            shared = {"wg": shared["wg"][:, cols], "wu": shared["wu"][:, cols],
+                      "wd": shared["wd"][cols]}
+        out = out + layers.mlp(x, shared, cfg, d_ff=width)
     return sharding.constrain(out, ("batch", "seq", "embed"))

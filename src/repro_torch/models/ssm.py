@@ -15,14 +15,24 @@ dtype (no ``F.conv1d``, which accumulates in f32); ``dt`` is a softplus in
 f32; the (B, nc, Q, Q, H) scores are cast to the compute dtype before
 their product with ``x``; chunk states and the inter-chunk recurrence are
 f32; ``y`` is cast back before the ``D`` skip is added; the gate is
-:func:`layers._silu`.  The reference's sharding constraints have no
-counterpart: the serving path runs on one device.
+:func:`layers._silu`.
+
+On a mesh the block is tensor parallel over ``model`` as the reference's
+rules split it (its ``ssm.py`` docstring): ``wz``/``wx``/``conv_x``/
+``gate_norm``/``out`` over ``mlp`` and ``wdt``/``A_log``/``D``/``dt_bias``
+over ``ssm_heads``, so each rank scans its own heads; ``wB``/``wC`` and
+their convolutions are whole on every rank.  The gate norm is taken over
+the whole inner width (its sum of squares folded over ``model``), and the
+row-split ``out`` ends in g.  The conv and state caches rest per head
+block.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig, PSpec
 
@@ -132,15 +142,38 @@ def _ssd_chunked(x, dt, a_log, bmat, cmat, chunk: int):
     return y, s
 
 
-def _in_proj(x, p, cd):
-    """z, x, B, C and dt: the block's five input projections."""
-    return tuple(torch.matmul(x, p[k].to(cd)) for k in ("wz", "wx", "wB", "wC", "wdt"))
+def _split(p, cfg: ModelConfig):
+    """The mesh where this rank holds a block of the heads, else None."""
+    return layers.model_axis()[0] if p["wz"].shape[1] != cfg.ssm_d_inner else None
 
 
-def _gate_out(y, z, p, cfg: ModelConfig, cd):
+def _in_proj(x, p, cfg: ModelConfig, cd, mesh):
+    """z, x, B, C and dt: the block's five input projections (``x`` enters
+    through f where the heads are split)."""
+    if mesh is not None:
+        x = collectives.tp_copy(x, mesh)
+    z, xin, bmat, cmat, dt = (torch.matmul(x, p[k].to(cd))
+                              for k in ("wz", "wx", "wB", "wC", "wdt"))
+    width = {"mlp": cfg.ssm_d_inner}
+    xin = sh.constrain(xin, ("batch", "seq", "mlp"), width)
+    z = sh.constrain(z, ("batch", "seq", "mlp"), width)
+    return z, xin, bmat, cmat, dt
+
+
+def _gate_out(y, z, p, cfg: ModelConfig, cd, mesh):
     y = y * layers._silu(z)
-    y = layers.rmsnorm(y, {"scale": p["gate_norm"]}, cfg.norm_eps)
-    return torch.matmul(y, p["out"].to(cd))
+    if mesh is None:
+        y = layers.rmsnorm(y, {"scale": p["gate_norm"]}, cfg.norm_eps)
+    else:
+        # the norm over the whole inner width: its sum of squares over model
+        ss = torch.sum(torch.square(y.float()), dim=-1, keepdim=True)
+        var = collectives.tp_sum(ss, mesh) / cfg.ssm_d_inner
+        inv = torch.rsqrt(var + cfg.norm_eps).to(y.dtype)
+        y = y * inv * p["gate_norm"].to(y.dtype)
+    out = torch.matmul(y, p["out"].to(cd))
+    if mesh is not None:
+        out = collectives.tp_reduce(out, mesh)
+    return sh.constrain(out, ("batch", "seq", "embed"))
 
 
 def mamba2_forward(x, p, cfg: ModelConfig):
@@ -150,9 +183,10 @@ def mamba2_forward(x, p, cfg: ModelConfig):
     final SSM state, in the compute dtype)."""
     cd = cfg.dtype("compute")
     b, l, _ = x.shape
-    h, pn = cfg.ssm_heads, cfg.ssm_head_dim
+    h, pn = p["A_log"].shape[0], cfg.ssm_head_dim     # this rank's heads
 
-    z, xin, bmat, cmat, dt = _in_proj(x, p, cd)
+    mesh = _split(p, cfg)
+    z, xin, bmat, cmat, dt = _in_proj(x, p, cfg, cd, mesh)
     xin, conv_x = _causal_conv(xin, p["conv_x"].to(cd))
     bmat, conv_b = _causal_conv(bmat, p["conv_B"].to(cd))
     cmat, conv_c = _causal_conv(cmat, p["conv_C"].to(cd))
@@ -171,7 +205,7 @@ def mamba2_forward(x, p, cfg: ModelConfig):
         xh_p, dt_p, b_p, c_p = xh, dt, bmat, cmat
     y, s_final = _ssd_chunked(xh_p, dt_p, p["A_log"], b_p, c_p, chunk)
     y = y[:, :l] + p["D"].to(cd)[None, None, :, None] * xh
-    out = _gate_out(y.reshape(b, l, h * pn), z, p, cfg, cd)
+    out = _gate_out(y.reshape(b, l, h * pn), z, p, cfg, cd, mesh)
     # the tails copied out of the padded inputs, which the cache would keep alive
     return out, {"conv_x": conv_x.clone(), "conv_B": conv_b.clone(),
                  "conv_C": conv_c.clone(), "state": s_final.to(cd)}
@@ -183,9 +217,10 @@ def mamba2_decode(x, p, cfg: ModelConfig, cache: dict):
     cd = cfg.dtype("compute")
     f32 = torch.float32
     b = x.shape[0]
-    h, pn = cfg.ssm_heads, cfg.ssm_head_dim
+    h, pn = p["A_log"].shape[0], cfg.ssm_head_dim     # this rank's heads
 
-    z, xin, bmat, cmat, dt = _in_proj(x, p, cd)
+    mesh = _split(p, cfg)
+    z, xin, bmat, cmat, dt = _in_proj(x, p, cfg, cd, mesh)
     xin, cx = _causal_conv(xin, p["conv_x"].to(cd), cache["conv_x"])
     bmat, cb = _causal_conv(bmat, p["conv_B"].to(cd), cache["conv_B"])
     cmat, cc = _causal_conv(cmat, p["conv_C"].to(cd), cache["conv_C"])
@@ -197,7 +232,7 @@ def mamba2_decode(x, p, cfg: ModelConfig, cache: dict):
     state = cache["state"].to(f32) * da[:, :, None, None] + contrib  # (B, H, P, N)
     y = torch.einsum("bhpn,bn->bhp", state, cmat[:, 0].to(f32))
     y = y.to(cd) + p["D"].to(cd)[None, :, None] * xh.to(cd)
-    out = _gate_out(y.reshape(b, 1, h * pn), z, p, cfg, cd)
+    out = _gate_out(y.reshape(b, 1, h * pn), z, p, cfg, cd, mesh)
 
     cache["conv_x"].copy_(cx)
     cache["conv_B"].copy_(cb)

@@ -23,7 +23,8 @@ reference.  Checked:
 * the expert-parallel island on (2, 2) at a capacity that drops: the same
   kept (token, expert) pairs as the reference's island, outputs within
   2e-5;
-* Server(mesh=) on (1, 4) against one device;
+* Server(mesh=) on (1, 4) against one device, each rank holding the
+  parameter bytes the reference's specs give it;
 * pipeline_apply over a 4-stage ``pod`` axis against the reference's,
   within 1e-5.
 """
@@ -208,6 +209,7 @@ def _ranks(root):
     from repro_torch.distributed import collectives, elastic, fsdp
     from repro_torch.distributed import sharding as sh
     from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import moe
@@ -293,8 +295,13 @@ def _ranks(root):
     out["serve_tokens"] = server.generate(batch, 6, seq_cap=18).numpy()
     local, _ = server.local(batch)
     with server.context(local["tokens"].shape[0]), torch.no_grad():
-        out["serve_logits"] = server.compute.prefill(local, 18)[0].numpy()
+        logits = server.compute.prefill(local, 18)[0]
+    # this rank's vocab columns, gathered whole
+    out["serve_logits"] = torch.cat(collectives.all_gather_axes(logits, m14, ("model",)),
+                                    dim=-1).numpy()
     out["serve_resident"] = fsdp.resident_bytes(server.model.param_tree())
+    out["serve_derived"] = dryrun.cell_bytes(_ds_cfg(), ShapeSpec("s", "decode", 18, 4),
+                                             m14)["params_bytes"]
 
     # the pipeline over a 4-stage pod axis
     pz = np.load(os.path.join(root, "pipe.npz"))
@@ -474,11 +481,11 @@ def test_server_on_a_mesh_matches_one_device(runs):
     for p in port:
         assert np.array_equal(p["serve_tokens"], want)
         np.testing.assert_allclose(p["serve_logits"], logits, rtol=0, atol=1e-5)
-    # the routed experts stay sharded: each rank holds a quarter of them
+    # every rank keeps its blocks: the bytes the reference's specs give it,
+    # under a quarter of the whole model's
     full = sum(t.numel() * t.element_size() for t in server.model.parameters())
-    experts = sum(b["ffn"][k].numel() * b["ffn"][k].element_size()
-                  for b in server.model.blocks if b.use_moe for k in ("wg", "wu", "wd"))
-    assert port[0]["serve_resident"] == full - experts * 3 // 4
+    for p in port:
+        assert p["serve_resident"] == p["serve_derived"] < full // 3
 
 
 def test_pipeline_matches_reference(runs):

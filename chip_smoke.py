@@ -21,8 +21,9 @@ multi-device path (a mesh of one NCCL rank, then four gloo ranks), the
 LM stack's serving path at full width, dense, MoE (MLA), SSM (Mamba-2)
 and hybrid models, its training path at full width and depth
 (stablelm-3b, mamba2-130m), and its multi-device path (training, expert-
-parallel serving and a pipeline on four gloo ranks sharing the card, and
-qwen2.5-32b served tensor parallel on four ranks):
+parallel serving and a pipeline on four gloo ranks sharing the card,
+qwen2.5-32b served tensor parallel on four ranks, and qwen2-vl-7b served
+context parallel on eight, then training with Megatron-SP saves):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -250,9 +251,9 @@ qwen2.5-32b served tensor parallel on four ranks):
    elastic, pipeline}``, ``train_loop(mesh=)``, the MoE island,
    ``Server(mesh=)``; no kernel of its own): one ``multihost.spawn`` of
    four gloo ranks sharing the card, the one-device references run first.
-   (a) stablelm-3b at full width, 4 of 32 layers, in f32 (TF32 off),
-   step 25's AdamW, batch and microbatches, on (data, model) = (2, 2): 4
-   uninterrupted steps, 3 timed (step ms, the collectives' ms inside it,
+   (a) stablelm-3b at full width, 2 of 32 layers, in f32 (TF32 off),
+   step 25's AdamW, batch and microbatches, on (data, model) = (2, 2): 3
+   uninterrupted steps, 2 timed (step ms, the collectives' ms inside it,
    tokens/s, each rank's peak); gate (a1) the mesh's first 3 steps in
    f64 (every f32 upcast of the model kept at f64) against 3 on one
    device in f64 in the mesh's pieces of rows (4 microbatches of 2 rows)
@@ -267,8 +268,9 @@ qwen2.5-32b served tensor parallel on four ranks):
    step 2 and failing in step 3, resumed on (2, 2): its losses and final
    state sha256-equal to the uninterrupted run's, and the checkpoint
    restored on (4, 1) and on one device sha256-equal to its files.
-   (b) deepseek-v2-lite-16b at full width and depth on (1, 4), 16 of 64
-   experts a rank, step 23's prompts and cache: gate (b1) at depth 3,
+   (b) deepseek-v2-lite-16b at full width, 3 of its 27 layers, on (1,
+   4), 16 of 64 experts a rank, step 23's prompts and cache: gate (b1) at
+   depth 3,
    dropless and in f32, prefill and 8 decode steps within 5e-3 of the
    largest |logit| of one device's; gate (b2) at the served capacity in
    bf16, two generates of 16 tokens sha256-equal on every rank, the dropped pairs per MoE layer
@@ -291,12 +293,35 @@ qwen2.5-32b served tensor parallel on four ranks):
    |logit| of one device's in f64 (run first), and in f32 (TF32 off) as
    far from one device's f64 as one device's own f32 is, within 2x: the
    seeded model amplifies f32 rounding, which tensor parallelism
-   reorders; gate (d2) 16 greedy tokens from ``Server.generate`` and from
+   reorders; gate (d2) 8 greedy tokens from ``Server.generate`` and from
    its prefill and decode steps written out (each timed) sha256-equal on
    every rank; gate (d3) each rank's resident parameter and cache bytes
    equal to ``dryrun.cell_bytes``' argument bytes and a decode step's
    collectives (kind, count, bytes) equal to ``serve_collectives``;
-   prefill and decode ms, tokens/s, each rank's peak and the init's peak;
+   prefill and decode ms, tokens/s, each rank's peak and the init's peak
+   (step 26 cut in depth so that step 28 fits the time limit);
+28. context parallelism and Megatron-SP saves on the LM mesh (no kernel of
+   their own): (e) qwen2-vl-7b at full width and depth (28 layers, 28
+   heads on 4 KV heads: on 8 ranks the reference's q-sequence case, each
+   rank's query rows against the whole K/V) in bf16 on (data, model) =
+   (1, 8), eight gloo ranks sharing the card, step 22's request as the
+   VLM's concrete batch (vision embeddings, M-RoPE positions): gate (e1)
+   at depth 4, prefill and 8 decode steps fed one device's tokens, in f64
+   within 5e-3 of the largest |logit| of one device's f64 run (f32
+   printed beside it); gate (e2) two ``Server.generate`` runs of 4
+   greedy tokens sha256-equal on every rank; gate (e3) each rank's
+   resident parameter and cache bytes equal to ``cell_bytes``, a
+   prefill's and a decode step's collectives equal to
+   ``serve_collectives`` and the q-sequence scores' constraint checked
+   once a layer per prefill; prefill and decode ms (the second generate's,
+   each with its greedy pick), the collectives' ms, tokens/s, each rank's
+   peak.  (f) step 26 (a)'s stablelm-3b run with ``sp_activations`` on
+   (2, 2), four ranks: gate (f1) 3 steps in f64 against one device in the
+   mesh's rows at step 25's tolerances (f32 printed beside it); gate (f2)
+   the carry each entry's remat saves per microbatch (counted by
+   ``saved_tensors_hooks``) 5,242,880 bytes a rank, half of it without
+   SP; gate (f3) one step's collectives equal to ``train_collectives``;
+   the step ms beside step 26 (a)'s;
    then prints the ``{"kernels": [...]}`` line,
    one entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
@@ -501,25 +526,27 @@ SSM_CKPT_EVERY, SSM_FAIL_AT = 5, 7
 # step 26: the LM multi-device path on four gloo ranks sharing the card.
 # (a) stablelm-3b at full width with MESH_TRAIN_LAYERS of its 32 layers (the
 # one cut: every gathered byte crosses host memory through gloo, and more
-# layers add only identical ones), in f32, step 25's AdamW, batch and
+# layers add only identical ones; 2, so that step 28 fits the time limit),
+# in f32, step 25's AdamW, batch and
 # microbatches, on (data, model) = (2, 2): MESH_RESUME_STEPS uninterrupted
 # steps (one warm-up, the rest timed), gate (a1) on the first
 # MESH_TRAIN_STEPS against one device with step 25's gate (a) tolerances;
 # the run writes its step-MESH_CKPT_EVERY checkpoint as train_loop does, and
 # train_loop resumes from it, fails in step MESH_FAIL_AT + 1 and resumes
-# again (gate (a2)).  (b) deepseek-v2-lite-16b at full width and depth on (1, 4),
+# again (gate (a2)).  (b) deepseek-v2-lite-16b at full width on (1, 4), cut to
+# MESH_B2_DEPTH of its 27 layers (1 dense, 2 MoE, so that step 28 fits),
 # step 23's request; gate (b1) at depth MESH_B1_DEPTH.  (c) four stablelm-3b
 # blocks at full width along a pod axis, PIPE_M microbatches of 1 x PIPE_SEQ,
 # within PIPE_TOL of the largest |output| of the blocks run in sequence
-MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 3
-MESH_RESUME_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 4, 2, 2
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3
+MESH_RESUME_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 3, 2, 2
 # gate (a1)'s one device runs the mesh's rows as its microbatches: 2
 # microbatches of 4 rows split over data = 2 ranks are 4 pieces of 2 rows.
 # Since tensor parallelism the mesh also sums each row-split product (wo,
 # wd, the vocab) over model in another order than one device's, so gate
 # (a1) compares the two in f64, where that order moves the step-3 state by
 # about 2^-29 of what it moves f32's; the f32 comparison is printed.
-# In step 25's 2 microbatches of 4 rows the seeded 4-layer model's
+# In step 25's 2 microbatches of 4 rows the seeded model's (at 4 layers)
 # gradients move by ~7% relative RMS (one device against one device), past
 # the gate, and Adam turns that into 8e-3 of the parameters by step 3.  The
 # witness that this is f32 rounding, not a fault: step 1's gradients in f64
@@ -534,15 +561,27 @@ MESH_TIMED_DECODE = 4
 # (b2)'s generates: 16 greedy tokens (every decode step's ~270 collectives
 # cross gloo at ~6 ms each under tensor parallelism)
 MESH_B2_NEW = 16
-MESH_SERVE_ARCH, MESH_B1_DEPTH = "deepseek-v2-lite-16b", 3
+MESH_SERVE_ARCH, MESH_B1_DEPTH, MESH_B2_DEPTH = "deepseek-v2-lite-16b", 3, 3
 PIPE_M, PIPE_SEQ, PIPE_TOL, PIPE_SEED = 8, 512, 1e-5, 100
-# step 26 (a) on the same request under the whole-gather schedule that
-# tensor parallelism replaced: the median step on this card and the
-# all-gather bytes a rank a step (PERF.md §6)
-MESH_WHOLE_STEP_MS, MESH_WHOLE_GATHERED = 9595.0, 7_141_151_360
 # step 27: qwen2.5-32b tensor parallel on (1, 4), step 22's prompts and
 # cache; gate (d1) at depth TP_D1_DEPTH; TP_NEW greedy tokens a generate
-TP_ARCH, TP_D1_DEPTH, TP_NEW = "qwen2.5-32b", 4, 16
+# (8, so that step 28 fits the time limit: a decode step takes ~2 s)
+TP_ARCH, TP_D1_DEPTH, TP_NEW = "qwen2.5-32b", 4, 8
+# step 28 (e): qwen2-vl-7b (28 heads on 4 KV heads: neither 4 nor the group
+# of 7 nor the heads divide 8, the q-sequence case) at full width and depth
+# on (data, model) = (1, 8), step 22's request as the VLM's concrete batch
+# (vision embeddings spliced ahead, M-RoPE positions); gate (e1) at depth
+# CP_E1_DEPTH; CP_NEW greedy tokens a generate (a decode step gathers the
+# 1.67 GB of attention weights a rank through gloo, ~7 s on this card: 16
+# tokens in each of two generates would take four of the script's twenty
+# minutes)
+CP_ARCH, CP_RANKS, CP_E1_DEPTH, CP_NEW = "qwen2-vl-7b", 8, 4, 4
+CP_SCORES = "batch|None|qgroup|attn_q_seq|None"
+# (f): step 26 (a)'s stablelm-3b run (full width, MESH_TRAIN_LAYERS layers,
+# f32, AdamW, batch and microbatches, (2, 2)) with sp_activations: each
+# entry's remat saves a rank's 2 rows x 256 of 512 positions x 2560 x 4 B,
+# half of the 10,485,760 without it
+SP_CARRY_BYTES = 2 * (TRAIN_SEQ // 2) * 2560 * 4
 
 
 def fail(msg: str) -> None:
@@ -2705,7 +2744,7 @@ def lm_mesh_rank(work: str) -> dict:
     # (b) deepseek-v2-lite-16b on (1, 4): 16 of 64 experts per rank
     t0 = time.perf_counter()
     m14 = make_mesh_for(model_parallel=4, device="cuda")
-    ds = get_config(MESH_SERVE_ARCH)
+    ds = get_config(MESH_SERVE_ARCH).with_overrides(n_layers=MESH_B2_DEPTH)
     v = ds.vocab_size
     # (b1) dropless (E/k), f32 compute, depth 3: prefill and 8 decode steps
     # fed the one-device run's tokens
@@ -2725,7 +2764,7 @@ def lm_mesh_rank(work: str) -> dict:
     out["b1_scale"] = scale
     del srv, logits
     free()
-    # (b2) the served capacity (1.25), bf16, full depth: two generates,
+    # (b2) the served capacity (1.25), bf16, MESH_B2_DEPTH layers: two generates,
     # the dropped pairs of the first per layer; prefill and decode timed
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
@@ -2815,13 +2854,13 @@ def lm_mesh_rank(work: str) -> dict:
     return out
 
 
-def lm_mesh(card: str) -> None:
+def lm_mesh(card: str) -> float:
     """Step 26: the LM multi-device path on four gloo ranks sharing the card
     (one ``multihost.spawn``): (a) stablelm-3b training on (2, 2), (b)
     deepseek-v2-lite-16b serving on (1, 4) with expert parallelism, (c) a
     4-stage pipeline.  The one-device references are run here first (their
     memory freed before the ranks start); every number is printed before
-    the gates are checked."""
+    the gates are checked.  Returns (a)'s median step ms."""
     import gc
     import shutil
     import tempfile
@@ -2896,7 +2935,7 @@ def lm_mesh(card: str) -> None:
     del g1, f64_ref
     gc.collect()
     torch.cuda.empty_cache()
-    ds = get_config(MESH_SERVE_ARCH)
+    ds = get_config(MESH_SERVE_ARCH).with_overrides(n_layers=MESH_B2_DEPTH)
     v = ds.vocab_size
     cfg_b1 = ds.with_overrides(n_layers=MESH_B1_DEPTH, compute_dtype="float32",
                                capacity_factor=ds.n_experts / ds.top_k)
@@ -2987,13 +3026,6 @@ def lm_mesh(card: str) -> None:
           f"tokens/s; peak per rank {[round(r['peak'] / 1e9, 3) for r in ranks]} GB; resident "
           f"state per rank {[r['resident'] for r in ranks]} bytes, derived "
           f"{r0['resident_derived']}; on {card}")
-    gathered = r0["counted"]["all-gather"]["bytes"]
-    print(f"step 26 (a) tensor parallel over model: step {step_ms:.1f} ms, collectives "
-          f"{coll_ms:.1f} ms, {gathered:,} all-gather bytes a rank a step "
-          f"({gathered / MESH_WHOLE_GATHERED:.3f} of the whole-gather schedule's "
-          f"{MESH_WHOLE_GATHERED:,}) and {r0['counted']['all-reduce']['bytes']:,} all-reduce "
-          f"bytes in {r0['counted']['all-reduce']['count']} all-reduces, beside the "
-          f"whole-gather schedule's {MESH_WHOLE_STEP_MS} ms; on {card}")
     print(f"step 26 (a3) one step's collectives per rank (count, bytes): counted "
           f"{ {k: (v['count'], v['bytes']) for k, v in r0['counted'].items()} }; derived "
           f"{ {k: (v['count'], v['bytes']) for k, v in r0['derived'].items()} }; on {card}")
@@ -3050,7 +3082,8 @@ def lm_mesh(card: str) -> None:
     shas = {s for r in ranks for s in r["tok_sha"]}
     dec = med(r0["decode_ms"])
     gen_ms = r0["prefill_ms"] + MESH_B2_NEW * dec
-    print(f"step 26 (b2) full depth, capacity {ds.capacity_factor}, bf16: generate sha256 "
+    print(f"step 26 (b2) depth {ds.n_layers} of 27, capacity {ds.capacity_factor}, bf16: "
+          f"generate sha256 "
           f"{sorted(shas)} over 2 repeats x {MESH_RANKS} ranks; dropped (token, expert) pairs "
           f"per MoE layer over the prefill and {MESH_B2_NEW} decode steps, the mesh (capacity per "
           f"EP token slice) {mesh_drops} vs one device {one_layer}; one device's tokens "
@@ -3092,6 +3125,7 @@ def lm_mesh(card: str) -> None:
     for f in failures:
         print(f"FAIL: step 26 {f}", file=sys.stderr, flush=True)
     check(not failures, "step 26")
+    return step_ms
 
 
 def lm_tp_rank(work: str) -> dict:
@@ -3308,6 +3342,397 @@ def lm_tp(card: str) -> None:
     for f in failures:
         print(f"FAIL: step 27 {f}", file=sys.stderr, flush=True)
     check(not failures, "step 27")
+
+
+def lm_cp_rank(work: str) -> dict:
+    """One of step 28 (e)'s eight gloo ranks on the card of the parent:
+    gate (e1) against the parent's one-device run, then the full model."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import collectives, fsdp
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out: dict = {"rank": dist.get_rank()}
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    m18 = make_mesh_for(model_parallel=CP_RANKS, device="cuda")
+    cfg = get_config(CP_ARCH)
+    v = cfg.vocab_size
+    whole = lambda x: torch.cat(collectives.all_gather_axes(x, m18, ("model",)), dim=-1)
+
+    # (e1) depth CP_E1_DEPTH in f32 and in f64 (the bf16 weights computed
+    # in f64, f32 upcasts kept at f64): prefill and decode steps fed the
+    # one-device run's tokens
+    t0 = time.perf_counter()
+    ref = torch.load(os.path.join(work, "e1_ref.pt"))
+    for dt in ("float32", "float64"):
+        cfg_e1 = cfg.with_overrides(n_layers=CP_E1_DEPTH, compute_dtype=dt)
+        with f64_upcasts() if dt == "float64" else contextlib.nullcontext():
+            srv = Server(cfg_e1, mesh=m18, device=dev)
+            batch = concrete_batch(cfg_e1, LM_BATCH, LM_PROMPT, train=False, device=dev)
+            local, _ = srv.local(batch)
+            with srv.context(local["tokens"].shape[0], LM_BATCH):
+                logits, _ = lm_run(srv.compute, local, LM_CHECK_STEPS,
+                                   tokens=ref["fed"].to(dev))
+        mine = [whole(a)[:, :v].cpu().double() for a in logits]
+        out[f"e1_{dt}"] = [float((a - b).abs().max()) for a, b in zip(mine, ref[dt])]
+        out[f"e1_{dt}_vs64"] = [float((a - b).abs().max()) for a, b in zip(mine, ref["float64"])]
+        del srv, logits, mine
+        free()
+    out["e1_scale"] = max(float(x.abs().max()) for x in ref["float64"])
+    out["e1_one32_vs64"] = [float((a - b).abs().max())
+                            for a, b in zip(ref["float32"], ref["float64"])]
+    del ref
+    out["e1_s"] = time.perf_counter() - t0
+
+    # (e2) full depth in bf16: the server (each rank draws its blocks in
+    # turn), two generates; the second's prefill and decode steps (each
+    # with its greedy pick) timed, and (e3) their collectives and the
+    # scores' checks counted
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    srv = Server(cfg, mesh=m18, device=dev)
+    sync()
+    out["build_s"] = time.perf_counter() - t0
+    out["init_peak"] = torch.cuda.max_memory_allocated()
+    free_b, total_b = torch.cuda.mem_get_info()
+    out["card_used_after_init"] = total_b - free_b
+    batch = concrete_batch(cfg, LM_BATCH, LM_PROMPT, train=False, device=dev)
+    toks = [srv.generate(batch, CP_NEW, seq_cap=LM_CAP)]
+    steps, caches = [], []
+    prefill, decode_step, sample = srv.compute.prefill, srv.compute.decode_step, srv._sample
+
+    def start(fn):
+        def run(*args):
+            sync()
+            collectives.reset_counters()
+            sh.CHECKS.clear()
+            steps.append(time.perf_counter())
+            logits, cache = fn(*args)
+            caches.append(cache)
+            return logits, cache
+        return run
+
+    def finish(*args):
+        tok = sample(*args)
+        sync()
+        c = collectives.counters()
+        steps[-1] = ((time.perf_counter() - steps[-1]) * 1e3, c["seconds"] * 1e3,
+                     {k: c[k] for k in dryrun._empty()}, dict(sh.CHECKS))
+        return tok
+    srv.compute.prefill, srv.compute.decode_step = start(prefill), start(decode_step)
+    srv._sample = finish
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    toks.append(srv.generate(batch, CP_NEW, seq_cap=LM_CAP))
+    out["generate_s"] = time.perf_counter() - t1
+    out["tok_sha"] = [sha256_of(t) for t in toks]
+    out["tokens"] = toks[0].cpu().tolist()
+    (out["prefill_ms"], out["prefill_coll_ms"], out["e3_prefill"], checks), *decode = steps
+    out["e3_checks"] = checks.get(tuple(None if a == "None" else a
+                                        for a in CP_SCORES.split("|")), 0)
+    out["decode_ms"], out["coll_ms"] = [d[0] for d in decode], [d[1] for d in decode]
+    out["e3_decode"] = decode[0][2]
+    cache = caches[0]
+    out["e3_derived"] = {phase: {k: x for k, x in dryrun.serve_collectives(
+        cfg, m18, LM_BATCH, seq, LM_CAP).items() if k != "total_bytes"}
+        for phase, seq in (("prefill", LM_PROMPT), ("decode", 1))}
+    out["resident"] = [fsdp.resident_bytes(srv.model.param_tree()), fsdp.resident_bytes(cache)]
+    cell = dryrun.cell_bytes(cfg, ShapeSpec("cp", "decode", LM_CAP, LM_BATCH), m18)
+    out["cell"] = [cell["params_bytes"], cell["cache_bytes"]]
+    out["serve_peak"] = torch.cuda.max_memory_allocated()
+    del srv, cache
+    free()
+    out["e2_s"] = time.perf_counter() - t0
+    return out
+
+
+def lm_sp_rank(work: str) -> dict:
+    """One of step 28 (f)'s four gloo ranks on the card of the parent:
+    MESH_TRAIN_STEPS steps with sp_activations in f32 (the first with its
+    collectives and saved carries counted) and in f64, each held against
+    the parent's one device in the mesh's rows."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import collectives, fsdp
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.model import Model, saved_carries
+    from repro_torch.optim.optimizers import is_stacked, map_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = torch.device("cuda", 0)
+    out: dict = {"rank": rank}
+    m22 = make_mesh_for(model_parallel=2, device="cuda")
+    hp = mesh_hp()
+    for dt in ("float32", "float64"):
+        t0 = time.perf_counter()
+        full = mesh_train_cfg().with_overrides(sp_activations=True)
+        if dt == "float64":
+            full = full.with_overrides(param_dtype="float64", compute_dtype="float64")
+        torch.cuda.reset_peak_memory_stats()
+        with f64_upcasts() if dt == "float64" else contextlib.nullcontext():
+            model = fsdp.shard_model(Model(full, device="meta"), m22, device=dev)
+            state = train.make_mesh_train_state(model, hp, m22)
+            step = train.make_train_step(model, hp, m22)
+            stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+            metrics, steps_ms, coll_ms = [], [], []
+            for i in range(MESH_TRAIN_STEPS):
+                batch = stream.next_batch()
+                torch.cuda.synchronize()
+                dist.barrier()
+                collectives.reset_counters()
+                t1 = time.perf_counter()
+                with saved_carries() if i == 0 else contextlib.nullcontext([]) as saved:
+                    state, m = step(state, batch)
+                torch.cuda.synchronize()
+                dist.barrier()
+                steps_ms.append((time.perf_counter() - t1) * 1e3)
+                counted = collectives.counters()
+                coll_ms.append(counted["seconds"] * 1e3)
+                metrics.append({k: float(x) for k, x in m.items()})
+                if i == 0 and dt == "float32":
+                    out["f3_counted"] = {k: counted[k] for k in dryrun._empty()}
+                    out["f2_saved"] = list(saved)
+        grads = map_leaves(lambda p: [t.grad for t in p] if is_stacked(p) else p.grad,
+                           state["params"])
+        g_whole = ckpt.gather_tree(grads, step.shardings["params"])
+        p_whole = ckpt.gather_tree(state["params"], step.shardings["params"])
+        if rank == 0:
+            ref = torch.load(os.path.join(work, f"f1_ref_{dt}.pt"))
+            rel = lambda key: max(abs(x[key] - y[key]) / abs(y[key])
+                                  for x, y in zip(metrics, ref["metrics"]))
+            g_rms = {n: rel_rms(t, ref["grads"][n]) for n, t in ckpt.leaf_paths(g_whole)}
+            p_rms = {n: rel_rms(t, ref["params"][n]) for n, t in ckpt.leaf_paths(p_whole)}
+            out[f"f1_{dt}"] = {"loss": rel("loss"), "grad_norm": rel("grad_norm"),
+                               "grads": max(g_rms.values()),
+                               "grads_worst": max(g_rms, key=g_rms.get),
+                               "params": max(p_rms.values()),
+                               "losses": [x["loss"] for x in metrics],
+                               "ref_losses": [y["loss"] for y in ref["metrics"]]}
+            del ref
+        out[f"{dt}_steps_ms"], out[f"{dt}_coll_ms"] = steps_ms, coll_ms
+        out[f"{dt}_peak"] = torch.cuda.max_memory_allocated()
+        out[f"{dt}_s"] = time.perf_counter() - t0
+        if dt == "float32":
+            out["f3_derived"] = {k: x for k, x in dryrun.train_collectives(
+                full, hp, m22, TRAIN_BATCH, TRAIN_SEQ).items() if k != "total_bytes"}
+            out["f2_entries"] = len(model.plan) * hp.grad_accum
+        del model, state, step, grads, g_whole, p_whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_cp_sp(card: str, step26_ms: float) -> None:
+    """Step 28: (e) qwen2-vl-7b served with context parallelism on (1, 8),
+    eight gloo ranks sharing the card; (f) step 26 (a)'s stablelm-3b run
+    with sp_activations on (2, 2), four ranks.  The one-device references
+    run here first, their memory freed before the ranks start; every
+    number is printed before the gates are checked."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import dryrun, multihost, train
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import map_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    work = tempfile.mkdtemp(prefix="lm_cp_")
+    cfg = get_config(CP_ARCH)
+    v = cfg.vocab_size
+    m18 = AbstractMesh(("data", "model"), (1, CP_RANKS))
+    cell = dryrun.cell_bytes(cfg, ShapeSpec("cp", "decode", LM_CAP, LM_BATCH), m18)
+    print(f"step 28: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
+          f"(e) {CP_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"on {cfg.n_kv_heads} KV heads (the q-sequence case on model = {CP_RANKS}), d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {cell['params_bytes']:,} parameter and "
+          f"{cell['cache_bytes']:,} cache bytes a rank derived; the init's largest f32 draw "
+          f"{fsdp.init_transient_bytes(cfg):,} bytes; on {card}")
+
+    # (e1)'s one device, f32 first (its greedy tokens feed every other run)
+    t0 = time.perf_counter()
+    e1 = {}
+    for dt in ("float32", "float64"):
+        cfg_e1 = cfg.with_overrides(n_layers=CP_E1_DEPTH, compute_dtype=dt)
+        with f64_upcasts() if dt == "float64" else contextlib.nullcontext():
+            srv = Server(cfg_e1, device=dev, seed=0)
+            batch = concrete_batch(cfg_e1, LM_BATCH, LM_PROMPT, train=False, device=dev)
+            with torch.no_grad():
+                logits, fed = lm_run(srv.compute, batch, LM_CHECK_STEPS,
+                                     tokens=e1.get("fed"))
+        e1[dt] = [x[:, :v].cpu().double() for x in logits]
+        e1.setdefault("fed", fed)
+        del srv, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    e1["fed"] = e1["fed"].cpu()
+    torch.save(e1, os.path.join(work, "e1_ref.pt"))
+    del e1
+    # (f1)'s one device in the mesh's rows, f32 and f64
+    hp = mesh_hp(MESH_ROW_ACCUM)
+    stacked = lambda leaf: (torch.stack(leaf) if isinstance(leaf, list) else leaf).detach().cpu()
+    for dt in ("float32", "float64"):
+        full = mesh_train_cfg()
+        if dt == "float64":
+            full = full.with_overrides(param_dtype="float64", compute_dtype="float64")
+        with f64_upcasts() if dt == "float64" else contextlib.nullcontext():
+            model = Model(full, device=dev, seed=0)
+            state = train.make_train_state(model, hp)
+            step = train.make_train_step(model, hp)
+            stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+            metrics = []
+            for _ in range(MESH_TRAIN_STEPS):
+                state, m = step(state, stream.next_batch())
+                metrics.append({k: float(x) for k, x in m.items()})
+        grads = map_leaves(lambda p: [t.grad for t in p] if isinstance(p, list) else p.grad,
+                           state["params"])
+        torch.save({"metrics": metrics,
+                    "grads": {n: stacked(t).float() for n, t in ckpt.leaf_paths(grads)},
+                    "params": {n: stacked(t).float() for n, t in ckpt.leaf_paths(state["params"])}},
+                   os.path.join(work, f"f1_ref_{dt}.pt"))
+        del model, state, step, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    print(f"step 28 one-device references (e1, f1) {ref_s:.1f} s; on {card}")
+
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(lm_cp_rank, CP_RANKS, work, device="cuda", backend="gloo",
+                            timeout=900)
+    e_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sp = multihost.spawn(lm_sp_rank, MESH_RANKS, work, device="cuda", backend="gloo",
+                         timeout=900)
+    f_s = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    r0, s0 = ranks[0], sp[0]
+    failures = []
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    show = lambda xs: [f"{x:.2e}" for x in xs]
+
+    # (e)
+    scale = r0["e1_scale"]
+    print(f"step 28 (e1) {CP_ARCH} depth {CP_E1_DEPTH}, its bf16 weights, on (data, model) = "
+          f"(1, {CP_RANKS}), prefill and {LM_CHECK_STEPS} decode steps fed one device's "
+          f"tokens: max |diff| per step from one device, in f64 (gated: {LM_F32_REL} x "
+          f"{scale:.3f}) {show(r0['e1_float64'])}; in f32, TF32 off {show(r0['e1_float32'])}; "
+          f"from one device's f64: one device in f32 {show(r0['e1_one32_vs64'])}, the mesh in "
+          f"f32 {show(r0['e1_float32_vs64'])}; on {card}")
+    if not max(r0["e1_float64"]) <= LM_F32_REL * scale:
+        failures.append(f"(e1) f64 logits {max(r0['e1_float64']):.3e}")
+    shas = {x for r in ranks for x in r["tok_sha"]}
+    print(f"step 28 (e2) full depth, bf16: two Server.generate runs of {CP_NEW} greedy tokens, "
+          f"sha256 {sorted(shas)} over 2 x {CP_RANKS} ranks; the tokens {r0['tokens'][0]}; "
+          f"on {card}")
+    if len(shas) != 1:
+        failures.append(f"(e2) generate digests {shas}")
+    dec = med(r0["decode_ms"])
+    print(f"step 28 (e) serving on (1, {CP_RANKS}): server built in {r0['build_s']:.1f} s "
+          f"(each rank's init peak {[round(r['init_peak'] / 1e9, 3) for r in ranks]} GB, the "
+          f"card {r0['card_used_after_init'] / 1e9:.2f} GB used by all after it); prefill "
+          f"{r0['prefill_ms']:.1f} ms (collectives {r0['prefill_coll_ms']:.1f} ms of it), "
+          f"decode {dec:.1f} ms a step (median of {len(r0['decode_ms'])}; collectives "
+          f"{med(r0['coll_ms']):.1f} ms of it), each with its greedy pick; "
+          f"{LM_BATCH * CP_NEW / r0['generate_s']:.2f} tokens/s over the timed generate "
+          f"({r0['generate_s']:.1f} s); peak per rank serving "
+          f"{[round(r['serve_peak'] / 1e9, 3) for r in ranks]} GB; on {card}")
+    fmt = lambda d: {k: (x["count"], x["bytes"]) for k, x in d.items()}
+    print(f"step 28 (e3) resident (parameter, cache) bytes per rank "
+          f"{sorted({tuple(r['resident']) for r in ranks})}, derived {r0['cell']}; the "
+          f"q-sequence scores checked {[r['e3_checks'] for r in ranks]} times in a prefill "
+          f"({cfg.n_layers} layers); a prefill's collectives (count, bytes) counted "
+          f"{fmt(r0['e3_prefill'])}, derived {fmt(r0['e3_derived']['prefill'])}; a decode "
+          f"step's counted {fmt(r0['e3_decode'])}, derived {fmt(r0['e3_derived']['decode'])}; "
+          f"on {card}")
+    for r in ranks:
+        if r["resident"] != r["cell"]:
+            failures.append(f"(e3) rank {r['rank']} resident {r['resident']} != {r['cell']}")
+        if r["e3_checks"] != cfg.n_layers:
+            failures.append(f"(e3) rank {r['rank']} scores checked {r['e3_checks']} times")
+        for phase in ("prefill", "decode"):
+            if r[f"e3_{phase}"] != r["e3_derived"][phase]:
+                failures.append(f"(e3) rank {r['rank']} {phase} collectives "
+                                f"{r[f'e3_{phase}']} != {r['e3_derived'][phase]}")
+    # (f)
+    f64, f32 = s0["f1_float64"], s0["f1_float32"]
+    print(f"step 28 (f1) {TRAIN_ARCH} {MESH_TRAIN_LAYERS} layers with sp_activations on "
+          f"(2, 2), {MESH_TRAIN_STEPS} steps vs one device in the same {MESH_ROW_ACCUM} "
+          f"microbatches of 2 rows, gated in f64 (f32 upcasts kept at f64): losses "
+          f"{f64['losses']} vs {f64['ref_losses']} (rel {f64['loss']:.2e}, gate "
+          f"{TRAIN_LOSS_RTOL}); grad_norm rel {f64['grad_norm']:.2e} (gate "
+          f"{TRAIN_GNORM_RTOL}); step-{MESH_TRAIN_STEPS} gradients' largest per-leaf relative "
+          f"RMS {f64['grads']:.3e} ({f64['grads_worst']}, gate {TRAIN_GRAD_RMS}); parameters "
+          f"{f64['params']:.3e} (gate {TRAIN_PARAM_RMS}); in f32, not gated: loss rel "
+          f"{f32['loss']:.2e}, grad_norm {f32['grad_norm']:.2e}, gradients {f32['grads']:.3e} "
+          f"({f32['grads_worst']}), parameters {f32['params']:.3e}; on {card}")
+    if f64["loss"] > TRAIN_LOSS_RTOL or f64["grad_norm"] > TRAIN_GNORM_RTOL:
+        failures.append(f"(f1) f64 loss {f64['loss']:.2e} or grad_norm {f64['grad_norm']:.2e}")
+    if f64["grads"] > TRAIN_GRAD_RMS or f64["params"] > TRAIN_PARAM_RMS:
+        failures.append(f"(f1) f64 gradients {f64['grads']:.2e} or parameters "
+                        f"{f64['params']:.2e}")
+    saved = sorted({x for r in sp for x in r["f2_saved"]})
+    print(f"step 28 (f2) the carry each entry's remat saved per microbatch, bytes a rank: "
+          f"{saved} in {[len(r['f2_saved']) for r in sp]} entries (want {SP_CARRY_BYTES:,} in "
+          f"{s0['f2_entries']}; {2 * SP_CARRY_BYTES:,} without sp_activations); on {card}")
+    for r in sp:
+        if r["f2_saved"] != [SP_CARRY_BYTES] * s0["f2_entries"]:
+            failures.append(f"(f2) rank {r['rank']} saved {r['f2_saved']}")
+    print(f"step 28 (f3) one step's collectives per rank (count, bytes): counted "
+          f"{fmt(s0['f3_counted'])}; derived {fmt(s0['f3_derived'])}; on {card}")
+    for r in sp:
+        if r["f3_counted"] != r["f3_derived"]:
+            failures.append(f"(f3) rank {r['rank']} collectives {r['f3_counted']} != "
+                            f"{r['f3_derived']}")
+    timed = s0["float32_steps_ms"][1:]
+    print(f"step 28 (f) f32 step {med(timed):.1f} ms (median of {len(timed)} after one; steps "
+          f"{[round(x, 1) for x in s0['float32_steps_ms']]}), collectives "
+          f"{med(s0['float32_coll_ms'][1:]):.1f} ms of it, against step 26 (a)'s {step26_ms:.1f} "
+          f"ms without sp_activations; peak per rank "
+          f"{[round(r['float32_peak'] / 1e9, 3) for r in sp]} GB; f64 steps "
+          f"{[round(x, 1) for x in s0['float64_steps_ms']]} ms; on {card}")
+    print(f"step 28 phases: references {ref_s:.1f} s; (e) spawn {e_s:.1f} s (rank 0: e1 "
+          f"{r0['e1_s']:.1f} s, e2 {r0['e2_s']:.1f} s); (f) spawn {f_s:.1f} s (rank 0: f32 "
+          f"{s0['float32_s']:.1f} s, f64 {s0['float64_s']:.1f} s); on {card}")
+    for f in failures:
+        print(f"FAIL: step 28 {f}", file=sys.stderr, flush=True)
+    check(not failures, "step 28")
 
 
 def main() -> None:
@@ -4813,13 +5238,18 @@ def main() -> None:
 
     # -- 26. the LM multi-device path: four gloo ranks on the card ---------------
     t26 = time.perf_counter()
-    lm_mesh(card)
+    step26_ms = lm_mesh(card)
     print(f"step 26 {time.perf_counter() - t26:.1f} s; on {card}")
 
     # -- 27. qwen2.5-32b served tensor parallel on four gloo ranks ----------------
     t27 = time.perf_counter()
     lm_tp(card)
     print(f"step 27 {time.perf_counter() - t27:.1f} s; on {card}")
+
+    # -- 28. context parallelism on eight gloo ranks, SP on four --------------------
+    t28 = time.perf_counter()
+    lm_cp_sp(card, step26_ms)
+    print(f"step 28 {time.perf_counter() - t28:.1f} s; on {card}")
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)

@@ -20,14 +20,18 @@ back, a branch on the backend (never an exception handler).
 The LM multi-device path adds collectives over the subgroup of ranks along
 some mesh axes (:func:`axis_group`: one ``new_group`` per coset, made on
 every rank at first use, in the same program order): :func:`all_gather_axes`,
-:func:`all_reduce` (a gather folded in rank order, counted as an
-all-reduce) with tensor parallelism's operators on it (:func:`tp_copy`,
+:func:`all_reduce` (a gather folded in rank order, or above a MiB over
+three or more ranks each member's fold of 1/n of the elements gathered:
+the same bits; counted as an all-reduce) with tensor parallelism's
+operators on it (:func:`tp_copy`,
 Megatron's f; :func:`tp_reduce`, its g; :func:`tp_sum`), the head
 :func:`relayout` and flash-decoding's :func:`merge_partials`,
 the deterministic reduce-scatter :func:`reduce_scatter_fixed` (an
 ``all_to_all`` of the pieces each rank owns, folded in rank order: no float
-``all_reduce``), :func:`fold_axes`, :func:`all_to_all` and the token
-slice/gather pair with their autograd backwards, :func:`gather_to_rank0`,
+``all_reduce``), :func:`fold_axes`, :func:`all_to_all` and the slice/gather
+pair along a chosen dim (:func:`slice_along`, :func:`gather_along`: the
+expert-parallel island's tokens, the q-sequence case's attention rows and
+sequence parallelism's carry) with their autograd backwards, :func:`gather_to_rank0`,
 :func:`broadcast_axes` and point-to-point :func:`send` / :func:`recv`.  Each
 adds one to its kind's count and the bytes of its result to its kind's
 bytes in :data:`COUNTERS` (HLO's convention, which the dry run's
@@ -294,14 +298,34 @@ def fold_axes(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     return _fold(all_gather_axes(x, mesh, axes))
 
 
+# all_reduce's size from which a member folds 1/n of the elements
+SPLIT_FOLD_BYTES = 1 << 20
+
+
 def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """:func:`fold_axes` counted as what it stands for: one all-reduce of
-    ``x``'s bytes (HLO's result bytes)."""
+    ``x``'s bytes (HLO's result bytes).  From ``SPLIT_FOLD_BYTES`` over
+    three or more members, member j folds the j-th 1/n of the elements in
+    member order (one all-to-all) and the folded parts are gathered: the
+    same sums in the same order, so the same bits, with 2(n-1)/n of ``x``
+    moved a rank instead of n-1."""
     group, ranks = axis_group(mesh, axes)
     if group is None:
         return x
     t0 = time.perf_counter()
-    out = _fold(_gather_parts(x, group, ranks))
+    n = len(ranks)
+    if n < 3 or _nbytes(x) < SPLIT_FOLD_BYTES:
+        out = _fold(_gather_parts(x, group, ranks))
+    else:
+        flat = x.reshape(-1)
+        per = -(-flat.numel() // n)
+        send = torch.nn.functional.pad(flat, (0, per * n - flat.numel())).view(n, per)
+        recv = _empty_wire(send, group)
+        dist.all_to_all_single(recv, _wire(send, group), group=group)
+        part = _fold(list(recv.to(x.device).unbind(0)))
+        whole = _empty_wire(part, group, (n * per,))
+        dist.all_gather_into_tensor(whole, _wire(part, group), group=group)
+        out = whole[:flat.numel()].to(x.device).view(x.shape)
     _count("all-reduce", _nbytes(x), t0)
     return out
 
@@ -362,30 +386,35 @@ def tp_sum(x: torch.Tensor, mesh) -> torch.Tensor:
 
 class _Relayout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, dim, src, dst):
-        ctx.mesh, ctx.dim, ctx.src, ctx.dst = mesh, dim, src, dst
-        return _relayout(x, mesh, dim, src, dst)
+    def forward(ctx, x, mesh, dim, src, dst, dst_dim):
+        ctx.mesh, ctx.dim, ctx.src, ctx.dst, ctx.dst_dim = mesh, dim, src, dst, dst_dim
+        return _relayout(x, mesh, dim, src, dst, dst_dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _relayout(g, ctx.mesh, ctx.dim, ctx.dst, ctx.src), None, None, None, None
+        return (_relayout(g, ctx.mesh, ctx.dst_dim, ctx.dst, ctx.src, ctx.dim),
+                None, None, None, None, None)
 
 
-def _relayout(x, mesh, dim, src, dst):
+def _relayout(x, mesh, dim, src, dst, dst_dim):
     parts = all_gather_axes(x, mesh, ("model",))
     whole = torch.cat(parts, dim=dim)
     order = torch.tensor([i for block in src for i in block], device=x.device)
     full = torch.empty_like(whole).index_copy_(dim, order, whole)
     me = axis_index(mesh, ("model",))
-    return full.index_select(dim, torch.tensor(dst[me], device=x.device))
+    return full.index_select(dst_dim, torch.tensor(dst[me], device=x.device))
 
 
-def relayout(x: torch.Tensor, mesh, dim: int, src: tuple, dst: tuple) -> torch.Tensor:
+def relayout(x: torch.Tensor, mesh, dim: int, src: tuple, dst: tuple,
+             dst_dim: int | None = None) -> torch.Tensor:
     """This rank's block of a dim split over ``model`` in another layout:
-    ``src[r]`` / ``dst[r]`` are the indices along ``dim`` that rank r holds
-    before / after (each index held once in each).  One all-gather over
-    ``model``; backward is the inverse relayout of the gradient."""
-    return _Relayout.apply(x, mesh, dim, src, dst)
+    ``src[r]`` are the indices along ``dim`` that rank r holds before,
+    ``dst[r]`` those along ``dst_dim`` (``dim`` by default) it holds after,
+    each index held once in each (a ``dst_dim`` of its own moves the split
+    from one dim to another: the heads' blocks to the sequence's).  One
+    all-gather over ``model``; backward is the inverse relayout of the
+    gradient."""
+    return _Relayout.apply(x, mesh, dim, src, dst, dim if dst_dim is None else dst_dim)
 
 
 def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, mesh,
@@ -447,41 +476,45 @@ def _member_index(mesh, axes) -> int:
     return axis_index(mesh, tuple(a for a in mesh.mesh_dim_names if a in axes))
 
 
-class _SliceRows(torch.autograd.Function):
+class _SliceAlong(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, rows):
-        ctx.mesh, ctx.axes = mesh, axes
-        i = _member_index(mesh, axes)
-        return x[i * rows:(i + 1) * rows].clone()
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        n = axis_size(mesh, axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+        return x.chunk(n, dim=dim)[_member_index(mesh, axes)].clone()
 
     @staticmethod
     def backward(ctx, g):
-        return torch.cat(all_gather_axes(g, ctx.mesh, ctx.axes)), None, None, None
+        return torch.cat(all_gather_axes(g, ctx.mesh, ctx.axes), dim=ctx.dim), None, None, None
 
 
-class _GatherRows(torch.autograd.Function):
+class _GatherAlong(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes, ctx.rows = mesh, axes, x.shape[0]
-        return torch.cat(all_gather_axes(x, mesh, axes))
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.n = mesh, axes, dim, x.shape[dim]
+        return torch.cat(all_gather_axes(x, mesh, axes), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         i = _member_index(ctx.mesh, ctx.axes)
-        return g[i * ctx.rows:(i + 1) * ctx.rows].clone(), None, None
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n).clone(), None, None, None
 
 
-def slice_rows(x: torch.Tensor, mesh, axes: Sequence[str], rows: int) -> torch.Tensor:
-    """This rank's ``rows`` rows of ``x`` (replicated along ``axes``), block
-    = its index along ``axes``; backward all-gathers the blocks' gradients
-    (the replicated input's gradient is every block's)."""
-    return _SliceRows.apply(x, mesh, tuple(axes), rows)
+def slice_along(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0) -> torch.Tensor:
+    """This rank's block of ``x`` (replicated along ``axes``) along ``dim``,
+    block = its index along ``axes``; backward all-gathers the blocks'
+    gradients (the replicated input's gradient is every block's, the same
+    on every rank)."""
+    return _SliceAlong.apply(x, mesh, tuple(axes), dim)
 
 
-def gather_rows_tiled(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    """Every rank's ``x`` along ``axes`` concatenated on dim 0 (replicated
-    after); backward takes this rank's block of the gradient."""
-    return _GatherRows.apply(x, mesh, tuple(axes))
+def gather_along(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` along ``axes`` concatenated on ``dim`` (replicated
+    after); backward takes this rank's block of the gradient, which every
+    rank holds alike (the replicated result is used alike on each)."""
+    return _GatherAlong.apply(x, mesh, tuple(axes), dim)
 
 
 def reduce_scatter_fixed(g: torch.Tensor, mesh, sum_axes: Sequence[str],

@@ -24,8 +24,13 @@ for its own block (K/V weights where the q group is split, MLA's latents,
 the SSM's B/C, the router of the expert-parallel island), so its gradient
 sums over ``model`` too.  ``None``: gathered whole, used alike on every
 ``model`` rank.  Where the heads split neither by KV head nor by q group
-(the reference's q-sequence case, ``attn_q_seq``), the attention block
-keeps this whole-gather schedule (context parallelism is not ported).
+(the reference's q-sequence case, ``attn_q_seq``: context parallelism,
+:mod:`repro_torch.models.layers`), each rank computes its own query rows,
+so every attention leaf that feeds the scores is ``"partial"`` (q's, and
+K/V's, whose gradient comes from this rank's rows only); ``wo`` is
+``"local"`` where the heads split (it stays row-split) and ``None`` where
+they are whole (the rows are gathered before it, which then runs alike on
+every rank).
 
 :class:`Gatherer` is the model's ``param_source``: ``entry(block)``
 swaps each parameter of one plan entry for its gathered tensor
@@ -186,15 +191,15 @@ def leaf_role(cfg, mesh, rules, name: str) -> str | None:
     if (parts[0], key) in (("embed", "tok"), ("head", "out")):
         return "local" if tp("vocab", cfg.vocab_padded) else None
     if parent == "attn":
-        if cfg.attn_type == "mla":
-            if layers.attn_mode(mesh, rules, cfg.n_heads, cfg.n_heads) != "kv":
-                return None
-            return "local" if key in _MLA_HEADS else "partial"
-        mode = layers.attn_mode(mesh, rules, cfg.n_heads, cfg.n_kv_heads)
+        mla = cfg.attn_type == "mla"
+        mode = layers.attn_mode(mesh, rules, cfg.n_heads,
+                                cfg.n_heads if mla else cfg.n_kv_heads)
         if mode == "kv":
-            return "local"
-        if mode == "qgroup":
+            return "local" if not mla or key in _MLA_HEADS else "partial"
+        if mode in ("qgroup", "qseq_heads"):
             return "local" if key in _ATTN_Q else "partial"
+        if mode == "qseq":
+            return None if key == "wo" else "partial"
         return None
     if parent == "shared" and parts[-3] == "ffn":
         return "local" if tp("shared_mlp", cfg.n_shared_experts * cfg.moe_d_ff) else None

@@ -15,7 +15,10 @@ For each runnable cell (``cell_status``) on 16 x 16 ``(data, model)`` and
      at every plan entry's forward (again in the backward's recompute under
      remat) and around the top-level leaves, the gradient's reduce-scatter,
      tensor parallelism's all-reduces (g forward, f backward, both again in
-     the recompute), the q-group case's head relayouts, the vocab-parallel
+     the recompute), the q-group case's head relayouts, the q-sequence
+     case's row gathers or head-to-row relayouts (context parallelism),
+     ``sp_activations``' per-entry gathers of the sequence block and the
+     gathers of its cut's gradient, the vocab-parallel
      cross-entropy's reductions, the expert-parallel all-to-alls and token
      gathers, the metrics' and the clip's scalar gathers, and the
      optimizer's whole-leaf gathers where it is Adafactor.  A serving step
@@ -57,7 +60,7 @@ from repro_torch.launch.train import (TrainHParams, abstract_train_state,
 from repro_torch.models import decode as dec
 from repro_torch.models import layers, moe
 from repro_torch.models.config import count_params
-from repro_torch.models.model import Model, _stages_for, param_defs
+from repro_torch.models.model import Model, _stages_for, param_defs, sp_entries
 
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -216,13 +219,37 @@ def _attn_mode(cfg, mesh, rules) -> str | None:
     return layers.attn_mode(mesh, rules, cfg.n_heads, kv)
 
 
-def entry_parts(cfg, mesh, kind: str, tokens: int, decode: bool = False) -> tuple[list, list]:
+def _qseq_parts(cfg, mesh, mode: str, rows: int, seq: int) -> tuple[list, list]:
+    """(forward, backward) collectives of attention's q-sequence case over
+    ``rows`` local rows of ``seq`` positions: the rows' output gathered
+    before a whole ``wo`` (heads whole), or q relaid out from head blocks to
+    row blocks and the output back (heads split), each gather's gradient
+    relaid out back in backward; f's all-reduce of x's gradient (and g's
+    forward, with the heads split) are :func:`entry_parts`'."""
+    m = sh.mesh_axes(mesh)["model"]
+    c = _itemsize(cfg.dtype("compute"))
+    chunks = layers.cp_chunks(seq, m, min(layers.Q_CHUNK_THRESHOLD, cfg.attn_q_chunk_threshold))
+    s_pad = chunks[-1][0] + chunks[-1][1]
+    mla = cfg.attn_type == "mla"
+    dq = cfg.qk_nope_dim + cfg.qk_rope_dim if mla else cfg.head_dim
+    dv = cfg.v_head_dim if mla else cfg.head_dim
+    o = ("all-gather", rows * s_pad * cfg.n_heads * dv * c)
+    if mode == "qseq":
+        return [o], []
+    q = ("all-gather", rows * s_pad * cfg.n_heads * dq * c)
+    return [q, o], [o, q]
+
+
+def entry_parts(cfg, mesh, kind: str, rows: int, seq: int,
+                decode: bool = False) -> tuple[list, list]:
     """(forward, backward) collectives of tensor parallelism in one plan
     entry of ``kind`` (dense, moe, ssm, hybrid; the MoE island apart) over
-    ``tokens`` local tokens: (kind, bytes) pairs.  A ``decode`` step's
-    attention has no head relayouts (:func:`decode_attn_parts`)."""
+    ``rows`` local rows of ``seq`` positions: (kind, bytes) pairs.  A
+    ``decode`` step's attention has no head relayouts or row gathers
+    (:func:`decode_attn_parts`)."""
     rules = sh.rules_for(cfg)
     c = _itemsize(cfg.dtype("compute"))
+    tokens = rows * seq
     x = tokens * cfg.d_model * c
     fwd, bwd = [], []
     if kind in ("ssm", "hybrid"):
@@ -232,13 +259,19 @@ def entry_parts(cfg, mesh, kind: str, tokens: int, decode: bool = False) -> tupl
             bwd += [("all-reduce", x), ("all-reduce", tokens * 4)]
         return fwd, bwd
     mode = _attn_mode(cfg, mesh, rules)
-    if mode in ("kv", "qgroup"):
+    if mode in ("kv", "qgroup", "qseq_heads"):
         fwd.append(("all-reduce", x))
+        bwd.append(("all-reduce", x))
+    elif mode == "qseq":
         bwd.append(("all-reduce", x))
     if mode == "qgroup" and not decode:
         q = tokens * cfg.n_heads * cfg.head_dim * c
         fwd += [("all-gather", q)] * 2
         bwd += [("all-gather", q)] * 2
+    if mode in ("qseq", "qseq_heads") and not decode:
+        f, b = _qseq_parts(cfg, mesh, mode, rows, seq)
+        fwd += f
+        bwd += b
     if kind == "moe":
         width, logical = cfg.n_shared_experts * cfg.moe_d_ff, "shared_mlp"
     else:
@@ -247,6 +280,28 @@ def entry_parts(cfg, mesh, kind: str, tokens: int, decode: bool = False) -> tupl
         fwd.append(("all-reduce", x))
         bwd.append(("all-reduce", x))
     return fwd, bwd
+
+
+def sp_parts(cfg, mesh, stages, rows: int, seq: int, remat: bool) -> list:
+    """The collectives of ``sp_activations`` in one microbatch's forward and
+    backward over ``rows`` local rows: each plan entry whose carry it
+    splits (:func:`repro_torch.models.model.sp_entries`) gathers its
+    sequence block (again in the recompute under remat) and its output's
+    cut gathers the gradient; a run of such entries is cut at its start
+    (the gradient gathered) and gathered at its end.  None where the carry
+    stays whole."""
+    rules = sh.rules_for(cfg)
+    if not cfg.sp_activations or not _tp(mesh, rules, "attn_q_seq", seq):
+        return []
+    x = ("all-gather", rows * seq * cfg.d_model * _itemsize(cfg.dtype("compute")))
+    out, blocked = [], False
+    for on in sp_entries(stages):
+        if on != blocked:
+            out.append(x)               # the run's cut (backward) or gather
+            blocked = on
+        if on:
+            out += [x] * (3 if remat else 2)
+    return out + [x] if blocked else out
 
 
 def ce_parts(cfg, mesh, rows: int, t: int) -> tuple[list, list]:
@@ -364,11 +419,12 @@ def train_collectives(cfg, hp: TrainHParams, mesh, rows: int, seq: int) -> dict:
         for n in top:
             use(n, False)
         _add_all(out, embed_parts(cfg, mesh, tokens))
+        _add_all(out, sp_parts(cfg, mesh, stages, b, seq, remat))
         for prefix, kind in _entries(stages):
             for n in layout:
                 if n.startswith(prefix):
                     use(n, remat)
-            fwd, bwd = entry_parts(cfg, mesh, kind, tokens)
+            fwd, bwd = entry_parts(cfg, mesh, kind, b, seq)
             _add_all(out, fwd, 2 if remat else 1)
             _add_all(out, bwd)
             if kind == "moe":
@@ -381,7 +437,7 @@ def train_collectives(cfg, hp: TrainHParams, mesh, rows: int, seq: int) -> dict:
         _add_all(out, bwd)
         if cfg.mtp_depth and cfg.family != "encoder":
             _add_all(out, embed_parts(cfg, mesh, b * (seq - 1)))
-            fwd, bwd = entry_parts(cfg, mesh, "dense", b * (seq - 1))
+            fwd, bwd = entry_parts(cfg, mesh, "dense", b, seq - 1)
             _add_all(out, fwd)
             _add_all(out, bwd)
             fwd, bwd = ce_parts(cfg, mesh, b, seq - 2)
@@ -441,7 +497,7 @@ def decode_attn_parts(cfg, mesh, rows: int, total: int, seq_cap: int) -> list:
     out = []
     if mode == "kv" and split and cfg.attn_type != "mla":
         out.append(("all-gather", rows * (h + 2 * cfg.n_kv_heads) * cfg.head_dim * c))
-    elif (mode == "kv" and split) or mode == "qgroup":
+    elif (mode == "kv" and split) or mode in ("qgroup", "qseq_heads"):
         out.append(("all-gather", rows * h * per_head * c))
     if split:
         m = sh.mesh_axes(mesh)["model"]
@@ -485,7 +541,7 @@ def serve_collectives(cfg, mesh, rows: int, seq: int, seq_cap: int | None = None
     _add_all(out, embed_parts(cfg, mesh, tokens))
     mode = _attn_mode(cfg, mesh, rules)
     for _, kind in _entries(stages):
-        _add_all(out, entry_parts(cfg, mesh, kind, tokens, decode=seq == 1)[0])
+        _add_all(out, entry_parts(cfg, mesh, kind, b, seq, decode=seq == 1)[0])
         if kind in ("ssm", "hybrid"):
             continue
         if seq == 1:

@@ -48,10 +48,9 @@ def _attn_with_kv(x, p, cfg: ModelConfig, positions):
     """(attention output, what the layer's cache holds of this sequence)."""
     if cfg.attn_type == "mla":
         return mla.mla_attention(x, p, cfg, positions)
-    with layers.context_parallel(cfg, cfg.n_heads, cfg.n_kv_heads):
-        q, k, v = layers.qkv_proj(x, p, cfg, positions)
-        o = layers.sdpa(q, k, v, cfg, causal=cfg.causal and not cfg.is_encoder)
-        return layers.attn_out(o, p, cfg), (k, v)
+    q, k, v = layers.qkv_proj(x, p, cfg, positions)
+    o = layers.sdpa(q, k, v, cfg, causal=cfg.causal and not cfg.is_encoder)
+    return layers.attn_out(o, p, cfg), (k, v)
 
 
 def dense_block(x, p, cfg: ModelConfig, positions, use_moe: bool = False):

@@ -68,8 +68,9 @@ class ModelConfig:
     frontend_dim: int = 0          # stub modality frontend embedding width
     mtp_depth: int = 0             # DeepSeek-V3 multi-token prediction
     # numerics / memory (sharding_profile picks the rule table of
-    # repro_torch.distributed.sharding; sp_activations is the reference's
-    # and read by nothing here)
+    # repro_torch.distributed.sharding; sp_activations splits the carry
+    # that remat saves between a non-hybrid stage's layers along the
+    # sequence over 'model', Megatron-SP: repro_torch.models.model.forward)
     sp_activations: bool = False
     sharding_profile: str = "default"
     attn_q_chunk_threshold: int = 8192  # q-chunk attention above this seq len

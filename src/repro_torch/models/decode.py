@@ -20,7 +20,10 @@ output) over its block under the same -1e30 mask, and
 rank order.  Each rank then keeps its heads for the row-split ``wo``.
 Where ``model`` does not divide ``seq_cap`` the sequence stays whole, and
 the cache is split by KV head where they divide ``model`` (each rank
-attends its own heads) or whole.
+attends its own heads) or whole.  In the q-sequence case a decode step's
+one query row does not split over ``model`` (the reference's
+divisibility fallback): every rank attends every head, of its block of
+positions where the cache is split.
 """
 
 from __future__ import annotations
@@ -91,46 +94,45 @@ def gqa_decode(x, p, cfg: ModelConfig, cache: dict, pos: int, seq_cap: int | Non
     k, v = cache["k"], cache["v"]
     seq_cap = k.shape[1] if seq_cap is None else seq_cap
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    with layers.context_parallel(cfg, h, kv_heads):
-        q, k_new, v_new = layers.qkv_proj(x, p, cfg, positions)
-        split = seq_split(b, seq_cap, (kv_heads, hd), CACHE_AXES)
-        local_heads = q.shape[2] != h
-        mesh = layers.model_axis()[0] if (split or local_heads) else None
-        if split or (local_heads and k.shape[2] == kv_heads):
-            # every head against this rank's block of positions (or, with
-            # the q group split, against the whole cache)
-            if k_new.shape[2] != kv_heads:
-                q, k_new, v_new = gather_heads([q, k_new, v_new], mesh)
-            elif local_heads:
-                (q,) = gather_heads([q], mesh)
-        lo = split[2] * k.shape[1] if split else 0
-        if lo <= pos < lo + k.shape[1]:
-            k[:, pos - lo:pos - lo + 1] = k_new.to(k.dtype)
-            v[:, pos - lo:pos - lo + 1] = v_new.to(v.dtype)
-        k = sh.constrain(k, CACHE_AXES, {"cache_seq": seq_cap, "kv_heads": kv_heads})
-        v = sh.constrain(v, CACHE_AXES, {"cache_seq": seq_cap, "kv_heads": kv_heads})
+    q, k_new, v_new = layers.qkv_proj(x, p, cfg, positions)
+    split = seq_split(b, seq_cap, (kv_heads, hd), CACHE_AXES)
+    local_heads = q.shape[2] != h
+    mesh = layers.model_axis()[0] if (split or local_heads) else None
+    if split or (local_heads and k.shape[2] == kv_heads):
+        # every head against this rank's block of positions (or, with
+        # the q group split, against the whole cache)
+        if k_new.shape[2] != kv_heads:
+            q, k_new, v_new = gather_heads([q, k_new, v_new], mesh)
+        elif local_heads:
+            (q,) = gather_heads([q], mesh)
+    lo = split[2] * k.shape[1] if split else 0
+    if lo <= pos < lo + k.shape[1]:
+        k[:, pos - lo:pos - lo + 1] = k_new.to(k.dtype)
+        v[:, pos - lo:pos - lo + 1] = v_new.to(v.dtype)
+    k = sh.constrain(k, CACHE_AXES, {"cache_seq": seq_cap, "kv_heads": kv_heads})
+    v = sh.constrain(v, CACHE_AXES, {"cache_seq": seq_cap, "kv_heads": kv_heads})
 
-        n_q, kv = q.shape[2], k.shape[2]
-        qg = q.reshape(b, 1, kv, n_q // kv, hd)
-        scale = 1.0 / math.sqrt(hd)
-        scores = torch.einsum("bqhgd,bshd->bhgqs", qg, k.to(q.dtype))
-        scores = scores.float() * scale
-        mask = torch.arange(lo, lo + k.shape[1], device=x.device) <= pos
-        scores = torch.where(mask, scores, -1e30)
-        if split:
-            m, l, e, vf = softmax_partials(scores, v)
-            o = torch.einsum("bhgqs,bshd->bhgqd", e, vf)
-            o = collectives.merge_partials(m, l, o, mesh, ("model",)).to(q.dtype)
-            o = o.permute(0, 3, 1, 2, 4)
-        else:
-            probs = torch.softmax(scores, dim=-1).to(q.dtype)
-            o = torch.einsum("bhgqs,bshd->bqhgd", probs, v.to(q.dtype))
-        o = o.reshape(b, 1, n_q, hd)
-        if local_heads and n_q == h:
-            per = p["wo"].shape[0]
-            r = layers.model_axis()[2]
-            o = o[:, :, r * per:(r + 1) * per]
-        out = layers.attn_out(o, p, cfg)
+    n_q, kv = q.shape[2], k.shape[2]
+    qg = q.reshape(b, 1, kv, n_q // kv, hd)
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bqhgd,bshd->bhgqs", qg, k.to(q.dtype))
+    scores = scores.float() * scale
+    mask = torch.arange(lo, lo + k.shape[1], device=x.device) <= pos
+    scores = torch.where(mask, scores, -1e30)
+    if split:
+        m, l, e, vf = softmax_partials(scores, v)
+        o = torch.einsum("bhgqs,bshd->bhgqd", e, vf)
+        o = collectives.merge_partials(m, l, o, mesh, ("model",)).to(q.dtype)
+        o = o.permute(0, 3, 1, 2, 4)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        o = torch.einsum("bhgqs,bshd->bqhgd", probs, v.to(q.dtype))
+    o = o.reshape(b, 1, n_q, hd)
+    if local_heads and n_q == h:
+        per = p["wo"].shape[0]
+        r = layers.model_axis()[2]
+        o = o[:, :, r * per:(r + 1) * per]
+    out = layers.attn_out(o, p, cfg)
     return out, cache
 
 

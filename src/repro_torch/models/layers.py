@@ -24,20 +24,29 @@ starts with :func:`~repro_torch.distributed.collectives.tp_copy` (f) and
 ends in :func:`~repro_torch.distributed.collectives.tp_reduce` (g), a sum
 over ``model`` folded in rank order.  A layer knows its split from its
 weights' shapes against the config's whole counts.  Attention follows
-:func:`_score_axes`' first two cases (:func:`attn_mode`): KV heads split,
-or K/V whole with the q group split (the heads relaid out to the
-reference's (KV, group) block and back).  In its third, the q-sequence
-case, the block runs on whole weights with its constraints off: context
-parallelism is not ported.  The reference's sharding constraints are kept
-at its call sites (:func:`repro_torch.distributed.sharding.constrain`),
-where they check each activation's block.
+:func:`_score_axes`' three cases (:func:`attn_mode`): KV heads split; K/V
+whole with the q group split (the heads relaid out to the reference's (KV,
+group) block and back); and the q sequence (context parallelism,
+:func:`cp_split`), where each ``model`` rank computes the scores of its
+block of the query rows against the whole K/V (:func:`cp_chunks`: a
+contiguous S/m rows, or S/m rows of every ``Q_CHUNK`` block above the
+threshold, as the reference's per-block constraint splits them; rows that
+``model`` does not divide are zero-padded to a multiple of it).  There
+the region starts with f, so that x's gradient through K/V, which comes
+from this rank's rows only, folds over ``model``.  With the heads whole on
+every rank (h % m != 0: every production case) the rows' outputs are
+gathered along the sequence before ``wo``, as the reference's constraint on
+the attention output places it, and ``wo`` runs whole; with the heads split
+(h % m == 0) q is relaid out from head blocks to row blocks and the output
+back, and ``wo`` stays row-split, ending in g.  The reference's sharding
+constraints are kept at its call sites
+(:func:`repro_torch.distributed.sharding.constrain`), where they check each
+activation's block.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import logging
 import math
 
 import numpy as np
@@ -52,9 +61,6 @@ from repro_torch.models.config import ModelConfig, PSpec
 # q-chunking kicks in above this sequence length
 Q_CHUNK_THRESHOLD = 8192
 Q_CHUNK = 1024
-
-_LOG = logging.getLogger(__name__)
-_SAID: set = set()
 
 
 def model_axis():
@@ -71,9 +77,10 @@ def model_axis():
 def attn_mode(mesh, rules, n_heads: int, n_kv: int) -> str | None:
     """How attention splits over ``model`` (:func:`_score_axes`' cases):
     ``"kv"`` (KV heads, and so q heads), ``"qgroup"`` (q heads by their
-    group, K/V whole), ``"qseq"`` (the q sequence: context parallelism,
-    which the port runs whole), or None (no ``model`` axis, or rules that
-    do not split heads)."""
+    group, K/V whole), the q sequence (context parallelism) with the heads
+    whole on every rank, ``"qseq"``, or split over ``model``,
+    ``"qseq_heads"``, or None (no ``model`` axis, or rules that do not
+    split heads)."""
     m = mesh_axes(mesh).get("model", 1) if mesh is not None else 1
     if sh.tp_ways(mesh, rules, "heads", m) == 1:
         return None
@@ -81,23 +88,40 @@ def attn_mode(mesh, rules, n_heads: int, n_kv: int) -> str | None:
         return "kv"
     if (n_heads // n_kv) % m == 0:
         return "qgroup"
-    return "qseq" if sh.tp_ways(mesh, rules, "attn_q_seq", m) > 1 else None
+    if sh.tp_ways(mesh, rules, "attn_q_seq", m) == 1:
+        return None
+    return "qseq_heads" if sh.tp_ways(mesh, rules, "heads", n_heads) > 1 else "qseq"
 
 
-def context_parallel(cfg: ModelConfig, n_heads: int, n_kv: int):
-    """A context that turns the constraints off for an attention block in
-    the q-sequence case (whole weights, see the module docstring), and says
-    so once in the log; a null context otherwise."""
+def cp_split(n_heads: int, n_kv: int):
+    """(mesh, m, this rank's index, whether the heads split) where attention
+    of ``n_heads`` on ``n_kv`` KV heads is in the q-sequence case on the
+    current mesh, else None."""
     mesh = current_mesh()
-    if mesh is None or attn_mode(mesh, sh.current_rules(), n_heads, n_kv) != "qseq":
-        return contextlib.nullcontext()
-    key = (cfg.name, n_heads, n_kv, mesh_axes(mesh)["model"])
-    if key not in _SAID:
-        _SAID.add(key)
-        _LOG.warning("%s: %d heads / %d KV heads split over neither on model = %d "
-                     "(the reference's q-sequence case); attention runs on whole "
-                     "weights", cfg.name, n_heads, n_kv, mesh_axes(mesh)["model"])
-    return sh.no_constraints()
+    mode = None if mesh is None else attn_mode(mesh, sh.current_rules(), n_heads, n_kv)
+    if mode not in ("qseq", "qseq_heads"):
+        return None
+    return model_axis() + (mode == "qseq_heads",)
+
+
+def cp_chunks(s: int, m: int, threshold: int) -> list[tuple[int, int]]:
+    """The blocks of query rows that the q-sequence case splits over ``m``
+    ranks, as (first row, rows): the whole sequence up to ``threshold``,
+    else each ``Q_CHUNK`` block; a sequence or a ragged last block that
+    ``m`` does not divide is zero-padded to a multiple of ``m`` (where the
+    reference would leave the rows whole, or pads the block to
+    ``Q_CHUNK``; the rows past ``s`` are dropped after either way)."""
+    if s <= threshold:
+        return [(0, -(-s // m) * m)]
+    if Q_CHUNK % m:
+        raise ValueError(f"the q-sequence case: Q_CHUNK = {Q_CHUNK} does not split over "
+                         f"model = {m}")
+    return [(i, -(-min(Q_CHUNK, s - i) // m) * m) for i in range(0, s, Q_CHUNK)]
+
+
+def cp_rows(chunks: list[tuple[int, int]], m: int, r: int) -> tuple[int, ...]:
+    """Rank ``r``'s query rows: the r-th of ``m`` equal parts of each block."""
+    return tuple(c0 + r * (n // m) + j for c0, n in chunks for j in range(n // m))
 
 
 # ---------------------------------------------------------------------------
@@ -264,10 +288,13 @@ def attn_defs(cfg: ModelConfig) -> dict:
 
 def qkv_proj(x, params, cfg: ModelConfig, positions):
     """Project and rotate. Returns q (B,S,H,D), k/v (B,S,KV,D): this rank's
-    heads where the weights are split (``x`` enters through f)."""
+    heads where the weights are split (``x`` enters through f, as it does
+    in the q-sequence case)."""
     cd = cfg.dtype("compute")
     if params["wq"].shape[1] != cfg.n_heads:
         x = collectives.tp_copy(x, model_axis()[0])
+    elif (cp := cp_split(cfg.n_heads, cfg.n_kv_heads)) is not None:
+        x = collectives.tp_copy(x, cp[0])
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(cd))
@@ -304,12 +331,15 @@ def _score_axes(n_kv_heads: int, group: int):
 
 
 def _sdpa_full(q, k, v, *, causal: bool, q_offset: int = 0, n_kv: int | None = None,
-               group: int | None = None):
+               group: int | None = None, q_rows: int | None = None):
     """Grouped scores over the whole (q_len, kv_len) rectangle.
 
     q: (B, Sq, KV, G, D); k/v: (B, Sk, KV, D). Returns (B, Sq, KV, G, D).
     ``n_kv`` and ``group`` are the whole counts (the block's own by
-    default): on a mesh the constraints check the blocks against them.
+    default), ``q_rows`` the whole block's query rows of which ``q`` is
+    this rank's part in the q-sequence case (``Sq`` by default): on a mesh
+    the constraints check the blocks against them.  Query row i sits at
+    position ``q_offset + i``.
     """
     sq, d = q.shape[1], q.shape[-1]
     sk = k.shape[1]
@@ -317,7 +347,8 @@ def _sdpa_full(q, k, v, *, causal: bool, q_offset: int = 0, n_kv: int | None = N
     group = q.shape[3] if group is None else group
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
-    sizes = {"kv_heads": n_kv, "qgroup": group, "heads": group, "attn_q_seq": sq}
+    sizes = {"kv_heads": n_kv, "qgroup": group, "heads": group,
+             "attn_q_seq": sq if q_rows is None else q_rows}
     scores = constrain(scores, _score_axes(n_kv, group), sizes)
     if causal:
         qi = torch.arange(sq, device=q.device) + q_offset
@@ -332,6 +363,55 @@ def _sdpa_full(q, k, v, *, causal: bool, q_offset: int = 0, n_kv: int | None = N
         # again; the port keeps its block
         out = constrain(out, ("batch", None, None, "heads", None), {"heads": group})
     return out
+
+
+def cp_attend(q, k, v, *, causal: bool, chunks, m: int, r: int, n_kv: int, group: int):
+    """The q-sequence case's scores of rank ``r``: ``q`` (B, n, KV, G, D) its
+    rows (:func:`cp_rows` of ``chunks``, in that order) against the whole
+    ``k``/``v``, block by block, each row at its own position.  Returns
+    (B, n, KV, G, DV) in the same row order."""
+    out, at = [], 0
+    for c0, n in chunks:
+        per = n // m
+        out.append(_sdpa_full(q[:, at:at + per], k, v, causal=causal, q_offset=c0 + r * per,
+                              n_kv=n_kv, group=group, q_rows=n))
+        at += per
+    return torch.cat(out, dim=1) if len(out) > 1 else out[0]
+
+
+def _sdpa_qseq(q, k, v, cfg: ModelConfig, cp, *, causal: bool, n_kv: int):
+    """Context parallelism: this rank's query rows against the whole K/V
+    (see the module docstring); returns the attention output whole along
+    the sequence, with q's heads (this rank's where they are split)."""
+    mesh, m, r, heads_split = cp
+    n_heads = cfg.n_heads
+    b, s, h, d = q.shape
+    dv = v.shape[-1]
+    chunks = cp_chunks(s, m, min(Q_CHUNK_THRESHOLD, cfg.attn_q_chunk_threshold))
+    s_pad = chunks[-1][0] + chunks[-1][1]
+    rows = tuple(cp_rows(chunks, m, i) for i in range(m))
+    if s_pad != s:
+        q = F.pad(q, (0, 0, 0, 0, 0, s_pad - s))
+    if heads_split:
+        # this rank's heads of every row -> every head of its rows
+        heads = tuple(tuple(range(i * h, (i + 1) * h)) for i in range(m))
+        q = collectives.relayout(q, mesh, 2, heads, rows, dst_dim=1)
+    else:
+        q = q.index_select(1, torch.tensor(rows[r], device=q.device))
+    group = n_heads // n_kv
+    qg = q.reshape(b, len(rows[r]), n_kv, group, d)
+    out = cp_attend(qg, k, v, causal=causal, chunks=chunks, m=m, r=r, n_kv=n_kv, group=group)
+    out = out.reshape(b, len(rows[r]), n_heads, dv)
+    if heads_split:
+        out = collectives.relayout(out, mesh, 1, rows, heads, dst_dim=2)
+    else:
+        out = collectives.gather_along(out, mesh, ("model",), dim=1)
+        if len(chunks) > 1:
+            # rank-major rows back to sequence order
+            inverse = torch.empty(s_pad, dtype=torch.long)
+            inverse[torch.tensor([i for block in rows for i in block])] = torch.arange(s_pad)
+            out = out.index_select(1, inverse.to(out.device))
+    return out[:, :s] if s_pad != s else out
 
 
 def _group_layout(n_heads: int, n_kv: int, m: int):
@@ -352,10 +432,14 @@ def sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, n_kv: int | None = None):
     by default; MLA's expanded heads pass H).  Split q and K/V heads (the
     KV case) are this rank's groups as they stand; split q heads against
     whole K/V (the q-group case) are relaid out to every KV head's block of
-    the group for the scores, and back after.
+    the group for the scores, and back after.  In the q-sequence case each
+    rank computes its rows (:func:`_sdpa_qseq`).
     """
     n_heads = cfg.n_heads
     n_kv = cfg.n_kv_heads if n_kv is None else n_kv
+    cp = cp_split(n_heads, n_kv)
+    if cp is not None:
+        return _sdpa_qseq(q, k, v, cfg, cp, causal=causal, n_kv=n_kv)
     b, s, h, d = q.shape
     dv = v.shape[-1]
     group = n_heads // n_kv
@@ -385,7 +469,8 @@ def sdpa(q, k, v, cfg: ModelConfig, *, causal: bool, n_kv: int | None = None):
 
 def attn_out(o, params, cfg: ModelConfig):
     """The output projection; a row-split ``wo`` (this rank's heads) ends in
-    g, the heads' partial sums folded over ``model``."""
+    g, the heads' partial sums folded over ``model`` (a whole ``wo``, as in
+    the q-sequence case with the heads whole, runs alike on every rank)."""
     o = constrain(o, ("batch", "seq", "heads", "head_dim"), {"heads": cfg.n_heads})
     out = torch.einsum("bshk,hkd->bsd", o, params["wo"].to(cfg.dtype("compute")))
     if params["wo"].shape[0] != cfg.n_heads:
@@ -395,10 +480,9 @@ def attn_out(o, params, cfg: ModelConfig):
 
 def attention(x, params, cfg: ModelConfig, positions):
     """Prefill and forward attention (causal unless encoder)."""
-    with context_parallel(cfg, cfg.n_heads, cfg.n_kv_heads):
-        q, k, v = qkv_proj(x, params, cfg, positions)
-        o = sdpa(q, k, v, cfg, causal=cfg.causal and not cfg.is_encoder)
-        return attn_out(o, params, cfg)
+    q, k, v = qkv_proj(x, params, cfg, positions)
+    o = sdpa(q, k, v, cfg, causal=cfg.causal and not cfg.is_encoder)
+    return attn_out(o, params, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,11 @@ Every cast is the reference's.  On a mesh the heads split over ``model``
 g) while the latents are computed whole on every rank; the latent cache
 rests split along its sequence where ``model`` divides it, and the
 absorbed step merges its softmax partials over ``model`` as GQA's
-(:mod:`repro_torch.models.decode`).
+(:mod:`repro_torch.models.decode`).  Where ``model`` does not divide the
+heads (the q-sequence case) the expanded prefill enters through f and
+``layers.sdpa`` computes each rank's query rows against the whole
+expanded K/V, gathered before a whole ``wo``; the absorbed step's one row
+stays whole.
 """
 
 from __future__ import annotations
@@ -103,26 +107,26 @@ def mla_attention(x, p, cfg: ModelConfig, positions):
     Returns (out (B, S, d), (c_kv, k_rope)) for the cache."""
     cd = cfg.dtype("compute")
     h = cfg.n_heads
-    with layers.context_parallel(cfg, h, h):
-        mesh = _split(p, cfg)
-        if mesh is not None:
-            x = collectives.tp_copy(x, mesh)
-        q_nope, q_rope = _roped_q(x, p, cfg, positions)
-        c_kv, k_rope = _kv_latent(x, p, cfg, positions)
-        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(cd))
-        v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(cd))
-        qf = torch.cat([q_nope, q_rope], dim=-1)
-        kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            k_nope.shape[:-1] + (cfg.qk_rope_dim,))], dim=-1)
-        heads = {"heads": h}
-        qf = sh.constrain(qf, ("batch", "seq", "heads", "head_dim"), heads)
-        kf = sh.constrain(kf, ("batch", "seq", "heads", "head_dim"), heads)
-        o = layers.sdpa(qf, kf, v, cfg, causal=cfg.causal, n_kv=h)
-        o = sh.constrain(o, ("batch", "seq", "heads", "head_dim"), heads)
-        out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cd))
-        if mesh is not None:
-            out = collectives.tp_reduce(out, mesh)
-        return sh.constrain(out, ("batch", "seq", "embed")), (c_kv, k_rope)
+    mesh = _split(p, cfg)
+    cp = layers.cp_split(h, h)
+    if mesh is not None or cp is not None:
+        x = collectives.tp_copy(x, cp[0] if mesh is None else mesh)
+    q_nope, q_rope = _roped_q(x, p, cfg, positions)
+    c_kv, k_rope = _kv_latent(x, p, cfg, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"].to(cd))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"].to(cd))
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        k_nope.shape[:-1] + (cfg.qk_rope_dim,))], dim=-1)
+    heads = {"heads": h}
+    qf = sh.constrain(qf, ("batch", "seq", "heads", "head_dim"), heads)
+    kf = sh.constrain(kf, ("batch", "seq", "heads", "head_dim"), heads)
+    o = layers.sdpa(qf, kf, v, cfg, causal=cfg.causal, n_kv=h)
+    o = sh.constrain(o, ("batch", "seq", "heads", "head_dim"), heads)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cd))
+    if mesh is not None:
+        out = collectives.tp_reduce(out, mesh)
+    return sh.constrain(out, ("batch", "seq", "embed")), (c_kv, k_rope)
 
 
 def prefill_cache(c_kv, k_rope, cfg: ModelConfig, seq_cap: int) -> dict:
@@ -144,45 +148,44 @@ def mla_decode(x, p, cfg: ModelConfig, cache: dict, pos: int, seq_cap: int | Non
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     seq_cap = c_kv.shape[1] if seq_cap is None else seq_cap
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    with layers.context_parallel(cfg, h, h):
-        mesh = _split(p, cfg)
-        if mesh is not None:
-            x = collectives.tp_copy(x, mesh)
-        q_nope, q_rope = _roped_q(x, p, cfg, positions)       # (B,1,H,nope), (B,1,H,rope)
+    mesh = _split(p, cfg)
+    if mesh is not None:
+        x = collectives.tp_copy(x, mesh)
+    q_nope, q_rope = _roped_q(x, p, cfg, positions)       # (B,1,H,nope), (B,1,H,rope)
 
-        c_new, kr_new = _kv_latent(x, p, cfg, positions)
-        split = dec.seq_split(b, seq_cap, (cfg.kv_lora_rank,), C_AXES)
-        lo = split[2] * c_kv.shape[1] if split else 0
-        if lo <= pos < lo + c_kv.shape[1]:
-            c_kv[:, pos - lo:pos - lo + 1] = c_new.to(c_kv.dtype)
-            k_rope[:, pos - lo:pos - lo + 1] = kr_new.to(k_rope.dtype)
-        c_kv = sh.constrain(c_kv, C_AXES, {"cache_seq": seq_cap})
-        k_rope = sh.constrain(k_rope, R_AXES, {"cache_seq": seq_cap})
+    c_new, kr_new = _kv_latent(x, p, cfg, positions)
+    split = dec.seq_split(b, seq_cap, (cfg.kv_lora_rank,), C_AXES)
+    lo = split[2] * c_kv.shape[1] if split else 0
+    if lo <= pos < lo + c_kv.shape[1]:
+        c_kv[:, pos - lo:pos - lo + 1] = c_new.to(c_kv.dtype)
+        k_rope[:, pos - lo:pos - lo + 1] = kr_new.to(k_rope.dtype)
+    c_kv = sh.constrain(c_kv, C_AXES, {"cache_seq": seq_cap})
+    k_rope = sh.constrain(k_rope, R_AXES, {"cache_seq": seq_cap})
 
-        # wk_b absorbed into the query: scores in the latent space
-        q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, p["wk_b"].to(cd))
-        if split and mesh is not None:
-            q_c, q_rope = dec.gather_heads([q_c, q_rope], mesh)
-        s_latent = torch.einsum("bqhr,bsr->bhqs", q_c, c_kv.to(cd))
-        s_rope = torch.einsum("bqhn,bsn->bhqs", q_rope, k_rope.to(cd))
-        scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
-        scores = (s_latent + s_rope).float() * scale
-        mask = torch.arange(lo, lo + c_kv.shape[1], device=x.device) <= pos
-        scores = torch.where(mask, scores, -1e30)
-        if split:
-            m, l, e, cf = dec.softmax_partials(scores, c_kv)
-            ctx_c = torch.einsum("bhqs,bsr->bhqr", e, cf)
-            ctx_c = collectives.merge_partials(m, l, ctx_c, split[0], ("model",))
-            ctx_c = ctx_c.to(cd).transpose(1, 2)
-            if mesh is not None:
-                per = p["wk_b"].shape[1]
-                ctx_c = ctx_c[:, :, split[2] * per:(split[2] + 1) * per]
-        else:
-            probs = torch.softmax(scores, dim=-1).to(cd)
-            ctx_c = torch.einsum("bhqs,bsr->bqhr", probs, c_kv.to(cd))
-        # wv_b absorbed on the way out
-        ctx_v = torch.einsum("bqhr,rhk->bqhk", ctx_c, p["wv_b"].to(cd))
-        out = torch.einsum("bqhk,hkd->bqd", ctx_v, p["wo"].to(cd))
+    # wk_b absorbed into the query: scores in the latent space
+    q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, p["wk_b"].to(cd))
+    if split and mesh is not None:
+        q_c, q_rope = dec.gather_heads([q_c, q_rope], mesh)
+    s_latent = torch.einsum("bqhr,bsr->bhqs", q_c, c_kv.to(cd))
+    s_rope = torch.einsum("bqhn,bsn->bhqs", q_rope, k_rope.to(cd))
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scores = (s_latent + s_rope).float() * scale
+    mask = torch.arange(lo, lo + c_kv.shape[1], device=x.device) <= pos
+    scores = torch.where(mask, scores, -1e30)
+    if split:
+        m, l, e, cf = dec.softmax_partials(scores, c_kv)
+        ctx_c = torch.einsum("bhqs,bsr->bhqr", e, cf)
+        ctx_c = collectives.merge_partials(m, l, ctx_c, split[0], ("model",))
+        ctx_c = ctx_c.to(cd).transpose(1, 2)
         if mesh is not None:
-            out = collectives.tp_reduce(out, mesh)
-        return sh.constrain(out, ("batch", "seq", "embed")), cache
+            per = p["wk_b"].shape[1]
+            ctx_c = ctx_c[:, :, split[2] * per:(split[2] + 1) * per]
+    else:
+        probs = torch.softmax(scores, dim=-1).to(cd)
+        ctx_c = torch.einsum("bhqs,bsr->bqhr", probs, c_kv.to(cd))
+    # wv_b absorbed on the way out
+    ctx_v = torch.einsum("bqhr,rhk->bqhk", ctx_c, p["wv_b"].to(cd))
+    out = torch.einsum("bqhk,hkd->bqd", ctx_v, p["wo"].to(cd))
+    if mesh is not None:
+        out = collectives.tp_reduce(out, mesh)
+    return sh.constrain(out, ("batch", "seq", "embed")), cache

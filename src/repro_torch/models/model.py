@@ -50,7 +50,14 @@ entry computes tensor parallel over ``model`` on this rank's blocks:
 ``forward`` and the serving entries return this rank's vocab columns of
 the logits, ``loss`` takes the vocab-split cross-entropy, and the caches
 are this rank's blocks (a GQA or MLA cache split along the sequence where
-``model`` divides ``seq_cap``, which ``decode_step`` then needs).
+``model`` divides ``seq_cap``, which ``decode_step`` then needs).  With
+``cfg.sp_activations`` (DeepSeek-V3's Megatron-SP residual saves) and rules
+that map ``attn_q_seq`` onto ``model``, ``forward`` keeps the carry between
+the entries of a non-hybrid stage as this rank's block of the sequence:
+each entry gathers it at its start and cuts its output back, so remat
+saves 1/m of it; a sequence that ``model`` does not divide stays whole (the
+reference's divisibility fallback), and the hybrid's groups, the MTP block
+and the serving entries keep it whole, as the reference's scope does.
 """
 
 from __future__ import annotations
@@ -82,6 +89,19 @@ class StageDesc:
     kind: str        # dense | moe | ssm | hybrid
     n_layers: int    # layers in the stage (G * E for the hybrid's groups)
     group: int = 0   # hybrid: Mamba-2 blocks per group
+
+
+def sp_entries(stages) -> tuple[bool, ...]:
+    """For each plan entry in run order, whether ``sp_activations`` splits
+    its carry: an entry of a non-hybrid stage (the reference's
+    ``_run_stage``; the hybrid's groups and its shared block run apart)."""
+    out = []
+    for s in stages:
+        for i in range(s.n_layers):
+            out.append(s.kind != "hybrid")
+            if s.kind == "hybrid" and (i + 1) % s.group == 0:
+                out.append(False)
+    return tuple(out)
 
 
 def _stages_for(cfg: ModelConfig) -> list[StageDesc]:
@@ -159,6 +179,37 @@ def _remat(fn, *args, early_stop: bool = True):
                       context_fn=lambda: (contextlib.nullcontext(), sh.carried()))
 
 
+_CARRIES: list | None = None      # saved_carries()'s record while one is open
+
+
+@contextlib.contextmanager
+def saved_carries():
+    """A context in which :meth:`Model.forward` records, for each plan entry
+    it remats, the bytes of the floating tensors that the entry's
+    checkpoint saves (its inputs: the carry between entries, what
+    ``sp_activations`` cuts to 1/m), counted by
+    ``torch.autograd.graph.saved_tensors_hooks``; yields the list."""
+    global _CARRIES
+    outer, _CARRIES = _CARRIES, []
+    try:
+        yield _CARRIES
+    finally:
+        _CARRIES = outer
+
+
+def _remat_entry(fn, *args, early_stop: bool):
+    """:func:`_remat` of one plan entry, its saved carry recorded inside
+    :func:`saved_carries`."""
+    if _CARRIES is None:
+        return _remat(fn, *args, early_stop=early_stop)
+    seen = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: (seen.append(t), t)[1],
+                                                  lambda t: t):
+        out = _remat(fn, *args, early_stop=early_stop)
+    _CARRIES.append(sum(t.numel() * t.element_size() for t in seen if t.is_floating_point()))
+    return out
+
+
 class Model(nn.Module):
     """A decoder LM of any family, with its parameters.
 
@@ -208,6 +259,7 @@ class Model(nn.Module):
         # for each entry of the plan, where its cache sits in the reference's
         # tree: (a stage's name, the layer) or ("shared_attn", the invocation)
         self.cache_slots: tuple[tuple[str, int], ...] = tuple(slots)
+        self.sp_entries: tuple[bool, ...] = sp_entries(self.stages)
         # a sharded model's parameter gatherer (repro_torch.distributed.fsdp)
         self.param_source = None
 
@@ -265,9 +317,19 @@ class Model(nn.Module):
         ``return_hidden`` the final norm's output (B, S, d)."""
         x, positions = self.embed_input(batch)
         remat = self.cfg.remat == "full" and torch.is_grad_enabled()
+        sp = self._sp_mesh(x.shape[1])
+        blocked = False
         for i in range(len(self.plan)):
-            x = (_remat(self._entry, i, x, positions, early_stop=self.param_source is None)
-                 if remat else self._entry(i, x, positions))
+            if sp is not None and self.sp_entries[i] != blocked:
+                # entering (leaving) a run of sequence-parallel entries
+                cut = collectives.gather_along if blocked else collectives.slice_along
+                x = cut(x, sp, ("model",), dim=1)
+                blocked = not blocked
+            run = self._sp_entry if blocked else self._entry
+            x = (_remat_entry(run, i, x, positions, early_stop=self.param_source is None)
+                 if remat else run(i, x, positions))
+        if blocked:
+            x = collectives.gather_along(x, sp, ("model",), dim=1)
         if return_hidden:
             return layers.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return self.logits(x)
@@ -283,6 +345,27 @@ class Model(nn.Module):
             return block(x, positions)
         with self.param_source.entry(block):
             return block(x, positions)
+
+    def _sp_mesh(self, seq: int):
+        """The mesh where ``cfg.sp_activations`` splits the carry between
+        plan entries along the sequence (Megatron-SP: the rules map
+        ``attn_q_seq`` onto ``model``, which divides ``seq``), else None."""
+        mesh = sh.current_mesh()
+        if (not self.cfg.sp_activations or mesh is None
+                or sh.tp_ways(mesh, sh.current_rules(), "attn_q_seq", seq) == 1):
+            return None
+        return mesh
+
+    def _sp_entry(self, i: int, x, positions):
+        """Plan entry ``i`` on this rank's sequence block ``x``: the block
+        gathered whole over ``model`` at its start (under remat, again in
+        the recompute), the output cut back to this rank's block, which is
+        what remat saves between entries (the reference's carry constraint
+        ``("batch", "attn_q_seq", "embed")``)."""
+        mesh = sh.current_mesh()
+        x = self._entry(i, collectives.gather_along(x, mesh, ("model",), dim=1), positions)
+        return constrain(collectives.slice_along(x, mesh, ("model",), dim=1),
+                         ("batch", "attn_q_seq", "embed"), {"attn_q_seq": x.shape[1]})
 
     def _chunk_ce(self, hs, labels):
         """Summed cross-entropy of one chunk: f32 logsumexp of the compute

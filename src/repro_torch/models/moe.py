@@ -173,9 +173,9 @@ def _moe_local(x, router_w, wg, wu, wd, cfg: ModelConfig, mesh=None, ep: int = 1
     t_pad = -(-t // ep) * ep
     if t_pad != t:
         x_flat = torch.nn.functional.pad(x_flat, (0, 0, 0, t_pad - t))
-    x_m = collectives.slice_rows(x_flat, mesh, ("model",), t_pad // ep)
+    x_m = collectives.slice_along(x_flat, mesh, ("model",))
     y_m = _moe_tokens(x_m, router_w, wg, wu, wd, cfg, mesh, ep)
-    y = collectives.gather_rows_tiled(y_m, mesh, ("model",))
+    y = collectives.gather_along(y_m, mesh, ("model",))
     return y[:t].reshape(b, s, d)
 
 

@@ -174,3 +174,70 @@ def test_all_runs_on_the_cpu_in_seconds(tmp_path):
             assert r["collectives"]["reduce-scatter"]["count"] > 0
         if arch.startswith("deepseek") and shape != "long_500k":
             assert r["collectives"]["all-to-all"]["count"] > 0
+
+
+@pytest.mark.parametrize("mesh_name", sorted(dryrun.PRODUCTION_MESHES))
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "minitron-4b", "qwen2-vl-7b"])
+def test_q_sequence_case_on_production_meshes(monkeypatch, arch, mesh_name):
+    """Heads that split over ``model`` neither by KV head nor by q group:
+    every rank holds whole attention weights (q's and K/V's gradients
+    partial over ``model``, ``wo`` alike on every rank) and gathers its
+    query rows' output before ``wo``: once a layer in a prefill (per
+    Q_CHUNK block's rows above the threshold, all in one gather); twice
+    in a train step's forward and recompute (f's all-reduce of x's gradient
+    in backward takes the place of g's in forward), none in a decode
+    step."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.train import default_hparams_for
+    from repro_torch.models import layers
+    cfg, mesh = get_config(arch), dryrun.PRODUCTION_MESHES[mesh_name]
+    rules = sh.rules_for(cfg)
+    assert layers.attn_mode(mesh, rules, cfg.n_heads, cfg.n_kv_heads) == "qseq"
+    assert sh.tp_ways(mesh, rules, "heads", cfg.n_heads) == 1
+    keys = ("wq", "wk", "wv", "wo") + (("bq", "bk", "bv") if cfg.qkv_bias else ())
+    roles = {k: fsdp.leaf_role(cfg, mesh, rules, f"blocks.0.attn.{k}") for k in keys}
+    assert roles == {k: None if k == "wo" else "partial" for k in keys}
+    o = cfg.n_heads * cfg.head_dim * 2          # a row of the output in bf16
+    hp = default_hparams_for(cfg)
+    with monkeypatch.context() as mp:
+        mp.setattr(dryrun, "_qseq_parts", lambda *a: ([], []))
+        base = [dryrun.train_collectives(cfg, hp, mesh, 256, 4096),
+                dryrun.serve_collectives(cfg, mesh, 32, 32768),
+                dryrun.serve_collectives(cfg, mesh, 128, 1, 32768)]
+    got = [dryrun.train_collectives(cfg, hp, mesh, 256, 4096),
+           dryrun.serve_collectives(cfg, mesh, 32, 32768),
+           dryrun.serve_collectives(cfg, mesh, 128, 1, 32768)]
+    mb = 256 // hp.grad_accum
+    rows = [mb // dryrun._n_batch(mesh, rules, mb, 4096), 32 // dryrun._n_batch(mesh, rules, 32,
+                                                                                 32768)]
+    want = [(cfg.n_layers * hp.grad_accum * 2, rows[0] * 4096 * o),
+            (cfg.n_layers, rows[1] * 32768 * o), (0, 0)]
+    for g, b, (n, nbytes) in zip(got, base, want):
+        assert g["all-gather"]["count"] - b["all-gather"]["count"] == n
+        assert g["all-gather"]["bytes"] - b["all-gather"]["bytes"] == n * nbytes
+        assert g["all-reduce"] == b["all-reduce"]
+
+
+@pytest.mark.parametrize("mesh_name", sorted(dryrun.PRODUCTION_MESHES))
+def test_sp_activations_on_production_meshes(mesh_name):
+    """deepseek-v3-671b's Megatron-SP carry: per microbatch, one cut at the
+    run's start and one gather at its end, and each of its 61 entries'
+    gather in forward and recompute and its cut's gradient gather, every
+    one of the whole carry's bytes; nothing without the flag."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.train import default_hparams_for
+    cfg, mesh = get_config("deepseek-v3-671b"), dryrun.PRODUCTION_MESHES[mesh_name]
+    hp = default_hparams_for(cfg)
+    with_sp = dryrun.train_collectives(cfg, hp, mesh, 256, 4096)
+    without = dryrun.train_collectives(cfg.with_overrides(sp_activations=False), hp, mesh,
+                                       256, 4096)
+    mb = 256 // hp.grad_accum
+    x = mb // dryrun._n_batch(mesh, sh.rules_for(cfg), mb, 4096) * 4096 * cfg.d_model * 2
+    times = hp.grad_accum * (2 + 3 * cfg.n_layers)
+    assert with_sp["all-gather"]["count"] - without["all-gather"]["count"] == times
+    assert with_sp["all-gather"]["bytes"] - without["all-gather"]["bytes"] == times * x
+    for kind in ("all-reduce", "reduce-scatter", "all-to-all"):
+        assert with_sp[kind] == without[kind], kind
+    assert dryrun.serve_collectives(cfg, mesh, 32, 32768) == dryrun.serve_collectives(
+        cfg.with_overrides(sp_activations=False), mesh, 32, 32768)

@@ -10,8 +10,8 @@ reference-format checkpoint at step 0 per configuration, which the
 reference's subprocess writes first and the ranks wait for.  Five reduced configurations, each a case of the split:
 stablelm (KV heads split), chatglm3 with 8 q heads on 2 KV heads (the q
 group split on (1, 4)), qwen2.5 (q/k/v bias; on (1, 4) its 4 heads on 2 KV
-heads split neither way, the reference's q-sequence case, which the port
-runs on whole weights), deepseek-v2-lite (MLA, shared experts, the
+heads split neither way, the reference's q-sequence case: each rank
+computes its query rows, tests/test_torch_lm_cp.py), deepseek-v2-lite (MLA, shared experts, the
 expert-parallel island) and zamba2 (SSM heads, the shared attention
 block).  Checked, per configuration:
 
@@ -27,8 +27,7 @@ block).  Checked, per configuration:
 
 And without ranks: a wrong layout at a ``constrain`` site raises, the
 attention cases follow ``_score_axes``, and no tensor-parallel leaf is
-gathered over ``model`` on the production meshes outside the q-sequence
-case.
+gathered over ``model`` on the production meshes.
 """
 
 import dataclasses
@@ -370,6 +369,7 @@ def test_every_constrain_site_checks_its_block(runs):
                      ("batch", "seq", "kv_heads", "head_dim"),
                      ("batch", "kv_heads", "qgroup", None, None),
                      ("batch", None, "heads", None, None),
+                     ("batch", None, "qgroup", "attn_q_seq", None),
                      ("batch", None, None, "heads", None),
                      ("batch", "seq", "mlp"), ("batch", "seq", "vocab"),
                      ("batch", "seq", "embed"), ("batch", "seq", "kv_lora"),
@@ -379,14 +379,17 @@ def test_every_constrain_site_checks_its_block(runs):
 
 
 def test_roles_follow_the_split(runs):
-    """The q-group case keeps q/o local and gathers K/V; the q-sequence case
-    gathers every attention leaf; SSM B/C and MLA's latents are partial."""
+    """The q-group case keeps q/o local and gathers K/V; so does the
+    q-sequence case with the heads split (4 heads on (1, 4)), whose K/V
+    gradients come from each rank's rows; SSM B/C and MLA's latents are
+    partial."""
     port, _, _ = runs
     roles = port[0]
     assert roles["chatglm3"]["m14"]["roles"]["stages.layers.attn.wq"] == "local"
     assert roles["chatglm3"]["m14"]["roles"]["stages.layers.attn.wk"] == "partial"
     assert roles["chatglm3"]["m22"]["roles"]["stages.layers.attn.wk"] == "local"
-    assert roles["qwen"]["m14"]["roles"]["stages.layers.attn.wq"] is None
+    assert roles["qwen"]["m14"]["roles"]["stages.layers.attn.wq"] == "local"
+    assert roles["qwen"]["m14"]["roles"]["stages.layers.attn.wk"] == "partial"
     assert roles["qwen"]["m14"]["roles"]["stages.layers.ffn.wg"] == "local"
     assert roles["zamba2"]["m14"]["roles"]["stages.groups.mixer.wB"] == "partial"
     assert roles["zamba2"]["m14"]["roles"]["stages.groups.mixer.wx"] == "local"
@@ -430,6 +433,8 @@ def test_attn_mode_follows_score_axes(mesh):
         mode = layers.attn_mode(am, sh.DEFAULT_RULES, h, kv)
         want = {"kv_heads": "kv", "heads": "qgroup", "attn_q_seq": "qseq"}
         got_axis = next(a for a in axes[1:4] if a in want)
+        if got_axis == "attn_q_seq" and h % mesh[1] == 0:
+            want["attn_q_seq"] = "qseq_heads"       # the q sequence, the heads split
         assert mode == want[got_axis], (h, kv, mesh)
         assert layers.attn_mode(am, sh.SMALL_DP_RULES, h, kv) is None
 
@@ -441,16 +446,14 @@ TP_AXES = {"heads", "kv_heads", "mlp", "shared_mlp", "vocab", "ssm_heads", "expe
 def test_no_model_gather_of_a_tensor_parallel_leaf(arch):
     """On both production meshes, a leaf whose spec puts ``model`` on a
     tensor-parallel axis keeps its ``model`` block, but for the router of the
-    expert-parallel island and attention in the q-sequence case."""
+    expert-parallel island."""
     from types import SimpleNamespace
 
     from repro_torch.distributed import fsdp
-    from repro_torch.models import layers
     from repro_torch.models.model import _stages_for, param_defs
     from repro_torch.models.config import flatten
     cfg = get_config(arch)
     rules = sh.rules_for(cfg)
-    kv = cfg.n_heads if cfg.attn_type == "mla" else cfg.n_kv_heads
     for mesh in dryrun.PRODUCTION_MESHES.values():
         layout = fsdp.param_layout(SimpleNamespace(cfg=cfg, stages=_stages_for(cfg)), mesh,
                                    rules)
@@ -461,7 +464,6 @@ def test_no_model_gather_of_a_tensor_parallel_leaf(arch):
                 axes[rest] = p.axes[1:]
             else:
                 axes[n] = p.axes
-        qseq = cfg.n_heads and layers.attn_mode(mesh, rules, cfg.n_heads, kv) == "qseq"
         gathered = 0
         for name, (shape, spec) in layout.items():
             logical = axes[name.split(".", 2)[2] if name.startswith("blocks.") else name]
@@ -470,8 +472,8 @@ def test_no_model_gather_of_a_tensor_parallel_leaf(arch):
             gather, _ = dryrun.leaf_axes(cfg, mesh, rules, layout, name, ())
             if on_tp and "model" in gather:
                 gathered += 1
-                assert name.endswith("ffn.router") or (qseq and ".attn." in name), name
-        assert gathered == 0 or qseq or cfg.n_experts
+                assert name.endswith("ffn.router"), name
+        assert gathered == 0 or cfg.n_experts
 
 
 def test_remat_recompute_sees_the_mesh_on_another_thread():

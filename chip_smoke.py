@@ -177,7 +177,8 @@ context parallel on eight, then training with Megatron-SP saves):
    seeded model amplifies rounding 2-7 times a layer, so at full depth two
    prefills of 512 and 513 tokens disagree at position 511 as much);
    (c) two ``generate`` calls sha256-equal; (d) no NaN or Inf in any
-   logits.  Prints prefill ms, decode ms per step, tokens per second and
+   logits.  Prints prefill ms, decode ms per step (the first generate's
+   64 steps, timed with CUDA events), tokens per second and
    ``torch.cuda.max_memory_allocated``, each time beside its bound (the
    weights' and the full rectangle's operations at 989 TFLOP/s dense bf16,
    the weights' and the cache's bytes at 3.35 TB/s: NVIDIA's H100 SXM data
@@ -301,15 +302,15 @@ context parallel on eight, then training with Megatron-SP saves):
    prefill and decode ms, tokens/s, each rank's peak and the init's peak
    (step 26 cut in depth so that step 28 fits the time limit);
 28. context parallelism and Megatron-SP saves on the LM mesh (no kernel of
-   their own): (e) qwen2-vl-7b at full width and depth (28 layers, 28
-   heads on 4 KV heads: on 8 ranks the reference's q-sequence case, each
-   rank's query rows against the whole K/V) in bf16 on (data, model) =
-   (1, 8), eight gloo ranks sharing the card, step 22's request as the
-   VLM's concrete batch (vision embeddings, M-RoPE positions): gate (e1)
-   at depth 4, prefill and 8 decode steps fed one device's tokens, in f64
-   within 5e-3 of the largest |logit| of one device's f64 run (f32
-   printed beside it); gate (e2) two ``Server.generate`` runs of 4
-   greedy tokens sha256-equal on every rank; gate (e3) each rank's
+   their own): (e) qwen2-vl-7b at full width (28 heads on 4 KV heads: on
+   8 ranks the reference's q-sequence case, each rank's query rows against
+   the whole K/V) in bf16 on (data, model) = (1, 8), eight gloo ranks
+   sharing the card, step 22's request as the VLM's concrete batch (vision
+   embeddings, M-RoPE positions): gate (e1) at depth 4, prefill and 8
+   decode steps fed one device's tokens, in f64 within 5e-3 of the largest
+   |logit| of one device's f64 run (f32 printed beside it); the served
+   model cut to 7 of its 28 layers: gate (e2) two ``Server.generate`` runs
+   of 4 greedy tokens sha256-equal on every rank; gate (e3) each rank's
    resident parameter and cache bytes equal to ``cell_bytes``, a
    prefill's and a decode step's collectives equal to
    ``serve_collectives`` and the q-sequence scores' constraint checked
@@ -322,7 +323,23 @@ context parallel on eight, then training with Megatron-SP saves):
    ``saved_tensors_hooks``) 5,242,880 bytes a rank, half of it without
    SP; gate (f3) one step's collectives equal to ``train_collectives``;
    the step ms beside step 26 (a)'s;
-   then prints the ``{"kernels": [...]}`` line,
+29. the example scripts (``examples/{quickstart, harmonic_modes,
+   boltzmann_collision, service_quickstart}_torch.py``) run as a user runs
+   them, through their ``main`` on the card at their own defaults, and
+   ``harmonic_modes --full --use-kernel``; gates: (g1) each script's own
+   asserts; (g2) quickstart's and boltzmann's users' own integrands (the
+   chunked engine, no kernel) at 2^14 samples x 2 trials on the card
+   against the CPU, raw sums within rtol=5e-5, atol=5e-3 and estimates
+   within 1e-2 of a standard error; (g3) the paper's Fig. 1 through the
+   fused kernel (100 modes, 10^6 x 10, 10 launches) with 2-sigma coverage
+   at least 0.85, its seconds per trial printed; (g4) the service tour's
+   launch counts as the reference script prints them (cold 2, warm 0,
+   top-up 1, infinite domain 1 with no fallback round, sweep 1, sweep
+   top-up 1); (g5) one timed trial of the Boltzmann graphs over 512 beams
+   (1024 integrands of dim 3, 10^6 samples, ``use_kernel=False``), its
+   first chunks profiled;
+   then prints each step's seconds (each step also prints its own as it
+   ends), the ``{"kernels": [...]}`` line,
    one entry per kernel variant (the Sobol sweep's launches as
    ``fused_mc_sobol_swept``, the adapted Sobol ones as
    ``fused_mc_sobol_adapted``, a rank's shard on the (2, 2) mesh as
@@ -568,20 +585,35 @@ PIPE_M, PIPE_SEQ, PIPE_TOL, PIPE_SEED = 8, 512, 1e-5, 100
 # (8, so that step 28 fits the time limit: a decode step takes ~2 s)
 TP_ARCH, TP_D1_DEPTH, TP_NEW = "qwen2.5-32b", 4, 8
 # step 28 (e): qwen2-vl-7b (28 heads on 4 KV heads: neither 4 nor the group
-# of 7 nor the heads divide 8, the q-sequence case) at full width and depth
-# on (data, model) = (1, 8), step 22's request as the VLM's concrete batch
-# (vision embeddings spliced ahead, M-RoPE positions); gate (e1) at depth
-# CP_E1_DEPTH; CP_NEW greedy tokens a generate (a decode step gathers the
-# 1.67 GB of attention weights a rank through gloo, ~7 s on this card: 16
-# tokens in each of two generates would take four of the script's twenty
-# minutes)
-CP_ARCH, CP_RANKS, CP_E1_DEPTH, CP_NEW = "qwen2-vl-7b", 8, 4, 4
+# of 7 nor the heads divide 8, the q-sequence case) at full width on (data,
+# model) = (1, 8), step 22's request as the VLM's concrete batch (vision
+# embeddings spliced ahead, M-RoPE positions); gate (e1) at depth
+# CP_E1_DEPTH; the served model (e2, e3, the times) cut to CP_E_DEPTH of its
+# 28 layers, CP_NEW greedy tokens a generate (at full depth a decode step
+# gathers the 1.67 GB of attention weights a rank through gloo, ~7 s on this
+# card, and (e2)'s two generates took 70 s of the script's twenty minutes)
+CP_ARCH, CP_RANKS, CP_E1_DEPTH, CP_E_DEPTH, CP_NEW = "qwen2-vl-7b", 8, 4, 7, 4
 CP_SCORES = "batch|None|qgroup|attn_q_seq|None"
 # (f): step 26 (a)'s stablelm-3b run (full width, MESH_TRAIN_LAYERS layers,
 # f32, AdamW, batch and microbatches, (2, 2)) with sp_activations: each
 # entry's remat saves a rank's 2 rows x 256 of 512 positions x 2560 x 4 B,
 # half of the 10,485,760 without it
 SP_CARRY_BYTES = 2 * (TRAIN_SEQ // 2) * 2560 * 4
+# step 29: the port's example scripts (examples/*_torch.py) on the card, each
+# through its main at its own defaults, harmonic_modes also with --full
+# --use-kernel (the paper's Fig. 1: 2-sigma coverage at least EX_COVERAGE);
+# gate (g2) holds the users'-integrand path (quickstart's gauss3d,
+# boltzmann's two graphs: the chunked engine, no kernel) on the card against
+# the CPU at EX_N samples x EX_TRIALS trials, raw sums within the ROADMAP's
+# MC tolerance and estimates within EST_TOL of a standard error; gate (g4)
+# the service tour's launch counts, as the reference script prints them;
+# (g5) one timed trial of the Boltzmann graphs over EX_BEAMS beams (1024
+# integrands of dim 3) at EX_BIG_N samples
+EX_N, EX_TRIALS, EX_RTOL, EX_ATOL = 2**14, 2, 5e-5, 5e-3
+EX_COVERAGE = 0.85
+EX_LAUNCHES = {"cold": 2, "warm": 0, "top_up": 1, "infinite": 1, "sweep": 1,
+               "sweep_top_up": 1}
+EX_BEAMS, EX_BIG_N = 512, 10**6
 
 
 def fail(msg: str) -> None:
@@ -592,6 +624,20 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+class Laps:
+    """Each step's seconds, printed on a line of its own as the step ends
+    (a step runs from the previous one's end), and kept for the summary."""
+
+    def __init__(self, card: str, t0: float):
+        self.card, self.t, self.seconds = card, t0, {}
+
+    def end(self, step: int) -> None:
+        now = time.perf_counter()
+        self.seconds[step] = round(now - self.t, 1)
+        print(f"step {step} {now - self.t:.1f} s; on {self.card}", flush=True)
+        self.t = now
 
 
 def nvidia_smi(query: str) -> str:
@@ -1573,9 +1619,10 @@ def lm_card_vs_cpu(cfg_a, dev) -> dict:
 
 def lm_served(full, dev) -> dict:
     """The served configuration at full width and depth: the server built
-    from the seeded init (its load seconds and peak), one warm-up call,
-    ``LM_TIMING_REPS`` prefills and ``LM_NEW`` greedy decode steps timed
-    with CUDA events.  The peak is reset after loading, for serving's."""
+    from the seeded init (its load seconds and peak), one warm-up call and
+    ``LM_TIMING_REPS`` prefills timed with CUDA events (the decode steps
+    are timed inside gate (c)'s first generate).  The peak is reset after
+    loading, for serving's."""
     import torch
     from repro_torch.launch.serve import Server
     from repro_torch.launch.specs import concrete_batch
@@ -1593,38 +1640,51 @@ def lm_served(full, dev) -> dict:
     pre_ms = []
     for _ in range(LM_TIMING_REPS):
         start.record()
-        logits0, cache = model.prefill(batch, LM_CAP)
+        logits0, _ = model.prefill(batch, LM_CAP)
         end.record()
         torch.cuda.synchronize()
         pre_ms.append(start.elapsed_time(end))
-    tok = torch.argmax(logits0, dim=-1)[:, None].to(torch.int32)
-    first_tok, dec_logits = tok, []
-    start.record()
-    for i in range(LM_NEW):
-        logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
-        dec_logits.append(logits)
-        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-    end.record()
-    torch.cuda.synchronize()
+    first_tok = torch.argmax(logits0, dim=-1)[:, None].to(torch.int32)
     return dict(srv=srv, model=model, batch=batch, t_load=t_load, load_peak=load_peak,
-                pre_ms=pre_ms, prefill_ms=sorted(pre_ms)[len(pre_ms) // 2],
-                decode_ms=start.elapsed_time(end) / LM_NEW, logits0=logits0,
-                first_tok=first_tok, dec_logits=dec_logits)
+                pre_ms=pre_ms, prefill_ms=sorted(pre_ms)[len(pre_ms) // 2], logits0=logits0,
+                first_tok=first_tok)
 
 
-def lm_generate_twice(srv, batch) -> tuple[list[float], list[str]]:
+def lm_generate_twice(srv, batch) -> dict:
     """Gate (c): two ``generate`` calls, each from a fresh cache: their wall
-    seconds and the sha256 of their tokens."""
+    seconds (``walls``) and the sha256 of their tokens (``digests``).  The
+    first one's ``LM_NEW`` decode steps are timed with CUDA events, from the
+    first step's start to the last one's end, the greedy picks between them
+    included (``decode_ms`` a step), and their logits kept (``dec_logits``:
+    the first is position ``LM_PROMPT``'s, fed the prefill's greedy pick)."""
     import torch
+    model = srv.compute
+    plain = model.decode_step
+    events, dec_logits = [], []
+
+    def timed(*args, **kw):
+        if not events:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        logits, cache = plain(*args, **kw)
+        dec_logits.append(logits)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        events[1:] = [end]
+        return logits, cache
+
     walls, digests = [], []
-    for _ in range(2):
+    for i in range(2):
+        model.decode_step = timed if i == 0 else plain
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks = srv.generate(batch, LM_NEW, seq_cap=LM_CAP)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         digests.append(sha256_of(toks))
-    return walls, digests
+    del model.decode_step                              # the method again
+    return dict(walls=walls, digests=digests, dec_logits=dec_logits,
+                decode_ms=events[0].elapsed_time(events[1]) / LM_NEW)
 
 
 def lm_serving(card: str) -> None:
@@ -1661,7 +1721,11 @@ def lm_serving(card: str) -> None:
         # the served configuration at full width and depth
         run = lm_served(full, dev)
         srv, model, batch = run["srv"], run["model"], run["batch"]
-        logits0, first_tok, dec_logits = run["logits0"], run["first_tok"], run["dec_logits"]
+        logits0, first_tok = run["logits0"], run["first_tok"]
+        # (c) two generate calls, each from a fresh cache (the first's decode
+        # steps timed)
+        gen = lm_generate_twice(srv, batch)
+        walls, digests, dec_logits = gen["walls"], gen["digests"], gen["dec_logits"]
         # (b) each block's decode step against its prefill; the free-running
         # logits and two prefills' shared position beside them, not gated
         layer_errs = lm_layerwise(model, batch["tokens"], first_tok)
@@ -1670,15 +1734,13 @@ def lm_serving(card: str) -> None:
         floor = rel_rms(logits0[:, :v], ext[:, -2, :v])
         same_b = int((torch.argmax(dec_logits[0][:, :v], -1)
                       == torch.argmax(ext[:, -1, :v], -1)).sum())
-        # (c) two generate calls, each from a fresh cache
-        walls, digests = lm_generate_twice(srv, batch)
         # (d) no NaN or Inf in any logits of the step
         finite = all(bool(torch.isfinite(x[..., :v]).all())
                      for x in [logits0, ext] + dec_logits)
         peak = torch.cuda.max_memory_allocated()
         bd = lm_bounds(full)
         tps = LM_BATCH * LM_NEW / min(walls)
-        prefill_ms, decode_ms = run["prefill_ms"], run["decode_ms"]
+        prefill_ms, decode_ms = run["prefill_ms"], gen["decode_ms"]
         print(f"step 22 {arch}: {sum(p.numel() for p in srv.model.parameters()):,} parameters "
               f"stored in {full.param_dtype}, served in {full.compute_dtype}; loaded in "
               f"{run['t_load']:.2f} s; batch {LM_BATCH} x {LM_PROMPT}-token prompts, {LM_NEW} "
@@ -1711,7 +1773,7 @@ def lm_serving(card: str) -> None:
             failures.append("(c) repeated generate calls differ")
         if not finite:
             failures.append("(d) non-finite logits")
-        del srv, model, batch, logits0, dec_logits, ext, run
+        del srv, model, batch, logits0, dec_logits, ext, run, gen
         gc.collect()
         torch.cuda.empty_cache()
         check(not failures, f"{arch}: {'; '.join(failures)}")
@@ -1781,8 +1843,12 @@ def profile_steps(run, steps: int, top_n: int = 5, by_op: bool = False) -> str:
     """``run(i)`` for i < ``steps`` under ``torch.profiler``: wall and
     device-busy ms per step, the device's operations per step and the
     ``top_n`` that take the most device time; ``by_op`` adds the ``top_n``
-    PyTorch operators whose own launches take the most device time."""
+    PyTorch operators whose own launches take the most device time (each
+    kernel under the operator it is linked to).  It sums the profiler's raw
+    events: building ``key_averages`` from them takes tens of seconds for a
+    profile of 10^4 device operations, on the host between steps."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1791,22 +1857,33 @@ def profile_steps(run, steps: int, top_n: int = 5, by_op: bool = False) -> str:
             run(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    on_device = [e for e in prof.key_averages() if dev(e) > 0 and e.self_cpu_time_total == 0]
-    busy = sum(dev(e) for e in on_device) / 1e3 / steps
+    raw = prof.profiler.kineto_results.events()
+    on_device = [e for e in raw if e.device_type() == DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in on_device) / 1e6 / steps
     if busy == 0:
         return f"{wall:.3f} ms wall per step; device time not measured (no CUDA events)"
-    top = sorted(on_device, key=dev, reverse=True)[:top_n]
+
+    def most(keyed) -> str:
+        """The ``top_n`` keys by device time: (key, event, what one call
+        of the key is) -> "key ms xcalls" per step."""
+        totals: dict = {}
+        for key, e, call in keyed:
+            t = totals.setdefault(key, [0, set()])
+            t[0] += e.duration_ns()
+            t[1].add(call)
+        top = sorted(totals.items(), key=lambda kv: kv[1][0], reverse=True)[:top_n]
+        return "; ".join(f"{k[:60]} {ns / 1e6 / steps:.3f} ms x{len(calls) // steps}"
+                         for k, (ns, calls) in top)
+
     out = (f"{wall:.3f} ms wall per step, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%, "
-           f"idle {100 - 100 * busy / wall:.1f}%), {sum(e.count for e in on_device) / steps:.0f} "
-           f"device operations per step; most device time: "
-           + "; ".join(f"{e.key[:60]} {dev(e) / 1e3 / steps:.3f} ms x{e.count // steps}"
-                       for e in top))
+           f"idle {100 - 100 * busy / wall:.1f}%), {len(on_device) / steps:.0f} device "
+           f"operations per step; most device time: "
+           + most((e.name(), e, i) for i, e in enumerate(on_device)))
     if by_op:   # an operator's own launches: each kernel counted once, under its launcher
-        ops = sorted((e for e in prof.key_averages() if dev(e) > 0 and e.self_cpu_time_total > 0),
-                     key=dev, reverse=True)[:top_n]
-        out += "; by operator: " + "; ".join(
-            f"{e.key} {dev(e) / 1e3 / steps:.3f} ms x{e.count // steps}" for e in ops)
+        ops = {e.correlation_id(): e.name() for e in raw
+               if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0}
+        out += "; by operator: " + most((ops.get(e.linked_correlation_id(), "(none)"), e,
+                                         e.linked_correlation_id()) for e in on_device)
     return out
 
 
@@ -1910,23 +1987,19 @@ def lm_moe_serving(card: str) -> None:
             torch.cuda.synchronize()
             pre_ms.append(start.elapsed_time(end))
         prefill_ms = sorted(pre_ms)[len(pre_ms) // 2]
-        tok = torch.argmax(logits0, dim=-1)[:, None].to(torch.int32)
-        first_tok, dec_logits = tok, []
+        del cache
+        first_tok = torch.argmax(logits0, dim=-1)[:, None].to(torch.int32)
+        # (c) two generate calls, each from a fresh cache: the first's decode
+        # steps timed, their routes logged after its prefill's
         with routes_logged() as log:
-            start.record()
-            for i in range(LM_NEW):
-                logits, cache = model.decode_step(cache, tok, LM_PROMPT + i)
-                dec_logits.append(logits)
-                tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-            end.record()
-            torch.cuda.synchronize()
-        decode_ms = start.elapsed_time(end) / LM_NEW
-        check(len(log) == LM_NEW * n_moe, f"{arch}: {len(log)} router calls in the decode")
-        distinct = [int(idx.unique().numel()) for idx, _ in log]
+            gen = lm_generate_twice(srv, batch)
+        walls, digests, dec_logits = gen["walls"], gen["digests"], gen["dec_logits"]
+        decode_ms = gen["decode_ms"]
+        check(len(log) == 2 * (LM_NEW + 1) * n_moe,
+              f"{arch}: {len(log)} router calls in two generates")
+        distinct = [int(idx.unique().numel()) for idx, _ in log[n_moe:(LM_NEW + 1) * n_moe]]
         experts_per_step = sum(distinct) / LM_NEW
-        del cache, log
-        # (c) two generate calls, each from a fresh cache
-        walls, digests = lm_generate_twice(srv, batch)
+        del log
         peak = torch.cuda.max_memory_allocated()
         profiled = decode_profile(model, batch)
         # (b) each block's decode step against its prefill, MoE blocks
@@ -2003,7 +2076,7 @@ def lm_moe_serving(card: str) -> None:
             failures.append("(c) repeated generate calls differ")
         if not finite:
             failures.append("(d) non-finite logits")
-        del srv, model, batch, logits0, logits, dec_logits, ext
+        del srv, model, batch, logits0, dec_logits, ext, gen
         gc.collect()
         torch.cuda.empty_cache()
         check(not failures, f"{arch}: {'; '.join(failures)}")
@@ -2047,8 +2120,9 @@ def lm_ssm_serving(card: str) -> None:
 
         run = lm_served(full, dev)
         srv, model, batch = run["srv"], run["model"], run["batch"]
-        logits0, first_tok, dec_logits = run["logits0"], run["first_tok"], run["dec_logits"]
-        walls, digests = lm_generate_twice(srv, batch)                 # (c)
+        logits0, first_tok = run["logits0"], run["first_tok"]
+        gen = lm_generate_twice(srv, batch)                            # (c)
+        walls, digests, dec_logits = gen["walls"], gen["digests"], gen["dec_logits"]
         peak = torch.cuda.max_memory_allocated()
         _, cache = model.prefill(batch, LM_CAP)
         n_cache = cache_bytes(cache)
@@ -2068,7 +2142,7 @@ def lm_ssm_serving(card: str) -> None:
                      for x in [logits0, ext] + dec_logits)
         bd = lm_bounds(full)
         tps = LM_BATCH * LM_NEW / min(walls)
-        prefill_ms, decode_ms = run["prefill_ms"], run["decode_ms"]
+        prefill_ms, decode_ms = run["prefill_ms"], gen["decode_ms"]
         n_shared = sum(m is model.shared_attn for m in model.plan)
         print(f"step 24 {arch}: {sum(p.numel() for p in srv.model.parameters()):,} parameters "
               f"stored in {full.param_dtype}, served in {full.compute_dtype}; "
@@ -2106,7 +2180,7 @@ def lm_ssm_serving(card: str) -> None:
             failures.append("(d) non-finite logits")
         if arch == LM_LONG_ARCH:
             failures += lm_long_prompt(model, decode_ms, dev)
-        del srv, model, batch, logits0, dec_logits, ext, run
+        del srv, model, batch, logits0, dec_logits, ext, run, gen
         gc.collect()
         torch.cuda.empty_cache()
         check(not failures, f"{arch}: {'; '.join(failures)}")
@@ -2854,13 +2928,16 @@ def lm_mesh_rank(work: str) -> dict:
     return out
 
 
-def lm_mesh(card: str) -> float:
+def lm_mesh(card: str, refs: str | None = None) -> float:
     """Step 26: the LM multi-device path on four gloo ranks sharing the card
     (one ``multihost.spawn``): (a) stablelm-3b training on (2, 2), (b)
     deepseek-v2-lite-16b serving on (1, 4) with expert parallelism, (c) a
     4-stage pipeline.  The one-device references are run here first (their
     memory freed before the ranks start); every number is printed before
-    the gates are checked.  Returns (a)'s median step ms."""
+    the gates are checked.  With ``refs`` (a directory), (a1)'s one-device
+    runs in the mesh's rows are also written there as step 28 (f1) reads
+    them (``f1_ref_<dtype>.pt``: the same runs).  Returns (a)'s median step
+    ms."""
     import gc
     import shutil
     import tempfile
@@ -2926,6 +3003,11 @@ def lm_mesh(card: str) -> float:
             del model, state, step
             gc.collect()
             torch.cuda.empty_cache()
+    if refs is not None:
+        shutil.copy(os.path.join(work, "a1_ref64.pt"), os.path.join(refs, "f1_ref_float64.pt"))
+        torch.save({"metrics": a1_ref[MESH_ROW_ACCUM],
+                    **torch.load(os.path.join(work, "a1_ref.pt"))},
+                   os.path.join(refs, "f1_ref_float32.pt"))
     f64_ref = g1["float64", TRAIN_ACCUM]
     witness = {"f64": worst_rms(g1["float64", MESH_ROW_ACCUM], f64_ref, dev),
                "f32": worst_rms(g1["float32", MESH_ROW_ACCUM], g1["float32", TRAIN_ACCUM], dev)}
@@ -3403,11 +3485,12 @@ def lm_cp_rank(work: str) -> dict:
     del ref
     out["e1_s"] = time.perf_counter() - t0
 
-    # (e2) full depth in bf16: the server (each rank draws its blocks in
-    # turn), two generates; the second's prefill and decode steps (each
+    # (e2) CP_E_DEPTH layers in bf16: the server (each rank draws its blocks
+    # in turn), two generates; the second's prefill and decode steps (each
     # with its greedy pick) timed, and (e3) their collectives and the
     # scores' checks counted
     t0 = time.perf_counter()
+    cfg = cfg.with_overrides(n_layers=CP_E_DEPTH)
     torch.cuda.reset_peak_memory_stats()
     srv = Server(cfg, mesh=m18, device=dev)
     sync()
@@ -3548,12 +3631,13 @@ def lm_sp_rank(work: str) -> dict:
     return out
 
 
-def lm_cp_sp(card: str, step26_ms: float) -> None:
+def lm_cp_sp(card: str, step26_ms: float, refs: str | None = None) -> None:
     """Step 28: (e) qwen2-vl-7b served with context parallelism on (1, 8),
     eight gloo ranks sharing the card; (f) step 26 (a)'s stablelm-3b run
     with sp_activations on (2, 2), four ranks.  The one-device references
-    run here first, their memory freed before the ranks start; every
-    number is printed before the gates are checked."""
+    run here first, their memory freed before the ranks start ((f1)'s taken
+    from step 26's ``refs`` where it wrote them); every number is printed
+    before the gates are checked."""
     import gc
     import shutil
     import tempfile
@@ -3580,11 +3664,12 @@ def lm_cp_sp(card: str, step26_ms: float) -> None:
     m18 = AbstractMesh(("data", "model"), (1, CP_RANKS))
     cell = dryrun.cell_bytes(cfg, ShapeSpec("cp", "decode", LM_CAP, LM_BATCH), m18)
     print(f"step 28: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
-          f"(e) {CP_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
-          f"on {cfg.n_kv_heads} KV heads (the q-sequence case on model = {CP_RANKS}), d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {cell['params_bytes']:,} parameter and "
-          f"{cell['cache_bytes']:,} cache bytes a rank derived; the init's largest f32 draw "
-          f"{fsdp.init_transient_bytes(cfg):,} bytes; on {card}")
+          f"(e) {CP_ARCH}: {cfg.n_layers} layers (served at {CP_E_DEPTH}), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV heads (the q-sequence "
+          f"case on model = {CP_RANKS}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; at full "
+          f"depth {cell['params_bytes']:,} parameter and {cell['cache_bytes']:,} cache bytes a "
+          f"rank derived; the init's largest f32 draw {fsdp.init_transient_bytes(cfg):,} "
+          f"bytes; on {card}")
 
     # (e1)'s one device, f32 first (its greedy tokens feed every other run)
     t0 = time.perf_counter()
@@ -3605,10 +3690,13 @@ def lm_cp_sp(card: str, step26_ms: float) -> None:
     e1["fed"] = e1["fed"].cpu()
     torch.save(e1, os.path.join(work, "e1_ref.pt"))
     del e1
-    # (f1)'s one device in the mesh's rows, f32 and f64
+    # (f1)'s one device in the mesh's rows, f32 and f64: step 26 (a1)'s
     hp = mesh_hp(MESH_ROW_ACCUM)
     stacked = lambda leaf: (torch.stack(leaf) if isinstance(leaf, list) else leaf).detach().cpu()
     for dt in ("float32", "float64"):
+        if refs is not None and os.path.exists(os.path.join(refs, f"f1_ref_{dt}.pt")):
+            shutil.copy(os.path.join(refs, f"f1_ref_{dt}.pt"), work)
+            continue
         full = mesh_train_cfg()
         if dt == "float64":
             full = full.with_overrides(param_dtype="float64", compute_dtype="float64")
@@ -3631,7 +3719,8 @@ def lm_cp_sp(card: str, step26_ms: float) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
-    print(f"step 28 one-device references (e1, f1) {ref_s:.1f} s; on {card}")
+    print(f"step 28 one-device references (e1, f1) {ref_s:.1f} s (f1's from step 26: "
+          f"{refs is not None}); on {card}")
 
     t0 = time.perf_counter()
     ranks = multihost.spawn(lm_cp_rank, CP_RANKS, work, device="cuda", backend="gloo",
@@ -3658,13 +3747,13 @@ def lm_cp_sp(card: str, step26_ms: float) -> None:
     if not max(r0["e1_float64"]) <= LM_F32_REL * scale:
         failures.append(f"(e1) f64 logits {max(r0['e1_float64']):.3e}")
     shas = {x for r in ranks for x in r["tok_sha"]}
-    print(f"step 28 (e2) full depth, bf16: two Server.generate runs of {CP_NEW} greedy tokens, "
+    print(f"step 28 (e2) depth {CP_E_DEPTH}, bf16: two Server.generate runs of {CP_NEW} greedy tokens, "
           f"sha256 {sorted(shas)} over 2 x {CP_RANKS} ranks; the tokens {r0['tokens'][0]}; "
           f"on {card}")
     if len(shas) != 1:
         failures.append(f"(e2) generate digests {shas}")
     dec = med(r0["decode_ms"])
-    print(f"step 28 (e) serving on (1, {CP_RANKS}): server built in {r0['build_s']:.1f} s "
+    print(f"step 28 (e) serving {CP_E_DEPTH} layers on (1, {CP_RANKS}): server built in {r0['build_s']:.1f} s "
           f"(each rank's init peak {[round(r['init_peak'] / 1e9, 3) for r in ranks]} GB, the "
           f"card {r0['card_used_after_init'] / 1e9:.2f} GB used by all after it); prefill "
           f"{r0['prefill_ms']:.1f} ms (collectives {r0['prefill_coll_ms']:.1f} ms of it), "
@@ -3677,14 +3766,14 @@ def lm_cp_sp(card: str, step26_ms: float) -> None:
     print(f"step 28 (e3) resident (parameter, cache) bytes per rank "
           f"{sorted({tuple(r['resident']) for r in ranks})}, derived {r0['cell']}; the "
           f"q-sequence scores checked {[r['e3_checks'] for r in ranks]} times in a prefill "
-          f"({cfg.n_layers} layers); a prefill's collectives (count, bytes) counted "
+          f"({CP_E_DEPTH} layers); a prefill's collectives (count, bytes) counted "
           f"{fmt(r0['e3_prefill'])}, derived {fmt(r0['e3_derived']['prefill'])}; a decode "
           f"step's counted {fmt(r0['e3_decode'])}, derived {fmt(r0['e3_derived']['decode'])}; "
           f"on {card}")
     for r in ranks:
         if r["resident"] != r["cell"]:
             failures.append(f"(e3) rank {r['rank']} resident {r['resident']} != {r['cell']}")
-        if r["e3_checks"] != cfg.n_layers:
+        if r["e3_checks"] != CP_E_DEPTH:
             failures.append(f"(e3) rank {r['rank']} scores checked {r['e3_checks']} times")
         for phase in ("prefill", "decode"):
             if r[f"e3_{phase}"] != r["e3_derived"][phase]:
@@ -3735,6 +3824,118 @@ def lm_cp_sp(card: str, step26_ms: float) -> None:
     check(not failures, "step 28")
 
 
+def example_script(name: str):
+    """The module of ``examples/<name>_torch.py`` (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", os.path.join(ROOT, "examples", f"{name}_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def raw_sums(zmc, trials: int):
+    """(trials, n_fn, 2) raw (s1, s2) of a solver's trials, f64 on the CPU."""
+    import torch
+    out = []
+    for t in range(trials):
+        sums = zmc._trial_sums(t, zmc.n_samples, 0)
+        out.append(torch.stack([torch.cat([x.s1 for x in sums]),
+                                torch.cat([x.s2 for x in sums])], -1).double().cpu())
+    return torch.stack(out)
+
+
+def examples_on_card(card: str) -> None:
+    """Step 29: the four example scripts of the integrator run as a user
+    runs them, through their ``main`` on the card, with gates (g1)-(g5)."""
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import template
+
+    mods = {name: example_script(name) for name in
+            ("quickstart", "harmonic_modes", "boltzmann_collision", "service_quickstart")}
+
+    def run(label: str, fn, echo: bool = True):
+        """``fn()`` with what it prints captured (echoed but the Fig.-1 band
+        rows); (its result, wall seconds).  (g1): a script's own assert
+        failing fails the step."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = fn()
+        except AssertionError as e:
+            fail(f"step 29 (g1) {label}: the script's assert failed: {e!r}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if echo:
+            for line in buf.getvalue().splitlines():
+                if line.strip() and not line.startswith("n="):
+                    print(f"  {label} | {line}")
+        print(f"step 29 {label}: {wall:.2f} s wall; on {card}")
+        return result, wall
+
+    # each script at its own defaults; no kernel on the users'-integrand path
+    template.reset_kernel_launch_count()
+    run("quickstart", lambda: mods["quickstart"].main("cuda"))
+    run("harmonic_modes", lambda: mods["harmonic_modes"].main("cuda"))
+    run("boltzmann_collision", lambda: mods["boltzmann_collision"].main("cuda"))
+    chunked = template.kernel_launch_counts()
+    check(not any(chunked.values()), f"step 29: the chunked scripts launched {chunked}")
+    # (g3) the paper's Fig. 1 through the fused kernel
+    template.reset_kernel_launch_count()
+    (_, _, cover), wall = run("harmonic_modes --full --use-kernel",
+                              lambda: mods["harmonic_modes"].main("cuda", full=True,
+                                                                  use_kernel=True))
+    counts = variant_counts({"fused_mc": True}, "step 29 harmonic_modes --full --use-kernel")
+    print(f"step 29 (g3) harmonic_modes --full --use-kernel: 100 modes, 10^6 samples x 10 "
+          f"trials, {wall / 10:.4f} s per trial, {counts['fused_mc']} launches, 2-sigma "
+          f"coverage {cover:.2f} (gate {EX_COVERAGE}); on {card}")
+    check(cover >= EX_COVERAGE, f"step 29 (g3) coverage {cover:.2f}")
+    check(counts["fused_mc"] == 10, f"step 29 (g3) {counts['fused_mc']} launches, not 10")
+    # (g4) the service tour: rounds, the compactified stage, the swept stage
+    template.reset_kernel_launch_count()
+    tour, _ = run("service_quickstart", lambda: mods["service_quickstart"].main("cuda"))
+    variant_counts({"fused_mc_rounds": True, "fused_mc_compactified": True,
+                    "fused_mc_swept": True}, "step 29 service_quickstart")
+    print(f"step 29 (g4) service_quickstart launch counts {tour['launches']} (the reference "
+          f"script's {EX_LAUNCHES}), fallback rounds {tour['fallback_rounds']}; on {card}")
+    check(tour["launches"] == EX_LAUNCHES and tour["fallback_rounds"] == 0,
+          "step 29 (g4) the service tour's launch counts")
+    # (g2) the users' own integrands on the card against the CPU
+    for name in ("quickstart", "boltzmann_collision"):
+        (zg, rg), _ = run(f"{name} (g2) cuda", lambda: mods[name].main(
+            "cuda", n_samples=EX_N, num_trials=EX_TRIALS), echo=False)
+        (zc, rc), _ = run(f"{name} (g2) cpu", lambda: mods[name].main(
+            "cpu", n_samples=EX_N, num_trials=EX_TRIALS), echo=False)
+        sg, sc = raw_sums(zg, EX_TRIALS), raw_sums(zc, EX_TRIALS)
+        ratio = float(((sg - sc).abs() / (EX_ATOL + EX_RTOL * sc.abs())).max())
+        d_mean = float(np.max(np.abs(rg.means - rc.means) / rc.stderrs))
+        d_se = float(np.max(np.abs(rg.stderrs - rc.stderrs) / rc.stderrs))
+        print(f"step 29 (g2) {name} at {EX_N} samples x {EX_TRIALS} trials, {zg.spec.n_fn_total} "
+              f"integrands, card vs CPU: raw sums worst |diff| / (atol + rtol |cpu|) "
+              f"{ratio:.4f} (rtol={EX_RTOL}, atol={EX_ATOL}); max |d mean| {d_mean:.3g} and "
+              f"|d stderr| {d_se:.3g} standard errors (limit {EST_TOL}); on {card}")
+        check(ratio <= 1.0 and d_mean <= EST_TOL and d_se <= EST_TOL,
+              f"step 29 (g2) {name}: the card disagrees with the CPU")
+    # (g5) the paper's 10^3 integrations on the path its users write
+    (zb, rb), wall = run(f"boltzmann_collision (g5) {EX_BEAMS} beams", lambda: mods[
+        "boltzmann_collision"].main("cuda", n_samples=EX_BIG_N, num_trials=1,
+                                    n_beams=EX_BEAMS))
+    chunks = 2
+    profiled = profile_steps(lambda i: zb._trial_sums(0, chunks * zb.chunk, 0), 1)
+    print(f"step 29 (g5) the Boltzmann graphs over {EX_BEAMS} beams: {zb.spec.n_fn_total} "
+          f"user-written integrands of dim 3, {EX_BIG_N} samples, use_kernel=False: "
+          f"{wall:.3f} s per trial ({-(-EX_BIG_N // zb.chunk)} chunks of {zb.chunk} samples "
+          f"a graph); the first {chunks} chunks of each graph profiled: {profiled}; "
+          f"finite {bool(np.isfinite(rb.means).all())}; on {card}")
+    check(bool(np.isfinite(rb.means).all() and np.isfinite(rb.stderrs).all()),
+          "step 29 (g5) non-finite estimates")
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)
     t_start = time.perf_counter()
@@ -3753,6 +3954,8 @@ def main() -> None:
     torch.cuda.set_device(device)
     card = nvidia_smi("name,power.limit")
     print(f"card: {card}", flush=True)
+    laps = Laps(card, t_start)
+    laps.end(1)
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3768,6 +3971,7 @@ def main() -> None:
         print(f"  fused_mc_pass1{r['name']}: {r['registers']} registers, "
               f"{r['spill_stores']} bytes of spill stores, {r['blocks_per_sm']} resident "
               f"blocks per SM")
+    laps.end(2)
 
     # -- 3. device Threefry, bit for bit ------------------------------------
     n = 1 << 20
@@ -3784,6 +3988,7 @@ def main() -> None:
     print(f"zmc_random_bits vs rng.random_bits: {n - bad}/{n} equal "
           f"(c0 from {2**32 - n // 2} with wrap, fn ids up to 2^24-1)")
     check(bad == 0, f"device Threefry differs on {bad} counters")
+    laps.end(3)
 
     # -- 4. the Fig.-1 spec and its plan ------------------------------------
     spec, genz_exact = fig1_spec(device)
@@ -3795,6 +4000,7 @@ def main() -> None:
                       for b in plan.buckets))
     check(plan.unfused == (), f"families left unfused: {plan.unfused}")
     check(plan.n_launches == 3, f"expected 3 buckets, got {plan.n_launches}")
+    laps.end(4)
 
     # -- 5. kernel vs plain at N_CHECK, and repeat digests -----------------
     key = rng.fold_key(0, 0)
@@ -3810,6 +4016,7 @@ def main() -> None:
         print(f"bucket d{b.dim} at N={N_CHECK}: repeat sha256 {d1[:16]} {d2[:16]} "
               f"{'equal' if d1 == d2 else 'DIFFER'}")
         check(d1 == d2, f"d{b.dim}: repeated launches differ")
+    laps.end(5)
 
     # -- 6. the main path ---------------------------------------------------
     zmc = ZMCMultiFunctions(spec, n_samples=N_MAIN, seed=0, use_kernel=True,
@@ -3846,6 +4053,7 @@ def main() -> None:
           f"(700 integrands); Genz coverage vs exact: "
           + ", ".join(f"{k} {v:.4f}" for k, v in cover_g.items()))
     check(cover_h >= 0.85, f"harmonic coverage {cover_h} < 0.85")
+    laps.end(6)
 
     # -- 7. kernel vs plain at the main path's shapes, timing and bound -----
     # One trial's launches as evaluate makes them: N_MAIN samples, so 62
@@ -3916,6 +4124,7 @@ def main() -> None:
           f"{pass1['<0,false,false>']['registers']} registers (its reference allocation: 96), "
           + (f"{per_draw['instr']:.2f}" if loops else "not measured")
           + " SASS instructions per draw (reference: 72.01)")
+    laps.end(7)
 
     # -- 8. where a steady-state trial's time goes ---------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -3936,6 +4145,7 @@ def main() -> None:
           f"profiled trial {prof_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / prof_ms:.1f}%, idle {100 - 100 * busy_ms / prof_ms:.1f}%)")
     print(events.table(sort_by="self_cpu_time_total", row_limit=10))
+    laps.end(8)
 
     # -- 9. rounds: R-round launches against single rounds and plain ------
     key = rng.fold_key(4, 9)
@@ -3966,6 +4176,7 @@ def main() -> None:
         for r in range(ROUNDS):
             rounds_err = max(rounds_err, compare_sums(
                 b, k_out[r:r + 1], p_out[r:r + 1], N_ROUND))
+    laps.end(9)
 
     # -- 10. compactified families -------------------------------------------
     cspec, c_exact = compact_spec(device)
@@ -4107,6 +4318,7 @@ def main() -> None:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in cs_op.items()) + f"; on {card}")
     print("compactified Sobol pass 1: " + pass1_report(
         built["zmc_fused_mc"]["path"], pass1["<1,true,true>"], "<1,true,true>"))
+    laps.end(10)
 
     # -- 11. the service on the launcher's defaults --------------------------
     import tempfile
@@ -4194,6 +4406,7 @@ def main() -> None:
     print("service config 1, traced synchronous run: " + traced_split(
         serve_integrals.demo_workload(64, n_fn=8, n_samples=16384),
         round_samples=8192, max_rounds_per_wave=8))
+    laps.end(11)
 
     # -- 12. the service at full width: Fig.-1 as requests ------------------
     from repro_torch.service import IntegrationEngine, IntegrationRequest
@@ -4272,6 +4485,7 @@ def main() -> None:
           f"{wave_bound:.3f} ms (kernel at {100 * wave_bound / wave_ms:.1f}%); wall "
           f"{1e3 * full_wall / max(engine.stats.waves, 1):.3f} ms per wave, host share "
           f"{100 * host_share:.1f}% of the wall; on {card}")
+    laps.end(12)
 
     # -- 13. device Sobol points and shifts, bit for bit --------------------
     from repro_torch.core import sobol
@@ -4305,6 +4519,7 @@ def main() -> None:
           f"2^32) vs core.sobol: {bad} differences over {walk_idx.numel()} indices x "
           f"dims 1-{sobol.MAX_DIM}")
     check(bad == 0, f"walked Sobol points differ in {bad} words")
+    laps.end(13)
 
     # -- 14. Fig.-1 evaluate with the Sobol sampler --------------------------
     splan = multi.plan_spec(spec, sampler="sobol")
@@ -4401,6 +4616,7 @@ def main() -> None:
     print("Sobol pass 1: " + pass1_report(built["zmc_fused_mc"]["path"],
                                           pass1["<0,true,true>"], "<0,true,true>")
           + f"; kernel {sobol_ms:.3f} ms against its bound {sobol_bound:.3f} ms")
+    laps.end(14)
 
     # -- 15. service configuration 3: a parameter sweep at full width --------
     from repro_torch.core.integrand import MultiFunctionSpec, harmonic_family
@@ -4548,6 +4764,7 @@ def main() -> None:
         print(f"service config 3 ({sampler}), traced synchronous run: " + traced_split(
             [SweepRequest.make(tmpl, grid, n_samples=N_FULL, sampler=sampler)],
             round_samples=FULL_ROUND, max_rounds_per_wave=FULL_R))
+    laps.end(15)
 
     # -- 16. service configuration 2 with the Sobol sampler ------------------
     sreqs = [IntegrationRequest.make([f], n_samples=N_FULL, sampler="sobol")
@@ -4581,6 +4798,7 @@ def main() -> None:
           "service config 2 (sobol): expected 6 launches and no fallback")
     check(d_mean <= EST_TOL and d_se <= EST_TOL,
           "service config 2 (sobol) disagrees with evaluate")
+    laps.end(16)
 
     # -- 17. adapted families: VEGAS grids through the fused kernel ---------
     t0 = time.perf_counter()
@@ -4711,6 +4929,7 @@ def main() -> None:
           + ", ".join(f"{f.name} {float(np.median(ratio[o:o + f.n_fn])):.2f}"
                       for f, o in zip(uspec.families, a_offs)))
     check(float(np.median(ratio)) > 1.0, "the grids did not lower the trial spread")
+    laps.end(17)
 
     # -- 18. adaptive requests through the service (BENCH_10's protocol) ----
     import shutil
@@ -4835,6 +5054,7 @@ def main() -> None:
           "adaptive batch: a request unfinished or above its target")
     check(engine.batcher.fallback_rounds == 0, "adaptive batch: chunked fallback rounds")
     check(all(n <= 3 for n in per_wave), "adaptive batch: more launches than buckets in a wave")
+    laps.end(18)
 
     # -- 19. stratified sampling: the stratum-moments kernel and ZMCNormal ---
     import torch.nn.functional as F
@@ -4945,6 +5165,7 @@ def main() -> None:
           f"{nres.trial_std:.3g}, in-run stderr {nres.stderr:.3g}); "
           f"{n_wall / NORMAL_TRIALS:.3f} s per trial")
     check(n_dev <= 4 * nres.trial_std, "ZMCNormal is off its exact value")
+    laps.end(19)
 
     # -- 20. the multi-device path: a mesh of one NCCL rank, then four gloo ranks
     import tempfile
@@ -4953,7 +5174,6 @@ def main() -> None:
     from repro_torch.distributed import collectives
     from repro_torch.launch import multihost
     from repro_torch.launch.mesh import make_mesh_for
-    t20 = time.perf_counter()
 
     def est_digest(means, stderrs) -> str:
         return hashlib.sha256(np.ascontiguousarray(means).tobytes()
@@ -5095,18 +5315,17 @@ def main() -> None:
     shard_bound = max(op_bound_ms(sh["draws"], sh["values"], n_sm, clock_hz).values())
     print(f"four ranks share one card: these times split one card's work, they are not "
           f"scaling; rank 0's shard kernel {sh['ms']:.3f} ms against its bound "
-          f"{shard_bound:.3f} ms, plain {sh['plain_ms']:.1f} ms; step 20 "
-          f"{time.perf_counter() - t20:.1f} s; on {card}")
+          f"{shard_bound:.3f} ms, plain {sh['plain_ms']:.1f} ms; on {card}")
     sharded = dict(launches=mesh_counts["fused_mc"], max_abs_err=max(
         rk["shard"]["max_abs_err"] for rk in ranks), ms=sh["ms"],
         plain_ms=sh["plain_ms"], bound_ms=shard_bound)
+    laps.end(20)
 
     # -- 21. a state dir on the (2, 2) mesh, resumed; the invariant checker -----
     from repro_torch.analysis import __main__ as analysis_cli
     from repro_torch.analysis import contracts as analysis_contracts
     from repro_torch.analysis.streams import audit_state_dir
     from repro_torch.kernels import registry
-    t21 = time.perf_counter()
     sv20 = ranks[0]["service"]
     whole = est_digest(sv20["means"], sv20["stderrs"])
     mesh_state = tempfile.mkdtemp(prefix="zmc_mesh_state_")
@@ -5210,46 +5429,46 @@ def main() -> None:
     for path in (state, work, mesh_state, f"{mesh_state}_abandoned",
                  f"{mesh_state}_warm1", f"{mesh_state}_warm2"):
         shutil.rmtree(path, ignore_errors=True)
-    print(f"step 21 {time.perf_counter() - t21:.1f} s; on {card}")
+    laps.end(21)
 
     # -- 22. the LM serving path at full width and depth ---------------------------
     # (steps 22-24 serve: the parameters are trainable, and no graph is recorded)
-    t22 = time.perf_counter()
     with torch.no_grad():
         lm_serving(card)
-    print(f"step 22 {time.perf_counter() - t22:.1f} s; on {card}")
+    laps.end(22)
 
     # -- 23. the LM serving path of the moe family (MLA and MoE) ------------------
-    t23 = time.perf_counter()
     with torch.no_grad():
         lm_moe_serving(card)
-    print(f"step 23 {time.perf_counter() - t23:.1f} s; on {card}")
+    laps.end(23)
 
     # -- 24. the LM serving path of the ssm and hybrid families (Mamba-2) --------
-    t24 = time.perf_counter()
     with torch.no_grad():
         lm_ssm_serving(card)
-    print(f"step 24 {time.perf_counter() - t24:.1f} s; on {card}")
+    laps.end(24)
 
     # -- 25. the LM training path at full width and depth -------------------------
-    t25 = time.perf_counter()
     lm_training(card)
-    print(f"step 25 {time.perf_counter() - t25:.1f} s; on {card}")
+    laps.end(25)
 
     # -- 26. the LM multi-device path: four gloo ranks on the card ---------------
-    t26 = time.perf_counter()
-    step26_ms = lm_mesh(card)
-    print(f"step 26 {time.perf_counter() - t26:.1f} s; on {card}")
+    refs = tempfile.mkdtemp(prefix="lm_refs_")         # step 26's one device, for step 28
+    step26_ms = lm_mesh(card, refs)
+    laps.end(26)
 
     # -- 27. qwen2.5-32b served tensor parallel on four gloo ranks ----------------
-    t27 = time.perf_counter()
     lm_tp(card)
-    print(f"step 27 {time.perf_counter() - t27:.1f} s; on {card}")
+    laps.end(27)
 
     # -- 28. context parallelism on eight gloo ranks, SP on four --------------------
-    t28 = time.perf_counter()
-    lm_cp_sp(card, step26_ms)
-    print(f"step 28 {time.perf_counter() - t28:.1f} s; on {card}")
+    lm_cp_sp(card, step26_ms, refs)
+    shutil.rmtree(refs, ignore_errors=True)
+    laps.end(28)
+
+    # -- 29. the example scripts on the card: users' own integrands ---------------
+    examples_on_card(card)
+    laps.end(29)
+    print("step seconds: " + json.dumps(laps.seconds))
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",
                  bound_by="operations", library_ms=None)

@@ -22,7 +22,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.launch.train import default_hparams_for, train_loop
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-130m")
     ap.add_argument("--no-reduced", action="store_true",
@@ -34,7 +34,7 @@ def main():
                     help="checkpoint directory (default: a new temporary one)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to train (default: the card; raises without one)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if not args.no_reduced:

@@ -19,6 +19,7 @@ from repro_torch.core.direct_mc import (
     family_sums,
     finalize,
     merge_sums,
+    sharded_family_sums,
 )
 from repro_torch.core.integrand import (
     IntegrandFamily,
@@ -57,6 +58,7 @@ __all__ = [
     "harmonic_family",
     "merge_sums",
     "region_scores",
+    "sharded_family_sums",
     "spec_from_numpy",
     "stratified",
     "tree_search",

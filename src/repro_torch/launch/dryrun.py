@@ -229,7 +229,7 @@ def _qseq_parts(cfg, mesh, mode: str, rows: int, seq: int) -> tuple[list, list]:
     m = sh.mesh_axes(mesh)["model"]
     c = _itemsize(cfg.dtype("compute"))
     chunks = layers.cp_chunks(seq, m, min(layers.Q_CHUNK_THRESHOLD, cfg.attn_q_chunk_threshold))
-    s_pad = chunks[-1][0] + chunks[-1][1]
+    s_pad = sum(n for _, n in chunks)
     mla = cfg.attn_type == "mla"
     dq = cfg.qk_nope_dim + cfg.qk_rope_dim if mla else cfg.head_dim
     dv = cfg.v_head_dim if mla else cfg.head_dim

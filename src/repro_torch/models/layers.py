@@ -106,22 +106,34 @@ def cp_split(n_heads: int, n_kv: int):
 
 def cp_chunks(s: int, m: int, threshold: int) -> list[tuple[int, int]]:
     """The blocks of query rows that the q-sequence case splits over ``m``
-    ranks, as (first row, rows): the whole sequence up to ``threshold``,
-    else each ``Q_CHUNK`` block; a sequence or a ragged last block that
-    ``m`` does not divide is zero-padded to a multiple of ``m`` (where the
-    reference would leave the rows whole, or pads the block to
-    ``Q_CHUNK``; the rows past ``s`` are dropped after either way)."""
+    ranks, as (position of the first row, rows): the whole sequence up to
+    ``threshold``, else each ``Q_CHUNK`` block.  A block that ``m`` does not
+    divide (a sequence, a ragged last block, or every block where ``m`` does
+    not divide ``Q_CHUNK``) is zero-padded to a multiple of ``m``, where the
+    reference would leave its rows whole or pad a last block to ``Q_CHUNK``;
+    the dummy rows sit after the block's own (:func:`cp_positions`) and are
+    dropped after."""
     if s <= threshold:
         return [(0, -(-s // m) * m)]
-    if Q_CHUNK % m:
-        raise ValueError(f"the q-sequence case: Q_CHUNK = {Q_CHUNK} does not split over "
-                         f"model = {m}")
     return [(i, -(-min(Q_CHUNK, s - i) // m) * m) for i in range(0, s, Q_CHUNK)]
 
 
+def cp_positions(chunks: list[tuple[int, int]], s: int) -> list[int]:
+    """The sequence position of each slot of the blocks laid end to end (a
+    block's rows, then its dummy rows, whose position is -1)."""
+    ends = [c0 for c0, _ in chunks[1:]] + [s]
+    return [c0 + j if c0 + j < end else -1
+            for (c0, n), end in zip(chunks, ends) for j in range(n)]
+
+
 def cp_rows(chunks: list[tuple[int, int]], m: int, r: int) -> tuple[int, ...]:
-    """Rank ``r``'s query rows: the r-th of ``m`` equal parts of each block."""
-    return tuple(c0 + r * (n // m) + j for c0, n in chunks for j in range(n // m))
+    """Rank ``r``'s slots (:func:`cp_positions`): the r-th of ``m`` equal
+    parts of each block."""
+    out, at = [], 0
+    for _, n in chunks:
+        out += range(at + r * (n // m), at + (r + 1) * (n // m))
+        at += n
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -388,10 +400,13 @@ def _sdpa_qseq(q, k, v, cfg: ModelConfig, cp, *, causal: bool, n_kv: int):
     b, s, h, d = q.shape
     dv = v.shape[-1]
     chunks = cp_chunks(s, m, min(Q_CHUNK_THRESHOLD, cfg.attn_q_chunk_threshold))
-    s_pad = chunks[-1][0] + chunks[-1][1]
+    pos = cp_positions(chunks, s)
+    s_pad = len(pos)
     rows = tuple(cp_rows(chunks, m, i) for i in range(m))
     if s_pad != s:
-        q = F.pad(q, (0, 0, 0, 0, 0, s_pad - s))
+        # each slot's row of q, a dummy slot's a row of zeros
+        src = torch.tensor([p if p >= 0 else s for p in pos], device=q.device)
+        q = F.pad(q, (0, 0, 0, 0, 0, 1)).index_select(1, src)
     if heads_split:
         # this rank's heads of every row -> every head of its rows
         heads = tuple(tuple(range(i * h, (i + 1) * h)) for i in range(m))
@@ -404,14 +419,16 @@ def _sdpa_qseq(q, k, v, cfg: ModelConfig, cp, *, causal: bool, n_kv: int):
     out = out.reshape(b, len(rows[r]), n_heads, dv)
     if heads_split:
         out = collectives.relayout(out, mesh, 1, rows, heads, dst_dim=2)
+        order = range(s_pad)
     else:
         out = collectives.gather_along(out, mesh, ("model",), dim=1)
-        if len(chunks) > 1:
-            # rank-major rows back to sequence order
-            inverse = torch.empty(s_pad, dtype=torch.long)
-            inverse[torch.tensor([i for block in rows for i in block])] = torch.arange(s_pad)
-            out = out.index_select(1, inverse.to(out.device))
-    return out[:, :s] if s_pad != s else out
+        order = [i for block in rows for i in block]       # rank-major slots
+    # the sequence's rows in order, the dummy slots dropped
+    at = {pos[slot]: k for k, slot in enumerate(order) if pos[slot] >= 0}
+    take = [at[p] for p in range(s)]
+    if take == list(range(s)):
+        return out[:, :s] if s_pad != s else out
+    return out.index_select(1, torch.tensor(take, device=out.device))
 
 
 def _group_layout(n_heads: int, n_kv: int, m: int):

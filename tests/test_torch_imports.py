@@ -1,6 +1,7 @@
 """The port imports neither jax nor repro: every module of
-src/repro_torch and chip_smoke.py, checked on their syntax trees (a text
-search would match 'repro' inside 'repro_torch')."""
+src/repro_torch, the port's example scripts (examples/*_torch.py) and
+chip_smoke.py, checked on their syntax trees (a text search would match
+'repro' inside 'repro_torch')."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported(path: Path) -> set[str]:
@@ -54,6 +56,12 @@ def test_scan_covers_service_slice(part):
     scanned files."""
     root = ROOT / "src" / "repro_torch" / part
     assert any(p == root or root in p.parents for p in FILES), part
+
+
+@pytest.mark.parametrize("name", ["quickstart", "harmonic_modes", "boltzmann_collision",
+                                  "service_quickstart", "train_lm"])
+def test_scan_covers_the_examples(name):
+    assert ROOT / "examples" / f"{name}_torch.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

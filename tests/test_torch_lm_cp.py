@@ -438,13 +438,14 @@ def test_the_carry_and_score_constraints_are_checked(runs, name):
 # without ranks
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("m", [2, 4, 3])
 @pytest.mark.parametrize("s, threshold, chunk", [(16, 8192, layers.Q_CHUNK), (15, 8192, 8),
                                                   (24, 8, 8), (20, 8, 8)])
 def test_a_ranks_rows_equal_the_rectangles(monkeypatch, m, s, threshold, chunk):
     """Each rank's causal block of query rows (one block, or S/m rows of
-    every q-chunk; a sequence or a ragged last chunk that m does not divide
-    padded) against the whole K/V equals those rows of the whole
+    every q-chunk; a sequence, a ragged last chunk or, where m does not
+    divide the q-chunk, every chunk padded, a chunk's dummy rows before the
+    next chunk's) against the whole K/V equals those rows of the whole
     rectangle."""
     monkeypatch.setattr(layers, "Q_CHUNK", chunk)
     gen = torch.Generator().manual_seed(0)
@@ -454,19 +455,21 @@ def test_a_ranks_rows_equal_the_rectangles(monkeypatch, m, s, threshold, chunk):
     v = torch.randn(b, s, kv, d, generator=gen, dtype=torch.float64)
     whole = layers._sdpa_full(q, k, v, causal=True)
     chunks = layers.cp_chunks(s, m, threshold)
-    s_pad = chunks[-1][0] + chunks[-1][1]
+    pos = layers.cp_positions(chunks, s)
     assert len(chunks) == (1 if s <= threshold else -(-s // chunk))
-    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, s_pad - s))
+    assert sorted(p for p in pos if p >= 0) == list(range(s))
+    qp = torch.cat([q, torch.zeros_like(q[:, :1])], dim=1)[:, [p if p >= 0 else s for p in pos]]
     seen = []
     for r in range(m):
         rows = layers.cp_rows(chunks, m, r)
-        assert len(rows) == s_pad // m
+        assert len(rows) == len(pos) // m
         out = layers.cp_attend(qp[:, list(rows)], k, v, causal=True, chunks=chunks, m=m, r=r,
                                n_kv=kv, group=g)
-        real = [i for i, row in enumerate(rows) if row < s]
-        torch.testing.assert_close(out[:, real], whole[:, [rows[i] for i in real]],
+        assert torch.isfinite(out).all()
+        real = [i for i, row in enumerate(rows) if pos[row] >= 0]
+        torch.testing.assert_close(out[:, real], whole[:, [pos[rows[i]] for i in real]],
                                    rtol=1e-12, atol=1e-12)
-        seen += [rows[i] for i in real]
+        seen += [pos[rows[i]] for i in real]
     assert sorted(seen) == list(range(s))
 
 

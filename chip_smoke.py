@@ -23,7 +23,9 @@ and hybrid models, its training path at full width and depth
 (stablelm-3b, mamba2-130m), and its multi-device path (training, expert-
 parallel serving and a pipeline on four gloo ranks sharing the card,
 qwen2.5-32b served tensor parallel on four ranks, and qwen2-vl-7b served
-context parallel on eight, then training with Megatron-SP saves):
+context parallel on eight, then training with Megatron-SP saves), and
+training of the moe, hybrid and encoder families and deepseek-v3-671b's own
+recipe (Adafactor, MTP) on one card:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels (one nvcc per source, started together);
@@ -240,12 +242,12 @@ context parallel on eight, then training with Megatron-SP saves):
    RMS, the parameters within 1e-3; then mamba2-130m at full width, cut
    to 8 of its 24 layers, with ``examples/train_lm.py``'s settings (batch 8 x 256, 2
    microbatches): its step timed beside its bound and profiled; gate (b)
-   10 uninterrupted steps against a run that checkpoints every 5 steps,
-   fails at step 7 and resumes: the losses of steps 5-9 equal and the
+   6 uninterrupted steps against a run that checkpoints every 3 steps,
+   fails at step 4 and resumes: the losses of steps 3-5 equal and the
    final parameters, moments and step sha256-equal (the train step runs
    under ``torch.use_deterministic_algorithms(True)``, with cuBLAS's
    workspace set at the script's start), the checkpoint's save and
-   restore timed with its bytes; gate (c) 10 steps on one fixed batch
+   restore timed with its bytes; gate (c) 6 steps on one fixed batch
    (lr 1e-3, warmup 2), the last loss below the first, the trajectory
    printed; gate (d) every loss and gradient norm finite;
 26. the LM multi-device path (``repro_torch.distributed.{sharding, fsdp,
@@ -255,11 +257,11 @@ context parallel on eight, then training with Megatron-SP saves):
    (a) stablelm-3b at full width, 2 of 32 layers, in f32 (TF32 off),
    step 25's AdamW, batch and microbatches, on (data, model) = (2, 2): 3
    uninterrupted steps, 2 timed (step ms, the collectives' ms inside it,
-   tokens/s, each rank's peak); gate (a1) the mesh's first 3 steps in
-   f64 (every f32 upcast of the model kept at f64) against 3 on one
+   tokens/s, each rank's peak); gate (a1) the mesh's first 2 steps in
+   f64 (every f32 upcast of the model kept at f64) against 2 on one
    device in f64 in the mesh's pieces of rows (4 microbatches of 2 rows)
    with step 25's gate (a) tolerances (every loss and grad_norm, each
-   leaf's gradient after step 3, the parameters); the f32 run's 3 steps
+   leaf's gradient after step 2, the parameters); the f32 run's 2 steps
    against one device's in f32, in the mesh's rows and in step 25's 2
    microbatches, printed beside it (tensor parallelism sums the row-split
    products in another order, which the seeded model amplifies as another
@@ -306,7 +308,7 @@ context parallel on eight, then training with Megatron-SP saves):
    8 ranks the reference's q-sequence case, each rank's query rows against
    the whole K/V) in bf16 on (data, model) = (1, 8), eight gloo ranks
    sharing the card, step 22's request as the VLM's concrete batch (vision
-   embeddings, M-RoPE positions): gate (e1) at depth 4, prefill and 8
+   embeddings, M-RoPE positions): gate (e1) at depth 2, prefill and 8
    decode steps fed one device's tokens, in f64 within 5e-3 of the largest
    |logit| of one device's f64 run (f32 printed beside it); the served
    model cut to 7 of its 28 layers: gate (e2) two ``Server.generate`` runs
@@ -317,7 +319,8 @@ context parallel on eight, then training with Megatron-SP saves):
    once a layer per prefill; prefill and decode ms (the second generate's,
    each with its greedy pick), the collectives' ms, tokens/s, each rank's
    peak.  (f) step 26 (a)'s stablelm-3b run with ``sp_activations`` on
-   (2, 2), four ranks: gate (f1) 3 steps in f64 against one device in the
+   (2, 2), run by step 26's four ranks after (c) (the same mesh: no spawn
+   of its own), printed here: gate (f1) 2 steps in f64 against one device in the
    mesh's rows at step 25's tolerances (f32 printed beside it); gate (f2)
    the carry each entry's remat saves per microbatch (counted by
    ``saved_tensors_hooks``) 5,242,880 bytes a rank, half of it without
@@ -338,6 +341,34 @@ context parallel on eight, then training with Megatron-SP saves):
    top-up 1); (g5) one timed trial of the Boltzmann graphs over 512 beams
    (1024 integrands of dim 3, 10^6 samples, ``use_kernel=False``), its
    first chunks profiled;
+30. LM training of the other families on one card (no kernel of its own;
+   step 25's train step, batch 8 x 512, tolerances, f32 parameters, bf16
+   compute, remat "full"): (h) deepseek-v2-lite-16b at 3 of 27 layers (1
+   dense, 2 MoE of 64 experts), AdamW, capacity factor 1.25: gate (h1) at 2
+   layers card vs CPU in f32, dropless, the router's choices compared call
+   by call; gate (h2) a plain run of the timed run's 4 steps from one seed
+   sha256-equal to the timed run under deterministic mode, the dropped
+   pairs per MoE layer; (i) zamba2-7b at 13 of 81 layers: gate (i1) in f64
+   at 2 layers with the shared block run twice (loss 1e-11, grad_norm
+   1e-8, each leaf's gradient, the shared block's summed ones by name,
+   1e-7, parameters 1e-5), and its f32 witness (the card's f32 gradients
+   from the CPU's f64 ones within 2x the CPU's own f32 ones); (j)
+   deepseek-v3-671b's own recipe (Adafactor, 4 microbatches, the MTP
+   loss) cut to its 3 dense layers (a MoE stage of none): gate (j1) at 1
+   dense layer and the MTP block, one step of 4 x 64 in 4 microbatches,
+   loss, ce and mtp each; (k) hubert-xlarge at 48
+   layers (frames, bidirectional, the same-position loss): gate (k1) at 2
+   layers; gate (k2) at 4 layers, Adafactor with int8 compression, a run
+   crashed in step 4 and resumed from step 3 sha256-equal to 6 steps
+   uninterrupted, a saved and restored state equal; gate (k3) one step's
+   gradients and residuals through ``compress_tree`` equal bit for bit on
+   the card and on the CPU; for each, one warm-up step, 3 timed beside
+   ``train_bounds`` (top-k experts, the shared block per invocation, the
+   MTP head; Adafactor's bytes), the peak, one profiled step, every loss
+   finite and every grad_norm finite or past the f32 sum of squares'
+   range with every gradient element finite (hubert-xlarge's seeded 48
+   layers, whose timed steps then apply no gradient: a cost measurement);
+   the gates' CPU halves with the host's denormals flushed;
    then prints each step's seconds (each step also prints its own as it
    ends), the ``{"kernels": [...]}`` line,
    one entry per kernel variant (the Sobol sweep's launches as
@@ -535,11 +566,13 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_TIMED = "stablelm-3b", 8,
 # dropped clip) moves these by their own size
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RMS, TRAIN_PARAM_RMS = 1e-4, 1e-3, 1e-2, 1e-3
-# mamba2-130m at examples/train_lm.py's settings: batch 8 x 256, 2
-# microbatches, 10 steps (warmup 1); gate (b) checkpoints every 5 steps and
-# fails at step 7; gate (c): 10 steps on one fixed batch at lr 1e-3, warmup 2
-SSM_TRAIN_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = "mamba2-130m", 8, 256, 10
-SSM_CKPT_EVERY, SSM_FAIL_AT = 5, 7
+# mamba2-130m at examples/train_lm.py's batch (8 x 256, 2 microbatches),
+# SSM_TRAIN_STEPS steps (warmup 1); gate (b) checkpoints every
+# SSM_CKPT_EVERY steps and fails at step SSM_FAIL_AT (step 30 (k2)'s
+# counts, for the script's time limit); gate (c): SSM_TRAIN_STEPS
+# steps on one fixed batch at lr 1e-3, warmup 2
+SSM_TRAIN_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = "mamba2-130m", 8, 256, 6
+SSM_CKPT_EVERY, SSM_FAIL_AT = 3, 4
 # step 26: the LM multi-device path on four gloo ranks sharing the card.
 # (a) stablelm-3b at full width with MESH_TRAIN_LAYERS of its 32 layers (the
 # one cut: every gathered byte crosses host memory through gloo, and more
@@ -547,7 +580,9 @@ SSM_CKPT_EVERY, SSM_FAIL_AT = 5, 7
 # in f32, step 25's AdamW, batch and
 # microbatches, on (data, model) = (2, 2): MESH_RESUME_STEPS uninterrupted
 # steps (one warm-up, the rest timed), gate (a1) on the first
-# MESH_TRAIN_STEPS against one device with step 25's gate (a) tolerances;
+# MESH_TRAIN_STEPS against one device with step 25's gate (a) tolerances
+# (2: the second step runs on the first's optimizer state, and each f64
+# step on the mesh takes ~13 s, in (a1) and in step 28 (f1));
 # the run writes its step-MESH_CKPT_EVERY checkpoint as train_loop does, and
 # train_loop resumes from it, fails in step MESH_FAIL_AT + 1 and resumes
 # again (gate (a2)).  (b) deepseek-v2-lite-16b at full width on (1, 4), cut to
@@ -555,13 +590,13 @@ SSM_CKPT_EVERY, SSM_FAIL_AT = 5, 7
 # step 23's request; gate (b1) at depth MESH_B1_DEPTH.  (c) four stablelm-3b
 # blocks at full width along a pod axis, PIPE_M microbatches of 1 x PIPE_SEQ,
 # within PIPE_TOL of the largest |output| of the blocks run in sequence
-MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2
 MESH_RESUME_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 3, 2, 2
 # gate (a1)'s one device runs the mesh's rows as its microbatches: 2
 # microbatches of 4 rows split over data = 2 ranks are 4 pieces of 2 rows.
 # Since tensor parallelism the mesh also sums each row-split product (wo,
 # wd, the vocab) over model in another order than one device's, so gate
-# (a1) compares the two in f64, where that order moves the step-3 state by
+# (a1) compares the two in f64, where that order moves the step-2 state by
 # about 2^-29 of what it moves f32's; the f32 comparison is printed.
 # In step 25's 2 microbatches of 4 rows the seeded model's (at 4 layers)
 # gradients move by ~7% relative RMS (one device against one device), past
@@ -588,11 +623,12 @@ TP_ARCH, TP_D1_DEPTH, TP_NEW = "qwen2.5-32b", 4, 8
 # of 7 nor the heads divide 8, the q-sequence case) at full width on (data,
 # model) = (1, 8), step 22's request as the VLM's concrete batch (vision
 # embeddings spliced ahead, M-RoPE positions); gate (e1) at depth
-# CP_E1_DEPTH; the served model (e2, e3, the times) cut to CP_E_DEPTH of its
+# CP_E1_DEPTH (each layer is the same q-sequence case, and 2 carry one
+# layer's output into the next); the served model (e2, e3, the times) cut to CP_E_DEPTH of its
 # 28 layers, CP_NEW greedy tokens a generate (at full depth a decode step
 # gathers the 1.67 GB of attention weights a rank through gloo, ~7 s on this
 # card, and (e2)'s two generates took 70 s of the script's twenty minutes)
-CP_ARCH, CP_RANKS, CP_E1_DEPTH, CP_E_DEPTH, CP_NEW = "qwen2-vl-7b", 8, 4, 7, 4
+CP_ARCH, CP_RANKS, CP_E1_DEPTH, CP_E_DEPTH, CP_NEW = "qwen2-vl-7b", 8, 2, 7, 4
 CP_SCORES = "batch|None|qgroup|attn_q_seq|None"
 # (f): step 26 (a)'s stablelm-3b run (full width, MESH_TRAIN_LAYERS layers,
 # f32, AdamW, batch and microbatches, (2, 2)) with sp_activations: each
@@ -614,6 +650,69 @@ EX_COVERAGE = 0.85
 EX_LAUNCHES = {"cold": 2, "warm": 0, "top_up": 1, "infinite": 1, "sweep": 1,
                "sweep_top_up": 1}
 EX_BEAMS, EX_BIG_N = 512, 10**6
+# step 30: LM training of the moe, hybrid and encoder families and of
+# deepseek-v3-671b's own recipe on one card, step 25's train step, batch
+# (TRAIN_BATCH x TRAIN_SEQ), gates and tolerances, f32 parameters (16 bytes a
+# parameter with AdamW), bf16 compute, remat "full"; one warm-up step, then
+# FAM_TIMED steps timed phase by phase and one profiled.  Each entry: (arch,
+# the timed run's overrides, its gate (x1)'s overrides).
+# (h) deepseek-v2-lite-16b at 3 of 27 layers (1 dense, 2 MoE of 64 experts,
+# top-6, 2 shared) at the configured capacity factor 1.25; (h1) at 2 layers
+# (1 dense, 1 MoE) dropless (capacity factor E/k, as reduced() sets it), so
+# that a routing difference cannot drop another pair; (h2) a plain run of
+# the timed run's 1 + FAM_TIMED steps from the same seed at capacity 1.25,
+# sha256-equal to the timed run's state after them
+FAM_MOE = ("deepseek-v2-lite-16b", {"n_layers": 3}, {"n_layers": 2})
+# (i) zamba2-7b at 13 of 81 layers (2 groups of 6 Mamba-2 blocks, each
+# followed by the shared attention block, 1 tail block); (i1) at 2 layers with
+# the shared block after each (cut from 4 with it after every 2, for time), so
+# that it runs twice and its gradient is the sum over both invocations.  (i1)
+# is gated in f64 (parameters, compute, moments, the SSD, RoPE's cos and
+# sin; every f32 upcast kept at f64), as the mesh gates of steps 26-28 are:
+# in f32 the card's and the CPU's gradients lie ~4e-3 apart (relative RMS),
+# the gradient norm 1.08e-3 (step 25's gate 1e-3), and Adam's first step,
+# lr g / (|g| + eps) on the zero-initialised A_log and dt_bias, turns that
+# into 1.6e-2 of their parameters where |g| is near eps; in f64 the loss lay
+# 2.5e-15 apart, the norm 1.2e-12, the gradients 1.9e-11 and the parameters
+# 1.8e-8 (measured on one H100, 700 W).  FAM_I1_F64_TOL (loss, grad_norm,
+# gradients, parameters) lies between those and the f32 readings, each
+# about the geometric mean.  The witness that f32 differs by rounding, not
+# by a fault: the same weights rounded to f32, one step on each side, and
+# the card's f32 gradients no farther from the CPU's f64 ones than
+# FAM_F32_SPREAD times the CPU's own f32 gradients (step 27 (d1)'s rule)
+FAM_HYBRID = ("zamba2-7b", {"n_layers": 13}, {"n_layers": 2, "shared_attn_every": 1})
+FAM_I1_F64_TOL = (1e-11, 1e-8, 1e-7, 1e-5)
+FAM_F32_SPREAD = MESH_F32_SPREAD
+# (j) deepseek-v3-671b's train.default_hparams_for (Adafactor, grad_accum 4,
+# weight decay 0; opt_dtype bf16, which Adafactor's f32 statistics do not
+# read) with the MTP block, cut to its 3 dense layers: the moe_layers stage
+# has no layer (one MoE layer's 11.3e9 parameters, with f32 gradients 90 GB,
+# fit no card); (j1) 1 dense layer and the MTP block (3.123e9 parameters;
+# the moe_layers stage empty, the repair's case), the recipe on one step of
+# FAM_J1_BATCH x FAM_J1_SEQ in its FAM_J1_ACCUM microbatches.  Its CPU half
+# runs with the host's denormals flushed (host_flush_denormals): the MTP
+# head's logits span ~10^2, so its softmax gradient is mostly f32 denormals,
+# and with them the CPU step took 168.9 s (measured on the card's host)
+FAM_V3 = ("deepseek-v3-671b", {"n_layers": 3}, {"n_layers": 1, "first_dense_layers": 1})
+FAM_J1_BATCH, FAM_J1_SEQ, FAM_J1_ACCUM = 4, 64, 4
+# (k) hubert-xlarge at full depth (48 layers): TokenStream's frames through
+# frontend_proj, bidirectional attention, the same-position loss; (k1) at 2
+# layers; (k2) at FAM_K2_LAYERS layers under Adafactor with int8 error-feedback
+# compression: FAM_K2_STEPS uninterrupted steps against a run that
+# checkpoints every FAM_K2_CKPT_EVERY steps, fails in step FAM_K2_FAIL_AT and
+# resumes; (k3) one step's gradients and residuals through compress_tree on
+# the card and on the CPU, bit for bit
+FAM_ENC = ("hubert-xlarge", {}, {"n_layers": 2})
+FAM_K2_LAYERS, FAM_K2_STEPS, FAM_K2_CKPT_EVERY, FAM_K2_FAIL_AT = 4, 6, 3, 4
+# the gradient norm past which the train step's f32 sum of squares (the
+# reference's _global_norm) overflows: sqrt of f32's largest value.  The
+# seeded model's gradients grow by orders of magnitude with depth (its fan-in
+# init has no depth scaling): hubert-xlarge's at 48 layers pass it (3.0e23,
+# measured on one H100), so its grad_norm is inf and the clip zeroes the
+# step's gradients, as the reference's would; there the gate asks for every
+# gradient element finite and a finite f64 norm past this one
+F32_NORM_MAX = 1.8446743e19
+FAM_TIMED = 3
 
 
 def fail(msg: str) -> None:
@@ -1792,9 +1891,10 @@ def routes_logged(margins: bool = False):
         w, idx = route(x_flat, router_w, cfg)
         gap = None
         if margins:
-            probs = torch.softmax(torch.matmul(x_flat.float(), router_w.float()), dim=-1)
-            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
-            gap = top[:, -2] - top[:, -1]
+            with torch.no_grad():       # a training step's router too
+                probs = torch.softmax(torch.matmul(x_flat.float(), router_w.float()), dim=-1)
+                top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+                gap = top[:, -2] - top[:, -1]
         log.append((idx, gap))
         return w, idx
 
@@ -2264,70 +2364,144 @@ def lm_long_prompt(model, decode_ms_512: float, dev) -> list[str]:
     return failures
 
 
-def train_bounds(cfg, batch: int, seq: int) -> dict:
+def train_bounds(cfg, batch: int, seq: int, optimizer: str = "adamw") -> dict:
     """The least time the card could take for one train step of ``batch``
-    sequences of ``seq`` tokens under full remat with AdamW in f32:
-    forward and backward at the bf16 peak, 8 N T matmul operations (N the
-    weights a token meets: the layers and the head, not the embedding table
-    unless the head is tied to it; 2 forward, 2 the recompute, 4 backward)
-    plus the attention rectangles the port computes whole (4 B h S^2 (dqk +
-    dv) a layer forward, 4 times) and the Mamba-2 SSD's per-token terms
-    (``lm_bounds``'s, 4 times); the clip's 12 bytes a parameter (the f32
-    gradients read for the norm, read and written for the scale) and the
-    optimizer's 28 (parameter, gradient and both moments read; parameter and
-    moments written) at the HBM rate.  The least memory is the parameters,
-    gradients and moments: 16 bytes a parameter."""
-    from repro_torch.models.config import count_params
+    sequences of ``seq`` tokens under full remat: forward and backward at
+    the bf16 peak, 8 N T matmul operations (N the weights a token meets: the
+    layers and the head, not the embedding table unless the head is tied to
+    it; of a MoE layer's routed experts only the ``top_k`` its router picks,
+    beside the shared ones, as ``lm_bounds`` counts them; the hybrid's
+    shared block once per invocation; the MTP block, and the head a second
+    time, where ``mtp_depth`` asks for them; 2 forward, 2 the recompute, 4
+    backward) plus the attention rectangles the port computes whole (4 B h
+    S^2 (dqk + dv) an attention layer forward, 4 times; MLA's at nope +
+    rope and v_head_dim) and the Mamba-2 SSD's per-token terms
+    (``lm_bounds``'s, 4 times); then at the HBM rate the clip's 3 reads and
+    writes of each gradient (12 bytes a parameter in f32: read for the norm,
+    read and written for the scale) and the optimizer's least traffic:
+    AdamW's parameter, gradient and both moments read and the parameter and
+    moments written (28 bytes a parameter in f32), Adafactor's parameter
+    and gradient read and the parameter written, its unfactored second
+    moments read and written, its factored row and column statistics read
+    and written.  The least memory is the parameters, the gradients and the
+    optimizer's state."""
+    import math
+
+    import torch
+    from repro_torch.models.config import count_params, flatten
     from repro_torch.models.model import param_defs
     defs = param_defs(cfg)
     n_params = count_params(defs)
-    d, vp = cfg.d_model, cfg.vocab_padded
-    matmul = n_params - count_params(defs["embed"]) + (d * vp if cfg.tie_embeddings else 0)
+    d, vp, L = cfg.d_model, cfg.vocab_padded, cfg.n_layers
+    n_ssm = L if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = L // cfg.shared_attn_every if cfg.family == "hybrid" else L - n_ssm
+    moe_layers = L - cfg.first_dense_layers if cfg.family == "moe" else 0
+    head = count_params(defs["head"]) if "head" in defs else d * vp
+    matmul = (n_params - count_params(defs["embed"]) + (d * vp if cfg.tie_embeddings else 0)
+              - moe_layers * (cfg.n_experts - cfg.top_k) * 3 * d * cfg.moe_d_ff
+              + max(n_attn - 1, 0) * count_params(defs.get("shared_attn", {}))
+              + (head if cfg.mtp_depth else 0))
     tokens = batch * seq
     flops = 8 * matmul * tokens
-    if cfg.family in ("dense", "encoder", "vlm"):
-        flops += 4 * 4 * batch * cfg.n_heads * seq * seq * 2 * cfg.head_dim * cfg.n_layers
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.attn_type == "mla":
+        dqk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    else:
+        dqk = dv = cfg.head_dim
+    attn_runs = n_attn + (1 if cfg.mtp_depth else 0)
+    flops += 4 * 4 * batch * cfg.n_heads * seq * seq * (dqk + dv) * attn_runs
+    if n_ssm:
         di, n, q = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_chunk
         s_pad = -(-seq // q) * q
-        flops += 4 * cfg.n_layers * batch * s_pad * (2 * q * n + 2 * q * di + 4 * n * di)
+        flops += 4 * n_ssm * batch * s_pad * (2 * q * n + 2 * q * di + 4 * n * di)
+    pb = torch.finfo(cfg.dtype("param")).bits // 8          # parameters and gradients
+    if optimizer == "adamw":
+        mb = torch.finfo(cfg.dtype("opt")).bits // 8
+        opt_bytes = n_params * (3 * pb + 4 * mb)
+        opt_state = 2 * mb * n_params
+    else:
+        opt_state = 0
+        for p in flatten(defs).values():
+            sh = p.shape
+            if len(sh) >= 2 and sh[-1] >= 128 and sh[-2] >= 128:
+                opt_state += 4 * (math.prod(sh[:-1]) + math.prod(sh[:-2]) * sh[-1])
+            else:
+                opt_state += 4 * math.prod(sh)
+        opt_bytes = 3 * pb * n_params + 2 * opt_state
     fb = flops / H100_BF16_FLOPS
-    clip = 12 * n_params / H100_HBM_BYTES_S
-    opt = 28 * n_params / H100_HBM_BYTES_S
+    clip = 3 * pb * n_params / H100_HBM_BYTES_S
+    opt = opt_bytes / H100_HBM_BYTES_S
     step = fb + clip + opt
     return dict(params=n_params, matmul_params=matmul, tokens=tokens, flops=flops,
                 fb_ms=1e3 * fb, clip_ms=1e3 * clip, opt_ms=1e3 * opt, step_ms=1e3 * step,
-                tokens_per_s=tokens / step, state_bytes=16 * n_params)
+                tokens_per_s=tokens / step, opt_state_bytes=opt_state,
+                state_bytes=2 * pb * n_params + opt_state)
+
+
+DIGEST_CHUNK = 1 << 28     # bytes of a tensor hashed as one piece
 
 
 def state_digest(state) -> str:
-    """sha256 over a train state's leaves (names and bytes, stage leaves
-    stacked), in the reference's order."""
+    """sha256 over a train state, in the reference's order of leaf names:
+    each tensor (a stage leaf layer by layer) cut into ``DIGEST_CHUNK``-byte
+    pieces, each piece copied to the host and hashed on a pool of threads
+    (hashlib lets go of the GIL), then one sha256 over the names and the
+    pieces' digests.  Equal digests mean equal bytes, as one sha256 over all
+    of them would; the pool makes a 20 GB state a few seconds' work."""
+    import concurrent.futures
+
     import torch
     from repro_torch.distributed.checkpoint import leaf_paths
-    from repro_torch.models.convert import stack_tree
+    from repro_torch.optim.optimizers import is_stacked
+    pieces = []
+    for name, leaf in leaf_paths(state):
+        for i, t in enumerate(leaf if is_stacked(leaf) else [leaf]):
+            flat = t.detach().reshape(-1)
+            if flat.dtype == torch.bfloat16:
+                flat = flat.view(torch.int16)
+            per = max(1, DIGEST_CHUNK // flat.element_size())
+            pieces += [(f"{name}/{i}/{j}", flat[j:j + per])
+                       for j in range(0, max(flat.numel(), 1), per)]
+
+    def one(piece):
+        return hashlib.sha256(piece.cpu().numpy()).digest()
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        digests = list(pool.map(one, (t for _, t in pieces)))
     h = hashlib.sha256()
-    for name, t in leaf_paths(stack_tree(state)):
-        t = t.cpu()
+    for (name, _), d in zip(pieces, digests):
         h.update(name.encode())
-        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+        h.update(d)
     return h.hexdigest()
 
 
-def train_timed(model, hp, stream, n: int) -> dict:
+def train_timed(model, hp, stream, n: int, digest: bool = False) -> dict:
     """One warm-up step, then ``n`` steps timed phase by phase with CUDA
     events: forward and backward (``TrainStep.grads``), the clip and the
     optimizer (``apply``); then one more step under ``torch.profiler``.
-    Returns the medians, each step's losses and gradient norms, the peak
-    memory (reset by the caller before the model is built) and the
-    profile's summary."""
+    Returns the medians, each step's losses and gradient norms (and every
+    metric, ``metrics``), the peak memory (reset by the caller before the
+    model is built), the profile's summary, and of the warm-up step's
+    gradients before the clip whether every element is finite and their
+    norm in f64 (the step's own norm sums f32 squares, as the reference's
+    ``_global_norm``, which overflow past a norm of 1.8e19); with
+    ``digest``, the state's :func:`state_digest` after the ``1 + n``
+    steps, before the profiled one."""
     import torch
     from repro_torch.launch import train
     dev = model.device
     state = train.make_train_state(model, hp)
     step = train.make_train_step(model, hp)
-    state, m = step(state, stream.next_batch())
+    with train.deterministic(dev):          # the warm-up step, phase by phase
+        m = step.grads(state, stream.next_batch())
+        grads = [p.grad for p in model.parameters()]
+        grads_finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        gnorm64 = float(torch.sqrt(sum(torch.linalg.vector_norm(g, dtype=torch.float64) ** 2
+                                       for g in grads)))
+        del grads
+        m["grad_norm"] = step.clip(state)
+        step.apply(state)
     losses, gnorms = [float(m["loss"])], [float(m["grad_norm"])]
+    logged = [{k: float(v) for k, v in m.items()}]
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     fb, clip, opt, total = [], [], [], []
     for _ in range(n):
@@ -2348,22 +2522,41 @@ def train_timed(model, hp, stream, n: int) -> dict:
         total.append(ev[0].elapsed_time(ev[3]))
         losses.append(float(metrics["loss"]))
         gnorms.append(float(gnorm))
+        logged.append(dict({k: float(v) for k, v in metrics.items()}, grad_norm=gnorms[-1]))
     peak = torch.cuda.max_memory_allocated()
+    digested = state_digest(state) if digest else None
     profiled = profile_steps(lambda i: step(state, stream.next_batch()), 1, top_n=6,
                              by_op=True)
     med = lambda xs: sorted(xs)[len(xs) // 2]
     return dict(state=state, fb_ms=med(fb), clip_ms=med(clip), opt_ms=med(opt),
                 step_ms=med(total), steps_ms=total, losses=losses, gnorms=gnorms,
-                peak=peak, profiled=profiled)
+                metrics=logged, peak=peak, profiled=profiled, grads_finite=grads_finite,
+                gnorm64=gnorm64, digest=digested)
 
 
-def train_card_vs_cpu(cfg_a, dev) -> dict:
-    """Gate (a): ``cfg_a`` (full width, cut depth, f32 compute) drawn on the
-    card, the same weights copied to the CPU, one train step of the same
-    TokenStream batch on each (2 microbatches, warmup 0).  Returns the
-    metrics of both, the largest per-leaf relative RMS of the (clipped)
-    gradients and of the updated parameters, the CPU step's seconds and
-    the gate's failures."""
+def train_card_vs_cpu(cfg_a, dev, hp=None, batch: int = TRAIN_CHECK_BATCH,
+                      seq: int = TRAIN_CHECK_SEQ, routes: bool = False, weights=None,
+                      keep: bool = False, against=None,
+                      tol=(TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RMS,
+                           TRAIN_PARAM_RMS)) -> dict:
+    """Gate (a): ``cfg_a`` (full width, cut depth, f32 or f64 compute)
+    drawn on the card (or ``weights``, a host state dict, cast to its
+    dtypes), the same weights copied to the CPU, one train step of the same
+    TokenStream batch on each (``hp``: AdamW, 2 microbatches, warmup 0 by
+    default), then each leaf compared on the card, the host's freed memory
+    kept meanwhile (:func:`host_heap_kept`).  Returns the metrics of both,
+    each metric's relative error, the largest of the loss and its parts
+    (``ce``, ``mtp``), the largest per-leaf relative RMS of the (clipped)
+    gradients (each leaf's in ``leaf_rms``) and of the updated parameters,
+    the card half's, the CPU step's and the comparison's seconds and the
+    failures against ``tol`` (loss, grad_norm, gradients, parameters); with
+    ``routes`` the router's choices compared call by call
+    (:func:`route_flips`: ``flips``, the smallest margin ``least`` and
+    ``at_flip``, over ``choices`` in ``calls``); with ``keep`` the CPU
+    side's weights before the step (``weights``) and its gradients
+    (``grads``), on the host; with ``against`` (leaf name -> host tensor)
+    each side's gradients' largest per-leaf relative RMS from those
+    (``vs``: side -> (value, leaf))."""
     import gc
     import math
 
@@ -2371,47 +2564,88 @@ def train_card_vs_cpu(cfg_a, dev) -> dict:
     from repro_torch.data import TokenStream
     from repro_torch.launch import train
     from repro_torch.models.model import Model
-    hp = train.TrainHParams(warmup_steps=0, total_steps=10, grad_accum=TRAIN_ACCUM)
-    card = Model(cfg_a, device=dev, seed=0)
-    cpu = Model(cfg_a, device="meta")
-    cpu.load_state_dict({k: v.to("cpu", copy=True) for k, v in card.state_dict().items()},
-                        assign=True)
-    batch = TokenStream(cfg_a, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, seed=0,
-                        device="cpu").next_batch()
-    out = {}
-    for name, model, b in (("card", card, {k: v.to(dev) for k, v in batch.items()}),
-                           ("cpu", cpu, batch)):
-        t0 = time.perf_counter()
-        state = train.make_train_state(model, hp)
-        _, m = train.make_train_step(model, hp)(state, b)
-        out[name] = {k: float(v) for k, v in m.items()}
-        out[name + "_s"] = time.perf_counter() - t0
-    grad_rms = param_rms = 0.0
-    worst = ""
-    for (n, pc), (_, ph) in zip(card.named_parameters(), cpu.named_parameters(), strict=True):
-        g = rel_rms(pc.grad.cpu(), ph.grad)
-        if g > grad_rms:
-            grad_rms, worst = g, n
-        param_rms = max(param_rms, rel_rms(pc.detach().cpu(), ph.detach()))
+    if hp is None:
+        hp = train.TrainHParams(warmup_steps=0, total_steps=10, grad_accum=TRAIN_ACCUM)
+    loss_tol, gnorm_tol, grad_tol, param_tol = tol
+    t0 = time.perf_counter()
+    with host_heap_kept():
+        if weights is None:
+            card = Model(cfg_a, device=dev, seed=0)
+        else:
+            card = Model(cfg_a, device="meta")
+            card.load_state_dict({k: weights[k].to(dev, v.dtype)
+                                  for k, v in card.state_dict().items()}, assign=True)
+        cpu = Model(cfg_a, device="meta")
+        cpu.load_state_dict({k: v.to("cpu", copy=True) for k, v in card.state_dict().items()},
+                            assign=True)
+        res = {"weights": {k: v.clone() for k, v in cpu.state_dict().items()}} if keep else {}
+        data = TokenStream(cfg_a, batch, seq, seed=0, device="cpu").next_batch()
+        out, logs = {}, {}
+        for name, model, b in (("card", card, {k: v.to(dev) for k, v in data.items()}),
+                               ("cpu", cpu, data)):
+            with routes_logged(margins=True) if routes else contextlib.nullcontext([]) as log:
+                state = train.make_train_state(model, hp)
+                _, m = train.make_train_step(model, hp)(state, b)
+                out[name] = {k: float(v) for k, v in m.items()}
+            logs[name] = log
+            out[name + "_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+        def rel(a, b) -> float:           # rel_rms in two norms, on the card
+            a, b = a.to(dev), b.to(dev)
+            return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+        grad_rms = param_rms = 0.0
+        worst = worst_p = ""
+        leaf_rms = {}
+        vs = {"card": (0.0, ""), "cpu": (0.0, "")}
+        for (n, pc), (_, ph) in zip(card.named_parameters(), cpu.named_parameters(),
+                                    strict=True):
+            g = leaf_rms[n] = rel(pc.grad, ph.grad)
+            if g > grad_rms:
+                grad_rms, worst = g, n
+            r = rel(pc.detach(), ph.detach())
+            if r > param_rms:
+                param_rms, worst_p = r, n
+            if against is not None:
+                for side, p in (("card", pc), ("cpu", ph)):
+                    x = rel(p.grad, against[n])
+                    if x > vs[side][0]:
+                        vs[side] = (x, n)
+        if keep:
+            res["grads"] = {n: p.grad for n, p in cpu.named_parameters()}
+        compare_s = time.perf_counter() - t0
     c, h = out["card"], out["cpu"]
-    loss_err = abs(c["loss"] - h["loss"]) / abs(h["loss"])
-    gnorm_err = abs(c["grad_norm"] - h["grad_norm"]) / abs(h["grad_norm"])
+    errs = {k: abs(c[k] - h[k]) / abs(h[k]) for k in h}
+    loss_err = max(v for k, v in errs.items() if k != "grad_norm")
+    gnorm_err = errs["grad_norm"]
     failures = []
     if not all(math.isfinite(x) for x in list(c.values()) + list(h.values())):
         failures.append("(a) non-finite metrics")
-    if loss_err > TRAIN_LOSS_RTOL:
-        failures.append(f"(a) loss {c['loss']} vs {h['loss']}")
-    if gnorm_err > TRAIN_GNORM_RTOL:
+    for k in h:
+        if k != "grad_norm" and errs[k] > loss_tol:
+            failures.append(f"(a) {k} {c[k]} vs {h[k]}")
+    if gnorm_err > gnorm_tol:
         failures.append(f"(a) grad_norm {c['grad_norm']} vs {h['grad_norm']}")
-    if grad_rms > TRAIN_GRAD_RMS:
+    if grad_rms > grad_tol:
         failures.append(f"(a) gradient {worst} relative RMS {grad_rms:.3e}")
-    if param_rms > TRAIN_PARAM_RMS:
-        failures.append(f"(a) parameters relative RMS {param_rms:.3e}")
-    del card, cpu, state
+    if param_rms > param_tol:
+        failures.append(f"(a) parameters ({worst_p}) relative RMS {param_rms:.3e}")
+    res.update(card=c, cpu=h, errs=errs, loss_err=loss_err, gnorm_err=gnorm_err,
+               grad_rms=grad_rms, worst=worst, leaf_rms=leaf_rms, param_rms=param_rms,
+               worst_param=worst_p, card_s=out["card_s"], cpu_s=out["cpu_s"],
+               compare_s=compare_s, failures=failures, tol=tol)
+    if against is not None:
+        res["vs"] = vs
+    if routes:
+        res["flips"], res["least"], res["at_flip"] = route_flips(logs["card"], logs["cpu"],
+                                                                 cfg_a.n_experts)
+        res["choices"] = sum(int(i.numel()) for i, _ in logs["cpu"])
+        res["calls"] = len(logs["cpu"])
+    del card, cpu, state, logs
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(card=c, cpu=h, loss_err=loss_err, gnorm_err=gnorm_err, grad_rms=grad_rms,
-                worst=worst, param_rms=param_rms, cpu_s=out["cpu_s"], failures=failures)
+    return res
 
 
 def lm_training(card: str) -> None:
@@ -2435,6 +2669,7 @@ def lm_training(card: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
     torch.backends.cudnn.allow_tf32 = False
+    host_flush_denormals()
     dev = torch.device("cuda", 0)
     finite = lambda xs: all(math.isfinite(x) for x in xs)
     print(f"step 25: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
@@ -2597,6 +2832,379 @@ def lm_training(card: str) -> None:
     check(not failures, f"{SSM_TRAIN_ARCH} training: {'; '.join(failures)}")
 
 
+@contextlib.contextmanager
+def host_heap_kept():
+    """glibc's malloc told to serve every block from its heap and to keep
+    what is freed (``mallopt``: no ``mmap``, no trim) while open, then
+    trimmed back.  A CPU half's tensors of GBs each would otherwise be
+    mapped fresh and page-faulted in at every allocation: on this repo's
+    hosts that took two thirds of a CPU train step (a narrow deepseek-v3
+    step, 3.83 s against 1.06 s kept, each the second of two).  The
+    process's own allocator; nothing outside it changes."""
+    import ctypes
+    import ctypes.util
+    name = ctypes.util.find_library("c")
+    libc = ctypes.CDLL(name) if name else None
+    if libc is None or not hasattr(libc, "mallopt"):
+        yield
+        return
+    m_trim_threshold, m_mmap_max = -1, -4
+    libc.mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    libc.malloc_trim.argtypes = [ctypes.c_size_t]
+    libc.mallopt(m_mmap_max, 0)
+    libc.mallopt(m_trim_threshold, -1)                  # glibc takes it as SIZE_MAX
+    try:
+        yield
+    finally:
+        libc.mallopt(m_mmap_max, 65536)                 # glibc's defaults
+        libc.mallopt(m_trim_threshold, 128 * 1024)
+        libc.malloc_trim(0)
+
+
+def host_flush_denormals() -> None:
+    """The host's f32 and f64 values below the smallest normal one read and
+    written as zero (x86's FTZ and DAZ) by this thread and every thread it
+    starts after the call, so by the intra-op pool when it is called before
+    the process's first parallel CPU operation.  The CPU halves of the
+    card-vs-CPU gates take softmaxes of near one-hot logits (this seeded
+    model's), whose gradients are largely denormal, and a denormal costs
+    the CPU ~100 times a normal operand: deepseek-v3's MTP block (its logits
+    span ~10^2) at a quarter of its width took 40.5 s a 4-microbatch CPU
+    step with them and 4.1 s without (8 x86 cores), the same metrics.  A
+    flushed value is under 1.2e-38, far below every tolerance; the card
+    keeps its denormals."""
+    import torch
+    torch.set_flush_denormal(True)
+
+
+def host_memory() -> str:
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: int(ln.split()[1]) for ln in f}
+    return (f"the host's MemTotal {mem['MemTotal'] / 2**20:.1f} GiB, MemAvailable "
+            f"{mem['MemAvailable'] / 2**20:.1f} GiB")
+
+
+def lm_training_families(card: str) -> None:
+    """Step 30: LM training of the moe (h), hybrid (i) and encoder (k)
+    families and deepseek-v3-671b's own recipe (j) on one card, through
+    ``train.make_train_state`` / ``make_train_step`` / ``train_loop``, at
+    full width (``FAM_*``).  Every number of an architecture is printed
+    before its gates are checked."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import compression, fsdp
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import is_stacked, map_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    host_flush_denormals()
+    dev = torch.device("cuda", 0)
+    finite = lambda xs: all(math.isfinite(x) for x in xs)
+    f32 = dict(compute_dtype="float32")
+    # gate (i1) in f64 (every f32 upcast kept at f64): see FAM_HYBRID
+    f64 = dict(param_dtype="float64", compute_dtype="float64", opt_dtype="float64")
+    hp_adamw = train.TrainHParams(grad_accum=TRAIN_ACCUM, warmup_steps=1, total_steps=10)
+    print(f"step 30: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
+          f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}; on {card}")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def configs(fam):
+        arch, over, over_1 = fam
+        full = get_config(arch).with_overrides(param_dtype="float32")
+        return arch, full, full.with_overrides(**over), over_1
+
+    def gate(arch: str, tag: str, cfg_1, hp=None, batch=TRAIN_CHECK_BATCH,
+             seq=TRAIN_CHECK_SEQ, gated: bool = True, **kw) -> dict:
+        a = train_card_vs_cpu(cfg_1, dev, hp, batch, seq, **kw)
+        accum = hp.grad_accum if hp is not None else TRAIN_ACCUM
+        loss_tol, gnorm_tol, grad_tol, param_tol = (a["tol"] if gated
+                                                    else ("not gated",) * 4)
+        depth = (f"{cfg_1.n_layers} layer{'s' if cfg_1.n_layers != 1 else ''}"
+                 + (" and the MTP block" if cfg_1.mtp_depth else ""))
+        parts = ", ".join(f"{k} {a['card'][k]:.7f} vs {a['cpu'][k]:.7f} "
+                          f"(rel {a['errs'][k]:.2e})" for k in a["cpu"] if k != "grad_norm")
+        print(f"step 30 {arch} {tag} card vs CPU, {depth} at full width, "
+              f"{cfg_1.param_dtype} parameters and compute (TF32 off), "
+              f"{train_bounds(cfg_1, batch, seq)['params']:,} parameters, one step of {batch} "
+              f"x {seq} in {accum} microbatch{'es' if accum > 1 else ''}: {parts}, gate "
+              f"{loss_tol}; grad_norm "
+              f"{a['card']['grad_norm']:.5f} vs {a['cpu']['grad_norm']:.5f} (rel "
+              f"{a['gnorm_err']:.2e}, gate {gnorm_tol}); largest per-leaf gradient "
+              f"relative RMS {a['grad_rms']:.3e} ({a['worst']}, gate {grad_tol}); "
+              f"parameters {a['param_rms']:.3e} ({a['worst_param']}, gate "
+              f"{param_tol}); the card half {a['card_s']:.1f} s, the CPU step "
+              f"{a['cpu_s']:.1f} s, the comparison {a['compare_s']:.1f} s")
+        a["failures"] = [f"{tag} {x[4:]}" for x in a["failures"]] if gated else []
+        return a
+
+    def timed(arch: str, full, cfg, hp, digest: bool = False) -> tuple[dict, list[str]]:
+        label = (f"{arch} ({cfg.n_layers} of {full.n_layers} layers"
+                 + (", MTP)" if cfg.mtp_depth else ")"))
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev, seed=0)
+        run = train_timed(model, hp, TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                                 device=dev), FAM_TIMED, digest)
+        bd = train_bounds(cfg, TRAIN_BATCH, TRAIN_SEQ, hp.optimizer)
+        run["opt_bytes"] = fsdp.resident_bytes(run["state"]["opt"])
+        run["bounds"] = bd
+        tps = bd["tokens"] / (run["step_ms"] / 1e3)
+        print(f"step 30 {label}: {bd['params']:,} parameters in {cfg.param_dtype}, compute "
+              f"{cfg.compute_dtype}, remat {cfg.remat}, {hp.optimizer}; batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} in {hp.grad_accum} microbatches ({bd['tokens']} tokens a step)")
+        print(f"step 30 {label}: forward+backward {run['fb_ms']:.3f} ms (bound "
+              f"{bd['fb_ms']:.3f} ms by operations, 8 N T with N = {bd['matmul_params']:.4g} "
+              f"and the attention rectangles, {bd['flops'] / 1e12:.2f} TFLOP; "
+              f"{100 * bd['fb_ms'] / run['fb_ms']:.1f}% of it); clip {run['clip_ms']:.3f} ms "
+              f"(bound {bd['clip_ms']:.3f} ms by bytes; "
+              f"{100 * bd['clip_ms'] / run['clip_ms']:.1f}%); optimizer {run['opt_ms']:.3f} ms "
+              f"(bound {bd['opt_ms']:.3f} ms by bytes; "
+              f"{100 * bd['opt_ms'] / run['opt_ms']:.1f}%)")
+        print(f"step 30 {label}: step {run['step_ms']:.3f} ms (runs "
+              f"{[round(x, 3) for x in run['steps_ms']]}; bound {bd['step_ms']:.3f} ms; "
+              f"{100 * bd['step_ms'] / run['step_ms']:.1f}% of it); {tps:.1f} tokens/s (bound "
+              f"{bd['tokens_per_s']:.1f}); peak memory torch.cuda.max_memory_allocated "
+              f"{run['peak'] / 1e9:.3f} GB (parameters, gradients and optimizer state "
+              f"{bd['state_bytes'] / 1e9:.3f} GB, the optimizer's {run['opt_bytes'] / 1e9:.3f} "
+              f"GB)")
+        print(f"step 30 {label}: one step profiled: {run['profiled']}")
+        print(f"step 30 {label}: losses {[round(x, 5) for x in run['losses']]}, grad_norm "
+              f"{[round(x, 4) for x in run['gnorms']]}; the warm-up step's gradients before "
+              f"the clip {'all finite' if run['grads_finite'] else 'NOT ALL FINITE'}, their "
+              f"norm in f64 {run['gnorm64']:.6g}")
+        failures = []
+        if not finite(run["losses"]):
+            failures.append("non-finite loss")
+        if not finite(run["gnorms"]) and not (run["grads_finite"]
+                                              and finite([run["gnorm64"]])
+                                              and run["gnorm64"] > F32_NORM_MAX):
+            # a grad_norm may be inf only where the f32 sum of squares overflows
+            failures.append("non-finite grad_norm")
+        del model
+        run.pop("state")
+        free()
+        return run, failures
+
+    # -- (h) deepseek-v2-lite-16b: MoE training ----------------------------------
+    t_arch = time.perf_counter()
+    arch, full, cfg, over_1 = configs(FAM_MOE)
+    a = gate(arch, "(h1)", full.with_overrides(**over_1, **f32,
+                                               capacity_factor=full.n_experts / full.top_k),
+             routes=True)
+    print(f"step 30 {arch} (h1) router, dropless (capacity factor "
+          f"{full.n_experts / full.top_k:.4f}): {a['flips']} of {a['choices']} (token, expert) "
+          f"choices differ over {a['calls']} calls, smallest k-th to (k+1)-th probability "
+          f"margin {a['least']:.3e}, "
+          + ("no token differs" if a["flips"] == 0 else f"at a differing token {a['at_flip']:.3e}"))
+    failures = a["failures"]
+    # (h2) at the configured capacity, from one seed: a plain run of the
+    # timed run's 1 + FAM_TIMED steps, then the timed run, the same bits
+    t0 = time.perf_counter()
+    drops, losses = {}, []
+    moe_blocks = [i for i in range(cfg.n_layers) if moe.is_moe_layer(cfg, i)]
+    model = Model(cfg, device=dev, seed=0)
+    state = train.make_train_state(model, hp_adamw)
+    step = train.make_train_step(model, hp_adamw)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+    for i in range(1 + FAM_TIMED):
+        tags, hooks = [], []
+        if i == 0:                      # each MoE block's dispatches in step 1
+            hooks = [model.blocks[j].register_forward_pre_hook(
+                lambda m, args, j=j: tags.append(j)) for j in moe_blocks]
+        with routes_logged() if hooks else contextlib.nullcontext([]) as log:
+            state, m = step(state, stream.next_batch())
+        for h in hooks:
+            h.remove()
+        for j, (idx, _) in zip(tags, log, strict=True):
+            drops.setdefault(j, []).append(int((~moe.dispatch_plan(idx, cfg)[3]).sum()))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    plain = state_digest(state)
+    del model, state, step, stream
+    free()
+    plain_s = time.perf_counter() - t0
+    run, more = timed(arch, full, cfg, hp_adamw, digest=True)
+    pairs = TRAIN_BATCH * TRAIN_SEQ * cfg.top_k // TRAIN_ACCUM
+    print(f"step 30 {arch} (h2) a plain run of {1 + FAM_TIMED} steps from seed 0 at "
+          f"{cfg.n_layers} layers ({plain_s:.1f} s) and the timed run's first "
+          f"{1 + FAM_TIMED}, capacity factor {cfg.capacity_factor} "
+          f"(capacity {moe.capacity(TRAIN_BATCH * TRAIN_SEQ // TRAIN_ACCUM, cfg)} rows an "
+          f"expert a microbatch), deterministic mode: losses {losses} and "
+          f"{run['losses']}; state sha256 {plain[:16]} {run['digest'][:16]} "
+          f"{'equal' if plain == run['digest'] else 'DIFFER'} (parameters, AdamW moments, "
+          f"step); dropped pairs of {pairs} a microbatch in step 1, per MoE layer, each "
+          f"dispatch (microbatch by microbatch, the forward then backward's recompute): "
+          f"{drops}")
+    if plain != run["digest"] or losses != run["losses"]:
+        failures.append("(h2) two runs from one seed differ")
+    if sorted(drops) != moe_blocks or any(v[0::2] != v[1::2] for v in drops.values()):
+        failures.append("(h2) a MoE layer's recompute dropped other pairs than its forward")
+    print(f"step 30 {arch}: {time.perf_counter() - t_arch:.1f} s")
+    check(not failures + more, f"step 30 {arch} training: {'; '.join(failures + more)}")
+
+    # -- (i) zamba2-7b: hybrid training -----------------------------------------
+    t_arch = time.perf_counter()
+    arch, full, cfg, over_1 = configs(FAM_HYBRID)
+    cfg_1 = full.with_overrides(**over_1, **f64)
+    probe = Model(cfg_1, device="meta")
+    invocations = sum(b is probe.shared_attn for b in probe.plan)
+    del probe
+    with f64_upcasts():
+        a = gate(arch, "(i1)", cfg_1, keep=True, tol=FAM_I1_F64_TOL)
+    shared = {n: v for n, v in a["leaf_rms"].items() if n.startswith("shared_attn.")}
+    print(f"step 30 {arch} (i1) the shared block's {len(shared)} leaves, run {invocations} "
+          f"times a forward, gradient (the sum over its invocations) relative RMS each: "
+          + ", ".join(f"{n.removeprefix('shared_attn.')} {v:.2e}" for n, v in shared.items()))
+    failures = a["failures"]
+    # the witness: the same weights rounded to f32, one step on each side in
+    # f32, each side's gradients held against the CPU's f64 ones
+    w = gate(arch, "(i1) witness", full.with_overrides(**over_1, **f32), gated=False,
+             weights=a.pop("weights"), against=a.pop("grads"))
+    (card_vs, card_leaf), (cpu_vs, cpu_leaf) = w["vs"]["card"], w["vs"]["cpu"]
+    print(f"step 30 {arch} (i1) witness, the f32 step's gradients from the CPU's f64 ones, "
+          f"largest per-leaf relative RMS: the card {card_vs:.3e} ({card_leaf}), the CPU "
+          f"{cpu_vs:.3e} ({cpu_leaf}) (gate {FAM_F32_SPREAD} x the CPU's)")
+    if not card_vs <= FAM_F32_SPREAD * cpu_vs:
+        failures.append(f"(i1) the card's f32 gradients {card_vs:.3e} from f64")
+    del w
+    free()
+    bad = [n for n, v in shared.items() if not v <= FAM_I1_F64_TOL[2]]
+    if bad or not shared or invocations != 2:
+        failures.append(f"(i1) shared block run {invocations} times, gradients "
+                        f"{bad or 'missing'}")
+    _, more = timed(arch, full, cfg, hp_adamw)
+    print(f"step 30 {arch}: {time.perf_counter() - t_arch:.1f} s")
+    check(not failures + more, f"step 30 {arch} training: {'; '.join(failures + more)}")
+
+    # -- (j) deepseek-v3-671b's own recipe: Adafactor, 4 microbatches, MTP ----------
+    t_arch = time.perf_counter()
+    arch, full, cfg, over_1 = configs(FAM_V3)
+    recipe = train.default_hparams_for(full)
+    print(f"step 30 {arch}: the recipe {recipe.optimizer}, grad_accum {recipe.grad_accum}, lr "
+          f"{recipe.lr} (Adafactor takes weight decay 0), opt_dtype {cfg.opt_dtype}, MTP depth "
+          f"{cfg.mtp_depth}; {host_memory()}")
+    a = gate(arch, "(j1)", full.with_overrides(**over_1, **f32),
+             dataclasses.replace(recipe, warmup_steps=0, total_steps=10,
+                                 grad_accum=FAM_J1_ACCUM), FAM_J1_BATCH, FAM_J1_SEQ)
+    failures = a["failures"]
+    if set(a["cpu"]) != {"loss", "ce", "mtp", "grad_norm"}:
+        failures.append(f"(j1) metrics {sorted(a['cpu'])}")
+    hp = dataclasses.replace(recipe, warmup_steps=1, total_steps=10)
+    probe = train.abstract_train_state(Model(cfg, device="meta"), hp)
+    empty = {k: tuple(v.shape) for k, v in ckpt.leaf_paths(probe)
+             if "/moe_layers/" in k and k.startswith(("params/", "opt/"))}
+    del probe
+    run, more = timed(arch, full, cfg, hp)
+    failures += more
+    bd = run["bounds"]
+    print(f"step 30 {arch}: mtp {[round(m['mtp'], 5) for m in run['metrics']]}, ce "
+          f"{[round(m['ce'], 5) for m in run['metrics']]}; Adafactor's state "
+          f"{run['opt_bytes']:,} bytes ({run['opt_bytes'] / bd['params']:.4f} a parameter; "
+          f"AdamW's f32 moments would take 8, {8 * bd['params'] / 1e9:.3f} GB); the empty "
+          f"moe_layers stage's {len(empty)} parameter and state leaves, e.g. "
+          f"{next(iter(empty.items()), None)}")
+    if not finite([m["mtp"] for m in run["metrics"]]):
+        failures.append("non-finite mtp")
+    if not empty or any(v[0] != 0 for v in empty.values()):
+        failures.append(f"the moe_layers stage's leaves {empty}")
+    print(f"step 30 {arch}: {time.perf_counter() - t_arch:.1f} s")
+    check(not failures, f"step 30 {arch} training: {'; '.join(failures)}")
+
+    # -- (k) hubert-xlarge: the encoder family ---------------------------------------
+    t_arch = time.perf_counter()
+    arch, full, cfg, over_1 = configs(FAM_ENC)
+    failures = gate(arch, "(k1)", full.with_overrides(**over_1, **f32))["failures"]
+    # (k2) Adafactor with int8 error-feedback compression: crash and resume
+    t0 = time.perf_counter()
+    cfg_2 = full.with_overrides(n_layers=FAM_K2_LAYERS)
+    hp_2 = train.TrainHParams(optimizer="adafactor", grad_compression=True,
+                              grad_accum=TRAIN_ACCUM, warmup_steps=1, total_steps=FAM_K2_STEPS)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=FAM_K2_STEPS, log_every=100, device=dev)
+    ckpt_dir = tempfile.mkdtemp(prefix="zmc_train_ckpt_")
+    state_ref, losses_ref, _ = train.train_loop(cfg_2, hp_2, **kw)
+    digest_ref = state_digest(state_ref)
+    crashed = False
+    try:
+        train.train_loop(cfg_2, hp_2, ckpt_dir=ckpt_dir, ckpt_every=FAM_K2_CKPT_EVERY,
+                         fail_at_step=FAM_K2_FAIL_AT, **kw)
+    except RuntimeError as e:
+        crashed = "injected failure" in str(e)
+    latest = ckpt.latest_step(ckpt_dir)
+    state_res, losses_res, _ = train.train_loop(cfg_2, hp_2, ckpt_dir=ckpt_dir,
+                                                ckpt_every=100, **kw)
+    digest_res = state_digest(state_res)
+    same_losses = latest is not None and losses_res == losses_ref[latest:]
+    ckpt.save(ckpt_dir, 99, state_ref, extra={"data_step": FAM_K2_STEPS})
+    restored, _ = ckpt.restore(ckpt_dir, 99, state_res, device="cpu")
+    train.load_train_state(state_res, restored)
+    same_after_restore = state_digest(state_res) == digest_ref
+    n_factored = sum(k.endswith("/vr") for k, _ in ckpt.leaf_paths(state_ref))
+    del restored, state_ref
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"step 30 {arch} (k2) {FAM_K2_LAYERS} layers, Adafactor ({n_factored} factored "
+          f"leaves) with int8 error feedback: {FAM_K2_STEPS} uninterrupted steps, losses "
+          f"{[round(x, 6) for x in losses_ref]}; checkpoints every {FAM_K2_CKPT_EVERY}, "
+          f"failure injected in step {FAM_K2_FAIL_AT}: {'raised' if crashed else 'NOT RAISED'}, "
+          f"latest checkpoint step {latest}; resumed {len(losses_res)} steps: losses "
+          f"{'equal' if same_losses else 'DIFFER'} to steps {latest}-{FAM_K2_STEPS - 1}; final "
+          f"state sha256 {digest_ref[:16]} {digest_res[:16]} "
+          f"{'equal' if digest_ref == digest_res else 'DIFFER'} (parameters, factored "
+          f"statistics, ef_err, step); a saved and restored state "
+          f"{'equal' if same_after_restore else 'DIFFERENT'}; {time.perf_counter() - t0:.1f} s")
+    if not crashed:
+        failures.append("(k2) the injected failure did not raise")
+    if not (same_losses and digest_ref == digest_res and latest == FAM_K2_CKPT_EVERY):
+        failures.append("(k2) the resumed run differs from the uninterrupted one")
+    if not same_after_restore:
+        failures.append("(k2) a saved and restored state differs")
+    if not finite(losses_ref + losses_res):
+        failures.append("(k2) non-finite loss")
+    # (k3) one step's gradients and residuals through compress_tree, card and CPU
+    model = Model(cfg_2, device=dev, seed=0)
+    state = train.load_train_state(train.make_train_state(model, hp_2), state_res)
+    del state_res
+    step = train.make_train_step(model, hp_2)
+    with train.deterministic(dev):
+        step.grads(state, TokenStream(cfg_2, TRAIN_BATCH, TRAIN_SEQ, seed=1,
+                                      device=dev).next_batch())
+        step.clip(state)
+        grads = map_leaves(lambda p: torch.stack([t.grad for t in p]) if is_stacked(p)
+                           else p.grad, state["params"])
+        on_card = compression.compress_tree(grads, state["ef_err"])
+    on_cpu = compression.compress_tree(map_leaves(lambda t: t.cpu(), grads),
+                                       map_leaves(lambda t: t.cpu(), state["ef_err"]))
+    unequal = [n for part_c, part_h in zip(on_card, on_cpu)
+               for (n, c), (_, h) in zip(ckpt.leaf_paths(part_c), ckpt.leaf_paths(part_h))
+               if not torch.equal(c.cpu(), h)]
+    n_el = sum(t.numel() for _, t in ckpt.leaf_paths(grads))
+    err_max = max(float(t.abs().max()) for _, t in ckpt.leaf_paths(state["ef_err"]))
+    print(f"step 30 {arch} (k3) compress_tree of one step's stacked gradients "
+          f"({len(ckpt.leaf_paths(grads))} leaves, {n_el:,} elements) and the resumed run's "
+          f"residuals (largest |ef_err| {err_max:.3e}) on the card and on the CPU: dequantised "
+          f"gradients and new residuals "
+          f"{'equal bit for bit' if not unequal else f'DIFFER in {unequal[:4]}'}")
+    if unequal or not err_max > 0:
+        failures.append(f"(k3) card and CPU compression differ in {unequal[:4]}")
+    del model, state, step, grads, on_card, on_cpu
+    free()
+    _, more = timed(arch, full, cfg, hp_adamw)
+    print(f"step 30 {arch}: {time.perf_counter() - t_arch:.1f} s")
+    check(not failures + more, f"step 30 {arch} training: {'; '.join(failures + more)}")
+
+
 def mesh_hp(accum: int = TRAIN_ACCUM):
     """Step 26's (a) hyperparameters: step 25's stablelm-3b run (``accum``
     microbatches)."""
@@ -2638,11 +3246,13 @@ def ckpt_sha(directory: str, step: int) -> str:
     return h.hexdigest()
 
 
-def lm_mesh_rank(work: str) -> dict:
+def lm_mesh_rank(work: str, refs: str | None = None) -> dict:
     """One of step 26's four gloo ranks on the card of the parent: (a) the
     training phases, (b) the serving phases, (c) the pipeline; returns the
     numbers and digests, rank 0's comparisons against the parent's
-    one-device references in ``work``."""
+    one-device references in ``work``; with ``refs`` (step 28 (f1)'s
+    one-device references) also step 28's (f) (:func:`lm_sp_rank`) in
+    these ranks, under ``sp``: the same mesh, so no spawn of its own."""
     import gc
 
     import torch
@@ -2925,10 +3535,12 @@ def lm_mesh_rank(work: str) -> dict:
     del mine, params, x, y
     free()
     out["c_s"] = time.perf_counter() - t0
+    if refs is not None:
+        out["sp"] = lm_sp_rank(refs)
     return out
 
 
-def lm_mesh(card: str, refs: str | None = None) -> float:
+def lm_mesh(card: str, refs: str | None = None) -> tuple[float, list | None]:
     """Step 26: the LM multi-device path on four gloo ranks sharing the card
     (one ``multihost.spawn``): (a) stablelm-3b training on (2, 2), (b)
     deepseek-v2-lite-16b serving on (1, 4) with expert parallelism, (c) a
@@ -2936,8 +3548,9 @@ def lm_mesh(card: str, refs: str | None = None) -> float:
     memory freed before the ranks start); every number is printed before
     the gates are checked.  With ``refs`` (a directory), (a1)'s one-device
     runs in the mesh's rows are also written there as step 28 (f1) reads
-    them (``f1_ref_<dtype>.pt``: the same runs).  Returns (a)'s median step
-    ms."""
+    them (``f1_ref_<dtype>.pt``: the same runs), and the ranks run step
+    28's (f) after (c).  Returns (a)'s median step ms and, with ``refs``,
+    each rank's (f) results (else None)."""
     import gc
     import shutil
     import tempfile
@@ -2988,7 +3601,8 @@ def lm_mesh(card: str, refs: str | None = None) -> float:
                     if i == 0:
                         g1[cfg_w.compute_dtype, accum] = dev_grads(state)
                 if cfg_w is full64 and accum == MESH_ROW_ACCUM:
-                    # gate (a1): step 3 in f64, kept in f32 (far finer than its tolerances)
+                    # gate (a1): the last step in f64, kept in f32 (far finer than its
+                    # tolerances)
                     torch.save({"metrics": metrics,
                                 "grads": {n: t.float().cpu() for n, t in dev_grads(state).items()},
                                 "params": {n: stacked(t).float() for n, t in
@@ -3043,8 +3657,8 @@ def lm_mesh(card: str, refs: str | None = None) -> float:
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB left allocated; on {card}")
 
     t0 = time.perf_counter()
-    ranks = multihost.spawn(lm_mesh_rank, MESH_RANKS, work, device="cuda", backend="gloo",
-                            timeout=900)
+    ranks = multihost.spawn(lm_mesh_rank, MESH_RANKS, work, refs, device="cuda",
+                            backend="gloo", timeout=900)
     spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
     failures = []
@@ -3200,14 +3814,17 @@ def lm_mesh(card: str, refs: str | None = None) -> float:
           f"{[round(x, 3) for x in idle]} against the schedule's bubble {bubble:.3f}; on {card}")
     if not r0["pipe_err"] <= PIPE_TOL * max(1.0, r0["pipe_scale"]):
         failures.append(f"(c) pipeline {r0['pipe_err']:.3e}")
+    sp = [r["sp"] for r in ranks] if refs is not None else None
     print(f"step 26 phases (rank 0): a {r0['a1_s']:.1f} s, a1 in f64 {r0['a1_64_s']:.1f} s, "
           f"a2 {r0['a2_s']:.1f} s, "
-          f"b {r0['b_s']:.1f} s, c {r0['c_s']:.1f} s; spawn {spawn_s:.1f} s; on {card}")
+          f"b {r0['b_s']:.1f} s, c {r0['c_s']:.1f} s"
+          + (f", step 28's (f) {sp[0]['float32_s'] + sp[0]['float64_s']:.1f} s" if sp else "")
+          + f"; spawn {spawn_s:.1f} s; on {card}")
     shutil.rmtree(work, ignore_errors=True)
     for f in failures:
         print(f"FAIL: step 26 {f}", file=sys.stderr, flush=True)
     check(not failures, "step 26")
-    return step_ms
+    return step_ms, sp
 
 
 def lm_tp_rank(work: str) -> dict:
@@ -3631,13 +4248,13 @@ def lm_sp_rank(work: str) -> dict:
     return out
 
 
-def lm_cp_sp(card: str, step26_ms: float, refs: str | None = None) -> None:
+def lm_cp_sp(card: str, step26_ms: float, sp: list | None = None) -> None:
     """Step 28: (e) qwen2-vl-7b served with context parallelism on (1, 8),
     eight gloo ranks sharing the card; (f) step 26 (a)'s stablelm-3b run
-    with sp_activations on (2, 2), four ranks.  The one-device references
-    run here first, their memory freed before the ranks start ((f1)'s taken
-    from step 26's ``refs`` where it wrote them); every number is printed
-    before the gates are checked."""
+    with sp_activations on (2, 2), four ranks: ``sp``, each rank's results
+    where step 26's ranks ran it, else a spawn here.  The one-device
+    references run here first, their memory freed before the ranks start;
+    every number is printed before the gates are checked."""
     import gc
     import shutil
     import tempfile
@@ -3693,10 +4310,7 @@ def lm_cp_sp(card: str, step26_ms: float, refs: str | None = None) -> None:
     # (f1)'s one device in the mesh's rows, f32 and f64: step 26 (a1)'s
     hp = mesh_hp(MESH_ROW_ACCUM)
     stacked = lambda leaf: (torch.stack(leaf) if isinstance(leaf, list) else leaf).detach().cpu()
-    for dt in ("float32", "float64"):
-        if refs is not None and os.path.exists(os.path.join(refs, f"f1_ref_{dt}.pt")):
-            shutil.copy(os.path.join(refs, f"f1_ref_{dt}.pt"), work)
-            continue
+    for dt in ("float32", "float64") if sp is None else ():
         full = mesh_train_cfg()
         if dt == "float64":
             full = full.with_overrides(param_dtype="float64", compute_dtype="float64")
@@ -3719,16 +4333,17 @@ def lm_cp_sp(card: str, step26_ms: float, refs: str | None = None) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
-    print(f"step 28 one-device references (e1, f1) {ref_s:.1f} s (f1's from step 26: "
-          f"{refs is not None}); on {card}")
+    print(f"step 28 one-device references (e1{', f1' if sp is None else ''}) {ref_s:.1f} s "
+          f"((f) run in step 26's ranks: {sp is not None}); on {card}")
 
     t0 = time.perf_counter()
     ranks = multihost.spawn(lm_cp_rank, CP_RANKS, work, device="cuda", backend="gloo",
                             timeout=900)
     e_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sp = multihost.spawn(lm_sp_rank, MESH_RANKS, work, device="cuda", backend="gloo",
-                         timeout=900)
+    if sp is None:
+        sp = multihost.spawn(lm_sp_rank, MESH_RANKS, work, device="cuda", backend="gloo",
+                             timeout=900)
     f_s = time.perf_counter() - t0
     shutil.rmtree(work, ignore_errors=True)
     r0, s0 = ranks[0], sp[0]
@@ -3818,7 +4433,8 @@ def lm_cp_sp(card: str, step26_ms: float, refs: str | None = None) -> None:
           f"{[round(x, 1) for x in s0['float64_steps_ms']]} ms; on {card}")
     print(f"step 28 phases: references {ref_s:.1f} s; (e) spawn {e_s:.1f} s (rank 0: e1 "
           f"{r0['e1_s']:.1f} s, e2 {r0['e2_s']:.1f} s); (f) spawn {f_s:.1f} s (rank 0: f32 "
-          f"{s0['float32_s']:.1f} s, f64 {s0['float64_s']:.1f} s); on {card}")
+          f"{s0['float32_s']:.1f} s, f64 {s0['float64_s']:.1f} s; in step 26's ranks when the "
+          f"spawn took 0); on {card}")
     for f in failures:
         print(f"FAIL: step 28 {f}", file=sys.stderr, flush=True)
     check(not failures, "step 28")
@@ -3942,12 +4558,21 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    host_flush_denormals()
+    import concurrent.futures
+
+    from repro_torch.kernels import build
+    # step 2's nvcc processes start here, beside step 1's imports and the
+    # card's start
+    nvcc_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    building = nvcc_pool.submit(build.build, verbose=True)
+    t_build = time.perf_counter()
     import numpy as np
 
     from repro_torch.core import rng
     from repro_torch.core.integrand import harmonic_analytic
     from repro_torch.core.multifunctions import ZMCMultiFunctions
-    from repro_torch.kernels import build, template
+    from repro_torch.kernels import template
     from repro_torch.kernels.mc_eval import multi
 
     device = torch.device("cuda", 0)
@@ -3959,9 +4584,10 @@ def main() -> None:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    built = build.build(verbose=True)
-    print(f"build: {len(built)} libraries in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    built = building.result()
+    nvcc_pool.shutdown()
+    print(f"build: {len(built)} libraries in {time.perf_counter() - t_build:.2f} s, "
+          f"{time.perf_counter() - t0:.2f} s of it after step 1", flush=True)
     for name, info in built.items():
         for line in info["log"].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
@@ -5453,7 +6079,7 @@ def main() -> None:
 
     # -- 26. the LM multi-device path: four gloo ranks on the card ---------------
     refs = tempfile.mkdtemp(prefix="lm_refs_")         # step 26's one device, for step 28
-    step26_ms = lm_mesh(card, refs)
+    step26_ms, sp = lm_mesh(card, refs)
     laps.end(26)
 
     # -- 27. qwen2.5-32b served tensor parallel on four gloo ranks ----------------
@@ -5461,13 +6087,17 @@ def main() -> None:
     laps.end(27)
 
     # -- 28. context parallelism on eight gloo ranks, SP on four --------------------
-    lm_cp_sp(card, step26_ms, refs)
+    lm_cp_sp(card, step26_ms, sp)
     shutil.rmtree(refs, ignore_errors=True)
     laps.end(28)
 
     # -- 29. the example scripts on the card: users' own integrands ---------------
     examples_on_card(card)
     laps.end(29)
+
+    # -- 30. LM training of the moe, hybrid and encoder families, v3's recipe -------
+    lm_training_families(card)
+    laps.end(30)
     print("step seconds: " + json.dumps(laps.seconds))
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",

@@ -198,6 +198,7 @@ def apply_rope(x, angles):
     half = angles.shape[-1]
     rot, rest = x[..., : 2 * half], x[..., 2 * half:]
     x1, x2 = rot[..., :half], rot[..., half:]
+    angles = angles.to(torch.promote_types(angles.dtype, x.dtype))   # f64 under f64 compute
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     r1 = x1 * cos - x2 * sin

@@ -454,17 +454,37 @@ class Model(nn.Module):
         """The parameters as the reference's tree (``embed``, ``stages/<stage>``,
         ``shared_attn``, ``final_norm``, ``head``, ``mtp``): the module's own
         tensors, no copies, each stage leaf a list of its layers' tensors
-        (the reference stacks them along a leading ``layers`` axis)."""
+        (the reference stacks them along a leading ``layers`` axis).  A
+        stage of no layers (deepseek-v3 cut to its dense layers) has no
+        tensor to list: each of its leaves is :meth:`_empty_stack`'s."""
         named = dict(self.named_parameters())
         flat: dict[str, Any] = {}
         first = 0
         for s in self.stages:
-            for path in flatten(_block_defs(self.cfg, s.kind)):
-                flat[f"stages.{s.name}.{path}"] = [named[f"blocks.{first + i}.{path}"]
-                                                   for i in range(s.n_layers)]
+            for path, spec in flatten(_block_defs(self.cfg, s.kind)).items():
+                flat[f"stages.{s.name}.{path}"] = (
+                    [named[f"blocks.{first + i}.{path}"] for i in range(s.n_layers)]
+                    if s.n_layers else self._empty_stack(spec))
             first += s.n_layers
         flat.update({k: p for k, p in named.items() if not k.startswith("blocks.")})
         return _nest(flat)
+
+    def _empty_stack(self, spec: PSpec) -> nn.Parameter:
+        """The leaf of a stage of no layers: a parameter of the reference's
+        shape ``(0, *spec.shape)`` (this rank's block of it on a sharded
+        model) in the model's dtype, its gradient an empty tensor, so the
+        optimizer, the clip and the checkpoint treat it as any tensor leaf.
+        The per-layer shape comes from ``spec``, since no layer holds one."""
+        shape = (0,) + spec.shape
+        src = self.param_source
+        if src is not None:
+            axes = ("layers",) + spec.axes
+            shape = sh.shard_shape(shape, sh.logical_to_spec(shape, axes, src.mesh, src.rules,
+                                                             param_retry=True), src.mesh)
+        like = self.final_norm["scale"]
+        leaf = nn.Parameter(torch.zeros(shape, dtype=like.dtype, device=like.device))
+        leaf.grad = torch.zeros_like(leaf)
+        return leaf
 
     # -- serving -------------------------------------------------------------------
     def cache_defs(self, batch: int, seq_cap: int) -> dict:

@@ -15,7 +15,7 @@ dtype (no ``F.conv1d``, which accumulates in f32); ``dt`` is a softplus in
 f32; the (B, nc, Q, Q, H) scores are cast to the compute dtype before
 their product with ``x``; chunk states and the inter-chunk recurrence are
 f32; ``y`` is cast back before the ``D`` skip is added; the gate is
-:func:`layers._silu`.
+:func:`layers._silu`.  Under f64 compute the f32 steps run in f64.
 
 On a mesh the block is tensor parallel over ``model`` as the reference's
 rules split it (its ``ssm.py`` docstring): ``wz``/``wx``/``conv_x``/
@@ -101,7 +101,7 @@ def _ssd_chunked(x, dt, a_log, bmat, cmat, chunk: int):
     if l % chunk:
         raise ValueError(f"length {l} is not a multiple of the chunk {chunk}")
     nc = l // chunk
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)   # f32, or f64 under f64 compute
 
     a = -torch.exp(a_log.to(f32))                       # (H,) negative
     xr = x.reshape(b, nc, chunk, h, p)
@@ -215,7 +215,7 @@ def mamba2_decode(x, p, cfg: ModelConfig, cache: dict):
     """The O(1) recurrent step.  x: (B, 1, d).  Returns (out (B, 1, d),
     cache), the cache's four leaves updated in place."""
     cd = cfg.dtype("compute")
-    f32 = torch.float32
+    f32 = torch.promote_types(cd, torch.float32)       # f32, or f64 under f64 compute
     b = x.shape[0]
     h, pn = p["A_log"].shape[0], cfg.ssm_head_dim     # this rank's heads
 

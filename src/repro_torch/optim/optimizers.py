@@ -11,7 +11,9 @@ tensors that stands for their stack along a new leading axis: the port
 holds a stage's blocks one module per layer, where the reference stacks
 each stage leaf along its ``layers`` axis (``Model.param_tree``).  The
 state is laid out as the reference's, one tensor per leaf, stacked where
-the leaf is a list, so it is checkpointed and compared leaf for leaf.
+the leaf is a list, so it is checkpointed and compared leaf for leaf.  A
+list leaf holds at least one tensor: a stage of no layers is a tensor leaf
+of shape ``(0, ...)`` (``Model.param_tree``).
 
 ``update`` runs under ``torch.no_grad()`` and updates the parameters and
 the state in place (a parameter held by a module stays that module's),

@@ -82,13 +82,22 @@ def test_loss_and_grads_match_reference(arch):
         assert float(torch.abs(model.shared_attn["attn"]["wq"].grad).max()) > 0
 
 
-@pytest.mark.parametrize("arch", ARCH_NAMES)
+# deepseek-v3 cut to its dense layers (n_layers = first_dense_layers): a
+# moe_layers stage of no layer, each leaf of shape (0, *per-layer shape)
+DENSE_CUT = "deepseek_v3_671b:dense"
+
+
+@pytest.mark.parametrize("arch", list(ARCH_NAMES) + [DENSE_CUT])
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
 def test_train_state_layout_matches_reference(arch, optimizer):
     """make_train_state: the reference's leaves, shapes and dtypes (v3's
     bf16 moments; Adafactor's factored leaves), the int32 step, and the
-    compression residuals."""
+    compression residuals; for a stage of no layers too."""
+    arch, _, cut = arch.partition(":")
     jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
+    if cut:
+        jcfg = jcfg.with_overrides(n_layers=jcfg.first_dense_layers)
+        cfg = cfg.with_overrides(n_layers=cfg.first_dense_layers)
     hp = dataclasses.replace(jtrain.TrainHParams(), optimizer=optimizer, grad_compression=True)
     want = jtrain.abstract_train_state(JModel(jcfg), hp)
     model = Model(cfg, device="cpu")
@@ -102,6 +111,9 @@ def test_train_state_layout_matches_reference(arch, optimizer):
         assert str(got[name].dtype).removeprefix("torch.") == str(w.dtype), name
     if arch == "deepseek_v3_671b" and optimizer == "adamw":
         assert got["opt/mu/stages/moe_layers/ffn/wg"].dtype == torch.bfloat16
+    if cut:
+        assert got["params/stages/moe_layers/ffn/wg"].shape == (
+            0, cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
 
 
 @pytest.mark.parametrize("chunk", [6, 15])
@@ -125,3 +137,45 @@ def test_ce_chunks_and_tail_match_reference(monkeypatch, chunk):
     want = np.asarray(jgrads["head"]["out"])
     np.testing.assert_allclose(model.head["out"].grad.numpy(), want, rtol=0,
                                atol=GRAD_REL * float(np.abs(want).max()))
+
+
+# hubert-xlarge at its full depth, reduced width: the seeded model's
+# gradient norm grows with depth (the fan-in init has no depth scaling; at
+# full width and 48 layers the norm passes the f32 sum of squares' range).
+# The port's norm in f64 (parameters, compute, every f32 upcast) against the
+# reference's in f32: at 2 layers within GNORM_RTOL; at 48, where f32
+# rounding amplified through the layers moves the reference's norm by ~11%
+# from the f64 one (the port's f32 by ~23%; measured on an 8-core x86
+# host), within DEEP_NORM_RTOL, against a growth of ~10^5 from 2 layers
+DEEP_ENC_LAYERS, GNORM_RTOL, DEEP_NORM_RTOL = 48, 1e-3, 0.5
+
+
+def test_deep_encoder_gradient_norm_matches_reference(monkeypatch):
+    """hubert-xlarge at 2 and 48 layers: the port's f64 gradient norm
+    grows with depth as the reference's does."""
+    plain = torch.Tensor.float
+    monkeypatch.setattr(torch.Tensor, "float",
+                        lambda t, *a, **k: t if t.dtype == torch.float64 else plain(t, *a, **k))
+    norms = {}
+    for layers in (2, DEEP_ENC_LAYERS):
+        jcfg = jreduced(jget_config("hubert_xlarge")).with_overrides(n_layers=layers)
+        cfg = reduced(get_config("hubert_xlarge")).with_overrides(
+            n_layers=layers, param_dtype="float64", compute_dtype="float64")
+        jm = JModel(jcfg)
+        params = jm.init(jax.random.key(0))
+        model = params_from_reference(jax.tree.map(np.asarray, params), Model(cfg, device="cpu"))
+        jb = jconcrete_batch(jcfg, B, S, train=True, seed=1)
+        _, jgrads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(params, jb)
+        tb = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
+        tb["frames"] = tb["frames"].double()
+        loss, _ = model.loss(tb)
+        loss.backward()
+        got = float(torch.sqrt(sum(torch.sum(torch.square(g)) for _, g in
+                                   leaf_paths(_grads(model)))))
+        want = float(np.sqrt(sum(np.sum(np.square(np.asarray(g, np.float64)))
+                                 for g in jax.tree.leaves(jgrads))))
+        norms[layers] = got, want
+    (got2, want2), (got, want) = norms[2], norms[DEEP_ENC_LAYERS]
+    np.testing.assert_allclose(got2, want2, rtol=GNORM_RTOL)
+    np.testing.assert_allclose(got, want, rtol=DEEP_NORM_RTOL)
+    assert got / got2 > 1e4 and want / want2 > 1e4, norms

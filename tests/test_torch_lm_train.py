@@ -50,15 +50,46 @@ def rel_rms(a, b) -> float:
 LOSS_RTOL, GNORM_RTOL, PARAM_RMS = 1e-5, 1e-3, 1e-2
 
 
-@pytest.mark.parametrize("opt_dtype", ["float32", "bfloat16"])
-def test_train_step_matches_reference(opt_dtype):
-    """stablelm-3b, grad_accum=2 and one step at the peak rate (warmup 0),
-    AdamW with f32 moments, and with bf16 moments (deepseek-v3's
-    opt_dtype; its MTP metrics are held in tests/test_torch_lm_grads.py)."""
-    arch = "stablelm_3b"
-    jcfg = jreduced(jget_config(arch)).with_overrides(opt_dtype=opt_dtype)
-    cfg = reduced(get_config(arch)).with_overrides(opt_dtype=opt_dtype)
+# (arch, config overrides, hyperparameters): "recipe" takes the reference's
+# own default_hparams_for (deepseek-v3: Adafactor, grad_accum 4, no weight
+# decay) at the peak rate; "dense" cuts deepseek-v3 to its dense layers, so
+# its moe_layers stage has no layer and every leaf of it the shape (0, ...)
+STEP_CASES = [
+    pytest.param("stablelm_3b", {"opt_dtype": "float32"}, {}, id="float32"),
+    pytest.param("stablelm_3b", {"opt_dtype": "bfloat16"}, {}, id="bfloat16"),
+    pytest.param("deepseek_v2_lite_16b", {}, {}, id="deepseek_v2_lite_16b-adamw"),
+    pytest.param("zamba2_7b", {}, {}, id="zamba2_7b-adamw"),
+    pytest.param("hubert_xlarge", {}, {}, id="hubert_xlarge-adamw"),
+    pytest.param("deepseek_v3_671b", {}, "recipe", id="deepseek_v3_671b-recipe"),
+    pytest.param("deepseek_v3_671b", "dense", {"optimizer": "adafactor"},
+                 id="deepseek_v3_671b-dense-adafactor"),
+    pytest.param("deepseek_v3_671b", "dense", {}, id="deepseek_v3_671b-dense-adamw"),
+]
+
+
+@pytest.mark.parametrize("arch,cfg_over,hp_over", STEP_CASES)
+def test_train_step_matches_reference(arch, cfg_over, hp_over):
+    """One step at the peak rate (warmup 0) against the reference's: stablelm-3b
+    with grad_accum=2 and AdamW with f32 moments, and with bf16 moments
+    (deepseek-v3's opt_dtype); the moe (MLA, routed and shared experts),
+    hybrid (the shared block's summed gradient) and encoder (frames, the
+    same-position loss) families with AdamW; deepseek-v3's own recipe
+    (Adafactor, 4 microbatches, the MTP loss); and deepseek-v3 cut to its
+    dense layers under either optimizer, whose empty MoE stage must keep the
+    reference's (0, ...) leaves through the step."""
+    jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
+    if cfg_over == "dense":
+        cfg_over = {"n_layers": cfg.first_dense_layers}
+    jcfg, cfg = jcfg.with_overrides(**cfg_over), cfg.with_overrides(**cfg_over)
     over = dict(optimizer="adamw", warmup_steps=0, total_steps=10, grad_accum=2, lr=1e-3)
+    if hp_over == "recipe":
+        recipe = train.default_hparams_for(cfg)
+        hp_over = dict(optimizer=recipe.optimizer, grad_accum=recipe.grad_accum,
+                       weight_decay=recipe.weight_decay)
+        jrecipe = jtrain.default_hparams_for(jcfg)
+        assert hp_over == {k: getattr(jrecipe, k) for k in hp_over}
+        assert hp_over["optimizer"] == "adafactor" and hp_over["grad_accum"] == 4
+    over.update(hp_over)
     jhp = dataclasses.replace(jtrain.TrainHParams(), **over)
     jm = JModel(jcfg)
     jstate = jtrain.make_train_state(jm, jhp, jax.random.key(0))
@@ -71,15 +102,19 @@ def test_train_step_matches_reference(opt_dtype):
         state, {k: torch.from_numpy(np.array(v)) for k, v in jb.items()})
     assert {"loss", "grad_norm"} <= set(metrics)
     assert ("mtp" in metrics) == bool(cfg.mtp_depth)
-    np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]), rtol=LOSS_RTOL)
-    np.testing.assert_allclose(float(metrics["grad_norm"]), float(jmetrics["grad_norm"]),
-                               rtol=GNORM_RTOL)
+    for k in jmetrics:
+        np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]),
+                                   rtol=GNORM_RTOL if k == "grad_norm" else LOSS_RTOL,
+                                   err_msg=k)
     assert int(state["step"]) == int(jstate["step"]) == 1
     got = dict(leaf_paths(stack_tree(state)))
-    for path, want in jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jstate))[0]:
+    flat = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jstate))[0]
+    assert sorted(got) == sorted("/".join(str(k.key) for k in p) for p, _ in flat)
+    for path, want in flat:
         name = "/".join(str(k.key) for k in path)
+        assert tuple(got[name].shape) == want.shape, name
         assert str(got[name].dtype).removeprefix("torch.") == str(want.dtype), name
-        if name.startswith("params/"):
+        if name.startswith("params/") and want.size:
             assert rel_rms(got[name].float().numpy(), want.astype(np.float32)) < PARAM_RMS, name
 
 
@@ -159,25 +194,85 @@ def _final_state(state):
     return {name: t.clone() for name, t in leaf_paths(stack_tree(state))}
 
 
-def test_crash_resume_trajectory_bit_equal(tmp_path):
+# (arch, config overrides, hyperparameters): step 25's AdamW on stablelm-3b,
+# and the encoder under Adafactor with int8 error-feedback compression at
+# d_model 128, where Adafactor factors the second moments of the MLP, the
+# token table and the head
+RESUME_CASES = [
+    pytest.param("stablelm_3b", {}, {}, id="adamw"),
+    pytest.param("hubert_xlarge", {"d_model": 128},
+                 {"optimizer": "adafactor", "grad_compression": True},
+                 id="hubert_xlarge-adafactor-compression"),
+]
+
+
+@pytest.mark.parametrize("arch,cfg_over,hp_over", RESUME_CASES)
+def test_crash_resume_trajectory_bit_equal(tmp_path, arch, cfg_over, hp_over):
     """tests/test_system.py's protocol, bit for bit: the losses of steps
     5-9 replayed after a crash at step 7 and a resume from the step-5
     checkpoint equal the uninterrupted run's, and so do the final
-    parameters, optimizer state and step."""
-    cfg = reduced(get_config("stablelm_3b"))
+    parameters, optimizer state (Adafactor's factored statistics), the
+    compression residuals and step."""
+    cfg = reduced(get_config(arch)).with_overrides(**cfg_over)
     kw = dict(batch=4, seq=32, steps=10, log_every=100, device="cpu")
-    state_ref, losses_ref, _ = train.train_loop(cfg, _hp(10), ckpt_dir=None, **kw)
+    hp = _hp(10, **hp_over)
+    state_ref, losses_ref, _ = train.train_loop(cfg, hp, ckpt_dir=None, **kw)
     with pytest.raises(RuntimeError, match="injected"):
-        train.train_loop(cfg, _hp(10), ckpt_dir=str(tmp_path), ckpt_every=5,
+        train.train_loop(cfg, hp, ckpt_dir=str(tmp_path), ckpt_every=5,
                          fail_at_step=7, **kw)
-    state_res, losses_res, wd = train.train_loop(cfg, _hp(10), ckpt_dir=str(tmp_path),
+    state_res, losses_res, wd = train.train_loop(cfg, hp, ckpt_dir=str(tmp_path),
                                                  ckpt_every=100, **kw)
     assert len(losses_res) == 5 and losses_res == losses_ref[5:]
     assert len(wd.durations) == 5
     want, got = _final_state(state_ref), _final_state(state_res)
-    assert want.keys() == got.keys() and "opt/nu/stages/layers/attn/wq" in got
+    must = ({"opt/stages/layers/ffn/wg/vr", "opt/head/out/vc", "ef_err/head/out"}
+            if hp.optimizer == "adafactor" else {"opt/nu/stages/layers/attn/wq"})
+    assert want.keys() == got.keys() and must <= set(got)
     assert all(torch.equal(got[k], want[k]) for k in want)
+    if hp.grad_compression:
+        assert bool(got["ef_err/head/out"].abs().max() > 0)
     assert int(got["step"]) == 10
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_empty_stage_on_a_one_rank_mesh(tmp_path, optimizer):
+    """deepseek-v3 cut to its dense layers (a moe_layers stage of no layer)
+    on a (1, 1) mesh of one gloo rank: the sharded state's (0, ...) leaves,
+    their shardings, one step equal to one device's, and the checkpoint
+    written from the mesh and read back on it and on one device."""
+    import torch.distributed as dist
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch.mesh import make_mesh_for
+    cfg = reduced(get_config("deepseek_v3_671b"))
+    cfg = cfg.with_overrides(n_layers=cfg.first_dense_layers)
+    hp = _hp(10, optimizer=optimizer, warmup_steps=0)
+    batch = concrete_batch(cfg, 2, 16, train=True, seed=1, device="cpu")
+    one = Model(cfg, device="cpu")
+    state_one, m_one = train.make_train_step(one, hp)(train.make_train_state(one, hp), batch)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv", rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for(device="cpu")
+        model = fsdp.shard_model(Model(cfg, device="meta"), mesh, device="cpu")
+        step = train.make_train_step(model, hp, mesh)
+        state = train.make_mesh_train_state(model, hp, mesh)
+        empty = state["params"]["stages"]["moe_layers"]["ffn"]["wg"]
+        assert tuple(empty.shape) == (0, cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
+        assert step.shardings["params"]["stages"]["moe_layers"]["ffn"]["wg"].shard_shape(
+            empty.shape) == tuple(empty.shape)
+        state, m = step(state, batch)
+        ckpt.save(str(tmp_path / "ck"), 1, state, shardings=step.shardings)
+        restored, _ = ckpt.restore(str(tmp_path / "ck"), 1, state, shardings=step.shardings)
+        train.load_train_state(state, restored)
+    finally:
+        dist.destroy_process_group()
+    assert {k: float(v) for k, v in m.items()} == {k: float(v) for k, v in m_one.items()}
+    want, got = _final_state(state_one), _final_state(state)
+    assert want.keys() == got.keys() and got["params/stages/moe_layers/ffn/router"].numel() == 0
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    back, _ = ckpt.restore(str(tmp_path / "ck"), 1, state_one)
+    assert {k: t.shape for k, t in leaf_paths(stack_tree(back))} == {
+        k: t.shape for k, t in want.items()}
 
 
 def test_loss_decreases_over_training():

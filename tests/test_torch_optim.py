@@ -228,3 +228,48 @@ def test_adamw_is_the_reference_expression_bit_for_bit():
         p = p - torch.tensor(lr, dtype=torch.float32) * upd
     assert torch.equal(params["w"], p)
     assert torch.equal(state["mu"]["w"], mu) and torch.equal(state["nu"]["w"], nu)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adafactor_is_the_reference_expression_bit_for_bit(dtype):
+    """The Adafactor update equals the reference's expression transcribed op
+    for op (out of place) bit for bit: a factored leaf, a stage leaf stacked
+    from its layers, an unfactored one; f32 and bf16 parameters; weight
+    decay."""
+    rng = np.random.default_rng(12)
+    dt = getattr(torch, dtype)
+    shapes = {"w": (160, 140), "st": (3, 130, 150), "b": (40,)}
+    p0 = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dt)
+          for k, s in shapes.items()}
+    eps, decay, wd, lr = 1e-30, 0.8, 0.01, 1e-2
+    opt = adafactor(lr, weight_decay=wd)
+    params = {k: (list(v.clone().unbind(0)) if k == "st" else v.clone()) for k, v in p0.items()}
+    state = opt.init(params)
+    ref = {k: v.clone() for k, v in p0.items()}
+    ref_s = {k: ({"vr": torch.zeros(s[:-1]), "vc": torch.zeros(s[:-2] + s[-1:])}
+                 if len(s) >= 2 else {"v": torch.zeros(s)}) for k, s in shapes.items()}
+    for step in range(3):
+        grads = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dt)
+                 for k, s in shapes.items()}
+        opt.update({k: (list(g.unbind(0)) if k == "st" else g) for k, g in grads.items()},
+                   state, params, step)
+        beta = 1.0 - torch.pow(torch.tensor(step, dtype=torch.float32) + 1.0, -decay)
+        for k, g in grads.items():
+            gf, s = g.float(), ref_s[k]
+            g2 = torch.square(gf) + eps
+            if "vr" in s:
+                s["vr"] = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
+                s["vc"] = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+                row_mean = torch.mean(s["vr"], dim=-1, keepdim=True)
+                pre = (s["vr"] / torch.clamp(row_mean, min=eps))[..., None] * s["vc"][..., None, :]
+                upd = gf / torch.sqrt(torch.clamp(pre, min=eps))
+            else:
+                s["v"] = beta * s["v"] + (1 - beta) * g2
+                upd = gf / torch.sqrt(torch.clamp(s["v"], min=eps))
+            upd = upd / torch.clamp(torch.sqrt(torch.mean(torch.square(upd)) + 1e-30), min=1.0)
+            pf = ref[k].float()
+            ref[k] = (pf - torch.tensor(lr) * (upd + wd * pf)).to(dt)
+    assert torch.equal(torch.stack(params["st"]), ref["st"])
+    assert torch.equal(params["w"], ref["w"]) and torch.equal(params["b"], ref["b"])
+    for k, s in ref_s.items():
+        assert all(torch.equal(state[k][n], v) for n, v in s.items()), k

@@ -25,9 +25,12 @@ parallel serving and a pipeline on four gloo ranks sharing the card,
 qwen2.5-32b served tensor parallel on four ranks, and qwen2-vl-7b served
 context parallel on eight, then training with Megatron-SP saves), and
 training of the moe, hybrid and encoder families and deepseek-v3-671b's own
-recipe (Adafactor, MTP) on one card:
+recipe (Adafactor, MTP) in the configurations' own dtypes (bf16 parameters
+and gradients) and of qwen2-vl-7b, on one card:
 
-1. prints the card's name and power limit (nvidia-smi);
+1. prints the card's name and power limit (nvidia-smi); then, while the
+   kernels build, step 31's gates (l1) and (l2) (below), which use no
+   kernel;
 2. builds the kernels (one nvcc per source, started together);
 3. holds the device Threefry (``zmc_random_bits``) bit-exact against
    ``rng.random_bits`` over 2^20 counters, across the c0 wrap;
@@ -165,8 +168,10 @@ recipe (Adafactor, MTP) on one card:
 22. the LM stack's serving path (``repro_torch.launch.serve.Server``, no
    kernel of its own: the products are cuBLAS calls, attention the
    reference's full score rectangle in PyTorch) for stablelm-3b (2.796e9
-   parameters stored in f32, served from a bf16 copy) and chatglm3-6b
-   (6.244e9 in bf16, GQA 32/2, 2d RoPE) at full width and depth, weights
+   parameters stored in f32, served from a bf16 copy), chatglm3-6b
+   (6.244e9 in bf16, GQA 32/2, 2d RoPE) and minitron-4b (5.1e9 in f32,
+   served from a bf16 copy; GQA 24/8, a 256,000-entry vocabulary) at full
+   width and depth, weights
    from the port's seeded init: 4 requests with 512-token prompts from
    ``concrete_batch``, 64 greedy tokens, a cache of 576.  Gates: (a) at full
    width with 2 layers in f32 (TF32 off), the card's prefill logits and 8
@@ -178,7 +183,8 @@ recipe (Adafactor, MTP) on one card:
    of the prefill's (the free-running logits are printed beside it: the
    seeded model amplifies rounding 2-7 times a layer, so at full depth two
    prefills of 512 and 513 tokens disagree at position 511 as much);
-   (c) two ``generate`` calls sha256-equal; (d) no NaN or Inf in any
+   (c) two ``generate`` calls sha256-equal (the second of the first's first
+   16 tokens); (d) no NaN or Inf in any
    logits.  Prints prefill ms, decode ms per step (the first generate's
    64 steps, timed with CUDA events), tokens per second and
    ``torch.cuda.max_memory_allocated``, each time beside its bound (the
@@ -242,12 +248,12 @@ recipe (Adafactor, MTP) on one card:
    RMS, the parameters within 1e-3; then mamba2-130m at full width, cut
    to 8 of its 24 layers, with ``examples/train_lm.py``'s settings (batch 8 x 256, 2
    microbatches): its step timed beside its bound and profiled; gate (b)
-   6 uninterrupted steps against a run that checkpoints every 3 steps,
-   fails at step 4 and resumes: the losses of steps 3-5 equal and the
+   4 uninterrupted steps against a run that checkpoints every 2 steps,
+   fails at step 2 and resumes: the losses of steps 2-3 equal and the
    final parameters, moments and step sha256-equal (the train step runs
    under ``torch.use_deterministic_algorithms(True)``, with cuBLAS's
    workspace set at the script's start), the checkpoint's save and
-   restore timed with its bytes; gate (c) 6 steps on one fixed batch
+   restore timed with its bytes; gate (c) 4 steps on one fixed batch
    (lr 1e-3, warmup 2), the last loss below the first, the trajectory
    printed; gate (d) every loss and gradient norm finite;
 26. the LM multi-device path (``repro_torch.distributed.{sharding, fsdp,
@@ -257,11 +263,11 @@ recipe (Adafactor, MTP) on one card:
    (a) stablelm-3b at full width, 2 of 32 layers, in f32 (TF32 off),
    step 25's AdamW, batch and microbatches, on (data, model) = (2, 2): 3
    uninterrupted steps, 2 timed (step ms, the collectives' ms inside it,
-   tokens/s, each rank's peak); gate (a1) the mesh's first 2 steps in
-   f64 (every f32 upcast of the model kept at f64) against 2 on one
-   device in f64 in the mesh's pieces of rows (4 microbatches of 2 rows)
-   with step 25's gate (a) tolerances (every loss and grad_norm, each
-   leaf's gradient after step 2, the parameters); the f32 run's 2 steps
+   tokens/s, each rank's peak); gate (a1) the mesh's first step in f64
+   (every f32 upcast of the model kept at f64) against one on one device
+   in f64 in the mesh's pieces of rows (4 microbatches of 2 rows) with
+   step 25's gate (a) tolerances (the loss and grad_norm, each leaf's
+   gradient, the parameters after it); the f32 run's 2 steps
    against one device's in f32, in the mesh's rows and in step 25's 2
    microbatches, printed beside it (tensor parallelism sums the row-split
    products in another order, which the seeded model amplifies as another
@@ -288,7 +294,8 @@ recipe (Adafactor, MTP) on one card:
    MLP width, vocab; the decode caches split along the sequence);
 27. qwen2.5-32b served at full width and depth (64 layers, 32.8e9
    parameters, 65.5 GB in bf16) on (data, model) = (1, 4): four gloo
-   ranks sharing the card, each holding its quarter of the heads, MLP
+   ranks sharing the card (step 26's, after its phases: no spawn of its
+   own), each holding its quarter of the heads, MLP
    width and vocab (16.4 GB) and its quarter of the cache's positions
    (flash-decoding over ``model``), step 22's request (4 x 512-token
    prompts, cache 576): gate (d1) at depth 4, prefill and 8 decode steps
@@ -296,7 +303,7 @@ recipe (Adafactor, MTP) on one card:
    |logit| of one device's in f64 (run first), and in f32 (TF32 off) as
    far from one device's f64 as one device's own f32 is, within 2x: the
    seeded model amplifies f32 rounding, which tensor parallelism
-   reorders; gate (d2) 8 greedy tokens from ``Server.generate`` and from
+   reorders; gate (d2) 4 greedy tokens from ``Server.generate`` and from
    its prefill and decode steps written out (each timed) sha256-equal on
    every rank; gate (d3) each rank's resident parameter and cache bytes
    equal to ``dryrun.cell_bytes``' argument bytes and a decode step's
@@ -312,7 +319,7 @@ recipe (Adafactor, MTP) on one card:
    decode steps fed one device's tokens, in f64 within 5e-3 of the largest
    |logit| of one device's f64 run (f32 printed beside it); the served
    model cut to 7 of its 28 layers: gate (e2) two ``Server.generate`` runs
-   of 4 greedy tokens sha256-equal on every rank; gate (e3) each rank's
+   of 2 greedy tokens sha256-equal on every rank; gate (e3) each rank's
    resident parameter and cache bytes equal to ``cell_bytes``, a
    prefill's and a decode step's collectives equal to
    ``serve_collectives`` and the q-sequence scores' constraint checked
@@ -320,7 +327,7 @@ recipe (Adafactor, MTP) on one card:
    each with its greedy pick), the collectives' ms, tokens/s, each rank's
    peak.  (f) step 26 (a)'s stablelm-3b run with ``sp_activations`` on
    (2, 2), run by step 26's four ranks after (c) (the same mesh: no spawn
-   of its own), printed here: gate (f1) 2 steps in f64 against one device in the
+   of its own), printed here: gate (f1) 1 step in f64 against one device in the
    mesh's rows at step 25's tolerances (f32 printed beside it); gate (f2)
    the carry each entry's remat saves per microbatch (counted by
    ``saved_tensors_hooks``) 5,242,880 bytes a rank, half of it without
@@ -342,13 +349,19 @@ recipe (Adafactor, MTP) on one card:
    (1024 integrands of dim 3, 10^6 samples, ``use_kernel=False``), its
    first chunks profiled;
 30. LM training of the other families on one card (no kernel of its own;
-   step 25's train step, batch 8 x 512, tolerances, f32 parameters, bf16
-   compute, remat "full"): (h) deepseek-v2-lite-16b at 3 of 27 layers (1
-   dense, 2 MoE of 64 experts), AdamW, capacity factor 1.25: gate (h1) at 2
-   layers card vs CPU in f32, dropless, the router's choices compared call
-   by call; gate (h2) a plain run of the timed run's 4 steps from one seed
-   sha256-equal to the timed run under deterministic mode, the dropped
-   pairs per MoE layer; (i) zamba2-7b at 13 of 81 layers: gate (i1) in f64
+   step 25's train step, batch 8 x 512, tolerances, bf16 compute, remat
+   "full"), each timed run in its configuration's own dtypes: bf16
+   parameters and gradients for v2-lite, zamba2-7b and v3 (AdamW's f32
+   moments, v3's Adafactor), f32 for hubert-xlarge: (h)
+   deepseek-v2-lite-16b at 3 of 27 layers (1 dense, 2 MoE of 64 experts),
+   AdamW, capacity factor 1.25: gate (h1) at 2 layers card vs CPU in f32
+   parameters and compute, dropless, the router's choices compared call by
+   call; gate (h3) the same in bf16 parameters and gradients with f32
+   compute, at step 25's tolerances, the parameter elements the step left
+   different and their ulps printed; gate (h2) a plain bf16 run of the
+   timed run's 4 steps from one seed sha256-equal to the timed run under
+   deterministic mode, the dropped pairs per MoE layer; (i) zamba2-7b at 13
+   of 81 layers: gate (i1) in f64
    at 2 layers with the shared block run twice (loss 1e-11, grad_norm
    1e-8, each leaf's gradient, the shared block's summed ones by name,
    1e-7, parameters 1e-5), and its f32 witness (the card's f32 gradients
@@ -369,6 +382,21 @@ recipe (Adafactor, MTP) on one card:
    range with every gradient element finite (hubert-xlarge's seeded 48
    layers, whose timed steps then apply no gradient: a cost measurement);
    the gates' CPU halves with the host's denormals flushed;
+31. qwen2-vl-7b trained on one card in its own dtypes (no kernel of its
+   own; bf16 parameters, gradients and compute, f32 AdamW moments, remat
+   "full", step 30's batch of ``TokenStream`` rows with 1176-d vision
+   embeddings spliced ahead through ``frontend_proj`` and (3, B, S) M-RoPE
+   positions split on axis 1 into the 2 microbatches) at 14 of its 28
+   layers (4.357e9 parameters, 52.3 GB of state): one warm-up step, 3
+   timed beside ``train_bounds``, the peak, one profiled step; run beside
+   the build after step 1: gate (l2), a bf16 run at 2 layers full width
+   (1.560e9 parameters) crashed in step 2 and resumed from its step-2
+   checkpoint (15.6 GB, its bf16 leaves the reference's ``V2`` records)
+   sha256-equal to 4 steps uninterrupted, then gate (l1), as (i1): at 2
+   layers card vs CPU in f64 at (i1)'s tolerances, and its f32 witness
+   (the card's f32 gradients from the CPU's f64 ones within 2x the CPU's
+   own: in f32 the seeded model's two steps lie past step 25's gates);
+   gate (l3) every loss finite;
    then prints each step's seconds (each step also prints its own as it
    ends), the ``{"kernels": [...]}`` line,
    one entry per kernel variant (the Sobol sweep's launches as
@@ -500,9 +528,13 @@ BIG_MOMENTS = (32768, 4096)
 # step 22: the LM serving path (repro_torch.launch.serve.Server) at full
 # width and depth: 4 requests with 512-token prompts from concrete_batch, 64
 # greedy tokens each, a cache of 576 positions
-LM_ARCHS = ("stablelm-3b", "chatglm3-6b")
+LM_ARCHS = ("stablelm-3b", "chatglm3-6b", "minitron-4b")
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 64
 LM_CAP = LM_PROMPT + LM_NEW
+# gate (c): a second generate of the first LM_REPEAT_NEW tokens from a fresh
+# cache, sha256-equal to the first generate's (cut from LM_NEW to make room
+# for step 31: zamba2-7b's second generate took 15.1 s of the script)
+LM_REPEAT_NEW = 16
 LM_TIMING_REPS = 3
 # gate (a): the card against the CPU at full width, 2 layers, f32 compute
 # with TF32 off, on the prefill and 8 decode steps fed the same tokens:
@@ -568,11 +600,12 @@ TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RMS, TRAIN_PARAM_RMS = 1e-4, 1e-3, 1e-2, 1e-3
 # mamba2-130m at examples/train_lm.py's batch (8 x 256, 2 microbatches),
 # SSM_TRAIN_STEPS steps (warmup 1); gate (b) checkpoints every
-# SSM_CKPT_EVERY steps and fails at step SSM_FAIL_AT (step 30 (k2)'s
-# counts, for the script's time limit); gate (c): SSM_TRAIN_STEPS
-# steps on one fixed batch at lr 1e-3, warmup 2
-SSM_TRAIN_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = "mamba2-130m", 8, 256, 6
-SSM_CKPT_EVERY, SSM_FAIL_AT = 3, 4
+# SSM_CKPT_EVERY steps and fails at step SSM_FAIL_AT; gate (c):
+# SSM_TRAIN_STEPS steps on one fixed batch at lr 1e-3, warmup 2 (4, 2, 2,
+# cut from 6, 3, 4 for the script's time limit: a step of this host-bound
+# model takes ~1.2 s)
+SSM_TRAIN_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = "mamba2-130m", 8, 256, 4
+SSM_CKPT_EVERY, SSM_FAIL_AT = 2, 2
 # step 26: the LM multi-device path on four gloo ranks sharing the card.
 # (a) stablelm-3b at full width with MESH_TRAIN_LAYERS of its 32 layers (the
 # one cut: every gathered byte crosses host memory through gloo, and more
@@ -580,9 +613,11 @@ SSM_CKPT_EVERY, SSM_FAIL_AT = 3, 4
 # in f32, step 25's AdamW, batch and
 # microbatches, on (data, model) = (2, 2): MESH_RESUME_STEPS uninterrupted
 # steps (one warm-up, the rest timed), gate (a1) on the first
-# MESH_TRAIN_STEPS against one device with step 25's gate (a) tolerances
-# (2: the second step runs on the first's optimizer state, and each f64
-# step on the mesh takes ~13 s, in (a1) and in step 28 (f1));
+# MESH_F64_STEPS in f64 against one device with step 25's gate (a)
+# tolerances, the first MESH_TRAIN_STEPS in f32 printed beside them (each
+# f64 step on the mesh takes ~11.4 s, in (a1) and in step 28 (f1): 1, cut
+# from 2 to make room for step 31; the second step, on the first's
+# optimizer state, is held bit for bit by (a2)'s resume);
 # the run writes its step-MESH_CKPT_EVERY checkpoint as train_loop does, and
 # train_loop resumes from it, fails in step MESH_FAIL_AT + 1 and resumes
 # again (gate (a2)).  (b) deepseek-v2-lite-16b at full width on (1, 4), cut to
@@ -590,7 +625,7 @@ SSM_CKPT_EVERY, SSM_FAIL_AT = 3, 4
 # step 23's request; gate (b1) at depth MESH_B1_DEPTH.  (c) four stablelm-3b
 # blocks at full width along a pod axis, PIPE_M microbatches of 1 x PIPE_SEQ,
 # within PIPE_TOL of the largest |output| of the blocks run in sequence
-MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_F64_STEPS = 2, 2, 1
 MESH_RESUME_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 3, 2, 2
 # gate (a1)'s one device runs the mesh's rows as its microbatches: 2
 # microbatches of 4 rows split over data = 2 ranks are 4 pieces of 2 rows.
@@ -617,8 +652,8 @@ MESH_SERVE_ARCH, MESH_B1_DEPTH, MESH_B2_DEPTH = "deepseek-v2-lite-16b", 3, 3
 PIPE_M, PIPE_SEQ, PIPE_TOL, PIPE_SEED = 8, 512, 1e-5, 100
 # step 27: qwen2.5-32b tensor parallel on (1, 4), step 22's prompts and
 # cache; gate (d1) at depth TP_D1_DEPTH; TP_NEW greedy tokens a generate
-# (8, so that step 28 fits the time limit: a decode step takes ~2 s)
-TP_ARCH, TP_D1_DEPTH, TP_NEW = "qwen2.5-32b", 4, 8
+# (4, so that step 31 fits the time limit: a decode step takes ~1.8 s)
+TP_ARCH, TP_D1_DEPTH, TP_NEW = "qwen2.5-32b", 4, 4
 # step 28 (e): qwen2-vl-7b (28 heads on 4 KV heads: neither 4 nor the group
 # of 7 nor the heads divide 8, the q-sequence case) at full width on (data,
 # model) = (1, 8), step 22's request as the VLM's concrete batch (vision
@@ -627,8 +662,10 @@ TP_ARCH, TP_D1_DEPTH, TP_NEW = "qwen2.5-32b", 4, 8
 # layer's output into the next); the served model (e2, e3, the times) cut to CP_E_DEPTH of its
 # 28 layers, CP_NEW greedy tokens a generate (at full depth a decode step
 # gathers the 1.67 GB of attention weights a rank through gloo, ~7 s on this
-# card, and (e2)'s two generates took 70 s of the script's twenty minutes)
-CP_ARCH, CP_RANKS, CP_E1_DEPTH, CP_E_DEPTH, CP_NEW = "qwen2-vl-7b", 8, 2, 7, 4
+# card, and (e2)'s two generates took 70 s of the script's twenty minutes;
+# 2, cut from 4 to make room for step 31: a decode step at 7 layers takes
+# ~2 s)
+CP_ARCH, CP_RANKS, CP_E1_DEPTH, CP_E_DEPTH, CP_NEW = "qwen2-vl-7b", 8, 2, 7, 2
 CP_SCORES = "batch|None|qgroup|attn_q_seq|None"
 # (f): step 26 (a)'s stablelm-3b run (full width, MESH_TRAIN_LAYERS layers,
 # f32, AdamW, batch and microbatches, (2, 2)) with sp_activations: each
@@ -652,16 +689,25 @@ EX_LAUNCHES = {"cold": 2, "warm": 0, "top_up": 1, "infinite": 1, "sweep": 1,
 EX_BEAMS, EX_BIG_N = 512, 10**6
 # step 30: LM training of the moe, hybrid and encoder families and of
 # deepseek-v3-671b's own recipe on one card, step 25's train step, batch
-# (TRAIN_BATCH x TRAIN_SEQ), gates and tolerances, f32 parameters (16 bytes a
-# parameter with AdamW), bf16 compute, remat "full"; one warm-up step, then
-# FAM_TIMED steps timed phase by phase and one profiled.  Each entry: (arch,
-# the timed run's overrides, its gate (x1)'s overrides).
+# (TRAIN_BATCH x TRAIN_SEQ), gates and tolerances, bf16 compute, remat
+# "full", each timed run in its configuration's own dtypes (v2-lite, zamba2
+# and v3 bf16 parameters and gradients: 12 bytes a parameter with AdamW's
+# f32 moments; hubert-xlarge f32: 16), the gates (h1), (i1)'s witness,
+# (j1), (k1) in f32 parameters; one warm-up step, then FAM_TIMED steps
+# timed phase by phase and one profiled.  Each entry: (arch, the timed
+# run's overrides, its gate (x1)'s overrides).
 # (h) deepseek-v2-lite-16b at 3 of 27 layers (1 dense, 2 MoE of 64 experts,
 # top-6, 2 shared) at the configured capacity factor 1.25; (h1) at 2 layers
 # (1 dense, 1 MoE) dropless (capacity factor E/k, as reduced() sets it), so
-# that a routing difference cannot drop another pair; (h2) a plain run of
-# the timed run's 1 + FAM_TIMED steps from the same seed at capacity 1.25,
-# sha256-equal to the timed run's state after them
+# that a routing difference cannot drop another pair; (h3) (h1) in the
+# configuration's bf16 parameters and gradients with f32 compute, at (h1)'s
+# tolerances: a parameter whose f32 update differs in its last bits on the
+# two sides rounds to bf16 differently in a small share of elements (0.019%
+# on one H100, 700 W, the parameters' relative RMS 2.0e-4), most by one bf16
+# ulp (2^-8 of the element), up to hundreds where Adam's first step moved an
+# element near 0 by +-lr on either side; (h2) a plain run of the timed run's
+# 1 + FAM_TIMED steps from the same seed at capacity 1.25, sha256-equal to
+# the timed run's state after them
 FAM_MOE = ("deepseek-v2-lite-16b", {"n_layers": 3}, {"n_layers": 2})
 # (i) zamba2-7b at 13 of 81 layers (2 groups of 6 Mamba-2 blocks, each
 # followed by the shared attention block, 1 tail block); (i1) at 2 layers with
@@ -713,6 +759,27 @@ FAM_K2_LAYERS, FAM_K2_STEPS, FAM_K2_CKPT_EVERY, FAM_K2_FAIL_AT = 4, 6, 3, 4
 # gradient element finite and a finite f64 norm past this one
 F32_NORM_MAX = 1.8446743e19
 FAM_TIMED = 3
+# step 31: qwen2-vl-7b trained on one card in its own dtypes (bf16
+# parameters and gradients, bf16 compute, f32 AdamW moments, remat "full"):
+# step 30's batch and timing at VLM_LAYERS of its 28 layers (4.357e9
+# parameters; with 12 bytes a parameter 52.3 GB of state, 69.7 GB with f32
+# parameters), TokenStream's vision embeddings through frontend_proj and
+# its (3, B, S) M-RoPE positions split on axis 1 into the microbatches.
+# (l1) at VLM_CHECK_LAYERS, full width, card against CPU, held as (i1) is:
+# in f64 (parameters, compute, moments) at FAM_I1_F64_TOL, beside its f32
+# witness (the same weights rounded to f32, the card's f32 gradients from
+# the CPU's f64 ones within FAM_F32_SPREAD times the CPU's own).  In f32
+# this seeded model (its loss 12.7) lay past step 25's gates: grad_norm
+# 6.9e-3, gradients 1.5e-2 (blocks.0.attn.wq), the parameters 1.3e-3
+# (embed.frontend_proj) and the zero-initialised q, k, v biases up to
+# 6.2e-2 (measured on one H100, 700 W), so holding the biases alone by
+# their gradients would not do.  (l2) at VLM_CHECK_LAYERS, full width,
+# bf16: VLM_L2_STEPS uninterrupted steps against a run that checkpoints
+# every VLM_L2_CKPT_EVERY steps (15.6 GB: bf16 parameters, f32 moments),
+# fails in step VLM_L2_FAIL_AT and resumes.  (l2), then (l1), run beside
+# the kernels' build, before step 2 waits for it
+VLM_ARCH, VLM_LAYERS, VLM_CHECK_LAYERS = "qwen2-vl-7b", 14, 2
+VLM_L2_STEPS, VLM_L2_CKPT_EVERY, VLM_L2_FAIL_AT = 4, 2, 2
 
 
 def fail(msg: str) -> None:
@@ -1750,12 +1817,16 @@ def lm_served(full, dev) -> dict:
 
 
 def lm_generate_twice(srv, batch) -> dict:
-    """Gate (c): two ``generate`` calls, each from a fresh cache: their wall
-    seconds (``walls``) and the sha256 of their tokens (``digests``).  The
-    first one's ``LM_NEW`` decode steps are timed with CUDA events, from the
-    first step's start to the last one's end, the greedy picks between them
-    included (``decode_ms`` a step), and their logits kept (``dec_logits``:
-    the first is position ``LM_PROMPT``'s, fed the prefill's greedy pick)."""
+    """Gate (c): two ``generate`` calls, each from a fresh cache, the first
+    of ``LM_NEW`` tokens and the second of its first ``LM_REPEAT_NEW``:
+    their wall seconds (``walls``), the sha256 of the first's tokens, of
+    their first ``LM_REPEAT_NEW`` and of the second's (``digests``), whether
+    the last two are equal (``same``) and the gate's printed words
+    (``said``).  The first one's ``LM_NEW`` decode steps are timed with CUDA
+    events, from the first step's start to the last one's end, the greedy
+    picks between them included (``decode_ms`` a step), and their logits
+    kept (``dec_logits``: the first is position ``LM_PROMPT``'s, fed the
+    prefill's greedy pick)."""
     import torch
     model = srv.compute
     plain = model.decode_step
@@ -1772,17 +1843,21 @@ def lm_generate_twice(srv, batch) -> dict:
         events[1:] = [end]
         return logits, cache
 
-    walls, digests = [], []
-    for i in range(2):
+    walls, toks = [], []
+    for i, new in enumerate((LM_NEW, LM_REPEAT_NEW)):
         model.decode_step = timed if i == 0 else plain
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks = srv.generate(batch, LM_NEW, seq_cap=LM_CAP)
+        toks.append(srv.generate(batch, new, seq_cap=LM_CAP))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        digests.append(sha256_of(toks))
     del model.decode_step                              # the method again
-    return dict(walls=walls, digests=digests, dec_logits=dec_logits,
+    digests = [sha256_of(toks[0]), sha256_of(toks[0][:, :LM_REPEAT_NEW]), sha256_of(toks[1])]
+    same = digests[1] == digests[2]
+    said = (f"generate sha256 {digests[0][:16]} ({LM_NEW} tokens), its first {LM_REPEAT_NEW} "
+            f"{digests[1][:16]} and a second generate's {digests[2][:16]} "
+            f"{'equal' if same else 'DIFFER'}")
+    return dict(walls=walls, digests=digests, same=same, said=said, dec_logits=dec_logits,
                 decode_ms=events[0].elapsed_time(events[1]) / LM_NEW)
 
 
@@ -1824,7 +1899,7 @@ def lm_serving(card: str) -> None:
         # (c) two generate calls, each from a fresh cache (the first's decode
         # steps timed)
         gen = lm_generate_twice(srv, batch)
-        walls, digests, dec_logits = gen["walls"], gen["digests"], gen["dec_logits"]
+        walls, dec_logits = gen["walls"], gen["dec_logits"]
         # (b) each block's decode step against its prefill; the free-running
         # logits and two prefills' shared position beside them, not gated
         layer_errs = lm_layerwise(model, batch["tokens"], first_tok)
@@ -1838,7 +1913,7 @@ def lm_serving(card: str) -> None:
                      for x in [logits0, ext] + dec_logits)
         peak = torch.cuda.max_memory_allocated()
         bd = lm_bounds(full)
-        tps = LM_BATCH * LM_NEW / min(walls)
+        tps = LM_BATCH * LM_NEW / walls[0]
         prefill_ms, decode_ms = run["prefill_ms"], gen["decode_ms"]
         print(f"step 22 {arch}: {sum(p.numel() for p in srv.model.parameters()):,} parameters "
               f"stored in {full.param_dtype}, served in {full.compute_dtype}; loaded in "
@@ -1851,10 +1926,10 @@ def lm_serving(card: str) -> None:
         print(f"step 22 {arch}: decode {decode_ms:.3f} ms per step over {LM_NEW} steps (bound "
               f"{bd['decode_ms']:.3f} ms by {bd['decode_by']}, {bd['decode_bytes'] / 1e9:.3f} GB "
               f"per step; {100 * bd['decode_ms'] / decode_ms:.1f}% of it)")
-        print(f"step 22 {arch}: generate {[round(w, 4) for w in walls]} s for {LM_BATCH} x "
-              f"{LM_NEW} tokens: {tps:.1f} tokens/s (bound {bd['tokens_per_s']:.1f}; "
-              f"{100 * tps / bd['tokens_per_s']:.1f}% of it); peak memory "
-              f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
+        print(f"step 22 {arch}: generate {walls[0]:.4f} s for {LM_BATCH} x {LM_NEW} tokens (the "
+              f"second, of {LM_REPEAT_NEW}, {walls[1]:.4f} s): {tps:.1f} tokens/s (bound "
+              f"{bd['tokens_per_s']:.1f}; {100 * tps / bd['tokens_per_s']:.1f}% of it); "
+              f"peak memory torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
               f"{run['load_peak'] / 1e9:.3f} GB while loading")
         print(f"step 22 {arch} (b) bf16, full depth, each block's decode at {LM_PROMPT} vs its "
               f"prefill over {LM_PROMPT + 1} on the same input: RMS ratio max "
@@ -1863,12 +1938,11 @@ def lm_serving(card: str) -> None:
               f"(gate {LM_BF16_LAYER_RMS}); free-running logits {free:.4f}, argmax equal in "
               f"{same_b}/{LM_BATCH} (not gated: two prefills of {LM_PROMPT} and "
               f"{LM_PROMPT + 1} tokens at position {LM_PROMPT - 1}: {floor:.4f})")
-        print(f"step 22 {arch} (c) generate sha256 {digests[0][:16]} {digests[1][:16]} "
-              f"{'equal' if digests[0] == digests[1] else 'DIFFER'}; (d) finite {finite}; "
+        print(f"step 22 {arch} (c) {gen['said']}; (d) finite {finite}; "
               f"{time.perf_counter() - t_arch:.1f} s")
         if max(layer_errs) > LM_BF16_LAYER_RMS:
             failures.append(f"(b) decode vs prefill per block {layer_errs}")
-        if digests[0] != digests[1]:
+        if not gen["same"]:
             failures.append("(c) repeated generate calls differ")
         if not finite:
             failures.append("(d) non-finite logits")
@@ -2093,9 +2167,9 @@ def lm_moe_serving(card: str) -> None:
         # steps timed, their routes logged after its prefill's
         with routes_logged() as log:
             gen = lm_generate_twice(srv, batch)
-        walls, digests, dec_logits = gen["walls"], gen["digests"], gen["dec_logits"]
+        walls, dec_logits = gen["walls"], gen["dec_logits"]
         decode_ms = gen["decode_ms"]
-        check(len(log) == 2 * (LM_NEW + 1) * n_moe,
+        check(len(log) == (LM_NEW + 1 + LM_REPEAT_NEW + 1) * n_moe,
               f"{arch}: {len(log)} router calls in two generates")
         distinct = [int(idx.unique().numel()) for idx, _ in log[n_moe:(LM_NEW + 1) * n_moe]]
         experts_per_step = sum(distinct) / LM_NEW
@@ -2131,7 +2205,7 @@ def lm_moe_serving(card: str) -> None:
         finite = all(bool(torch.isfinite(x[..., :v]).all())
                      for x in [logits0, ext] + dec_logits)
         bd = lm_bounds(full, experts_per_step)
-        tps = LM_BATCH * LM_NEW / min(walls)
+        tps = LM_BATCH * LM_NEW / walls[0]
         n_params = sum(p.numel() for p in srv.model.parameters())
         print(f"step 23 {label}: {n_params:,} parameters ({bd['active_params']:,} read per "
               f"token: no embedding, no mtp, top-{full.top_k} of {full.n_experts} experts) "
@@ -2152,10 +2226,10 @@ def lm_moe_serving(card: str) -> None:
               f"{100 * bd['decode_ms'] / decode_ms:.1f}% of it); the reference's formulation "
               f"reads {bd['formulation_bytes'] / 1e9:.3f} GB per step (every expert: "
               f"{bd['formulation_ms']:.3f} ms at the HBM rate)")
-        print(f"step 23 {label}: generate {[round(w, 4) for w in walls]} s for {LM_BATCH} x "
-              f"{LM_NEW} tokens: {tps:.1f} tokens/s (bound {bd['tokens_per_s']:.1f}; "
-              f"{100 * tps / bd['tokens_per_s']:.1f}% of it); peak memory "
-              f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
+        print(f"step 23 {label}: generate {walls[0]:.4f} s for {LM_BATCH} x {LM_NEW} tokens (the "
+              f"second, of {LM_REPEAT_NEW}, {walls[1]:.4f} s): {tps:.1f} tokens/s (bound "
+              f"{bd['tokens_per_s']:.1f}; {100 * tps / bd['tokens_per_s']:.1f}% of it); "
+              f"peak memory torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
               f"{load_peak / 1e9:.3f} GB while loading")
         print(f"step 23 {label}: {LM_PROMPT}-{LM_PROMPT + 3} decode steps profiled: {profiled}")
         print(f"step 23 {label} (b) MoE blocks dropless, each block's decode at {LM_PROMPT} "
@@ -2167,12 +2241,11 @@ def lm_moe_serving(card: str) -> None:
               f"{free:.4f}, argmax equal in {same_b}/{LM_BATCH} (not gated: two prefills of "
               f"{LM_PROMPT} and {LM_PROMPT + 1} tokens at position {LM_PROMPT - 1}: "
               f"{floor:.4f})")
-        print(f"step 23 {label} (c) generate sha256 {digests[0][:16]} {digests[1][:16]} "
-              f"{'equal' if digests[0] == digests[1] else 'DIFFER'}; (d) finite {finite}; "
+        print(f"step 23 {label} (c) {gen['said']}; (d) finite {finite}; "
               f"{time.perf_counter() - t_arch:.1f} s")
         if max(layer_errs) > LM_BF16_LAYER_RMS:
             failures.append(f"(b) decode vs prefill per block {layer_errs}")
-        if digests[0] != digests[1]:
+        if not gen["same"]:
             failures.append("(c) repeated generate calls differ")
         if not finite:
             failures.append("(d) non-finite logits")
@@ -2222,7 +2295,7 @@ def lm_ssm_serving(card: str) -> None:
         srv, model, batch = run["srv"], run["model"], run["batch"]
         logits0, first_tok = run["logits0"], run["first_tok"]
         gen = lm_generate_twice(srv, batch)                            # (c)
-        walls, digests, dec_logits = gen["walls"], gen["digests"], gen["dec_logits"]
+        walls, dec_logits = gen["walls"], gen["dec_logits"]
         peak = torch.cuda.max_memory_allocated()
         _, cache = model.prefill(batch, LM_CAP)
         n_cache = cache_bytes(cache)
@@ -2241,7 +2314,7 @@ def lm_ssm_serving(card: str) -> None:
         finite = all(bool(torch.isfinite(x[..., :v]).all())
                      for x in [logits0, ext] + dec_logits)
         bd = lm_bounds(full)
-        tps = LM_BATCH * LM_NEW / min(walls)
+        tps = LM_BATCH * LM_NEW / walls[0]
         prefill_ms, decode_ms = run["prefill_ms"], gen["decode_ms"]
         n_shared = sum(m is model.shared_attn for m in model.plan)
         print(f"step 24 {arch}: {sum(p.numel() for p in srv.model.parameters()):,} parameters "
@@ -2256,10 +2329,10 @@ def lm_ssm_serving(card: str) -> None:
         print(f"step 24 {arch}: decode {decode_ms:.3f} ms per step over {LM_NEW} steps (bound "
               f"{bd['decode_ms']:.3f} ms by {bd['decode_by']}, {bd['decode_bytes'] / 1e9:.3f} GB "
               f"per step; {100 * bd['decode_ms'] / decode_ms:.1f}% of it)")
-        print(f"step 24 {arch}: generate {[round(w, 4) for w in walls]} s for {LM_BATCH} x "
-              f"{LM_NEW} tokens: {tps:.1f} tokens/s (bound {bd['tokens_per_s']:.1f}; "
-              f"{100 * tps / bd['tokens_per_s']:.1f}% of it); peak memory "
-              f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
+        print(f"step 24 {arch}: generate {walls[0]:.4f} s for {LM_BATCH} x {LM_NEW} tokens (the "
+              f"second, of {LM_REPEAT_NEW}, {walls[1]:.4f} s): {tps:.1f} tokens/s (bound "
+              f"{bd['tokens_per_s']:.1f}; {100 * tps / bd['tokens_per_s']:.1f}% of it); "
+              f"peak memory torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB serving, "
               f"{run['load_peak'] / 1e9:.3f} GB while loading")
         print(f"step 24 {arch}: {LM_PROMPT}-{LM_PROMPT + 3} decode steps profiled: {profiled}")
         print(f"step 24 {arch} (b) bf16, full depth, each block's decode at {LM_PROMPT} vs its "
@@ -2269,12 +2342,11 @@ def lm_ssm_serving(card: str) -> None:
               f"(gate {LM_BF16_LAYER_RMS}); free-running logits {free:.4f}, argmax equal in "
               f"{same_b}/{LM_BATCH} (not gated: two prefills of {LM_PROMPT} and "
               f"{LM_PROMPT + 1} tokens at position {LM_PROMPT - 1}: {floor:.4f})")
-        print(f"step 24 {arch} (c) generate sha256 {digests[0][:16]} {digests[1][:16]} "
-              f"{'equal' if digests[0] == digests[1] else 'DIFFER'}; (d) finite {finite}; "
+        print(f"step 24 {arch} (c) {gen['said']}; (d) finite {finite}; "
               f"{time.perf_counter() - t_arch:.1f} s")
         if max(layer_errs) > LM_BF16_LAYER_RMS:
             failures.append(f"(b) decode vs prefill per block {layer_errs}")
-        if digests[0] != digests[1]:
+        if not gen["same"]:
             failures.append("(c) repeated generate calls differ")
         if not finite:
             failures.append("(d) non-finite logits")
@@ -2540,8 +2612,8 @@ def train_card_vs_cpu(cfg_a, dev, hp=None, batch: int = TRAIN_CHECK_BATCH,
                       tol=(TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RMS,
                            TRAIN_PARAM_RMS)) -> dict:
     """Gate (a): ``cfg_a`` (full width, cut depth, f32 or f64 compute)
-    drawn on the card (or ``weights``, a host state dict, cast to its
-    dtypes), the same weights copied to the CPU, one train step of the same
+    drawn on the card (or ``weights``, a state dict, cast to its dtypes on
+    the card), the same weights copied to the CPU, one train step of the same
     TokenStream batch on each (``hp``: AdamW, 2 microbatches, warmup 0 by
     default), then each leaf compared on the card, the host's freed memory
     kept meanwhile (:func:`host_heap_kept`).  Returns the metrics of both,
@@ -2552,11 +2624,16 @@ def train_card_vs_cpu(cfg_a, dev, hp=None, batch: int = TRAIN_CHECK_BATCH,
     failures against ``tol`` (loss, grad_norm, gradients, parameters); with
     ``routes`` the router's choices compared call by call
     (:func:`route_flips`: ``flips``, the smallest margin ``least`` and
-    ``at_flip``, over ``choices`` in ``calls``); with ``keep`` the CPU
-    side's weights before the step (``weights``) and its gradients
-    (``grads``), on the host; with ``against`` (leaf name -> host tensor)
-    each side's gradients' largest per-leaf relative RMS from those
-    (``vs``: side -> (value, leaf))."""
+    ``at_flip``, over ``choices`` in ``calls``); with ``keep`` the weights
+    before the step rounded to f32, on the card (``weights``: an f32
+    witness's), and the CPU side's gradients, on the host (``grads``); with
+    ``against`` (leaf name -> host tensor) each side's gradients' largest
+    per-leaf relative RMS from those
+    (``vs``: side -> (value, leaf)).  Of bf16 parameters, the elements the
+    step left different (``flipped``, of ``elements``) and the largest
+    difference in bf16 units in the last place where their signs agree
+    (``max_ulps``; ``one_ulp`` of them one apart; ``signs`` where the
+    signs differ)."""
     import gc
     import math
 
@@ -2578,7 +2655,8 @@ def train_card_vs_cpu(cfg_a, dev, hp=None, batch: int = TRAIN_CHECK_BATCH,
         cpu = Model(cfg_a, device="meta")
         cpu.load_state_dict({k: v.to("cpu", copy=True) for k, v in card.state_dict().items()},
                             assign=True)
-        res = {"weights": {k: v.clone() for k, v in cpu.state_dict().items()}} if keep else {}
+        res = ({"weights": {k: v.detach().to(torch.float32, copy=True)
+                            for k, v in card.state_dict().items()}} if keep else {})
         data = TokenStream(cfg_a, batch, seq, seed=0, device="cpu").next_batch()
         out, logs = {}, {}
         for name, model, b in (("card", card, {k: v.to(dev) for k, v in data.items()}),
@@ -2593,23 +2671,40 @@ def train_card_vs_cpu(cfg_a, dev, hp=None, batch: int = TRAIN_CHECK_BATCH,
 
         def rel(a, b) -> float:           # rel_rms in two norms, on the card
             a, b = a.to(dev), b.to(dev)
+            if a.dtype == torch.bfloat16:
+                a, b = a.float(), b.float()
             return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
         grad_rms = param_rms = 0.0
         worst = worst_p = ""
         leaf_rms = {}
+        flipped = elements = max_ulps = one_ulp = signs = 0
         vs = {"card": (0.0, ""), "cpu": (0.0, "")}
         for (n, pc), (_, ph) in zip(card.named_parameters(), cpu.named_parameters(),
                                     strict=True):
-            g = leaf_rms[n] = rel(pc.grad, ph.grad)
+            hg = ph.grad.to(dev)        # moved once: the witness reads it again
+            g = leaf_rms[n] = rel(pc.grad, hg)
             if g > grad_rms:
                 grad_rms, worst = g, n
-            r = rel(pc.detach(), ph.detach())
+            hw = ph.detach().to(dev)
+            r = rel(pc.detach(), hw)
             if r > param_rms:
                 param_rms, worst_p = r, n
+            if pc.dtype == torch.bfloat16:      # bits as integers: ulps apart where
+                ic = pc.detach().view(torch.int16).int()        # the signs agree
+                ih = hw.view(torch.int16).int()
+                flipped += int((ic != ih).sum())
+                elements += pc.numel()
+                same = (ic < 0) == (ih < 0)
+                if bool(same.any()):
+                    ulps = (ic - ih).abs()[same]
+                    max_ulps = max(max_ulps, int(ulps.max()))
+                    one_ulp += int((ulps == 1).sum())
+                signs += int((~same).sum())
             if against is not None:
-                for side, p in (("card", pc), ("cpu", ph)):
-                    x = rel(p.grad, against[n])
+                ref = against[n].to(dev)
+                for side, grad in (("card", pc.grad), ("cpu", hg)):
+                    x = rel(grad, ref)
                     if x > vs[side][0]:
                         vs[side] = (x, n)
         if keep:
@@ -2634,7 +2729,8 @@ def train_card_vs_cpu(cfg_a, dev, hp=None, batch: int = TRAIN_CHECK_BATCH,
     res.update(card=c, cpu=h, errs=errs, loss_err=loss_err, gnorm_err=gnorm_err,
                grad_rms=grad_rms, worst=worst, leaf_rms=leaf_rms, param_rms=param_rms,
                worst_param=worst_p, card_s=out["card_s"], cpu_s=out["cpu_s"],
-               compare_s=compare_s, failures=failures, tol=tol)
+               compare_s=compare_s, failures=failures, tol=tol, flipped=flipped,
+               elements=elements, max_ulps=max_ulps, one_ulp=one_ulp, signs=signs)
     if against is not None:
         res["vs"] = vs
     if routes:
@@ -2911,7 +3007,8 @@ def lm_training_families(card: str) -> None:
     host_flush_denormals()
     dev = torch.device("cuda", 0)
     finite = lambda xs: all(math.isfinite(x) for x in xs)
-    f32 = dict(compute_dtype="float32")
+    # the gates (h1), (i1)'s witness, (j1), (k1) in f32 parameters and compute
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
     # gate (i1) in f64 (every f32 upcast kept at f64): see FAM_HYBRID
     f64 = dict(param_dtype="float64", compute_dtype="float64", opt_dtype="float64")
     hp_adamw = train.TrainHParams(grad_accum=TRAIN_ACCUM, warmup_steps=1, total_steps=10)
@@ -2922,9 +3019,9 @@ def lm_training_families(card: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-    def configs(fam):
+    def configs(fam):           # the timed runs in the configuration's own dtypes
         arch, over, over_1 = fam
-        full = get_config(arch).with_overrides(param_dtype="float32")
+        full = get_config(arch)
         return arch, full, full.with_overrides(**over), over_1
 
     def gate(arch: str, tag: str, cfg_1, hp=None, batch=TRAIN_CHECK_BATCH,
@@ -2938,7 +3035,7 @@ def lm_training_families(card: str) -> None:
         parts = ", ".join(f"{k} {a['card'][k]:.7f} vs {a['cpu'][k]:.7f} "
                           f"(rel {a['errs'][k]:.2e})" for k in a["cpu"] if k != "grad_norm")
         print(f"step 30 {arch} {tag} card vs CPU, {depth} at full width, "
-              f"{cfg_1.param_dtype} parameters and compute (TF32 off), "
+              f"{cfg_1.param_dtype} parameters, {cfg_1.compute_dtype} compute (TF32 off), "
               f"{train_bounds(cfg_1, batch, seq)['params']:,} parameters, one step of {batch} "
               f"x {seq} in {accum} microbatch{'es' if accum > 1 else ''}: {parts}, gate "
               f"{loss_tol}; grad_norm "
@@ -3010,6 +3107,20 @@ def lm_training_families(card: str) -> None:
           f"margin {a['least']:.3e}, "
           + ("no token differs" if a["flips"] == 0 else f"at a differing token {a['at_flip']:.3e}"))
     failures = a["failures"]
+    # (h3) (h1)'s model in the configuration's bf16 parameters and gradients,
+    # f32 compute
+    a = gate(arch, "(h3)", full.with_overrides(**over_1, compute_dtype="float32",
+                                               capacity_factor=full.n_experts / full.top_k),
+             routes=True)
+    print(f"step 30 {arch} (h3) bf16 parameters: {a['flipped']:,} of {a['elements']:,} "
+          f"elements differ after the step ({100 * a['flipped'] / a['elements']:.4f}%), "
+          f"{a['one_ulp']:,} of them by one bf16 ulp, at most {a['max_ulps']} ulps apart, "
+          f"{a['signs']} of opposite sign (an element near 0 that Adam's first step moves by "
+          f"+-lr on either side); the router {a['flips']} of {a['choices']} choices "
+          f"differ, smallest margin {a['least']:.3e}")
+    failures += a["failures"]
+    if a["elements"] == 0:
+        failures.append("(h3) no bf16 parameter")
     # (h2) at the configured capacity, from one seed: a plain run of the
     # timed run's 1 + FAM_TIMED steps, then the timed run, the same bits
     t0 = time.perf_counter()
@@ -3205,6 +3316,205 @@ def lm_training_families(card: str) -> None:
     check(not failures + more, f"step 30 {arch} training: {'; '.join(failures + more)}")
 
 
+def lm_training_vlm_gates(card: str) -> None:
+    """Step 31's gates (l2) and (l1) (``VLM_*``): qwen2-vl-7b at full width,
+    cut to 2 layers, a crashed bf16 run resumed from its checkpoint, then
+    the card against the CPU in f64 with its f32 witness.  Run beside the
+    kernels' build: nothing here is timed against a bound."""
+    import gc
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.launch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    full = get_config(VLM_ARCH)
+    print(f"step 31: qwen2-vl-7b's gates beside the kernels' build; "
+          f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}; "
+          f"{host_memory()}; on {card}")
+    failures = []
+    # (l2) a crashed bf16 run resumed from its checkpoint
+    t0 = time.perf_counter()
+    cfg_2 = full.with_overrides(n_layers=VLM_CHECK_LAYERS)
+    hp_2 = train.TrainHParams(grad_accum=TRAIN_ACCUM, warmup_steps=1, total_steps=VLM_L2_STEPS)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=VLM_L2_STEPS, log_every=100, device=dev)
+    ckpt_dir = tempfile.mkdtemp(prefix="zmc_train_ckpt_")
+    state_ref, losses_ref, _ = train.train_loop(cfg_2, hp_2, **kw)
+    digest_ref = state_digest(state_ref)
+    n_params = sum(t.numel() for _, leaf in ckpt.leaf_paths(state_ref["params"])
+                   for t in (leaf if isinstance(leaf, list) else [leaf]))
+    dtypes = sorted({str(t.dtype).removeprefix("torch.") for _, leaf in ckpt.leaf_paths(
+        state_ref) for t in (leaf if isinstance(leaf, list) else [leaf])})
+    del state_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    crashed = False
+    t1 = time.perf_counter()
+    try:
+        train.train_loop(cfg_2, hp_2, ckpt_dir=ckpt_dir, ckpt_every=VLM_L2_CKPT_EVERY,
+                         fail_at_step=VLM_L2_FAIL_AT, **kw)
+    except RuntimeError as e:
+        crashed = "injected failure" in str(e)
+    crash_s = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    latest = ckpt.latest_step(ckpt_dir)
+    step_dir = os.path.join(ckpt_dir, f"step_{latest}")
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    on_disk = sum(os.path.getsize(os.path.join(step_dir, x["file"])) for x in leaves)
+    bf16 = [x for x in leaves if x["dtype"] == "bfloat16"]
+    records = {str(np.load(os.path.join(step_dir, x["file"]), mmap_mode="r").dtype)
+               for x in bf16}
+    t1 = time.perf_counter()
+    state_res, losses_res, _ = train.train_loop(cfg_2, hp_2, ckpt_dir=ckpt_dir,
+                                                ckpt_every=100, **kw)
+    resume_s = time.perf_counter() - t1
+    digest_res = state_digest(state_res)
+    same_losses = latest is not None and losses_res == losses_ref[latest:]
+    del state_res
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"step 31 {VLM_ARCH} (l2) {VLM_CHECK_LAYERS} layers at full width, {n_params:,} "
+          f"parameters, the state in {dtypes}, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+          f"{TRAIN_ACCUM} microbatches: {VLM_L2_STEPS} uninterrupted steps ({ref_s:.1f} s with "
+          f"the digest), losses {[round(x, 6) for x in losses_ref]}; checkpoints every "
+          f"{VLM_L2_CKPT_EVERY}, failure injected in step {VLM_L2_FAIL_AT}: "
+          f"{'raised' if crashed else 'NOT RAISED'} after {crash_s:.1f} s, latest checkpoint "
+          f"step {latest} ({on_disk / 1e9:.3f} GB on disk, {len(bf16)} of {len(leaves)} leaves "
+          f"bf16 as records {sorted(records)}); resumed {len(losses_res)} steps in "
+          f"{resume_s:.1f} s: losses {'equal' if same_losses else 'DIFFER'} to steps "
+          f"{latest}-{VLM_L2_STEPS - 1}; final state sha256 {digest_ref[:16]} {digest_res[:16]} "
+          f"{'equal' if digest_ref == digest_res else 'DIFFER'} (bf16 parameters, f32 AdamW "
+          f"moments, step); {time.perf_counter() - t0:.1f} s")
+    if not crashed:
+        failures.append("(l2) the injected failure did not raise")
+    if not (same_losses and digest_ref == digest_res and latest == VLM_L2_CKPT_EVERY):
+        failures.append("(l2) the resumed run differs from the uninterrupted one")
+    if not bf16 or records != {"|V2"}:
+        failures.append(f"(l2) the checkpoint's bf16 leaves {len(bf16)}, as {records}")
+    if not all(math.isfinite(x) for x in losses_ref + losses_res):
+        failures.append("(l3) non-finite loss")
+
+    # (l1) the card against the CPU in f64 (every f32 upcast kept at f64), then
+    # its f32 witness from the same weights
+    t0 = time.perf_counter()
+    f64 = dict(param_dtype="float64", compute_dtype="float64", opt_dtype="float64")
+    cfg_1 = full.with_overrides(n_layers=VLM_CHECK_LAYERS, **f64)
+    with f64_upcasts():
+        a = train_card_vs_cpu(cfg_1, dev, keep=True, tol=FAM_I1_F64_TOL)
+    failures += [f"(l1) {x[4:]}" for x in a["failures"]]
+    w = train_card_vs_cpu(full.with_overrides(n_layers=VLM_CHECK_LAYERS,
+                                              param_dtype="float32", compute_dtype="float32"),
+                          dev, weights=a.pop("weights"), against=a.pop("grads"))
+    (card_vs, card_leaf), (cpu_vs, cpu_leaf) = w["vs"]["card"], w["vs"]["cpu"]
+    for tag, r, tol in (("(l1) f64", a, FAM_I1_F64_TOL), ("(l1) f32 witness", w, None)):
+        print(f"step 31 {VLM_ARCH} {tag} card vs CPU, {VLM_CHECK_LAYERS} layers at full width "
+              f"({train_bounds(cfg_1, 2, 2)['params']:,} parameters), TF32 off, one step of "
+              f"{TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ} in {TRAIN_ACCUM} microbatches (vision "
+              f"embeddings spliced ahead, M-RoPE positions): loss {r['card']['loss']:.10g} vs "
+              f"{r['cpu']['loss']:.10g} (rel {r['loss_err']:.2e}); grad_norm "
+              f"{r['card']['grad_norm']:.10g} vs {r['cpu']['grad_norm']:.10g} (rel "
+              f"{r['gnorm_err']:.2e}); largest per-leaf gradient relative RMS "
+              f"{r['grad_rms']:.3e} ({r['worst']}); parameters {r['param_rms']:.3e} "
+              f"({r['worst_param']}); gates {tol if tol else 'none (the witness below)'}; the "
+              f"card half {r['card_s']:.1f} s, the CPU step {r['cpu_s']:.1f} s, the comparison "
+              f"{r['compare_s']:.1f} s")
+    print(f"step 31 {VLM_ARCH} (l1) witness, the f32 step's gradients from the CPU's f64 ones, "
+          f"largest per-leaf relative RMS: the card {card_vs:.3e} ({card_leaf}), the CPU "
+          f"{cpu_vs:.3e} ({cpu_leaf}) (gate {FAM_F32_SPREAD} x the CPU's); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not card_vs <= FAM_F32_SPREAD * cpu_vs:
+        failures.append(f"(l1) the card's f32 gradients {card_vs:.3e} from f64")
+    del a, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not failures, f"step 31 {VLM_ARCH} gates: {'; '.join(failures)}")
+
+
+def lm_training_vlm(card: str) -> None:
+    """Step 31: qwen2-vl-7b trained on one card in its own dtypes at
+    ``VLM_LAYERS`` layers, full width, through ``train_timed`` (a warm-up
+    step, ``FAM_TIMED`` timed, one profiled) beside ``train_bounds``; gate
+    (l3) every loss finite.  Its gates (l1), (l2) ran beside the build."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    full = get_config(VLM_ARCH)
+    cfg = full.with_overrides(n_layers=VLM_LAYERS)
+    hp = train.TrainHParams(grad_accum=TRAIN_ACCUM, warmup_steps=1, total_steps=10)
+    label = f"{VLM_ARCH} ({cfg.n_layers} of {full.n_layers} layers)"
+    bd = train_bounds(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"step 31: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
+          f"{label}: {bd['params']:,} parameters in {cfg.param_dtype}, compute "
+          f"{cfg.compute_dtype}, AdamW {cfg.opt_dtype} moments, remat {cfg.remat}; batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} in {hp.grad_accum} microbatches ({bd['tokens']} tokens "
+          f"a step, {cfg.frontend_dim}-d vision embeddings through frontend_proj, (3, B, S) "
+          f"M-RoPE positions); on {card}")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev, seed=0)
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+    probe = stream.next_batch()
+    shapes = {k: tuple(v.shape) for k, v in probe.items()}
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+    del probe
+    run = train_timed(model, hp, stream, FAM_TIMED)
+    opt_bytes = fsdp.resident_bytes(run.pop("state")["opt"])
+    tps = bd["tokens"] / (run["step_ms"] / 1e3)
+    print(f"step 31 {label}: the batch {shapes}; forward+backward {run['fb_ms']:.3f} ms (bound "
+          f"{bd['fb_ms']:.3f} ms by operations, 8 N T with N = {bd['matmul_params']:.4g} and the "
+          f"attention rectangles, {bd['flops'] / 1e12:.2f} TFLOP; "
+          f"{100 * bd['fb_ms'] / run['fb_ms']:.1f}% of it); clip {run['clip_ms']:.3f} ms (bound "
+          f"{bd['clip_ms']:.3f} ms by bytes, 6 B a bf16 parameter; "
+          f"{100 * bd['clip_ms'] / run['clip_ms']:.1f}%); optimizer {run['opt_ms']:.3f} ms "
+          f"(bound {bd['opt_ms']:.3f} ms by bytes, 22 B a bf16 parameter; "
+          f"{100 * bd['opt_ms'] / run['opt_ms']:.1f}%)")
+    print(f"step 31 {label}: step {run['step_ms']:.3f} ms (runs "
+          f"{[round(x, 3) for x in run['steps_ms']]}; bound {bd['step_ms']:.3f} ms; "
+          f"{100 * bd['step_ms'] / run['step_ms']:.1f}% of it); {tps:.1f} tokens/s (bound "
+          f"{bd['tokens_per_s']:.1f}); peak memory torch.cuda.max_memory_allocated "
+          f"{run['peak'] / 1e9:.3f} GB (parameters, gradients and moments "
+          f"{bd['state_bytes'] / 1e9:.3f} GB, the moments {opt_bytes / 1e9:.3f} GB; the card "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f} GB)")
+    print(f"step 31 {label}: one step profiled: {run['profiled']}")
+    print(f"step 31 {label} (l3) losses {[round(x, 5) for x in run['losses']]}, grad_norm "
+          f"{[round(x, 4) for x in run['gnorms']]}; the warm-up step's gradients before the clip "
+          f"{'all finite' if run['grads_finite'] else 'NOT ALL FINITE'}, their norm in f64 "
+          f"{run['gnorm64']:.6g}")
+    failures = []
+    if not all(math.isfinite(x) for x in run["losses"]):
+        failures.append("(l3) non-finite loss")
+    if not all(math.isfinite(x) for x in run["gnorms"]) and not (
+            run["grads_finite"] and run["gnorm64"] > F32_NORM_MAX):
+        failures.append("(l3) non-finite grad_norm")
+    if (set(shapes) != {"tokens", "labels", "vision_embeds", "positions"}
+            or shapes["positions"][0] != 3):
+        failures.append(f"(l3) the VLM's batch {shapes}")
+    del model, stream, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not failures, f"step 31 {VLM_ARCH} training: {'; '.join(failures)}")
+
+
 def mesh_hp(accum: int = TRAIN_ACCUM):
     """Step 26's (a) hyperparameters: step 25's stablelm-3b run (``accum``
     microbatches)."""
@@ -3246,13 +3556,15 @@ def ckpt_sha(directory: str, step: int) -> str:
     return h.hexdigest()
 
 
-def lm_mesh_rank(work: str, refs: str | None = None) -> dict:
+def lm_mesh_rank(work: str, refs: str | None = None, tp: str | None = None) -> dict:
     """One of step 26's four gloo ranks on the card of the parent: (a) the
     training phases, (b) the serving phases, (c) the pipeline; returns the
     numbers and digests, rank 0's comparisons against the parent's
     one-device references in ``work``; with ``refs`` (step 28 (f1)'s
     one-device references) also step 28's (f) (:func:`lm_sp_rank`) in
-    these ranks, under ``sp``: the same mesh, so no spawn of its own."""
+    these ranks, under ``sp``, and with ``tp`` (step 27's one-device
+    reference) step 27 (:func:`lm_tp_rank`), under ``tp``: four ranks on
+    the card either way, so no spawn of their own."""
     import gc
 
     import torch
@@ -3361,7 +3673,7 @@ def lm_mesh_rank(work: str, refs: str | None = None) -> dict:
     free()
     out["a1_s"] = time.perf_counter() - t0
 
-    # (a1) the mesh's first MESH_TRAIN_STEPS steps in f64 against the
+    # (a1) the mesh's first MESH_F64_STEPS steps in f64 against the
     # parent's one device in f64 in the same rows
     t0 = time.perf_counter()
     full64 = full.with_overrides(param_dtype="float64", compute_dtype="float64")
@@ -3371,7 +3683,7 @@ def lm_mesh_rank(work: str, refs: str | None = None) -> dict:
         step = train.make_train_step(model, hp, m22)
         stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
         metrics64 = []
-        for _ in range(MESH_TRAIN_STEPS):
+        for _ in range(MESH_F64_STEPS):
             state, m = step(state, stream.next_batch())
             metrics64.append({k: float(v) for k, v in m.items()})
     grads = map_leaves(lambda p: [t.grad for t in p] if is_stacked(p) else p.grad,
@@ -3537,10 +3849,13 @@ def lm_mesh_rank(work: str, refs: str | None = None) -> dict:
     out["c_s"] = time.perf_counter() - t0
     if refs is not None:
         out["sp"] = lm_sp_rank(refs)
+    if tp is not None:
+        out["tp"] = lm_tp_rank(tp)
     return out
 
 
-def lm_mesh(card: str, refs: str | None = None) -> tuple[float, list | None]:
+def lm_mesh(card: str, refs: str | None = None,
+            tp: str | None = None) -> tuple[float, list | None, list | None]:
     """Step 26: the LM multi-device path on four gloo ranks sharing the card
     (one ``multihost.spawn``): (a) stablelm-3b training on (2, 2), (b)
     deepseek-v2-lite-16b serving on (1, 4) with expert parallelism, (c) a
@@ -3549,8 +3864,10 @@ def lm_mesh(card: str, refs: str | None = None) -> tuple[float, list | None]:
     the gates are checked.  With ``refs`` (a directory), (a1)'s one-device
     runs in the mesh's rows are also written there as step 28 (f1) reads
     them (``f1_ref_<dtype>.pt``: the same runs), and the ranks run step
-    28's (f) after (c).  Returns (a)'s median step ms and, with ``refs``,
-    each rank's (f) results (else None)."""
+    28's (f) after (c); with ``tp`` (a directory), step 27's one-device
+    reference runs here too (:func:`lm_tp_reference`) and the ranks run
+    step 27 last.  Returns (a)'s median step ms and, with ``refs`` and
+    ``tp``, each rank's (f) and step 27 results (else None)."""
     import gc
     import shutil
     import tempfile
@@ -3594,8 +3911,8 @@ def lm_mesh(card: str, refs: str | None = None) -> tuple[float, list | None]:
                 step = train.make_train_step(model, mesh_hp(accum))
                 stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
                 metrics = []
-                for i in range(MESH_TRAIN_STEPS if cfg_w is full or accum == MESH_ROW_ACCUM
-                               else 1):
+                for i in range(MESH_TRAIN_STEPS if cfg_w is full else
+                               MESH_F64_STEPS if accum == MESH_ROW_ACCUM else 1):
                     state, m = step(state, stream.next_batch())
                     metrics.append({k: float(v) for k, v in m.items()})
                     if i == 0:
@@ -3656,8 +3973,10 @@ def lm_mesh(card: str, refs: str | None = None) -> tuple[float, list | None]:
     print(f"step 26 one-device references (a1, b1, b2) {ref_s:.1f} s; "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB left allocated; on {card}")
 
+    if tp is not None:
+        lm_tp_reference(tp)
     t0 = time.perf_counter()
-    ranks = multihost.spawn(lm_mesh_rank, MESH_RANKS, work, refs, device="cuda",
+    ranks = multihost.spawn(lm_mesh_rank, MESH_RANKS, work, refs, tp, device="cuda",
                             backend="gloo", timeout=900)
     spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
@@ -3694,11 +4013,11 @@ def lm_mesh(card: str, refs: str | None = None) -> tuple[float, list | None]:
           f"{show(witness[TRAIN_ACCUM])}, the mesh {show(r0['a1_g1_f64'])} (gate "
           f"{MESH_F32_SPREAD} x {spread:.3e}); on {card}")
     a64 = r0["a1_64"]
-    print(f"step 26 (a1) gated, in f64 (f32 upcasts kept at f64): {MESH_TRAIN_STEPS} steps on "
+    print(f"step 26 (a1) gated, in f64 (f32 upcasts kept at f64): {MESH_F64_STEPS} step(s) on "
           f"(2, 2) vs one device in the same {MESH_ROW_ACCUM} microbatches of 2 rows: losses "
           f"{a64['losses']} vs {a64['ref_losses']} (rel {a64['loss']:.2e}, gate "
           f"{TRAIN_LOSS_RTOL}); grad_norm rel {a64['grad_norm']:.2e} (gate {TRAIN_GNORM_RTOL}); "
-          f"step-{MESH_TRAIN_STEPS} gradients' largest per-leaf relative RMS "
+          f"step-{MESH_F64_STEPS} gradients' largest per-leaf relative RMS "
           f"{a64['grads']:.3e} ({a64['grads_worst']}, gate {TRAIN_GRAD_RMS}); parameters "
           f"{a64['params']:.3e} (gate {TRAIN_PARAM_RMS}); {r0['a1_64_s']:.1f} s; on {card}")
     if witness["f64"][0] > MESH_F64_RMS:
@@ -3819,12 +4138,13 @@ def lm_mesh(card: str, refs: str | None = None) -> tuple[float, list | None]:
           f"a2 {r0['a2_s']:.1f} s, "
           f"b {r0['b_s']:.1f} s, c {r0['c_s']:.1f} s"
           + (f", step 28's (f) {sp[0]['float32_s'] + sp[0]['float64_s']:.1f} s" if sp else "")
+          + (f", step 27 {r0['tp']['d1_s'] + r0['tp']['d2_s']:.1f} s" if tp else "")
           + f"; spawn {spawn_s:.1f} s; on {card}")
     shutil.rmtree(work, ignore_errors=True)
     for f in failures:
         print(f"FAIL: step 26 {f}", file=sys.stderr, flush=True)
     check(not failures, "step 26")
-    return step_ms, sp
+    return step_ms, sp, [r["tp"] for r in ranks] if tp is not None else None
 
 
 def lm_tp_rank(work: str) -> dict:
@@ -3941,33 +4261,22 @@ def lm_tp_rank(work: str) -> dict:
     return out
 
 
-def lm_tp(card: str) -> None:
-    """Step 27: qwen2.5-32b served tensor parallel on (1, 4), four gloo
-    ranks sharing the card (one ``multihost.spawn``); gate (d1)'s one
-    device runs here first, its memory freed before the ranks start."""
+def lm_tp_reference(work: str) -> None:
+    """Step 27's gate (d1) on one device, f32 first (its greedy tokens feed
+    every other run), then f64, written to ``work`` (``d1_ref.pt``, with its
+    seconds) for the ranks; its memory freed before they start."""
     import gc
-    import shutil
-    import tempfile
 
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.distributed import fsdp
-    from repro_torch.launch import multihost
     from repro_torch.launch.serve import Server
     from repro_torch.launch.specs import concrete_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    work = tempfile.mkdtemp(prefix="lm_tp_")
     cfg = get_config(TP_ARCH)
     v = cfg.vocab_size
-    print(f"step 27: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
-          f"{TP_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads on "
-          f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; the init's "
-          f"largest f32 draw {fsdp.init_transient_bytes(cfg):,} bytes; on {card}")
-
-    # (d1)'s one device, f32 first (its greedy tokens feed every other run)
     t0 = time.perf_counter()
     d1 = {}
     for dt in ("float32", "float64"):
@@ -3984,14 +4293,42 @@ def lm_tp(card: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     d1["fed"] = d1["fed"].cpu()
+    d1["seconds"] = time.perf_counter() - t0
     torch.save(d1, os.path.join(work, "d1_ref.pt"))
-    del d1
-    ref_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    ranks = multihost.spawn(lm_tp_rank, MESH_RANKS, work, device="cuda", backend="gloo",
-                            timeout=900)
-    spawn_s = time.perf_counter() - t0
+
+def lm_tp(card: str, work: str | None = None, ranks: list | None = None) -> None:
+    """Step 27: qwen2.5-32b served tensor parallel on (1, 4), four gloo
+    ranks sharing the card; gate (d1)'s one device runs first
+    (:func:`lm_tp_reference`).  Given ``work`` and ``ranks``, step 26's
+    ranks ran it (:func:`lm_mesh`'s ``tp``) and this prints and checks
+    their results; alone, it runs the reference and one
+    ``multihost.spawn`` of its own."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the default, stated
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(TP_ARCH)
+    print(f"step 27: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before it; "
+          f"{TP_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads on "
+          f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; the init's "
+          f"largest f32 draw {fsdp.init_transient_bytes(cfg):,} bytes; run in step 26's "
+          f"ranks: {ranks is not None}; on {card}")
+    spawn_s = 0.0
+    if ranks is None:
+        work = tempfile.mkdtemp(prefix="lm_tp_")
+        lm_tp_reference(work)
+        t0 = time.perf_counter()
+        ranks = multihost.spawn(lm_tp_rank, MESH_RANKS, work, device="cuda", backend="gloo",
+                                timeout=900)
+        spawn_s = time.perf_counter() - t0
+    ref_s = torch.load(os.path.join(work, "d1_ref.pt"))["seconds"]
     r0 = ranks[0]
     failures = []
     med = lambda xs: sorted(xs)[len(xs) // 2]
@@ -4036,7 +4373,7 @@ def lm_tp(card: str) -> None:
             failures.append(f"(d3) rank {r['rank']} collectives {r['d3_counted']} != "
                             f"{r['d3_derived']}")
     print(f"step 27 phases (rank 0): d1 {r0['d1_s']:.1f} s, d2 {r0['d2_s']:.1f} s; spawn "
-          f"{spawn_s:.1f} s; on {card}")
+          f"{spawn_s:.1f} s (0 in step 26's ranks); on {card}")
     shutil.rmtree(work, ignore_errors=True)
     for f in failures:
         print(f"FAIL: step 27 {f}", file=sys.stderr, flush=True)
@@ -4168,8 +4505,8 @@ def lm_cp_rank(work: str) -> dict:
 def lm_sp_rank(work: str) -> dict:
     """One of step 28 (f)'s four gloo ranks on the card of the parent:
     MESH_TRAIN_STEPS steps with sp_activations in f32 (the first with its
-    collectives and saved carries counted) and in f64, each held against
-    the parent's one device in the mesh's rows."""
+    collectives and saved carries counted) and MESH_F64_STEPS in f64, each
+    held against the parent's one device in the mesh's rows."""
     import gc
 
     import torch
@@ -4201,7 +4538,7 @@ def lm_sp_rank(work: str) -> dict:
             step = train.make_train_step(model, hp, m22)
             stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
             metrics, steps_ms, coll_ms = [], [], []
-            for i in range(MESH_TRAIN_STEPS):
+            for i in range(MESH_TRAIN_STEPS if dt == "float32" else MESH_F64_STEPS):
                 batch = stream.next_batch()
                 torch.cuda.synchronize()
                 dist.barrier()
@@ -4320,7 +4657,7 @@ def lm_cp_sp(card: str, step26_ms: float, sp: list | None = None) -> None:
             step = train.make_train_step(model, hp)
             stream = TokenStream(full, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
             metrics = []
-            for _ in range(MESH_TRAIN_STEPS):
+            for _ in range(MESH_TRAIN_STEPS if dt == "float32" else MESH_F64_STEPS):
                 state, m = step(state, stream.next_batch())
                 metrics.append({k: float(x) for k, x in m.items()})
         grads = map_leaves(lambda p: [t.grad for t in p] if isinstance(p, list) else p.grad,
@@ -4397,11 +4734,11 @@ def lm_cp_sp(card: str, step26_ms: float, sp: list | None = None) -> None:
     # (f)
     f64, f32 = s0["f1_float64"], s0["f1_float32"]
     print(f"step 28 (f1) {TRAIN_ARCH} {MESH_TRAIN_LAYERS} layers with sp_activations on "
-          f"(2, 2), {MESH_TRAIN_STEPS} steps vs one device in the same {MESH_ROW_ACCUM} "
+          f"(2, 2), {MESH_F64_STEPS} step(s) vs one device in the same {MESH_ROW_ACCUM} "
           f"microbatches of 2 rows, gated in f64 (f32 upcasts kept at f64): losses "
           f"{f64['losses']} vs {f64['ref_losses']} (rel {f64['loss']:.2e}, gate "
           f"{TRAIN_LOSS_RTOL}); grad_norm rel {f64['grad_norm']:.2e} (gate "
-          f"{TRAIN_GNORM_RTOL}); step-{MESH_TRAIN_STEPS} gradients' largest per-leaf relative "
+          f"{TRAIN_GNORM_RTOL}); step-{MESH_F64_STEPS} gradients' largest per-leaf relative "
           f"RMS {f64['grads']:.3e} ({f64['grads_worst']}, gate {TRAIN_GRAD_RMS}); parameters "
           f"{f64['params']:.3e} (gate {TRAIN_PARAM_RMS}); in f32, not gated: loss rel "
           f"{f32['loss']:.2e}, grad_norm {f32['grad_norm']:.2e}, gradients {f32['grads']:.3e} "
@@ -4581,6 +4918,10 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     laps = Laps(card, t_start)
     laps.end(1)
+
+    # -- 31 (l1), (l2): qwen2-vl-7b's training gates, beside the build ----------
+    lm_training_vlm_gates(card)
+    laps.end("31 (l1, l2)")
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -6079,11 +6420,12 @@ def main() -> None:
 
     # -- 26. the LM multi-device path: four gloo ranks on the card ---------------
     refs = tempfile.mkdtemp(prefix="lm_refs_")         # step 26's one device, for step 28
-    step26_ms, sp = lm_mesh(card, refs)
+    tp = tempfile.mkdtemp(prefix="lm_tp_")             # step 27's, whose ranks are 26's
+    step26_ms, sp, tp_ranks = lm_mesh(card, refs, tp)
     laps.end(26)
 
     # -- 27. qwen2.5-32b served tensor parallel on four gloo ranks ----------------
-    lm_tp(card)
+    lm_tp(card, tp, tp_ranks)
     laps.end(27)
 
     # -- 28. context parallelism on eight gloo ranks, SP on four --------------------
@@ -6098,6 +6440,10 @@ def main() -> None:
     # -- 30. LM training of the moe, hybrid and encoder families, v3's recipe -------
     lm_training_families(card)
     laps.end(30)
+
+    # -- 31. qwen2-vl-7b trained on one card in its own dtypes --------------------
+    lm_training_vlm(card)
+    laps.end(31)
     print("step seconds: " + json.dumps(laps.seconds))
 
     entry = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_mc.cu",

@@ -25,6 +25,8 @@ from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.launch import train
 from repro_torch.models.convert import params_from_reference, stack_tree
 from repro_torch.models.model import Model
+from test_torch_lm_model import port_weights
+from test_torch_lm_train import reference_train_state
 
 # One intra-op thread: the suite runs in several worker processes at once.
 torch.set_num_threads(1)
@@ -141,12 +143,13 @@ HP = dict(optimizer="adamw", warmup_steps=0, total_steps=10, grad_accum=1, lr=1e
 @pytest.fixture(scope="module")
 def ref_state():
     """The reference's model, hyperparameters and a train state one step in
-    (moments not zero)."""
+    (moments not zero), its train state built around the port's seeded
+    weights (test_torch_lm_model.port_weights)."""
     from repro.launch.specs import concrete_batch
     jcfg = jreduced(jget_config(ARCH)).with_overrides(**OVER)
     jm = JModel(jcfg)
     hp = dataclasses.replace(jtrain.TrainHParams(), **HP)
-    state = jtrain.make_train_state(jm, hp, jax.random.key(0))
+    state = reference_train_state(jcfg, hp, port_weights(ARCH, **OVER))
     state, _ = jax.jit(jtrain.make_train_step(jm, hp))(
         state, concrete_batch(jcfg, 2, 8, train=True))
     return jm, hp, state

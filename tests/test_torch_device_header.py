@@ -108,7 +108,7 @@ def lib(tmp_path_factory):
     so = d / "libzmc_host.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-fPIC", "-shared", "-I", str(CSRC),
                     "-o", str(so), str(d / "shim.cpp")], check=True,
-                   capture_output=True, text=True)
+                   capture_output=True, text=True, timeout=300)
     out = ctypes.CDLL(str(so))
     ptr, u32 = ctypes.c_void_p, ctypes.c_uint32
     out.host_random_bits.argtypes = [u32, u32, ptr, ptr, ptr, ctypes.c_long]

@@ -3,9 +3,10 @@
 LM mesh against the reference's own mesh runs.
 
 One spawn of four gloo CPU ranks runs every port phase; the reference runs
-at the same time in a subprocess on four forced host devices with ``Auto``
+at the same time in subprocesses on four forced host devices with ``Auto``
 mesh axes, as tests/test_torch_lm_tp.py does, and both start from one
-reference-format checkpoint at step 0 per configuration.  Five reduced
+reference-format checkpoint at step 0 per configuration, written from the
+port's seeded init before either side starts.  Five reduced
 configurations:
 
 * qwen2.5 (4 heads on 2 KV heads, q/k/v bias) on (1, 4): neither the KV
@@ -24,6 +25,11 @@ configurations:
   block's S - 1 rows padded to a multiple of ``model``;
 * stablelm with ``sp_activations=True``, on (2, 2); both SP configurations
   with remat "full".
+
+This file runs the three (1, 4) configurations; test_torch_lm_cp_sp.py
+runs the two (2, 2) ones with the same checks (and the SP carry's), on
+ranks and reference processes of its own, so that each file's fixture
+stays near a minute.
 
 The served prompts are 7 tokens long, which ``model`` does not divide:
 each rank's rows of the q-sequence case are a block of the padded 8.
@@ -46,7 +52,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -56,6 +61,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch import dryrun, multihost, train
 from repro_torch.models import layers
+from test_torch_lm_tp import write_step0
 
 # One intra-op thread: the suite runs in several worker processes at once.
 torch.set_num_threads(1)
@@ -70,7 +76,10 @@ ARCHS = {
     "stablelm": ("stablelm_3b", {"sp_activations": True, "remat": "full"}, (2, 2)),
 }
 QSEQ = ("qwen", "qwen6", "vl", "dsv3")
-REF_GROUPS = (("qwen", "qwen6"), ("vl", "stablelm"), ("dsv3",))    # the reference's processes
+# the configurations each file's ranks run, and its reference processes:
+# here the (1, 4) ones; the (2, 2) ones (MLA, SP) in test_torch_lm_cp_sp.py
+HERE = ("qwen", "qwen6", "vl")
+REF_GROUPS = (("qwen", "qwen6"), ("vl",))
 TRAINED = tuple(ARCHS)        # three steps on both sides
 HP = dict(total_steps=6, warmup_steps=2, grad_accum=2, lr=1e-3)
 Q_CHUNK = 8                   # both packages' q-chunk, so qwen6 trains in two chunks
@@ -108,7 +117,7 @@ def _prompt(name, rng) -> dict:
 
 
 _REF_PROG = r"""
-import dataclasses, json, os, shutil, sys
+import dataclasses, json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 sys.path.insert(0, sys.argv[2])
 import jax, jax.numpy as jnp, numpy as np
@@ -117,7 +126,7 @@ from repro.models import layers
 from repro.distributed import checkpoint as ckpt
 from repro.distributed.sharding import logical_sharding, rules_for
 from repro.launch.specs import concrete_batch
-from repro.launch.train import TrainHParams, make_train_state, train_loop
+from repro.launch.train import TrainHParams, abstract_train_state, train_loop
 from repro.models.model import Model
 
 root = sys.argv[1]
@@ -130,17 +139,12 @@ def mesh(shape):
     return jax.make_mesh(tuple(shape), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
 
-# the step-0 checkpoints of both sides first (the port's ranks wait for theirs)
+# the step-0 weights, from the checkpoint both sides start from
 params = {}
 for name, (arch, over, shape) in archs.items():
     cfg = reduced(get_config(arch)).with_overrides(**over)
-    state0 = make_train_state(Model(cfg), hp, jax.random.key(0))
-    step0 = os.path.join(root, "step0_" + name)
-    ckpt.save(step0, 0, jax.tree.map(np.asarray, state0), extra={"data_step": 0})
-    for side in ("ref_", "port_"):
-        shutil.copytree(step0, os.path.join(root, "tmp_" + side + name))
-        os.rename(os.path.join(root, "tmp_" + side + name), os.path.join(root, side + name))
-    params[name] = state0["params"]
+    like = abstract_train_state(Model(cfg), hp)
+    params[name] = ckpt.restore(os.path.join(root, "step0_" + name), 0, like)[0]["params"]
 out = {}
 for name, (arch, over, shape) in archs.items():
     cfg = reduced(get_config(arch)).with_overrides(**over)
@@ -193,15 +197,6 @@ def _derived(d):
     return {k: v for k, v in d.items() if k != "total_bytes"}
 
 
-def _wait_for(path, timeout: float = 300.0):
-    """Wait until the reference's subprocess has written ``path``."""
-    t0 = time.monotonic()
-    while not os.path.exists(path):
-        if time.monotonic() - t0 > timeout:
-            raise TimeoutError(f"{path} not written in {timeout:g} s")
-        time.sleep(0.05)
-
-
 def _restored(name, cfg, mesh, root, hp):
     """A sharded model holding the step-0 checkpoint's weights, its state."""
     from repro_torch.distributed import checkpoint as ckpt
@@ -249,7 +244,7 @@ def _serve(name, cfg, mesh, root):
     return out
 
 
-def _ranks(root):
+def _ranks(root, names):
     import torch.distributed as dist
     from repro_torch.distributed import checkpoint as ckpt
     from repro_torch.distributed import sharding as sh
@@ -272,11 +267,10 @@ def _ranks(root):
         out["fold_equal"].append(torch.equal(
             collectives.all_reduce(x, m14, ("model",)),
             collectives._fold(collectives.all_gather_axes(x, m14, ("model",)))))
-    for name, (_, _, shape) in ARCHS.items():
-        cfg, mesh = _cfg(name), meshes[shape]
+    for name in names:
+        cfg, mesh = _cfg(name), meshes[ARCHS[name][2]]
         res = out[name] = {}
-        _wait_for(os.path.join(root, "port_" + name))
-        # three steps from the reference's step-0 checkpoint
+        # three steps from the step-0 checkpoint
         if name in TRAINED:
             _, res["losses"], _ = train.train_loop(
                 cfg, _hp(), batch=B, seq=S, steps=3, mesh=mesh, ckpt_every=3,
@@ -306,36 +300,44 @@ def _ranks(root):
     return out
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("lm_cp")
+def start_runs(root, names, ref_groups):
+    """``names`` on four gloo ranks beside the reference's runs of them in
+    one process per group of ``ref_groups`` (its jit compiles are the
+    file's longest wait), started first: (the ranks' results, the
+    reference's, per configuration)."""
     rng = np.random.default_rng(5)
     for name in ARCHS:
         np.savez(root / f"prompt_{name}.npz", **_prompt(name, rng))
+    write_step0(root, {name: _cfg(name) for name in names}, _hp())
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    # the reference's runs in three processes at once (its jit compiles are
-    # the suite's longest wait; deepseek-v3's alone about as long as the rest)
     refs = [subprocess.Popen(
         [sys.executable, "-c", _REF_PROG, str(root), str(ROOT / "src"), json.dumps(HP),
-         json.dumps({k: [ARCHS[k][0], ARCHS[k][1], list(ARCHS[k][2])] for k in half}),
+         json.dumps({k: [ARCHS[k][0], ARCHS[k][1], list(ARCHS[k][2])] for k in group}),
          json.dumps([B, S, NEW, CAP]), json.dumps(TRAINED), json.dumps(Q_CHUNK)], env=env,
         stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for half in REF_GROUPS]
+        stderr=subprocess.PIPE, text=True) for group in ref_groups]
     try:
-        port = multihost.spawn(_ranks, 4, root, device="cpu",
+        port = multihost.spawn(_ranks, 4, root, names, device="cpu",
                                init_file=str(root / "rendezvous"), timeout=400)
     finally:
         done = [ref.communicate(timeout=400) for ref in refs]
     refout = {}
-    for ref, (stdout, stderr), half in zip(refs, done, REF_GROUPS):
+    for ref, (stdout, stderr), group in zip(refs, done, ref_groups):
         assert ref.returncode == 0 and "REF_OK" in stdout, stderr[-3000:]
-        with open(root / ("ref_" + "_".join(half) + ".json")) as f:
+        with open(root / ("ref_" + "_".join(group) + ".json")) as f:
             refout.update(json.load(f))
+    return port, refout
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("lm_cp")
+    port, refout = start_runs(root, HERE, REF_GROUPS)
     return port, refout, root
 
 
-@pytest.mark.parametrize("name", sorted(ARCHS))
+@pytest.mark.parametrize("name", sorted(HERE))
 def test_server_matches_reference_mesh_run(runs, name):
     port, ref, root = runs
     want = np.load(root / f"ref_{name}_logits.npy")
@@ -348,7 +350,7 @@ def test_server_matches_reference_mesh_run(runs, name):
         assert err <= LOGIT_TOL * np.abs(want[..., :v]).max(), err
 
 
-@pytest.mark.parametrize("name", sorted(ARCHS))
+@pytest.mark.parametrize("name", sorted(HERE))
 def test_gradients_match_reference_per_leaf(runs, name):
     port, _, root = runs
     got = port[0][name]["grads"]
@@ -367,7 +369,7 @@ def _files(directory, step):
                                       e["dtype"]).float().numpy() for e in man["leaves"]}
 
 
-@pytest.mark.parametrize("name", sorted(TRAINED))
+@pytest.mark.parametrize("name", sorted(HERE))
 def test_training_matches_reference_mesh_run(runs, name):
     port, ref, root = runs
     np.testing.assert_allclose(port[0][name]["losses"], ref[name]["losses"], rtol=LOSS_RTOL)
@@ -384,7 +386,7 @@ def test_training_matches_reference_mesh_run(runs, name):
             assert rel_rms(got[leaf], want[leaf]) < PARAM_RMS, leaf
 
 
-@pytest.mark.parametrize("name", sorted(ARCHS))
+@pytest.mark.parametrize("name", sorted(HERE))
 def test_collectives_equal_the_derivation(runs, name):
     port, _, _ = runs
     for p in port:
@@ -404,20 +406,7 @@ def test_all_reduce_split_fold_keeps_the_bits(runs):
     assert all(p["fold_equal"] == [True, True] for p in port)
 
 
-@pytest.mark.parametrize("name", ["dsv3", "stablelm"])
-def test_sp_saves_one_mth_of_the_carry(runs, name):
-    """Each entry's remat saves this rank's sequence block of the carry:
-    its rows (a microbatch of B/2 over data = 2) x S/2 positions x d."""
-    port, _, _ = runs
-    cfg = _cfg(name)
-    rows = B // HP["grad_accum"] // 2
-    for p in port:
-        saved = p[name]["saved"]
-        assert len(saved) == p[name]["n_entries"] * HP["grad_accum"]
-        assert set(saved) == {rows * (S // 2) * cfg.d_model * 4}, saved
-
-
-@pytest.mark.parametrize("name", sorted(ARCHS))
+@pytest.mark.parametrize("name", sorted(HERE))
 def test_the_carry_and_score_constraints_are_checked(runs, name):
     port, _, _ = runs
     qseq = "batch|None|qgroup|attn_q_seq|None"

@@ -1,16 +1,25 @@
 """The port's training loss and gradients (repro_torch.models.model.Model.loss)
 against jax.value_and_grad of repro's Model.loss, for every architecture
-under reduced(), in f32, with the reference's weights carried across by
-params_from_reference.  This covers the encoder's same-position loss
+under reduced(), in f32, from the same weights.  This covers the encoder's same-position loss
 (shift 0), the VLM's vision splice and M-RoPE positions, DeepSeek-V3's
 multi-token-prediction loss (and its bf16 optimizer moments, in the train
 state's layout), MLA and the MoE feed-forward, the Mamba-2 block, and the
 hybrid's shared block, whose one set of weights sums its gradient over its
-invocations."""
+invocations.
+
+The weights are the port's seeded init handed to the reference as its
+parameter tree (test_torch_lm_model.port_weights); the reference's own init
+carried across is held by test_torch_lm_model.py's
+test_reference_init_carried_across.  The deep encoder's norms keep the
+reference's own init: f32 rounding amplified through 48 layers depends on
+the draw, and DEEP_NORM_RTOL was set on that one (from the port's seeded
+weights the reference's f32 norm lay 37% from the f64 one, the port's
+f64 norm 58% from it)."""
 
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,6 +36,7 @@ from repro_torch.launch import train
 from repro_torch.models.convert import params_from_reference, reference_params, stack_tree
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import is_stacked, map_leaves
+from test_torch_lm_model import port_weights
 
 # One intra-op thread: the suite runs in several worker processes at once.
 torch.set_num_threads(1)
@@ -50,12 +60,26 @@ def _grads(model):
     return stack_tree(map_leaves(one, model.param_tree()))
 
 
-@pytest.mark.parametrize("arch", ARCH_NAMES)
+# the moe, ssm and hybrid configurations' cases run in
+# test_torch_lm_grads_families.py (each file's reference compiles stay near
+# a minute)
+ELSEWHERE = ("deepseek_v2_lite_16b", "deepseek_v3_671b", "mamba2_130m", "zamba2_7b")
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if a not in ELSEWHERE])
 def test_loss_and_grads_match_reference(arch):
+    check_loss_and_grads(arch)
+
+
+def check_loss_and_grads(arch):
+    """The loss, its metrics and every leaf's gradient against
+    jax.value_and_grad of the reference's loss; the parameters' way back to
+    the reference's tree bit for bit."""
     jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
     jm = JModel(jcfg)
-    params = jm.init(jax.random.key(0))
-    model = params_from_reference(jax.tree.map(np.asarray, params), Model(cfg, device="cpu"))
+    weights = port_weights(arch)
+    params = jax.tree.map(jnp.asarray, weights)
+    model = params_from_reference(weights, Model(cfg, device="cpu"))
     # the way back: the port's parameters as the reference's tree, bit for bit
     back = dict(leaf_paths(reference_params(model)))
     for path, w in jax.tree_util.tree_flatten_with_path(params)[0]:
@@ -127,8 +151,9 @@ def test_ce_chunks_and_tail_match_reference(monkeypatch, chunk):
     monkeypatch.setattr(model_mod, "CE_CHUNK", chunk)
     jcfg, cfg = jreduced(jget_config("stablelm_3b")), reduced(get_config("stablelm_3b"))
     jm = JModel(jcfg)
-    params = jm.init(jax.random.key(0))
-    model = params_from_reference(jax.tree.map(np.asarray, params), Model(cfg, device="cpu"))
+    weights = port_weights("stablelm_3b")
+    params = jax.tree.map(jnp.asarray, weights)
+    model = params_from_reference(weights, Model(cfg, device="cpu"))
     jb = jconcrete_batch(jcfg, B, S, train=True, seed=5)
     (jloss, _), jgrads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(params, jb)
     loss, _ = model.loss({k: torch.from_numpy(np.array(v)) for k, v in jb.items()})

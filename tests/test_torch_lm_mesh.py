@@ -6,8 +6,8 @@ One spawn of four gloo CPU ranks runs every port phase; the reference runs
 at the same time in a subprocess on four forced host devices with ``Auto``
 mesh axes (jax 0.9's ``make_mesh`` defaults to ``Explicit`` axes, on which
 the reference's ``with_sharding_constraint`` raises).  Both sides start
-from one reference-format checkpoint at step 0, written here by the
-reference.  Checked:
+from one reference-format checkpoint at step 0, written here from the
+port's seeded init.  Checked:
 
 * reduced stablelm trained 3 steps on (2, 2) and on (2, 1, 2): losses and
   parameters against the reference's same runs, within
@@ -37,21 +37,16 @@ import subprocess
 import sys
 from pathlib import Path
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jget_config
-from repro.configs import reduced as jreduced
-from repro.distributed import checkpoint as jckpt
-from repro.launch import train as jtrain
-from repro.models.model import Model as JModel
 from repro_torch.configs import get_config, reduced
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.launch import multihost, train
 from repro_torch.launch.serve import Server
 from repro_torch.launch.specs import concrete_batch
+from repro_torch.models.model import Model
 
 # One intra-op thread: the suite runs in several worker processes at once.
 torch.set_num_threads(1)
@@ -190,7 +185,6 @@ def _one_step(cfg, hp, mesh, root, batch_seed=3):
     """One mesh step from the step-0 checkpoint (restored): metrics, the
     whole state on rank 0, the step's collectives."""
     from repro_torch.distributed import collectives, fsdp
-    from repro_torch.models.model import Model
     model = fsdp.shard_model(Model(cfg, device="meta"), mesh, device="cpu")
     state = train.make_mesh_train_state(model, hp, mesh)
     step = train.make_train_step(model, hp, mesh)
@@ -213,7 +207,6 @@ def _ranks(root):
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import moe
-    from repro_torch.models.model import Model
     torch.set_num_threads(1)
     rank = dist.get_rank()
     out = {"rank": rank}
@@ -317,12 +310,11 @@ def _ranks(root):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("lm_mesh")
-    # the step-0 checkpoint, in the reference's format, for both sides
-    jcfg = jreduced(jget_config("stablelm_3b"))
-    jhp = dataclasses.replace(jtrain.TrainHParams(), **HP)
-    state0 = jtrain.make_train_state(JModel(jcfg), jhp, jax.random.key(0))
-    jckpt.save(str(root / "step0"), 0, jax.tree.map(np.asarray, state0),
-               extra={"data_step": 0})
+    # the step-0 checkpoint, in the reference's format, for both sides: the
+    # port's seeded init (the reference restores it instead of its own init)
+    state0 = train.make_train_state(Model(reduced(get_config("stablelm_3b")), device="cpu",
+                                          seed=0), _hp())
+    ckpt.save(str(root / "step0"), 0, state0, extra={"data_step": 0})
     for d in ("ref_m22", "ref_m212", "port_m22", "port_m212", "crash", "whole"):
         shutil.copytree(root / "step0", root / d)
     rng = np.random.default_rng(2)
@@ -382,7 +374,6 @@ def test_resume_on_the_same_mesh_is_bit_equal(runs):
 
 def test_elastic_restore_on_41_and_one_device_bit_equal(runs):
     from repro_torch.distributed import sharding as sh
-    from repro_torch.models.model import Model
     port, _, root = runs
     files = _files(root / "port_m22", 3)
     cfg = reduced(get_config("stablelm_3b"))
@@ -424,7 +415,6 @@ def test_remat_bit_equal_and_collectives_equal_dry_run(runs):
 
 
 def _one_device_step(cfg, hp, root):
-    from repro_torch.models.model import Model
     model = Model(cfg, device="cpu")
     state = train.make_train_state(model, hp)
     if root is not None:

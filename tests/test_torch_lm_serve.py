@@ -1,6 +1,8 @@
 """The port's serving launcher (repro_torch.launch.serve, .specs) and its
 configuration registry (repro_torch.configs) against repro's: greedy tokens
-equal on carried weights, batches bit-equal, configurations field by field."""
+equal on the same weights (the port's seeded init, handed to the
+reference's Server as its parameter tree), batches bit-equal,
+configurations field by field."""
 
 import dataclasses
 import os
@@ -9,6 +11,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,8 @@ from repro_torch.configs import shapes
 from repro_torch.launch import serve, specs
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.model import Model
+from test_torch_lm_model import port_weights
+from test_torch_lm_train import bounded_main
 
 # One intra-op thread: the suite runs in several worker processes at once.
 torch.set_num_threads(1)
@@ -82,9 +87,9 @@ def test_input_specs_and_axes_equal_reference(shape):
 def test_greedy_tokens_equal_reference(arch):
     jcfg = jconfigs.reduced(jconfigs.get_config(arch))
     cfg = configs.reduced(configs.get_config(arch))
-    jsrv = jserve.Server(jcfg, seed=0)
-    model = params_from_reference(jax.tree.map(np.asarray, jsrv.params),
-                                  Model(cfg, device="cpu"))
+    weights = port_weights(arch)
+    jsrv = jserve.Server(jcfg, params=jax.tree.map(jnp.asarray, weights))
+    model = params_from_reference(weights, Model(cfg, device="cpu"))
     srv = serve.Server(cfg, model, device="cpu")
     batch = specs.concrete_batch(cfg, 2, 16, train=False, device="cpu")
     want = np.asarray(jsrv.generate(jspecs.concrete_batch(jcfg, 2, 16, train=False), 12,
@@ -159,23 +164,25 @@ def test_cli_serves_moe_configs_on_cpu(arch, capsys):
     assert "generated (2, 4)" in out and "on cpu" in out
 
 
-def test_cli_serves_on_a_mesh_of_two_ranks():
+def test_cli_serves_on_a_mesh_of_two_ranks(tmp_path):
     """``--mesh --ranks 2`` serves the MoE configuration on (data, model) =
     (1, 2), its routed experts sharded over both ranks; the greedy tokens
-    are one device's."""
+    are one device's.  The mesh run is a child process with a time limit
+    (test_torch_lm_train.bounded_main)."""
     argv = ["--arch", "deepseek-v2-lite-16b", "--reduced", "--device", "cpu",
             "--new-tokens", "4"]
     want = serve.main(argv)
-    got = serve.main(argv + ["--mesh", "--ranks", "2"])
+    got = bounded_main("repro_torch.launch.serve", argv + ["--mesh", "--ranks", "2"], tmp_path)
     assert np.array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_generate_prompt_length_from_vlm_batch():
-    jcfg = jconfigs.reduced(jconfigs.get_config("qwen2_vl_7b"))
-    cfg = configs.reduced(configs.get_config("qwen2_vl_7b"))
-    jsrv = jserve.Server(jcfg, seed=0)
-    model = params_from_reference(jax.tree.map(np.asarray, jsrv.params),
-                                  Model(cfg, device="cpu"))
+    arch = "qwen2_vl_7b"
+    jcfg = jconfigs.reduced(jconfigs.get_config(arch))
+    cfg = configs.reduced(configs.get_config(arch))
+    weights = port_weights(arch)
+    jsrv = jserve.Server(jcfg, params=jax.tree.map(jnp.asarray, weights))
+    model = params_from_reference(weights, Model(cfg, device="cpu"))
     srv = serve.Server(cfg, model, device="cpu")
     want = jsrv.generate(jspecs.concrete_batch(jcfg, 2, 16, train=False), 4, seq_cap=20)
     got = srv.generate(specs.concrete_batch(cfg, 2, 16, train=False, device="cpu"), 4,

@@ -8,8 +8,16 @@ split, the CLI on the CPU, train_loop(mesh=) on a one-rank mesh, and the
 entry points' refusals without a card."""
 
 import dataclasses
+import os
+import pickle
+import signal
+import subprocess
+import sys
+import types
+from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,6 +33,7 @@ from repro_torch.launch import train
 from repro_torch.launch.specs import concrete_batch
 from repro_torch.models.convert import params_from_reference, stack_tree
 from repro_torch.models.model import Model
+from test_torch_lm_model import port_weights
 from test_torch_lm_train_bf16 import GRAD_GATED, GRAD_REL, grads_tree, reference_grads
 
 # One intra-op thread: the suite runs in several worker processes at once.
@@ -35,6 +44,13 @@ def _hp(steps, **over):
     """tests/test_system.py's hyperparameters."""
     kw = dict(total_steps=steps, warmup_steps=2, grad_accum=2, lr=1e-3)
     return dataclasses.replace(train.TrainHParams(), **{**kw, **over})
+
+
+def reference_train_state(jcfg, jhp, weights) -> dict:
+    """The reference's own ``make_train_state`` around ``weights`` (a
+    parameter tree of numpy arrays) in place of its init."""
+    model = types.SimpleNamespace(cfg=jcfg, init=lambda key: jax.tree.map(jnp.asarray, weights))
+    return jtrain.make_train_state(model, jhp, jax.random.key(0))
 
 
 def rel_rms(a, b) -> float:
@@ -72,8 +88,18 @@ STEP_CASES = [
 ]
 
 
-@pytest.mark.parametrize("arch,cfg_over,hp_over", STEP_CASES)
+# the cases run here; the moe, hybrid and deepseek-v3 ones in
+# test_torch_lm_train_step.py (each file's reference compiles stay under a
+# minute or so)
+HERE = ("float32", "bfloat16", "hubert_xlarge-adamw", "qwen2_vl_7b-adamw")
+
+
+@pytest.mark.parametrize("arch,cfg_over,hp_over", [c for c in STEP_CASES if c.id in HERE])
 def test_train_step_matches_reference(arch, cfg_over, hp_over):
+    check_train_step(arch, cfg_over, hp_over)
+
+
+def check_train_step(arch, cfg_over, hp_over):
     """One step at the peak rate (warmup 0) against the reference's: stablelm-3b
     with grad_accum=2 and AdamW with f32 moments, and with bf16 moments
     (deepseek-v3's opt_dtype); the moe (MLA, routed and shared experts),
@@ -99,8 +125,9 @@ def test_train_step_matches_reference(arch, cfg_over, hp_over):
     over.update(hp_over)
     jhp = dataclasses.replace(jtrain.TrainHParams(), **over)
     jm = JModel(jcfg)
-    jstate = jtrain.make_train_state(jm, jhp, jax.random.key(0))
-    weights, params = jax.tree.map(np.asarray, jstate["params"]), jstate["params"]
+    weights = port_weights(arch, **cfg_over)
+    jstate = reference_train_state(jcfg, jhp, weights)
+    params = jstate["params"]
     model = params_from_reference(weights, Model(cfg, device="cpu"))
     state = train.make_train_state(model, train.TrainHParams(**over))
     jb = jconcrete_batch(jcfg, 4, 16, train=True, seed=3)
@@ -332,13 +359,48 @@ def test_cli_runs_on_the_cpu(capsys):
     assert "done: 2 steps" in out and "on cpu" in out
 
 
-def test_cli_trains_on_a_mesh_of_two_ranks(capsys):
+ROOT = Path(__file__).resolve().parent.parent
+# the child that runs a launcher's main: its result comes back pickled
+_MAIN_PROG = """
+import importlib, pickle, sys
+result = importlib.import_module(sys.argv[1]).main(sys.argv[3:])
+with open(sys.argv[2], "wb") as f:
+    pickle.dump(result, f)
+"""
+
+
+def bounded_main(module: str, argv: list, tmp_path, timeout: float = 300.0):
+    """``module.main(argv)`` in a child Python process that leads a
+    process group of its own, and its return value.  The launcher's
+    ``--mesh`` ranks wait for each other without a limit
+    (``multihost.spawn_launcher``): if the child has not returned within
+    ``timeout`` s, it and every rank it started are killed and the test
+    fails."""
+    out = tmp_path / "main_result.pkl"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if "PYTHONPATH" in os.environ else [])))
+    proc = subprocess.Popen([sys.executable, "-c", _MAIN_PROG, module, str(out), *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, cwd=ROOT, start_new_session=True)
+    try:
+        _, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate(timeout=60)
+        raise
+    assert proc.returncode == 0, stderr[-3000:]
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def test_cli_trains_on_a_mesh_of_two_ranks(capsys, tmp_path):
     """``--mesh --ranks 2`` starts two gloo ranks on the launcher's mesh,
     (data, model) = (1, 2); the losses are one device's up to association
-    order."""
+    order.  The mesh run is a child process with a time limit
+    (bounded_main)."""
     argv = ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16"]
     want = train.main(argv)
-    got = train.main(argv + ["--mesh", "--ranks", "2"])
+    got = bounded_main("repro_torch.launch.train", argv + ["--mesh", "--ranks", "2"], tmp_path)
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 

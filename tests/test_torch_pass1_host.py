@@ -2,8 +2,10 @@
 
 ``src/repro_torch/kernels/csrc/fused_mc_pass1.cuh`` is compiled with g++
 against a small stand-in for the CUDA runtime: each CUDA block runs as 256
-host threads, ``__syncthreads`` as a barrier, the warp shuffles through a
-shared array, ``__shared__`` as static storage.  Every instantiation the
+lanes taking turns on one host thread, each lane with its own stack and
+switched only at a barrier (``__syncthreads``, and the two warp barriers
+around each shuffle, which goes through a shared array), ``__shared__`` as
+static storage.  Every instantiation the
 library builds is launched here on plans of every kind (plain, Sobol,
 compactified, adapted with and without a transform, swept; windows that
 cross 2^32; two rounds) and its chunk partials, summed in chunk order as
@@ -37,7 +39,6 @@ torch.set_num_threads(1)
 
 RUNTIME = r"""
 #pragma once
-#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -50,8 +51,9 @@ RUNTIME = r"""
 #define __align__(n) alignas(n)
 #define __shared__ static
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-extern thread_local Dim3 threadIdx;
-extern thread_local Dim3 blockIdx;
+// the lane that runs now: one host thread runs every lane of a block in turn
+extern Dim3 threadIdx;
+extern Dim3 blockIdx;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 struct uint4 { uint32_t x, y, z, w; };
@@ -63,53 +65,184 @@ inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); retu
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fmaf_rn(float a, float b, float c) { return a * b + c; }
-extern std::barrier<>* g_block_bar;
-extern std::barrier<>* g_warp_bar[8];
+// a barrier of warp w (0-7) or of the block (8): the lane waits there while
+// the other lanes run, until every lane of the group has arrived
+void zmc_barrier(int group);
 extern float g_warp_val[8][32];
 extern float* g_smem;
-inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+inline void __syncthreads() { zmc_barrier(8); }
 inline float __shfl_down_sync(unsigned, float v, int off) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   g_warp_val[w][lane] = v;
-  g_warp_bar[w]->arrive_and_wait();
+  zmc_barrier(w);
   const float r = lane + off < 32 ? g_warp_val[w][lane + off] : v;
-  g_warp_bar[w]->arrive_and_wait();
+  zmc_barrier(w);
   return r;
 }
 """
 
+# The block's 256 lanes are fibers on one host thread, each with its own
+# stack, switched at barriers only: a lane runs until it reaches a barrier,
+# then the next runnable lane runs; the last lane to arrive releases the
+# others and goes on.  The same lanes meet at the same barriers as on the
+# card, and a barrier that some lane never reaches fails the launch instead
+# of hanging it.
 LAUNCHER = r"""
-#include <thread>
+#include <memory>
 #include <vector>
 #include "cuda_runtime.h"
-thread_local Dim3 threadIdx;
-thread_local Dim3 blockIdx;
-std::barrier<>* g_block_bar;
-std::barrier<>* g_warp_bar[8];
+Dim3 threadIdx;
+Dim3 blockIdx;
 float g_warp_val[8][32];
 float* g_smem;
 #include "pass1_host.cuh"
 
+enum { RUNNABLE = -1, DONE = -2 };  // else: the group the lane waits at
+struct Lane { void* sp; int state; };
+static Lane g_lane[THREADS];
+static void* g_sched_sp;
+static int g_arrived[9];
+static void (*g_body)();
+static const zmc::Pass1Args* g_args;
+
+// Saves the callee-saved registers and the stack pointer into *from and
+// resumes the context saved at to.
+extern "C" void zmc_swap(void** from, void* to);
+#if defined(__x86_64__)
+asm(R"(
+.text
+.globl zmc_swap
+.type zmc_swap, @function
+zmc_swap:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+.size zmc_swap, .-zmc_swap
+)");
+#elif defined(__aarch64__)
+asm(R"(
+.text
+.globl zmc_swap
+.type zmc_swap, %function
+zmc_swap:
+  sub sp, sp, #176
+  stp x19, x20, [sp, #0]
+  stp x21, x22, [sp, #16]
+  stp x23, x24, [sp, #32]
+  stp x25, x26, [sp, #48]
+  stp x27, x28, [sp, #64]
+  stp x29, x30, [sp, #80]
+  stp d8, d9, [sp, #96]
+  stp d10, d11, [sp, #112]
+  stp d12, d13, [sp, #128]
+  stp d14, d15, [sp, #144]
+  mov x9, sp
+  str x9, [x0]
+  mov sp, x1
+  ldp x19, x20, [sp, #0]
+  ldp x21, x22, [sp, #16]
+  ldp x23, x24, [sp, #32]
+  ldp x25, x26, [sp, #48]
+  ldp x27, x28, [sp, #64]
+  ldp x29, x30, [sp, #80]
+  ldp d8, d9, [sp, #96]
+  ldp d10, d11, [sp, #112]
+  ldp d12, d13, [sp, #128]
+  ldp d14, d15, [sp, #144]
+  add sp, sp, #176
+  ret
+.size zmc_swap, .-zmc_swap
+)");
+#else
+#error "the host pass 1 switches lanes on x86-64 and aarch64 only"
+#endif
+
+static void lane_main() {
+  g_body();
+  g_lane[threadIdx.x].state = DONE;
+  zmc_swap(&g_lane[threadIdx.x].sp, g_sched_sp);  // never resumed
+  __builtin_trap();
+}
+
+// A fresh lane's saved context: zmc_swap's restore returns into lane_main.
+static void* new_lane(char* stack_top) {
+  auto* sp = reinterpret_cast<uintptr_t*>(reinterpret_cast<uintptr_t>(stack_top) & ~uintptr_t(15));
+#if defined(__x86_64__)
+  *--sp = 0;                                        // lane_main's return address
+  *--sp = reinterpret_cast<uintptr_t>(&lane_main);  // zmc_swap's
+  for (int i = 0; i < 6; ++i) *--sp = 0;            // rbp, rbx, r12-r15
+#else
+  sp -= 22;
+  for (int i = 0; i < 22; ++i) sp[i] = 0;
+  sp[11] = reinterpret_cast<uintptr_t>(&lane_main);  // x30, the link register
+#endif
+  return sp;
+}
+
+void zmc_barrier(int group) {
+  const unsigned size = group == 8 ? THREADS : 32;
+  const unsigned first = group == 8 ? 0 : 32 * group;
+  const unsigned t = threadIdx.x;
+  if (++g_arrived[group] < (int)size) {
+    g_lane[t].state = group;
+    zmc_swap(&g_lane[t].sp, g_sched_sp);
+    threadIdx.x = t;
+    return;
+  }
+  g_arrived[group] = 0;
+  for (unsigned i = first; i < first + size; ++i)
+    if (g_lane[i].state == group) g_lane[i].state = RUNNABLE;
+}
+
 template <int ST, bool SO, bool SW>
-static void run(unsigned n_blocks, const zmc::Pass1Args& a) {
-  std::barrier<> bb(THREADS);
-  g_block_bar = &bb;
-  for (int w = 0; w < 8; ++w) g_warp_bar[w] = new std::barrier<>(32);
-  std::vector<std::thread> th;
-  for (unsigned t = 0; t < THREADS; ++t)
-    th.emplace_back([&, t] {
-      threadIdx.x = t;
-      for (unsigned b = 0; b < n_blocks; ++b) {
-        blockIdx.x = b;
-        fused_mc_pass1<ST, SO, SW>(a.k0, a.k1, a.sample_offset, a.n_valid, a.round_stride,
-                                   a.n_rounds, a.round_base, a.fn_ids, a.block_meta,
-                                   a.n_sweep, a.sobol_dirs, a.packed, a.n_cols, a.lo, a.hi,
-                                   a.dim, a.n_fn_pad, a.n_chunks, a.scratch);
-        g_block_bar->arrive_and_wait();
+static void body() {
+  const zmc::Pass1Args& a = *g_args;
+  fused_mc_pass1<ST, SO, SW>(a.k0, a.k1, a.sample_offset, a.n_valid, a.round_stride,
+                             a.n_rounds, a.round_base, a.fn_ids, a.block_meta, a.n_sweep,
+                             a.sobol_dirs, a.packed, a.n_cols, a.lo, a.hi, a.dim, a.n_fn_pad,
+                             a.n_chunks, a.scratch);
+}
+
+// Runs the blocks one after another; 2 if some lane waits at a barrier
+// that the others never reach.
+template <int ST, bool SO, bool SW>
+static int run(unsigned n_blocks, const zmc::Pass1Args& a) {
+  constexpr size_t STACK = 128 * 1024;
+  std::unique_ptr<char[]> stacks(new char[STACK * THREADS]);
+  g_body = body<ST, SO, SW>;
+  g_args = &a;
+  for (unsigned b = 0; b < n_blocks; ++b) {
+    blockIdx.x = b;
+    for (int g = 0; g < 9; ++g) g_arrived[g] = 0;
+    for (unsigned t = 0; t < THREADS; ++t)
+      g_lane[t] = {new_lane(stacks.get() + STACK * (t + 1)), RUNNABLE};
+    for (unsigned done = 0; done < THREADS;) {
+      bool ran = false;
+      done = 0;
+      for (unsigned t = 0; t < THREADS; ++t) {
+        if (g_lane[t].state == RUNNABLE) {
+          threadIdx.x = t;
+          zmc_swap(&g_sched_sp, g_lane[t].sp);
+          ran = true;
+        }
+        done += g_lane[t].state == DONE;
       }
-    });
-  for (auto& x : th) x.join();
-  for (int w = 0; w < 8; ++w) delete g_warp_bar[w];
+      if (!ran && done < THREADS) return 2;
+    }
+  }
+  return 0;
 }
 
 extern "C" int host_pass1(int stages, int sobol, int swept, uint32_t k0, uint32_t k1,
@@ -126,16 +259,15 @@ extern "C" int host_pass1(int stages, int sobol, int swept, uint32_t k0, uint32_
                          dim, n_fn_pad, n_chunks, scratch};
   const unsigned nb = (unsigned)(n_fn_pad / F_BLK) * n_rounds * n_chunks;
   switch (stages * 100 + sobol * 10 + swept) {
-    case 0: run<0, false, false>(nb, a); break;
-    case 1: run<0, false, true>(nb, a); break;
-    case 101: run<1, false, true>(nb, a); break;
-    case 201: run<2, false, true>(nb, a); break;
-    case 11: run<0, true, true>(nb, a); break;
-    case 111: run<1, true, true>(nb, a); break;
-    case 211: run<2, true, true>(nb, a); break;
+    case 0: return run<0, false, false>(nb, a);
+    case 1: return run<0, false, true>(nb, a);
+    case 101: return run<1, false, true>(nb, a);
+    case 201: return run<2, false, true>(nb, a);
+    case 11: return run<0, true, true>(nb, a);
+    case 111: return run<1, true, true>(nb, a);
+    case 211: return run<2, true, true>(nb, a);
     default: return 1;
   }
-  return 0;
 }
 """
 
@@ -159,8 +291,8 @@ def lib(tmp_path_factory):
     (d / "launch.cpp").write_text(LAUNCHER)
     so = d / "libpass1_host.so"
     subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-pthread", "-I", str(d), "-o", str(so), str(d / "launch.cpp")],
-                   check=True, capture_output=True, text=True)
+                    "-I", str(d), "-o", str(so), str(d / "launch.cpp")],
+                   check=True, capture_output=True, text=True, timeout=300)
     out = ctypes.CDLL(str(so))
     u32, i32, p = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
     out.host_pass1.argtypes = [i32, i32, i32, u32, u32, u32, u32, u32, i32, p, p, p, i32,
